@@ -6,7 +6,8 @@ Phases (any failure raises and the script exits non-zero):
   1. build    compile csrc/*.cu with nvcc (one process per source, in
               parallel) and print the build time and ptxas report;
   2. qmm      the fused dequant-matmul kernel against its plain version at the
-              Llama-2-7B decode shapes, m in {1, 8, 32}, for EXL2 4-bit
+              Llama-2-7B decode shapes, m in {1, 4, 8, 16, 32} (every row
+              tile of the kernel; the main path runs 1, 4 and 16), for EXL2 4-bit
               prescaled, EXL2 4-bit with qscale/smax, mixed 3/5/6-bit EXL2 and
               GPTQ 4-bit gs128 act-order; times kernel, plain version and
               torch.matmul on the pre-dequantized bf16 weight (yardstick);
@@ -16,8 +17,9 @@ Phases (any failure raises and the script exits non-zero):
   4. load     Model.from_dir(tests/fixtures/trained_tiny) on the card, greedy
               tokens equal to the CPU run of the same checkpoint;
   5. 7B       random EXL2 4.0 bpw weights at Llama-2-7B geometry (32 layers,
-              prescaled) built on the card; generate_greedy at batch 1 and 4;
-              decode-vs-prefill logits; launch counts; decode tokens/s.
+              prescaled) built on the card; generate_greedy at batch 1 and 4,
+              each with its own launch counts; decode-vs-prefill logits;
+              decode tokens/s and a profile, both of generate_greedy itself.
 The last lines are the card's name and power limit, one JSON line of the
 kernels, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json.
@@ -44,6 +46,7 @@ SHAPES = [(HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN),
 # launches of each shape in one decode token: q, k, v, o | gate, up | down
 PER_TOKEN = {(HIDDEN, HIDDEN): 4 * LAYERS, (HIDDEN, INTER): 2 * LAYERS,
              (INTER, HIDDEN): LAYERS, (HIDDEN, VOCAB): 1}
+QMM_ROWS = (1, 4, 8, 16, 32)   # one m per row tile MT of csrc/qmm.cu
 QMM_TOL = 1e-4          # max |kernel - plain| <= QMM_TOL * max |plain|
 ATTN_TOL = 1e-4         # max |kernel - plain| <= ATTN_TOL * max |v|
 L2_BYTES = 50 << 20
@@ -179,7 +182,7 @@ def phase_qmm(dev, rate):
             wdense = [dequant_linear(c, torch.bfloat16, original_order=False)
                       for c in copies[:max(1, -(-2 * L2_BYTES //
                                                  (k * n * 2)))]]
-            for m in (1, 8, 32):
+            for m in QMM_ROWS:
                 x = (torch.randn((m, k), generator=gen, device=dev)
                      ).to(torch.bfloat16)
 
@@ -344,68 +347,60 @@ def phase_7b(dev):
     model.generate_greedy(prompt1[:, :4], 2)           # warm-up
     torch.cuda.synchronize()
 
-    # --- the main path: counters read around the user-facing calls
-    Q.LAUNCHES["qmm"] = 0
-    A.LAUNCHES["decode_attn"] = 0
-    t1 = time.perf_counter()
-    seq1 = model.generate_greedy(prompt1, new)
-    t_b1 = time.perf_counter() - t1
-    seq4 = model.generate_greedy(prompt4, new)
-    launches = {"qmm": Q.LAUNCHES["qmm"],
-                "decode_attn": A.LAUNCHES["decode_attn"]}
-    # batch 1: the 16-row prefill and every decode step take the fused path;
-    # batch 4: the 64-row prefill takes dequant + matmul except for the head
+    # --- the main paths, each with its own counts read around the call
     steps = new - 1
-    want = {"qmm": 225 * (1 + steps) + (1 + 225 * steps),
-            "decode_attn": 2 * LAYERS * steps}
-    log(f"[7b] launches over both generate_greedy calls: {launches} "
-        f"(expected {want})")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches} != {want}")
-    for seq, b in ((seq1, 1), (seq4, 4)):
+    paths = {
+        # 16-row prefill and every decode step on the fused kernel
+        "generate_greedy_b1": (prompt1, {"qmm": 225 * (1 + steps),
+                                         "decode_attn": LAYERS * steps}),
+        # 64-row prefill dequantizes + matmuls; only its head (4 rows,
+        # last token) and the decode steps (m = 4) are fused
+        "generate_greedy_b4": (prompt4, {"qmm": 1 + 225 * steps,
+                                         "decode_attn": LAYERS * steps}),
+    }
+    launches, seqs = {}, {}
+    for name, (prompt, want) in paths.items():
+        Q.LAUNCHES["qmm"] = 0
+        A.LAUNCHES["decode_attn"] = 0
+        seq = model.generate_greedy(prompt, new)
+        got = {"qmm": Q.LAUNCHES["qmm"],
+               "decode_attn": A.LAUNCHES["decode_attn"]}
+        log(f"[7b] {name}: launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"{name} launch counts {got} != {want}")
+        b = prompt.shape[0]
         if seq.shape != (b, 16 + new) or seq.min() < 0 or seq.max() >= VOCAB:
-            raise AssertionError(f"bad generation {seq.shape}")
+            raise AssertionError(f"{name}: bad generation {seq.shape}")
+        launches[name], seqs[name] = got, seq
+    seq1 = seqs["generate_greedy_b1"]
     log(f"[7b] batch 1 tokens {seq1[0, 16:].tolist()}")
 
-    # --- one decode token = 225 + 32 launches
-    cache = model.new_cache(1, 64)
-    model.forward(prompt1, cache, 0, last_token_only=True)
-    Q.LAUNCHES["qmm"] = 0
-    A.LAUNCHES["decode_attn"] = 0
-    lg, cache = model.forward(prompt1[:, :1], cache, 16)
-    per_tok = {"qmm": Q.LAUNCHES["qmm"],
-               "decode_attn": A.LAUNCHES["decode_attn"]}
-    if per_tok != {"qmm": 225, "decode_attn": 32}:
-        raise AssertionError(f"launches per decode token {per_tok}")
-    if not torch.isfinite(lg).all():
-        raise AssertionError("non-finite decode logits")
-
-    # --- decode tokens/s at batch 1 (host loop as generate_greedy runs it)
-    cache = model.new_cache(1, 16 + 129)
-    logits, cache = model.forward(prompt1, cache, 0, last_token_only=True)
-    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    torch.cuda.synchronize()
+    # --- decode tokens/s at batch 1, timed on generate_greedy itself:
+    # 129 new tokens (prefill + 128 decode steps) less 1 (prefill only)
     n_dec = 128
-    t2 = time.perf_counter()
-    for i in range(n_dec):
-        logits, cache = model.forward(tok[:, None], cache, 16 + i)
-        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        tok.cpu()
-    dt = time.perf_counter() - t2
-    tps = n_dec / dt
-    log(f"[7b] decode batch 1: {tps:.2f} tokens/s "
-        f"({dt / n_dec * 1e3:.2f} ms/token over {n_dec} tokens); "
-        f"generate_greedy(16+{new}) took {t_b1:.2f} s")
+
+    def wall(n_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate_greedy(prompt1, n_new)
+        return time.perf_counter() - t
+
+    t_pre = min(wall(1) for _ in range(3))
+    t_all = min(wall(1 + n_dec) for _ in range(2))
+    ms_tok = (t_all - t_pre) / n_dec * 1e3
+    tps = 1e3 / ms_tok
+    log(f"[7b] decode batch 1: {tps:.2f} tokens/s ({ms_tok:.3f} ms/token "
+        f"over {n_dec} tokens of generate_greedy; prefill-only call "
+        f"{t_pre * 1e3:.1f} ms)")
 
     # --- where a decode token's device time goes (kernels only)
     prof = profile_decode(model, prompt1)
     busy = prof["device_ms_per_token"]
     log(f"[7b] profile: {prof['device_launches_per_token']:.0f} device "
-        f"launches/token, device busy {busy:.2f} ms of "
-        f"{dt / n_dec * 1e3:.2f} ms/token (idle share "
-        f"{1 - busy / (dt / n_dec * 1e3):.1%})")
-    for name, ms_tok in prof["top"]:
-        log(f"[7b] profile:   {ms_tok:6.3f} ms/token  {name}")
+        f"launches/token, device busy {busy:.3f} ms of {ms_tok:.3f} "
+        f"ms/token (idle share {1 - busy / ms_tok:.1%})")
+    for name, ms_k in prof["top"]:
+        log(f"[7b] profile:   {ms_k:6.3f} ms/token  {name}")
 
     # --- decode vs prefill (batch 1)
     full, _ = model.forward(prompt1, model.new_cache(1, 32), 0)
@@ -420,50 +415,54 @@ def phase_7b(dev):
     if not (torch.isfinite(full).all() and rel < 0.02):
         raise AssertionError(f"decode vs prefill rel err {rel}")
     return {"weights_gb": gbytes, "launches": launches, "profile": prof,
-            "launches_per_decode_token": per_tok, "decode_tokens_per_s_b1": tps,
-            "decode_ms_per_token_b1": dt / n_dec * 1e3,
+            "decode_tokens_per_s_b1": tps, "decode_ms_per_token_b1": ms_tok,
             "decode_vs_prefill_rel_err": rel, "tokens_b1": seq1.tolist()}
 
 
-def profile_decode(model, prompt, n: int = 4) -> dict:
-    """torch.profiler over n batch-1 decode steps: device time and launches
-    per token, summed over kernel events only (operator rows repeat their
-    kernels' time)."""
+def profile_decode(model, prompt, n: int = 8) -> dict:
+    """torch.profiler around generate_greedy(prompt, 1 + n) and
+    generate_greedy(prompt, 1): their difference over n is one batch-1
+    decode token's device time and launches, summed over kernel events only
+    (operator rows repeat their kernels' time)."""
     from torch.profiler import profile, ProfilerActivity
-    cache = model.new_cache(1, 64)
-    logits, cache = model.forward(prompt, cache, 0, last_token_only=True)
-    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-    pos = prompt.shape[1]
 
-    def step():
-        nonlocal logits, cache, tok, pos
-        logits, cache = model.forward(tok[:, None], cache, pos)
-        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
-        tok.cpu()
-        pos += 1
+    def kernels(n_new):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model.generate_greedy(prompt, n_new)
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None) \
+                    or e.self_cuda_time_total
+                t, c = out.get(e.key, (0.0, 0))
+                out[e.key] = (t + us, c + e.count)
+        return out
 
-    step()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or e.self_cuda_time_total
-
-    top = sorted(kern, key=dev_us, reverse=True)[:6]
-    return {"device_ms_per_token": sum(dev_us(e) for e in kern) / n / 1e3,
-            "device_launches_per_token": sum(e.count for e in kern) / n,
-            "top": [(e.key[:70], dev_us(e) / n / 1e3) for e in top]}
+    kernels(1 + n)                                    # warm-up
+    long, short = kernels(1 + n), kernels(1)
+    per = {k: ((t - short.get(k, (0.0, 0))[0]) / n / 1e3,
+               (c - short.get(k, (0.0, 0))[1]) / n)
+           for k, (t, c) in long.items()}
+    top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    return {"device_ms_per_token": sum(t for t, _ in per.values()),
+            "device_launches_per_token": sum(c for _, c in per.values()),
+            "top": [(k[:70], t) for k, (t, _) in top]}
 
 
 def summarize(qrows, qerr, arows, aerr, launches, rate):
     """One entry per kernel for the kernels line: times of the launches one
     decode token at batch 1 makes (qmm: the 4-bit prescaled rows at m=1
-    weighted by PER_TOKEN; attn: 32 layers at past_len 255, 32/32 heads)."""
+    weighted by PER_TOKEN; attn: 32 layers at past_len 255, 32/32 heads).
+    `launches` is the count of the batch-1 path; `launches_by_path` holds
+    each main path's own count."""
+    main = launches["generate_greedy_b1"]
+
+    def by_path(key):
+        return {p: c[key] for p, c in launches.items()}
+
     sel = [r for r in qrows
            if r["kind"] == "exl2_4b_prescaled" and r["m"] == 1]
 
@@ -476,14 +475,16 @@ def summarize(qrows, qerr, arows, aerr, launches, rate):
         {"name": "qmm_fused_segment_matmul", "route": "cuda",
          "source": "exllamav2_tpu_torch/csrc/qmm.cu",
          "replaces": "exllamav2_tpu/ops/qmm.py:437",
-         "launches": launches["qmm"], "max_abs_err": qerr,
+         "launches": main["qmm"], "launches_by_path": by_path("qmm"),
+         "max_abs_err": qerr,
          "ms": tot("ms"), "plain_ms": tot("plain_ms"),
          "bound_ms": tot("bytes") / rate * 1e3, "bound_by": "bytes",
          "library_ms": tot("library_ms")},
         {"name": "decode_attention", "route": "cuda",
          "source": "exllamav2_tpu_torch/csrc/decode_attn.cu",
          "replaces": "exllamav2_tpu/ops/decode_attn.py:32",
-         "launches": launches["decode_attn"], "max_abs_err": aerr,
+         "launches": main["decode_attn"],
+         "launches_by_path": by_path("decode_attn"), "max_abs_err": aerr,
          "ms": LAYERS * att["ms"], "plain_ms": LAYERS * att["plain_ms"],
          "bound_ms": LAYERS * att["bytes"] / rate * 1e3, "bound_by": "bytes",
          "library_ms": LAYERS * att["library_ms"]},

@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from exllamav2_tpu_torch.device import resolve_device
 from exllamav2_tpu_torch.models.modules import (
     AttnWeights, LayerStatic, LayerWeights, MLPWeights, ModelWeights,
     NormWeights, StaticModel)
@@ -24,13 +25,15 @@ from exllamav2_tpu_torch.quant.qtensor import (
 __all__ = ["to_tensor", "linear_from_reference", "weights_from_reference"]
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor | None:
-    """numpy array -> tensor with the same bits (None passes through).
+def to_tensor(a, device=None) -> torch.Tensor | None:
+    """numpy array -> tensor with the same bits on `device` (the card by
+    default; None passes through).
 
     bf16 arrays (ml_dtypes) go through their int16 bits; uint32 plane words
     become int32 with the same bits."""
     if a is None:
         return None
+    device = resolve_device(device)
     a = np.array(a, copy=True)            # reference leaves are read-only
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
@@ -40,9 +43,10 @@ def to_tensor(a, device="cpu") -> torch.Tensor | None:
     return torch.from_numpy(a).to(device)
 
 
-def linear_from_reference(lin, device="cpu"):
+def linear_from_reference(lin, device=None):
     """A reference QuantLinear / DenseLinear with numpy leaves -> this
-    package's linear on `device`."""
+    package's linear on `device` (the card by default)."""
+    device = resolve_device(device)
     if hasattr(lin, "base"):
         raise NotImplementedError("LoRA linears are not ported yet")
     if hasattr(lin, "weight"):
@@ -94,10 +98,12 @@ def _static(st) -> StaticModel:
     return StaticModel(**kw)
 
 
-def weights_from_reference(w, st, *, device="cpu"
+def weights_from_reference(w, st, *, device=None
                            ) -> tuple[ModelWeights, StaticModel]:
     """Reference (ModelWeights with numpy leaves, StaticModel) -> this
-    package's (ModelWeights, StaticModel) on `device`."""
+    package's (ModelWeights, StaticModel) on `device` (the card by
+    default)."""
+    device = resolve_device(device)
     for name in ("pos_emb", "sin_alt", "cos_alt"):
         if getattr(w, name, None) is not None:
             raise NotImplementedError(f"{name} is not ported yet")

@@ -21,6 +21,7 @@ reference does off its accelerator.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,7 +39,7 @@ FUSED_MAX_ROWS = 32
 LAUNCHES = {"qmm": 0}
 
 _COLS = 128                 # columns per thread block (csrc/qmm.cu COLS)
-_TARGET_BLOCKS = 1056       # eight blocks per SM of the H100's 132
+_BLOCKS_PER_SM = 8          # split K until the grid holds this many per SM
 _META = {"scale_f": 0, "qscale": 1, "gptq": 2}
 # x, m, k_pad, plane0, plane1, bp0, bp1, n, bits, group_rows, meta kind,
 # meta0, meta1, partials, out, splits, sub-blocks per split, stream
@@ -73,10 +74,17 @@ def _meta_kind(seg) -> str:
     return "qscale" if seg.scale_f is None else "scale_f"
 
 
-def _split_k(n: int, nsb: int) -> tuple[int, int]:
-    """(splits, sub-blocks per split): enough blocks to fill the card."""
+@functools.lru_cache(maxsize=None)
+def _target_blocks(device: torch.device) -> int:
+    """Thread blocks that fill `device`: _BLOCKS_PER_SM per SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _BLOCKS_PER_SM * sms
+
+
+def _split_k(n: int, nsb: int, target: int) -> tuple[int, int]:
+    """(splits, sub-blocks per split): about `target` blocks in the grid."""
     nblk = -(-n // _COLS)
-    want = max(1, min(nsb, -(-_TARGET_BLOCKS // nblk)))
+    want = max(1, min(nsb, -(-target // nblk)))
     per = -(-nsb // want)
     return -(-nsb // per), per
 
@@ -111,7 +119,7 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
             raise ValueError(f"segment buffer {t.dtype} {t.device} "
                              f"contiguous={t.is_contiguous()} (want {dt})")
     nsb = k_pad // SUB_BLOCK
-    splits, per = _split_k(n, nsb)
+    splits, per = _split_k(n, nsb, _target_blocks(x.device))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     part = out if splits == 1 else torch.empty(
         (splits, m, n), dtype=torch.float32, device=x.device)

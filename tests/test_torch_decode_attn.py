@@ -38,7 +38,7 @@ def test_decode_attention_matches_reference(past_len, softcap, window):
     ref = np.asarray(ref_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), layer,
         jnp.int32(past_len), LIMIT, scale, softcap, window))
-    got = TA.decode_attention(to_tensor(q), to_tensor(k), to_tensor(v),
+    got = TA.decode_attention(*(to_tensor(a, "cpu") for a in (q, k, v)),
                               layer, past_len, LIMIT, scale, softcap,
                               window).numpy()
     assert got.shape == ref.shape == (B, HQ, D)
@@ -49,6 +49,6 @@ def test_decode_attention_matches_reference(past_len, softcap, window):
 def test_decode_attention_cpu_counts_no_launch():
     q, k, v = _inputs(0)
     before = TA.LAUNCHES["decode_attn"]
-    TA.decode_attention(to_tensor(q), to_tensor(k), to_tensor(v), 0, 3, 256,
-                        0.125)
+    TA.decode_attention(*(to_tensor(a, "cpu") for a in (q, k, v)), 0, 3,
+                        256, 0.125)
     assert TA.LAUNCHES["decode_attn"] == before

@@ -113,12 +113,12 @@ def test_exl2_dequant_segment_bitwise(bits, prescaled):
     ql = Q.from_exl2(_exl2(rng, 224, 128, [bits] * 7))
     if prescaled:
         ql = D.precompute_scales_linear(ql)
-    tl = linear_from_reference(_np(ql))
+    tl = linear_from_reference(_np(ql), "cpu")
     if prescaled:
         # the port's own prescale gives the same bf16 rows
         raw = TD.precompute_scales_linear(linear_from_reference(
             _np(Q.from_exl2(_exl2(np.random.default_rng(bits + 100), 224,
-                                  128, [bits] * 7)))))
+                                  128, [bits] * 7))), "cpu"))
         np.testing.assert_array_equal(
             _bits(raw.segments[0].scale_f),
             _ref_bits(ql.segments[0].scale_f))
@@ -133,7 +133,7 @@ def test_mixed_and_act_order_dequant_linear_bitwise():
     rng = np.random.default_rng(7)
     ql = Q.from_exl2(_exl2(rng, 320, 64, [8, 8, 6, 6, 5, 4, 4, 3, 2, 2],
                            act_order=True))
-    tl = linear_from_reference(_np(ql))
+    tl = linear_from_reference(_np(ql), "cpu")
     for order in (False, True):
         ref = D.dequant_linear(ql, jnp.float32, original_order=order)
         got = TD.dequant_linear(tl, torch.float32, original_order=order)
@@ -144,7 +144,7 @@ def test_mixed_and_act_order_dequant_linear_bitwise():
 def test_gptq_act_order_dequant_bitwise(gs):
     ql = Q.from_gptq(_gptq(np.random.default_rng(gs), 256, 128, gs,
                            act_order=True))
-    tl = linear_from_reference(_np(ql))
+    tl = linear_from_reference(_np(ql), "cpu")
     for dt, tdt in ((jnp.float32, torch.float32),
                     (jnp.bfloat16, torch.bfloat16)):
         ref = D.dequant_linear(ql, dt, original_order=True)

@@ -24,7 +24,7 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m", [1, 3, 17, 32])
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 16, 17, 32])
 @pytest.mark.parametrize("kind", ["exl2_2", "exl2_3", "exl2_4_prescaled",
                                   "exl2_5", "exl2_6", "exl2_8", "gptq_4"])
 def test_qmm_kernel_matches_plain(dev, kind, m):

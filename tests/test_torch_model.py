@@ -24,7 +24,7 @@ from exllamav2_tpu.utils.testing import make_tiny_llama
 from exllamav2_tpu.utils.testing import random_model_weights as ref_weights
 
 from exllamav2_tpu_torch.cache import KVCache
-from exllamav2_tpu_torch.interop import weights_from_reference
+from exllamav2_tpu_torch.interop import to_tensor, weights_from_reference
 from exllamav2_tpu_torch.models.forward import model_forward
 from exllamav2_tpu_torch.models.model import Model
 from exllamav2_tpu_torch.utils.testing import random_model_weights
@@ -41,7 +41,7 @@ def test_weights_from_reference_logits():
     w, st = ref_weights(vocab=512, hidden=256, layers=2, heads=8, kv_heads=4,
                         inter=512, max_seq=64, bits=4, seed=3)
     tw, tst = weights_from_reference(jax.tree_util.tree_map(np.asarray, w),
-                                     st)
+                                     st, device="cpu")
     assert (tst.num_layers, tst.num_heads, tst.num_kv_heads, tst.head_dim) \
         == (st.num_layers, st.num_heads, st.num_kv_heads, st.head_dim)
     ids = np.random.default_rng(0).integers(3, 500, (1, 12)).astype(np.int32)
@@ -130,6 +130,8 @@ def test_default_device_is_the_card(fixtures, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         random_model_weights(vocab=64, hidden=64, layers=1, heads=2,
                              kv_heads=2, inter=64, max_seq=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_tensor(np.zeros(4, np.float32))
 
 
 def test_unported_architecture_features_raise(tmp_path):

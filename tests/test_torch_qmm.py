@@ -69,7 +69,8 @@ def _close(got: torch.Tensor, ref) -> None:
 def test_linear_apply_matches_reference(case, m):
     rng = np.random.default_rng(m * 7 + len(case))
     ql = CASES[case](rng)
-    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql))
+    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql),
+                               "cpu")
     x = (rng.standard_normal((m, ql.k)) * 0.5).astype(np.float32)
     ref = M.qmm(jnp.asarray(x), ql)
     got = TM.linear_apply(torch.from_numpy(x), tl)
@@ -82,7 +83,8 @@ def test_linear_apply_matches_reference(case, m):
 def test_qmm_forced_path(fused):
     rng = np.random.default_rng(11)
     ql = CASES["mixed"](rng)
-    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql))
+    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql),
+                               "cpu")
     x = rng.standard_normal((3, ql.k)).astype(np.float32)
     _close(TM.qmm(torch.from_numpy(x), tl, fused=fused),
            M.qmm(jnp.asarray(x), ql, fused=fused))
@@ -93,7 +95,8 @@ def test_dense_linear_matches_reference():
     w = rng.standard_normal((64, 32)).astype(np.float32) * 0.1
     b = rng.standard_normal((32,)).astype(np.float32)
     ql = Q.from_dense(w, b)
-    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql))
+    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql),
+                               "cpu")
     x = rng.standard_normal((5, 64)).astype(np.float32)
     _close(TM.linear_apply(torch.from_numpy(x), tl),
            M.linear_apply(jnp.asarray(x), ql))
@@ -104,7 +107,7 @@ def test_fused_segment_matmul_cpu_is_plain():
     not count a launch."""
     rng = np.random.default_rng(5)
     tl = linear_from_reference(jax.tree_util.tree_map(
-        np.asarray, CASES["act_order"](rng)))
+        np.asarray, CASES["act_order"](rng)), "cpu")
     seg = tl.segments[0]
     x = torch.from_numpy(rng.standard_normal((4, seg.rows_pad)).astype(
         np.float32)).to(torch.bfloat16)
