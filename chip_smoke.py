@@ -19,10 +19,24 @@ Phases (any failure raises and the script exits non-zero):
   5. 7B       random EXL2 4.0 bpw weights at Llama-2-7B geometry (32 layers,
               prescaled) built on the card; generate_greedy at batch 1 and 4,
               each with its own launch counts; decode-vs-prefill logits;
-              decode tokens/s and a profile, both of generate_greedy itself.
+              decode tokens/s and a profile, both of generate_greedy itself;
+  6. paged    the paged flash-decode kernel against its plain version on a
+              24-page pool with shuffled block tables: B in {1, 16}, 32/32
+              and 32/8 heads, D 128, valid lengths {1, 255, 256, 257, 1500}
+              and a pad row on the null page, every cache kind (bf16, fp8,
+              q8, q4, q6), plus softcap and window; SDPA on the gathered,
+              dequantized K/V as yardstick (gather not timed);
+  7. serving  the serving path at 7B width: DynamicGenerator over a 20-page
+              bf16 PagedKVCache runs 16 jobs (128-token prompts, 48 greedy new
+              tokens, decode_burst 16) -- a warm round, then a measured round
+              with its launch counts asserted, tokens/s, p50 TTFT and the
+              device idle share; paged logits of one job teacher-forced
+              through the linear-cache forward; a q4-cache round whose later
+              jobs reuse the first job's prompt page.
 The last lines are the card's name and power limit, one JSON line of the
 kernels, and {"ok": true, "device": {...}}. Details go to
-build/chip_smoke.json.
+build/chip_smoke.json. `python3 chip_smoke.py paged` runs phases 1 and 6
+only (a quick check of the paged kernel).
 """
 
 from __future__ import annotations
@@ -50,6 +64,11 @@ QMM_ROWS = (1, 4, 8, 16, 32)   # one m per row tile MT of csrc/qmm.cu
 QMM_TOL = 1e-4          # max |kernel - plain| <= QMM_TOL * max |plain|
 ATTN_TOL = 1e-4         # max |kernel - plain| <= ATTN_TOL * max |v|
 L2_BYTES = 50 << 20
+# the serving leg of the JAX package's bench.py (serving16)
+SERVE_JOBS, SERVE_PROMPT, SERVE_NEW, SERVE_PAGES = 16, 128, 48, 20
+# bytes of one cached K (or V) row of one KV head at D = 128, scales included
+ROW_BYTES = {"bf16": 256, "fp8": 128, "q8": 128 + 8, "q4": 64 + 8}
+PEAK_BF16 = 989e12      # dense bf16 operations/s of the H100 SXM
 
 
 def log(*a):
@@ -452,16 +471,348 @@ def profile_decode(model, prompt, n: int = 8) -> dict:
             "top": [(k[:70], t) for k, (t, _) in top]}
 
 
-def summarize(qrows, qerr, arows, aerr, launches, rate):
-    """One entry per kernel for the kernels line: times of the launches one
-    decode token at batch 1 makes (qmm: the 4-bit prescaled rows at m=1
-    weighted by PER_TOKEN; attn: 32 layers at past_len 255, 32/32 heads).
-    `launches` is the count of the batch-1 path; `launches_by_path` holds
-    each main path's own count."""
+# ---------------------------------------------------------------- phase 6
+
+PAGED_KINDS = ("bf16", "fp8", "q8", "q4", "q6")
+PAGED_LAYERS, PAGED_POOL = 4, 24
+PAGED_LENS = (1, 255, 256, 257, 1500)
+
+
+def paged_pool(kind: str, hkv: int, gen, dev):
+    """A PagedKVCache of PAGED_POOL pages whose every row holds random K/V
+    stored by the cache's own codec (kv_quant)."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache, _kinds, _raw
+    from exllamav2_tpu_torch.ops.kvquant import kv_quant
+    cache = PagedKVCache.alloc(PAGED_LAYERS, PAGED_POOL, hkv, 128, kind,
+                               device=dev)
+    for data, scales, k in ((cache.k_data, cache.k_scales, _kinds(kind)[0]),
+                            (cache.v_data, cache.v_scales, _kinds(kind)[1])):
+        for layer in range(PAGED_LAYERS):
+            x = torch.randn((hkv, data.shape[2], 128), generator=gen,
+                            device=dev)
+            qd, qs = kv_quant(x, k)
+            _raw(data)[layer] = _raw(qd)
+            if scales is not None:
+                scales[layer] = qs
+    return cache
+
+
+def paged_cases():
+    cases = [dict(kind=k, b=b, hkv=h, cap=0.0, win=0)
+             for k in PAGED_KINDS for h in (32, 8) for b in (1, 16)]
+    cases += [dict(kind="bf16", b=16, hkv=8, cap=30.0, win=0),
+              dict(kind="bf16", b=16, hkv=8, cap=0.0, win=512),
+              dict(kind="q4", b=16, hkv=8, cap=0.0, win=512),
+              # one serving16 decode step's shape (the kernels line)
+              dict(kind="bf16", b=16, hkv=32, cap=0.0, win=0, serving=True)]
+    return cases
+
+
+def phase_paged(dev, rate):
+    from exllamav2_tpu_torch.cache_paged import _kinds, _raw
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    import torch.nn.functional as Fn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    cpu_gen = torch.Generator().manual_seed(7)
+    hq, d, ps = HEADS, 128, 256
+    scale = d ** -0.5
+    rows, worst, pools = [], 0.0, {}
+    for case in paged_cases():
+        kind, b, hkv = case["kind"], case["b"], case["hkv"]
+        cap, win = case["cap"], case["win"]
+        kk, vk = _kinds(kind)
+        if (kind, hkv) not in pools:
+            pools.clear()
+            torch.cuda.empty_cache()
+            pools[(kind, hkv)] = paged_pool(kind, hkv, gen, dev)
+        cache = pools[(kind, hkv)]
+        if case.get("serving"):
+            lens = [SERVE_PROMPT + SERVE_NEW // 2] * b    # mean of 128..175
+            pw = 2
+        elif b == 1:
+            lens, pw = [1500], 8
+        else:       # every length, the last row a pad row on the null page
+            lens, pw = [PAGED_LENS[i % 5] for i in range(b - 1)] + [1], 8
+        bt = torch.zeros((b, pw), dtype=torch.int32)
+        for i, n in enumerate(lens):
+            perm = torch.randperm(PAGED_POOL - 1, generator=cpu_gen) + 1
+            live = -(-n // ps)
+            bt[i, :live] = perm[:live].to(torch.int32)
+        if not case.get("serving") and b > 1:
+            bt[-1] = 0                                   # pad row
+        bt = bt.to(dev)
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        qs = [torch.randn((b, hq, d), generator=gen, device=dev)
+              .to(torch.bfloat16) for _ in range(PAGED_LAYERS)]
+
+        # q4 / q8 keys carry the Hadamard gain of 32 in the kernel's
+        # domain; paged_attention folds 1/32 into the scale, and so do we
+        sc = scale / 32 if kk in ("q4", "q8") else scale
+
+        def args(layer):
+            return (qs[layer], cache.k_data, cache.v_data, layer, bt, vl,
+                    cache.k_scales, cache.v_scales, sc, ps, hq, (kk, vk),
+                    cap, win)
+
+        got = P.paged_decode_attention(*args(1))
+        ref = P.paged_decode_attention_plain(*args(1))
+        torch.cuda.synchronize()
+        vdata = _raw(cache.v_data)[1].view(cache.v_data.dtype)
+        vmax = P._dq_page(vdata, None if cache.v_scales is None
+                          else cache.v_scales[1], vk).abs().max().item()
+        err = (got - ref).abs().max().item()
+        if not torch.isfinite(got).all() or err > ATTN_TOL * vmax:
+            raise AssertionError(f"paged {case}: err {err:.3g} "
+                                 f"(max |v| {vmax:.3g})")
+        worst = max(worst, err)
+        ms = graph_ms([(lambda layer=layer: P.paged_decode_attention(
+            *args(layer))) for layer in range(PAGED_LAYERS)], 64)
+        plain_ms = eager_ms(lambda: P.paged_decode_attention_plain(
+            *args(0)), 3)
+        lib_ms = None
+        if not cap:
+            # yardstick: SDPA on K/V already gathered from the pages and
+            # dequantized to bf16 (the gather is not timed)
+            pos = torch.arange(pw * ps, device=dev)
+            vlc = vl.long()[:, None]
+            mask = pos[None] < vlc
+            if win:
+                mask &= pos[None] >= vlc - win
+            mask = mask[:, None, None, :]
+            idx = (bt.long()[..., None] * ps + torch.arange(
+                ps, device=dev)).reshape(b, -1)
+
+            def dense(data, scales, k, layer):
+                raw = _raw(data)[layer][:, idx].view(data.dtype)
+                sc = None if scales is None else scales[layer][:, idx]
+                return P._dq_page(raw, sc, k).to(torch.bfloat16) \
+                    .transpose(0, 1).contiguous()
+            kv = [(dense(cache.k_data, cache.k_scales, kk, layer),
+                   dense(cache.v_data, cache.v_scales, vk, layer))
+                  for layer in range(PAGED_LAYERS)]
+
+            def sdpa(layer):
+                return lambda: Fn.scaled_dot_product_attention(
+                    qs[layer][:, :, None], kv[layer][0], kv[layer][1],
+                    attn_mask=mask, scale=sc, enable_gqa=hkv != hq)
+            lib_ms = graph_ms([sdpa(layer) for layer in
+                               range(PAGED_LAYERS)], 64)
+            del kv
+        read = [min(n, win) if win else n for n in lens]
+        nbytes = (sum(read) * hkv * (ROW_BYTES[kk] + ROW_BYTES[vk])
+                  + b * hq * d * (2 + 4) + bt.numel() * 4 + b * 4)
+        flops = 4 * (hq // hkv) * d * sum(read) * hkv
+        bound = max(nbytes / rate, flops / PEAK_BF16) * 1e3
+        bound_by = "bytes" if nbytes / rate >= flops / PEAK_BF16 \
+            else "operations"
+        rows.append(dict(case, lens=lens, max_abs_err=err, max_abs_v=vmax,
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bytes=nbytes, flops=flops, bound_ms=bound,
+                         bound_by=bound_by))
+        lib_s = f"{lib_ms * 1e3:7.1f}us" if lib_ms is not None else "   n/a"
+        log(f"[paged] {kind:4s} b={b:2d} {hq}/{hkv:2d} cap={cap:4.1f} "
+            f"win={win:3d}{' serving' if case.get('serving') else ''} "
+            f"err={err:.2e} (|v|<={vmax:.1f}) kernel={ms * 1e3:7.1f}us "
+            f"plain={plain_ms * 1e3:8.1f}us sdpa(gathered)={lib_s} "
+            f"bound={bound * 1e3:5.1f}us ({bound / ms * 100:4.1f}% of "
+            f"roofline)")
+        del qs
+    pools.clear()
+    torch.cuda.empty_cache()
+    return rows, worst
+
+
+# ---------------------------------------------------------------- phase 7
+
+def phase_serving(dev, rate):
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import (
+        DynamicGenerator, DynamicJob)
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.ops import decode_attn as A
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    from exllamav2_tpu_torch.ops import qmm as Q
+    from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    w, st = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                 max_seq=2048, bits=4, seed=0, device=dev)
+    model = Model(precompute_model_scales(w), st)
+    tok = ByteTokenizer(256)        # no EOS id: every job runs all its tokens
+    cache = PagedKVCache.alloc(LAYERS, SERVE_PAGES, HEADS, HIDDEN // HEADS,
+                               "bf16", device=dev)
+    gen = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
+                           max_chunk_size=512, decode_burst=16)
+    rng = np.random.default_rng(0)
+
+    def run_round():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        jobs = [gen.enqueue(DynamicJob(
+            rng.integers(3, 250, SERVE_PROMPT).astype(np.int32),
+            max_new_tokens=SERVE_NEW, settings=Settings.greedy()))
+            for _ in range(SERVE_JOBS)]
+        new = 0
+        while any(j.status != "done" for j in jobs):
+            for r in gen.iterate():
+                if r["stage"] == "streaming":
+                    new += len(r["token_ids"])
+        torch.cuda.synchronize()
+        return jobs, new, time.perf_counter() - t0
+
+    def counts():
+        return {"qmm": Q.LAUNCHES["qmm"], "decode_attn": A.LAUNCHES[
+            "decode_attn"], "paged_decode_attn": P.LAUNCHES[
+            "paged_decode_attn"]}
+
+    def zero():
+        Q.LAUNCHES["qmm"] = 0
+        A.LAUNCHES["decode_attn"] = 0
+        P.LAUNCHES["paged_decode_attn"] = 0
+        P.KIND_LAUNCHES.clear()
+
+    t_warm = time.perf_counter()
+    run_round()                                          # warm round
+    t_warm = time.perf_counter() - t_warm
+    zero()
+    jobs, new, dt = run_round()                          # measured round
+    got = counts()
+    # 48 decode steps, each 225 fused linears (32 x 7 + the head) at m = 16
+    # and one paged-attention launch per layer; the batched 16 x 128-row
+    # prefill takes the dequant + matmul path and skips the head
+    want = {"qmm": (7 * LAYERS + 1) * SERVE_NEW, "decode_attn": 0,
+            "paged_decode_attn": LAYERS * SERVE_NEW}
+    log(f"[serve] serving16 launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"serving16 launch counts {got} != {want}")
+    for j in jobs:
+        gen_ids = j.sequence[SERVE_PROMPT:]
+        if (j.new_tokens != SERVE_NEW or j.eos_reason != "max_new_tokens"
+                or gen_ids.min() < 0 or gen_ids.max() >= VOCAB):
+            raise AssertionError(f"serving16 job: {j.new_tokens} tokens, "
+                                 f"{j.eos_reason}")
+    ttfts = sorted(j.time_first_token - j.time_enqueue for j in jobs)
+    p50 = ttfts[len(ttfts) // 2] * 1e3
+    tps = new / dt
+    log(f"[serve] serving16: {new} tokens in {dt * 1e3:.1f} ms = "
+        f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms (warm round "
+        f"{t_warm:.1f} s)")
+
+    # device busy time of one more round, under the profiler
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, dt_prof = run_round()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) \
+                or e.self_cuda_time_total
+            t, c = per.get(e.key, (0.0, 0))
+            per[e.key] = (t + us / 1e3, c + e.count)
+    busy = sum(t for t, _ in per.values())
+    top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    paged_prof = [(t, c) for k, (t, c) in per.items()
+                  if "paged_attn_kernel" in k]
+    paged_in_situ = (sum(t for t, _ in paged_prof) /
+                     max(1, sum(c for _, c in paged_prof)))
+    log(f"[serve] profile: device busy {busy:.1f} ms over the "
+        f"{dt * 1e3:.1f} ms measured round (idle share {1 - busy / (dt * 1e3):.1%}"
+        f"; profiled round {dt_prof * 1e3:.1f} ms, idle "
+        f"{1 - busy / (dt_prof * 1e3):.1%}); paged kernel "
+        f"{paged_in_situ * 1e3:.1f} us per launch in the round")
+    for name, (t, c) in top:
+        log(f"[serve] profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
+
+    # paged logits of one job against the linear-cache forward,
+    # teacher-forced on the same tokens
+    prompt = rng.integers(3, 250, SERVE_PROMPT).astype(np.int32)
+    job = gen.enqueue(DynamicJob(prompt, max_new_tokens=8,
+                                 settings=Settings.greedy(),
+                                 return_logits=True))
+    paged = []
+    while job.status != "done":
+        for r in gen.iterate():
+            if r.get("logits") is not None:
+                paged.append(torch.from_numpy(r["logits"][0]))
+    toks = job.sequence[SERVE_PROMPT:]
+    lc = model.new_cache(1, 256)
+    lg, lc = model.forward(prompt[None], lc, 0, last_token_only=True)
+    ref = [lg[0, -1].cpu()]
+    for i, t in enumerate(toks[:-1]):
+        lg, lc = model.forward(np.asarray([[t]], np.int32), lc,
+                               SERVE_PROMPT + i)
+        ref.append(lg[0, -1].cpu())
+    rel = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(paged, ref))
+    log(f"[serve] paged vs linear-cache logits over {len(paged)} steps: "
+        f"rel err {rel:.2e}")
+    if len(paged) != 8 or not rel < 0.02:
+        raise AssertionError(f"paged vs linear logits rel err {rel}")
+    del gen, cache
+    torch.cuda.empty_cache()
+
+    # q4 cache: three jobs reuse the first job's hashed prompt page
+    cache4 = PagedKVCache.alloc(LAYERS, 8, HEADS, HIDDEN // HEADS, "q4",
+                                device=dev)
+    gen4 = DynamicGenerator(model, cache4, tok, max_batch_size=4,
+                            decode_burst=8)
+    prefix = rng.integers(3, 250, 300).astype(np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(3, 250, 20)
+                               .astype(np.int32)]) for _ in range(4)]
+    P.KIND_LAUNCHES.clear()
+    first = gen4.enqueue(DynamicJob(prompts[0], max_new_tokens=8,
+                                    settings=Settings.greedy()))
+    while first.status != "done":
+        gen4.iterate()
+    rest = [gen4.enqueue(DynamicJob(p, max_new_tokens=8,
+                                    settings=Settings.greedy(),
+                                    return_logits=i == 0))
+            for i, p in enumerate(prompts[1:])]
+    finals, logits4 = {}, []
+    while any(j.status != "done" for j in rest):
+        for r in gen4.iterate():
+            if r.get("logits") is not None:
+                logits4.append(r["logits"])
+            if r.get("eos"):
+                finals[r["serial"]] = r
+    cached = [finals[id(j)]["cached_tokens"] for j in rest]
+    q4_launches = P.KIND_LAUNCHES.get("q4/q4", 0)
+    log(f"[serve] q4 round: cached_tokens {cached}, q4 kernel launches "
+        f"{q4_launches}, tokens {[j.sequence[320:].tolist() for j in rest]}")
+    if (cached != [256] * 3 or q4_launches != 2 * 8 * LAYERS
+            or not all(np.isfinite(x).all() for x in logits4)
+            or len(logits4) != 8
+            or any(j.new_tokens != 8 for j in [first] + rest)):
+        raise AssertionError(f"q4 round: cached {cached}, launches "
+                             f"{q4_launches}")
+    del gen4, cache4, model, w
+    torch.cuda.empty_cache()
+    return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
+            "p50_ttft_ms": p50, "ttft_ms": [t * 1e3 for t in ttfts],
+            "device_busy_ms": busy, "idle_share": 1 - busy / (dt * 1e3),
+            "profiled_round_ms": dt_prof * 1e3,
+            "paged_kernel_us_in_round": paged_in_situ * 1e3,
+            "top_kernels": [(k[:70], t, c) for k, (t, c) in top],
+            "paged_vs_linear_rel_err": rel, "q4_cached_tokens": cached,
+            "q4_kernel_launches": q4_launches}
+
+
+def summarize(qrows, qerr, arows, aerr, prows, perr, launches, rate):
+    """One entry per kernel for the kernels line. qmm and decode_attention:
+    times of the launches one decode token at batch 1 makes (qmm: the 4-bit
+    prescaled rows at m=1 weighted by PER_TOKEN; attn: 32 layers at past_len
+    255, 32/32 heads), `launches` the count of the batch-1 path.
+    paged_decode_attention: one serving16 decode step's 32 launches at bf16
+    (16 rows of mean valid length 152), `launches` the count of the
+    serving16 round. `launches_by_path` holds each main path's own count."""
     main = launches["generate_greedy_b1"]
 
     def by_path(key):
-        return {p: c[key] for p, c in launches.items()}
+        return {p: c[key] for p, c in launches.items() if key in c}
 
     sel = [r for r in qrows
            if r["kind"] == "exl2_4b_prescaled" and r["m"] == 1]
@@ -471,6 +822,7 @@ def summarize(qrows, qerr, arows, aerr, launches, rate):
 
     att = next(r for r in arows if r["b"] == 1 and r["hkv"] == 32
                and r["past_len"] == 255)
+    srv = next(r for r in prows if r.get("serving"))
     return [
         {"name": "qmm_fused_segment_matmul", "route": "cuda",
          "source": "exllamav2_tpu_torch/csrc/qmm.cu",
@@ -488,6 +840,15 @@ def summarize(qrows, qerr, arows, aerr, launches, rate):
          "ms": LAYERS * att["ms"], "plain_ms": LAYERS * att["plain_ms"],
          "bound_ms": LAYERS * att["bytes"] / rate * 1e3, "bound_by": "bytes",
          "library_ms": LAYERS * att["library_ms"]},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "exllamav2_tpu_torch/csrc/paged_attn.cu",
+         "replaces": "exllamav2_tpu/ops/paged_attn.py:80",
+         "launches": launches["serving16"]["paged_decode_attn"],
+         "launches_by_path": by_path("paged_decode_attn"),
+         "max_abs_err": perr,
+         "ms": LAYERS * srv["ms"], "plain_ms": LAYERS * srv["plain_ms"],
+         "bound_ms": LAYERS * srv["bound_ms"], "bound_by": srv["bound_by"],
+         "library_ms": LAYERS * srv["library_ms"]},
     ]
 
 
@@ -507,12 +868,21 @@ def main() -> int:
     t_all = time.perf_counter()
     detail = {"card": card, "torch": torch.__version__}
     detail["build"] = phase_build()
+    if sys.argv[1:] == ["paged"]:
+        detail["paged"], perr = phase_paged(dev, rate)
+        log(f"[done] build and paged kernel checks passed in "
+            f"{time.perf_counter() - t_all:.1f} s (max err {perr:.2e})")
+        return 0
     detail["qmm"], qerr = phase_qmm(dev, rate)
     detail["attn"], aerr = phase_attn(dev, rate)
     detail["load"] = phase_load(dev)
     detail["7b"] = phase_7b(dev)
+    detail["paged"], perr = phase_paged(dev, rate)
+    detail["serving"] = phase_serving(dev, rate)
+    launches = dict(detail["7b"]["launches"])
+    launches["serving16"] = detail["serving"]["launches"]
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
-                        detail["7b"]["launches"], rate)
+                        detail["paged"], perr, launches, rate)
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

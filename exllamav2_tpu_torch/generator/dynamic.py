@@ -1,0 +1,1071 @@
+"""Dynamic generator: continuous batching over the paged KV cache.
+
+PyTorch port of exllamav2_tpu/generator/dynamic.py. The host-side scheduler
+is the reference's: a page pool with a blake2b hash chain for prompt dedup,
+LRU eviction by access serial, chunked page-aligned prefill, stop tokens and
+stop strings with held UTF-8 text. The device side:
+
+  * a decode step is one eager call: paged forward -> token bias ->
+    penalties -> DRY -> sampling, and the sampled ids go back to the host in
+    one readback (the only per-step host sync);
+  * a burst of k steps is a loop that feeds each sampled token back through
+    the token history on the device and reads [k, B] tokens back once;
+  * the token history ``hist`` [slots + 1, max_seq_len + 2] int32 lives on
+    the device, so penalties and the decode input gather never re-upload a
+    sequence;
+  * batch and block-table widths are bucketed to powers of two, with pad
+    rows pointing at a dummy history slot and the null page 0. They change
+    no result; they are the shapes a CUDA graph of the step would be keyed
+    on.
+
+Not ported yet (each raises NotImplementedError when asked for):
+speculative decoding (draft_model, use_ngram_draft), mesh, merged_weights,
+w4a8, CFG (negative_prompt_ids), filters, token_healing, banned_strings,
+post_sampling_hooks, embeddings / MRoPE, set_loras and the MoE drop counters.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import os
+import time
+from collections import OrderedDict, deque
+
+import numpy as np
+import torch
+
+from exllamav2_tpu_torch.cache_paged import PagedKVCache
+from exllamav2_tpu_torch.generator.sampler import Settings, stack_settings
+from exllamav2_tpu_torch.models.forward import model_forward_paged
+from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
+from exllamav2_tpu_torch.ops.sampling import (
+    apply_dry, apply_penalties, sample, unpack_mask)
+
+__all__ = ["DynamicGenerator", "DynamicJob"]
+
+_HASH = lambda b: hashlib.blake2b(b, digest_size=16).digest()  # noqa: E731
+
+
+def _bucket(n: int, lo: int = 1) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"{what} is not ported to exllamav2_tpu_torch "
+                              "yet")
+
+
+def _given(val) -> bool:
+    """An optional argument that asks for something (not None / False /
+    an empty list)."""
+    if val is None or val is False:
+        return False
+    return not (isinstance(val, (list, tuple)) and len(val) == 0)
+
+
+class CachePage:
+    """One physical page of the pool."""
+
+    __slots__ = ("index", "phash", "prev_hash", "ref_count",
+                 "access_serial", "kv_position", "tokens")
+
+    def __init__(self, index: int):
+        self.index = index
+        self.phash: bytes | None = None
+        self.prev_hash: bytes | None = None
+        self.ref_count = 0
+        self.access_serial = 0
+        self.kv_position = 0
+        self.tokens: np.ndarray | None = None   # contents when hashed
+
+
+class DynamicJob:
+    """One generation request."""
+
+    def __init__(self, input_ids, max_new_tokens: int = 128,
+                 settings: Settings | None = None,
+                 stop_conditions: list | None = None,
+                 decode_special_tokens: bool = False,
+                 seed: int = 0, identifier=None,
+                 filters: list | None = None,
+                 token_healing: bool = False,
+                 banned_strings: list[str] | None = None,
+                 negative_prompt_ids=None,
+                 embeddings: list | None = None,
+                 return_top_tokens: int = 0,
+                 return_probs: bool = False,
+                 filter_prefer_eos: bool = False,
+                 post_sampling_hooks: list | None = None,
+                 min_new_tokens: int = 0,
+                 max_skips: int | None = 4,
+                 return_logits: bool = False):
+        for name, val in (("filters", filters),
+                          ("token_healing", token_healing),
+                          ("banned_strings", banned_strings),
+                          ("negative_prompt_ids", negative_prompt_ids),
+                          ("embeddings", embeddings),
+                          ("post_sampling_hooks", post_sampling_hooks)):
+            if _given(val):
+                _unported(f"DynamicJob({name}=...)")
+        ids = np.asarray(input_ids, np.int32).reshape(-1)
+        self.prompt_ids = ids
+        self.min_new_tokens = min_new_tokens   # suppress EOS below this
+        self.max_skips = max_skips             # admission-failure budget
+        self.skips = 0
+        self.return_top_tokens = return_top_tokens
+        self.return_probs = return_probs
+        self.return_logits = return_logits
+        self.filter_prefer_eos = filter_prefer_eos
+        self.last_logits = None
+        self.last_prob: float | None = None
+        self.last_top: tuple | None = None      # (tokens, probs) np arrays
+        self.max_new_tokens = max_new_tokens
+        self.settings = settings or Settings()
+        self.identifier = identifier
+        self.seed = seed
+        self.decode_special_tokens = decode_special_tokens
+
+        self.stop_tokens: set[int] = set()
+        self.stop_strings: list[str] = []
+        for sc in (stop_conditions or []):
+            if isinstance(sc, int):
+                self.stop_tokens.add(sc)
+            elif isinstance(sc, str):
+                self.stop_strings.append(sc)
+            else:
+                self.stop_tokens.update(int(x) for x in sc)
+
+        # runtime state
+        self.status = "pending"        # pending -> prefill -> generating -> done
+        self.pages: list[CachePage] = []
+        self.page_hashes: list[bytes] = []
+        self.kv_pos = 0                # cached kv rows
+        self.reused_tokens = 0
+        self.slot = -1
+        self.sequence: np.ndarray = ids.copy()   # prompt + generated
+        self.new_tokens = 0
+        self.mirostat_mu = float(self.settings.mirostat_mu or 0.0)
+        self.held_text = ""
+        self.emitted_text = ""
+        self.eos_reason: str | None = None
+        self.time_enqueue = 0.0
+        self.time_first_token = 0.0
+        self.time_last_token = 0.0
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt_ids)
+
+    def pages_needed(self, page_size: int) -> int:
+        """Pages for prompt + generation."""
+        total = self.prompt_len + self.max_new_tokens
+        return -(-total // page_size)
+
+
+class DynamicGenerator:
+    """Continuous-batching scheduler over a PagedKVCache."""
+
+    # only TTFTs younger than this feed the adaptive-burst policy
+    TTFT_WINDOW_S = 30.0
+
+    def __init__(self, model, cache: PagedKVCache, tokenizer,
+                 max_batch_size: int = 32, max_chunk_size: int = 512,
+                 max_seq_len: int | None = None,
+                 draft_model=None, draft_cache=None,
+                 num_draft_tokens: int = 4, use_ngram_draft: bool = False,
+                 max_ngram: int = 4, mesh=None,
+                 merged_weights: bool = False,
+                 prescale: bool | None = None,
+                 w4a8: bool = False,
+                 decode_burst: int | None = None,
+                 ttft_slo_ms: float | None = None,
+                 device=None):
+        """model: a models.model.Model; cache: a PagedKVCache on the same
+        device. `device` defaults to the model's. decode_burst: up to this
+        many tokens per dispatch when no job needs per-step host work
+        (default: the DECODE_BURST environment variable, else 8).
+        ttft_slo_ms: shrink bursts while the rolling p50 time to first
+        token breaches this target."""
+        for name, val in (("draft_model", draft_model),
+                          ("draft_cache", draft_cache),
+                          ("use_ngram_draft", use_ngram_draft),
+                          ("mesh", mesh), ("merged_weights", merged_weights),
+                          ("w4a8", w4a8)):
+            if _given(val):
+                _unported(f"DynamicGenerator({name}=...)")
+        from exllamav2_tpu_torch.models.model import Model
+        if decode_burst is None:
+            decode_burst = int(os.environ.get("DECODE_BURST", 8))
+        self.decode_burst = int(decode_burst)
+        self.ttft_slo_ms = ttft_slo_ms
+        self._ttft_recent = deque(maxlen=32)
+        if prescale is None:
+            prescale = getattr(model, "_prescale", None)
+        if prescale is None:
+            prescale = os.environ.get("EXL2_TPU_PRESCALE", "1") == "1"
+        if prescale:
+            # decode EXL2 group scales once into bf16 rows (idempotent;
+            # updates the model's weight modules in place)
+            from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
+            model = Model(precompute_model_scales(model.weights),
+                          model.static, model.config)
+        self.model = model
+        self.device = torch.device(device) if device is not None \
+            else model.device
+        if cache.device != self.device or model.device != self.device:
+            raise ValueError(f"model on {model.device}, cache on "
+                             f"{cache.device}, generator on {self.device}")
+        self.cache = cache
+        self.tokenizer = tokenizer
+        self.page_size = cache.page_size
+        self.max_batch_size = max_batch_size
+        self.max_chunk_size = max_chunk_size
+        self.max_seq_len = max_seq_len or cache.num_pages * self.page_size
+
+        # page pool; page 0 reserved as the null page for padded batch rows
+        self.pages = [CachePage(i) for i in range(cache.num_pages)]
+        self.free_pages: list[CachePage] = self.pages[1:][::-1]
+        self.referenced: dict[bytes, CachePage] = {}
+        self.unreferenced: OrderedDict[bytes, CachePage] = OrderedDict()
+        self.access_serial = 0
+
+        # device-side token history; the extra row is the dummy slot of pad
+        # rows, the two extra columns hold the token sampled at the end
+        self.num_slots = max_batch_size
+        self.hist = torch.zeros((self.num_slots + 1, self.max_seq_len + 2),
+                                dtype=torch.int32, device=self.device)
+        self.free_slots = list(range(self.num_slots))[::-1]
+
+        self.pending: list[DynamicJob] = []
+        self.active: list[DynamicJob] = []
+        self._rng = torch.Generator(device=self.device)
+        self._rng.manual_seed(0)
+        self._bias_pool = None         # [slots + 1, vocab] f32, lazy
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _sync_bias_row(self, job: DynamicJob):
+        """Upload (or clear) the job's token_bias into the device pool."""
+        tb = job.settings.token_bias
+        if tb is None and self._bias_pool is None:
+            return
+        vocab = self.model.static.vocab_size
+        if self._bias_pool is None:
+            self._bias_pool = torch.zeros((self.num_slots + 1, vocab),
+                                          dtype=torch.float32,
+                                          device=self.device)
+        row = np.zeros(vocab, np.float32)
+        if tb is not None:
+            tb = np.asarray(tb, np.float32).reshape(-1)
+            row[:min(len(tb), vocab)] = tb[:vocab]
+        self._bias_pool[job.slot] = self._dev(row)
+
+    # ------------------------------------------------------------------
+    # page pool
+    # ------------------------------------------------------------------
+
+    def _touch(self, page: CachePage):
+        self.access_serial += 1
+        page.access_serial = self.access_serial
+
+    def _take_free_page(self) -> CachePage | None:
+        if self.free_pages:
+            return self.free_pages.pop()
+        if self.unreferenced:
+            # evict the least recently used hashed page
+            h, p = min(self.unreferenced.items(),
+                       key=lambda kv: kv[1].access_serial)
+            del self.unreferenced[h]
+            p.phash = None
+            p.prev_hash = None
+            p.tokens = None
+            return p
+        return None
+
+    def defrag(self):
+        """Reorder idle pages so hash chains are physically consecutive.
+
+        Runs only with no active or pending jobs; page contents move by
+        copy_pages, and CachePage.index is rewritten in place so a later
+        reuse sees the new location."""
+        if self.active or self.pending or not self.unreferenced:
+            return
+        if not self.free_pages:
+            return                      # need one scratch page for cycles
+        by_prev: dict[bytes | None, list[CachePage]] = {}
+        for p in self.unreferenced.values():
+            by_prev.setdefault(p.prev_hash, []).append(p)
+        order: list[CachePage] = []
+        stack = sorted(by_prev.get(None, []), key=lambda p: p.access_serial)
+        seen = set()
+        while stack:
+            p = stack.pop(0)
+            if id(p) in seen:
+                continue
+            seen.add(id(p))
+            order.append(p)
+            stack = sorted(by_prev.get(p.phash, []),
+                           key=lambda q: q.access_serial) + stack
+        for p in self.unreferenced.values():
+            if id(p) not in seen:
+                order.append(p)
+
+        targets = sorted(p.index for p in order)
+        moves = {p.index: t for p, t in zip(order, targets) if p.index != t}
+        if not moves:
+            return
+        temp = self.free_pages[-1].index
+        by_index = {p.index: p for p in order}
+        done = set()
+        for start in list(moves):
+            if start in done:
+                continue
+            # rotate the cycle through the scratch page (moves is a
+            # permutation of its non-fixed points, so every cycle closes)
+            cycle = [start]
+            nxt = moves[start]
+            while nxt != start:
+                cycle.append(nxt)
+                nxt = moves[nxt]
+            self.cache.copy_pages([cycle[-1]], [temp])
+            for src in reversed(cycle[:-1]):
+                self.cache.copy_pages([src], [moves[src]])
+            self.cache.copy_pages([temp], [moves[cycle[-1]]])
+            for src in cycle:
+                by_index[src].index = moves[src]
+                done.add(src)
+
+    def _free_capacity(self) -> int:
+        return len(self.free_pages) + len(self.unreferenced)
+
+    def cancel(self, job: DynamicJob):
+        """Abort a job: a pending job is dropped, an active one releases its
+        pages and slot at once. No result is emitted for it."""
+        if job in self.pending:
+            self.pending.remove(job)
+        elif job in self.active:
+            self.active.remove(job)
+            self._release_job_pages(job)
+            if job.slot >= 0:
+                self.free_slots.append(job.slot)
+                job.slot = -1
+        else:
+            return
+        job.status = "done"
+        job.eos_reason = "cancelled"
+
+    def clear_queue(self):
+        """Cancel every pending and active job."""
+        for job in list(self.pending) + list(self.active):
+            self.cancel(job)
+
+    def num_remaining_jobs(self) -> int:
+        """Jobs not yet finished."""
+        return len(self.pending) + len(self.active)
+
+    def reset_page_table(self):
+        """Forget all cached pages: clears the dedup hash tables and returns
+        every page to the free pool. Only valid with no jobs in flight."""
+        assert not self.active and not self.pending, \
+            "reset_page_table with jobs in flight"
+        for p in self.pages:
+            p.phash = None
+            p.prev_hash = None
+            p.ref_count = 0
+            p.kv_position = 0
+            p.tokens = None
+            p.access_serial = 0
+        self.free_pages = self.pages[1:][::-1]
+        self.referenced.clear()
+        self.unreferenced.clear()
+
+    def warmup(self):
+        """Run one tiny greedy job end to end (builds the kernels on first
+        use), then reset the page table so its tokens do not linger."""
+        job = DynamicJob(np.asarray([1, 2, 3], np.int32), max_new_tokens=2,
+                         settings=Settings.greedy())
+        self.enqueue(job)
+        while job.status != "done":
+            self.iterate()
+        self.reset_page_table()
+
+    def set_loras(self, loras):
+        _unported("DynamicGenerator.set_loras")
+
+    def encode_with_embeddings(self, *args, **kwargs):
+        _unported("DynamicGenerator.encode_with_embeddings")
+
+    @property
+    def moe_dropped_tokens(self) -> int:
+        _unported("the MoE drop counters")
+
+    def print_page_list(self, short: bool = True):
+        """Debug dump of the page pool."""
+        for p in self.pages:
+            state = ("null" if p.index == 0 else
+                     "free" if p.ref_count == 0 and p.phash is None else
+                     "unref" if p.ref_count == 0 else "ref")
+            if short:
+                print(f"{p.index}:{state}:{p.ref_count}", end=" ")
+            else:
+                h = p.phash.hex()[:8] if p.phash else "-"
+                print(f"page {p.index:4d} {state:5s} refs={p.ref_count} "
+                      f"kv={p.kv_position} hash={h}")
+        if short:
+            print()
+
+    def validate_cache(self):
+        """No-op on the serving path; the invariant checker is
+        _validate_cache, which the tests call."""
+
+    def _validate_cache(self):
+        """Page-table invariants: free / unreferenced / referenced are
+        disjoint, ref_counts equal the active jobs' references, and the
+        hash tables are consistent."""
+        free = set(id(p) for p in self.free_pages)
+        unref = set(id(p) for p in self.unreferenced.values())
+        ref = set(id(p) for p in self.referenced.values())
+        assert not free & unref and not free & ref and not unref & ref, \
+            "page sets overlap"
+        counts: dict[int, int] = {}
+        for job in self.active:
+            for p in job.pages:
+                counts[id(p)] = counts.get(id(p), 0) + 1
+        for p in self.pages:
+            if p.index == 0:
+                continue
+            held = counts.get(id(p), 0)
+            assert p.ref_count == held, \
+                f"page {p.index}: ref_count {p.ref_count} != held {held}"
+            if id(p) in free:
+                assert p.ref_count == 0, f"free page {p.index} referenced"
+            if id(p) in unref:
+                assert p.ref_count == 0 and p.phash is not None, \
+                    f"unreferenced page {p.index} inconsistent"
+        for h, p in self.referenced.items():
+            assert p.phash == h, "referenced hash key mismatch"
+        for h, p in self.unreferenced.items():
+            assert p.phash == h, "unreferenced hash key mismatch"
+
+    def _release_job_pages(self, job: DynamicJob):
+        for page in job.pages:
+            page.ref_count -= 1
+            if page.ref_count == 0:
+                del_ref = self.referenced.pop(page.phash, None) \
+                    if page.phash is not None else None
+                if page.phash is not None and del_ref is page:
+                    self.unreferenced[page.phash] = page
+                elif page.phash is not None and del_ref is not None:
+                    # another page holds this hash; keep it referenced
+                    self.referenced[page.phash] = del_ref
+                    page.phash = None
+                    self.free_pages.append(page)
+                else:
+                    self.free_pages.append(page)
+        job.pages = []
+
+    # ------------------------------------------------------------------
+    # job admission
+    # ------------------------------------------------------------------
+
+    def enqueue(self, job: DynamicJob) -> DynamicJob:
+        assert job.prompt_len + job.max_new_tokens <= self.max_seq_len, \
+            "job exceeds max_seq_len"
+        # a job referencing more distinct pages than the pool holds can
+        # never be admitted (page 0 is the reserved null page): fail here
+        # instead of stalling every later admission
+        demand = job.pages_needed(self.page_size)
+        usable = len(self.pages) - 1
+        if demand > usable:
+            raise ValueError(
+                f"job needs {demand} cache pages (prompt {job.prompt_len} "
+                f"+ max_new_tokens {job.max_new_tokens}) but the cache only "
+                f"has {usable} usable pages")
+        # prompt page hash chain
+        job.page_hashes = []
+        prev = b""
+        ids = job.prompt_ids
+        for p in range(len(ids) // self.page_size):
+            chunk = ids[p * self.page_size:(p + 1) * self.page_size]
+            h = _HASH(prev + chunk.tobytes())
+            job.page_hashes.append(h)
+            prev = h
+        job.time_enqueue = time.perf_counter()
+        self.pending.append(job)
+        return job
+
+    def _try_start(self, job: DynamicJob) -> bool:
+        needed = job.pages_needed(self.page_size)
+        if not self.free_slots:
+            return False
+
+        # hash-chain prompt reuse: only pages that end strictly before the
+        # last prompt token can be referenced (the first decode step
+        # appends at prompt_len - 1; shared pages are never written)
+        reusable: list[CachePage] = []
+        for j, h in enumerate(job.page_hashes):
+            if (j + 1) * self.page_size > job.prompt_len - 1:
+                break
+            page = self.referenced.get(h)
+            if page is None:
+                page = self.unreferenced.pop(h, None)
+                if page is not None:
+                    self.referenced[h] = page
+            if page is None:
+                break
+            reusable.append(page)
+
+        fresh_needed = needed - len(reusable)
+        if self._free_capacity() < fresh_needed:
+            # roll back unreferenced -> referenced moves made above
+            for page in reusable:
+                if page.ref_count == 0 and page.phash in self.referenced:
+                    del self.referenced[page.phash]
+                    self.unreferenced[page.phash] = page
+            return False
+
+        pages: list[CachePage] = []
+        for page in reusable:
+            page.ref_count += 1
+            self.referenced[page.phash] = page
+            self._touch(page)
+            pages.append(page)
+        for _ in range(fresh_needed):
+            page = self._take_free_page()
+            assert page is not None
+            page.ref_count = 1
+            page.kv_position = 0
+            self._touch(page)
+            pages.append(page)
+
+        job.pages = pages
+        job.reused_tokens = len(reusable) * self.page_size
+        job.kv_pos = job.reused_tokens
+
+        # partial-page reuse: longest token-prefix match against a cached
+        # full page continuing the same chain, copied into the job's page
+        j = len(reusable)
+        seg = job.prompt_ids[j * self.page_size:(j + 1) * self.page_size]
+        if len(seg) > 1 and j < len(pages):
+            prev = reusable[-1].phash if reusable else b""
+            best, best_m = None, 0
+            for page in self.pages:
+                if page.phash is None or page.tokens is None:
+                    continue
+                if (page.prev_hash or b"") != (prev or b""):
+                    continue
+                n = min(len(seg) - 1, len(page.tokens))
+                m = int(np.argmin(np.concatenate([
+                    (seg[:n] == page.tokens[:n]).astype(np.int8),
+                    np.zeros(1, np.int8)])))
+                if m > best_m:
+                    best, best_m = page, m
+            if best is not None and best_m > 0:
+                self.cache.copy_pages([best.index], [pages[j].index])
+                self._touch(best)
+                job.kv_pos += best_m
+                job.reused_tokens += best_m
+
+        job.slot = self.free_slots.pop()
+        job.status = "prefill"
+        self.active.append(job)
+
+        # upload the prompt into the device history once (length bucketed;
+        # the pad is overwritten by decode steps before it is read)
+        n = min(_bucket(job.prompt_len, 16), self.max_seq_len)
+        padded = np.zeros((n,), np.int32)
+        padded[:job.prompt_len] = job.prompt_ids
+        self._write_hist(job.slot, 0, padded)
+        self._sync_bias_row(job)
+        return True
+
+    def _write_hist(self, slot: int, start: int, ids: np.ndarray):
+        """hist[slot, start:start + len(ids)] = ids, on the device."""
+        self.hist[slot, start:start + len(ids)] = self._dev(ids)
+
+    # ------------------------------------------------------------------
+    # device steps
+    # ------------------------------------------------------------------
+
+    def _note_ttft(self, job) -> None:
+        if self.ttft_slo_ms is not None and job.time_enqueue:
+            self._ttft_recent.append(
+                (job.time_first_token,
+                 job.time_first_token - job.time_enqueue))
+
+    def _burst_limit(self) -> int:
+        """Burst cap this step. With a TTFT SLO, bursts back off while any
+        active job is still prefilling, or while the rolling p50 TTFT (last
+        32 jobs within TTFT_WINDOW_S) breaches the target (half above 70 %
+        of the SLO, a quarter above it)."""
+        k = self.decode_burst
+        if self.ttft_slo_ms is None or k <= 1:
+            return k
+        if any(j.status == "prefill" for j in self.active):
+            return 1
+        now = time.perf_counter()
+        recent = [v for t, v in self._ttft_recent
+                  if now - t < self.TTFT_WINDOW_S]
+        if recent:
+            p50_ms = sorted(recent)[len(recent) // 2] * 1000.0
+            if p50_ms > self.ttft_slo_ms:
+                return max(1, k // 4)
+            if p50_ms > 0.7 * self.ttft_slo_ms:
+                return max(1, k // 2)
+        return k
+
+    @staticmethod
+    def _needs_penalties(jobs) -> bool:
+        """Greedy / neutral-penalty batches skip apply_penalties."""
+        return any(j.settings.token_repetition_penalty != 1.0
+                   or j.settings.token_frequency_penalty != 0.0
+                   or j.settings.token_presence_penalty != 0.0
+                   for j in jobs)
+
+    def _prefill_forward(self, ids: np.ndarray, bt: np.ndarray,
+                         pos: np.ndarray):
+        """One prefill forward that fills the cache; its logits are never
+        used, so the head is skipped."""
+        model_forward_paged(self.model.weights, self.model.static,
+                            self._dev(ids), self.cache, self._dev(bt),
+                            self._dev(pos), last_token_only=True,
+                            with_logits=False)
+
+    def _job_block_table(self, job: DynamicJob, width: int) -> np.ndarray:
+        bt = np.zeros((width,), np.int32)     # null page padding
+        for i, p in enumerate(job.pages):
+            bt[i] = p.index
+        return bt
+
+    def _next_chunk_span(self, job: DynamicJob):
+        """(pos, end) of the job's next page-aligned prefill chunk."""
+        pos, plen = job.kv_pos, job.prompt_len
+        end = min(pos + self.max_chunk_size, plen - 1)
+        if end < plen - 1:
+            end = (end // self.page_size) * self.page_size
+            if end <= pos:
+                end = min(pos + self.max_chunk_size, plen - 1)
+        return pos, end
+
+    def _prefill_chunk_batch(self, jobs: list[DynamicJob]):
+        """One batched prefill forward over several jobs' next chunks
+        (padded to shared t/p buckets; pad rows write into the null page,
+        pad columns of a short job land in the null page through its
+        zero-padded block table)."""
+        chunks = []
+        for job in jobs:
+            pos, end = self._next_chunk_span(job)
+            if end - pos > 0:
+                chunks.append((job, pos, end))
+        if not chunks:
+            return
+        if len(chunks) == 1:
+            self._prefill_chunk(chunks[0][0])
+            return
+        b_bucket = _bucket(len(chunks), 1)
+        t_bucket = _bucket(max(e - p for _, p, e in chunks), 16)
+        ps = self.page_size
+        # the table must cover pos + t_bucket for EVERY row, so a short
+        # job's pad positions resolve to null-page columns
+        p_need = max(max(len(j.pages) for j, _, _ in chunks),
+                     max((p + t_bucket - 1) // ps + 1 for _, p, _ in chunks))
+        p_bucket = _bucket(p_need, 2)
+        ids = np.zeros((b_bucket, t_bucket), np.int32)
+        bt = np.zeros((b_bucket, p_bucket), np.int32)
+        pos_a = np.zeros((b_bucket,), np.int32)
+        for i, (job, pos, end) in enumerate(chunks):
+            ids[i, :end - pos] = job.prompt_ids[pos:end]
+            bt[i] = self._job_block_table(job, p_bucket)
+            pos_a[i] = pos
+        self._prefill_forward(ids, bt, pos_a)
+        for job, pos, end in chunks:
+            job.kv_pos = end
+            self._update_page_fill(job)
+
+    def _prefill_chunk(self, job: DynamicJob):
+        pos, end = self._next_chunk_span(job)
+        t = end - pos
+        if t <= 0:
+            return
+        t_bucket = _bucket(t, 16)
+        p_bucket = _bucket(len(job.pages), 2)
+        chunk = np.zeros((1, t_bucket), np.int32)
+        chunk[0, :t] = job.prompt_ids[pos:end]
+        bt = self._job_block_table(job, p_bucket)[None]
+        self._prefill_forward(chunk, bt, np.asarray([pos], np.int32))
+        job.kv_pos = end
+        self._update_page_fill(job)
+
+    def _update_page_fill(self, job: DynamicJob):
+        """Track per-page fill; hash pages as they fill."""
+        for i, page in enumerate(job.pages):
+            fill = min(max(job.kv_pos - i * self.page_size, 0),
+                       self.page_size)
+            if fill > page.kv_position and page.ref_count >= 1:
+                page.kv_position = fill
+            if (fill == self.page_size and page.phash is None
+                    and (i + 1) * self.page_size <= len(job.sequence)):
+                prev = job.pages[i - 1].phash if i > 0 else b""
+                if i > 0 and prev is None:
+                    continue
+                chunk = job.sequence[i * self.page_size:
+                                     (i + 1) * self.page_size]
+                h = _HASH((prev or b"") + np.asarray(
+                    chunk, np.int32).tobytes())
+                if h not in self.referenced and h not in self.unreferenced:
+                    page.phash = h
+                    page.prev_hash = prev or None
+                    page.tokens = np.asarray(chunk, np.int32).copy()
+                    self.referenced[h] = page
+
+    def _step(self, bts, seqlens, slots, params, use_pen: bool,
+              use_dry: bool, biased: bool, lf=None):
+        """One decode step on the device: the token at hist[slot, seqlen]
+        of every row -> (raw logits, filtered logits, tokens, probs, mu);
+        the sampled token is written to hist[slot, seqlen + 1]."""
+        pos = seqlens.long()
+        ids = self.hist[slots, pos][:, None]                    # [B, 1]
+        logits, _ = model_forward_paged(
+            self.model.weights, self.model.static, ids, self.cache, bts,
+            seqlens, last_token_only=True)
+        raw = lg = logits[:, -1, :]
+        if biased:
+            lg = lg + self._bias_pool[slots]
+        hist_rows = self.hist[slots]
+        if use_pen:
+            lg = apply_penalties(lg, hist_rows, seqlens + 1, params)
+        if use_dry:
+            lg = apply_dry(lg, hist_rows, seqlens + 1, params.dry_multiplier,
+                           params.dry_base, params.dry_allowed_length,
+                           params.dry_range, params.dry_breakers)
+        toks, probs, mu = sample(lg, params, generator=self._rng,
+                                 logit_filter=lf)
+        self.hist[slots, pos + 1] = toks
+        return raw, lg, toks, probs, mu
+
+    def _decode(self, jobs: list[DynamicJob], results: list[dict]):
+        b = len(jobs)
+        b_bucket = _bucket(b, 1)
+        p_bucket = _bucket(max(len(j.pages) for j in jobs), 2)
+
+        bts = np.zeros((b_bucket, p_bucket), np.int32)
+        seqlens = np.zeros((b_bucket,), np.int32)
+        slots = np.full((b_bucket,), self.num_slots, np.int64)  # dummy slot
+        sett, mus = [], []
+        for i, job in enumerate(jobs):
+            bts[i] = self._job_block_table(job, p_bucket)
+            seqlens[i] = job.kv_pos
+            slots[i] = job.slot
+            sett.append(job.settings)
+            mus.append(job.mirostat_mu)
+        for i in range(b, b_bucket):
+            sett.append(Settings.greedy())
+            mus.append(0.0)
+
+        # per-job logit masks (min_new_tokens EOS floor, banned tokens)
+        vocab = self.model.static.vocab_size
+        masks = [self._job_mask(j, vocab) for j in jobs]
+        any_masked = any(m is not None for m in masks)
+        lf = None
+        if any_masked:
+            allow = np.ones((b_bucket, vocab), bool)
+            for i, m in enumerate(masks):
+                if m is not None:
+                    allow[i] = m
+            packed = np.packbits(allow, axis=1, bitorder="little")
+            lf = unpack_mask(self._dev(packed), vocab)
+
+        use_dry = any(j.settings.dry_multiplier > 0 for j in jobs)
+        use_pen = self._needs_penalties(jobs)
+        params = stack_settings(sett, mus, device=self.device)
+        biased = self._bias_pool is not None and any(
+            j.settings.token_bias is not None for j in jobs)
+        topk = max((j.return_top_tokens for j in jobs), default=0)
+        topk = _bucket(topk, 4) if topk else 0
+        ret_logits = any(j.return_logits for j in jobs)
+        bts_t, sl_t, slots_t = (self._dev(x) for x in (bts, seqlens, slots))
+
+        # ---- burst: k tokens per readback, when no job needs per-step host
+        # work (masks, top-k, logits) and every job has room for k rows in
+        # its own pages. Pending jobs force k = 1 so a new job's first token
+        # does not wait behind a burst.
+        burst_limit = self._burst_limit()
+        if (burst_limit > 1 and not any_masked and not topk
+                and not ret_logits and not self.pending):
+            room = min(
+                min(j.max_new_tokens - j.new_tokens for j in jobs),
+                min(len(j.pages) * self.page_size - j.kv_pos for j in jobs),
+                self.max_seq_len - max(j.kv_pos for j in jobs))
+            k = 1
+            while k * 2 <= min(burst_limit, room):
+                k *= 2
+            if k > 1:
+                t_disp = time.perf_counter()
+                toks_k, probs_k = [], []
+                for i in range(k):
+                    _, _, toks, probs, mu = self._step(
+                        bts_t, sl_t + i, slots_t, params, use_pen, use_dry,
+                        biased)
+                    params = dataclasses.replace(params, mirostat_mu=mu)
+                    toks_k.append(toks.float())
+                    probs_k.append(probs)
+                host = torch.cat([torch.stack(toks_k), torch.stack(probs_k),
+                                  mu[None]]).cpu().numpy()   # one readback
+                toks_h, probs_h, mu_h = host[:k], host[k:2 * k], host[2 * k]
+                now = time.perf_counter()
+                for i, job in enumerate(jobs):
+                    job.mirostat_mu = float(mu_h[i])
+                for step in range(k):
+                    # per-token times are not observable inside a burst;
+                    # spread the dispatch interval evenly
+                    t_step = t_disp + (now - t_disp) * (step + 1) / k
+                    for i, job in enumerate(jobs):
+                        if job.status == "done":
+                            continue       # mid-burst stop: rows wasted
+                        job.last_prob = float(probs_h[step, i])
+                        self._accept(job, int(toks_h[step, i]), t_step,
+                                     results)
+                return
+
+        raw, lg, toks, probs, mu = self._step(bts_t, sl_t, slots_t, params,
+                                              use_pen, use_dry, biased, lf)
+        host = torch.stack([toks.float(), probs, mu]).cpu().numpy()
+        toks_h, probs_h, mu_h = host
+        tt_h = tp_h = lg_h = None
+        if topk:
+            dist = torch.softmax(
+                lg.masked_fill(~lf, -torch.inf) if lf is not None else lg,
+                dim=-1)
+            tp, tt = torch.sort(dist, dim=-1, descending=True, stable=True)
+            tt_h, tp_h = tt[:, :topk].cpu().numpy(), \
+                tp[:, :topk].cpu().numpy()
+        if ret_logits:
+            lg_h = raw.float().cpu().numpy()
+        now = time.perf_counter()
+        for i, job in enumerate(jobs):
+            job.mirostat_mu = float(mu_h[i])
+            job.last_prob = float(probs_h[i])
+            if tt_h is not None and job.return_top_tokens:
+                k = job.return_top_tokens
+                job.last_top = (tt_h[i, :k].copy(), tp_h[i, :k].copy())
+            job.last_logits = lg_h[i].copy() if (
+                lg_h is not None and job.return_logits) else None
+            self._accept(job, int(toks_h[i]), now, results)
+
+    def _accept(self, job: DynamicJob, tok: int, now: float,
+                results: list[dict]):
+        """Append one sampled token to a job and emit it."""
+        job.kv_pos += 1
+        job.sequence = np.append(job.sequence, np.int32(tok))
+        job.new_tokens += 1
+        if job.new_tokens == 1:
+            job.time_first_token = now
+            self._note_ttft(job)
+        job.time_last_token = now
+        self._update_page_fill(job)
+        self._emit(job, tok, results)
+
+    # ------------------------------------------------------------------
+    # iterate
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def iterate(self) -> list[dict]:
+        results: list[dict] = []
+
+        # admit pending jobs. A job accrues a skip only when a LATER job is
+        # admitted ahead of it; once a job exhausts max_skips the queue
+        # stalls so it is guaranteed to start next (jobs are never killed)
+        still = []
+        stalled = False
+        for job in self.pending:
+            if not stalled and self._try_start(job):
+                for passed in still:
+                    if passed.max_skips is not None:
+                        passed.skips += 1
+                continue
+            still.append(job)
+            if job.max_skips is not None and job.skips >= job.max_skips:
+                stalled = True
+        self.pending = still
+
+        # prefill round: jobs batch into one forward per group of
+        # max_batch_size (a lone job takes the single-job path)
+        prefilling = [j for j in self.active if j.status == "prefill"]
+        if len(prefilling) >= 2:
+            for i in range(0, len(prefilling), self.max_batch_size):
+                self._prefill_chunk_batch(
+                    prefilling[i:i + self.max_batch_size])
+        elif prefilling:
+            self._prefill_chunk(prefilling[0])
+        for job in prefilling:
+            if job.kv_pos >= job.prompt_len - 1:
+                job.status = "generating"
+            else:
+                results.append({
+                    "job": job, "stage": "prefill", "eos": False,
+                    "curr_progress": job.kv_pos,
+                    "max_progress": job.prompt_len - 1,
+                    "serial": id(job)})
+
+        # batched decode (split into max_batch_size groups; no starvation)
+        gen_jobs = [j for j in self.active if j.status == "generating"]
+        for i in range(0, len(gen_jobs), self.max_batch_size):
+            self._decode(gen_jobs[i:i + self.max_batch_size], results)
+
+        # reap finished jobs
+        for job in [j for j in self.active if j.status == "done"]:
+            self.active.remove(job)
+            self._release_job_pages(job)
+            if job.slot >= 0:
+                self.free_slots.append(job.slot)
+                job.slot = -1
+        return results
+
+    # ------------------------------------------------------------------
+    # stop handling / text emission
+    # ------------------------------------------------------------------
+
+    def _job_mask(self, job: DynamicJob, vocab: int) -> np.ndarray | None:
+        """Allow-mask for the next sample, or None if unconstrained."""
+        allow = None
+        eos_ids = [t for t in (self.tokenizer.eos_set() | job.stop_tokens)
+                   if 0 <= t < vocab]
+        if job.new_tokens < job.min_new_tokens and eos_ids:
+            # EOS floor: ban stop tokens until min_new_tokens is met
+            allow = np.ones(vocab, bool)
+            allow[eos_ids] = False
+        banned = [t for t in (job.settings.banned_tokens or [])
+                  if 0 <= t < vocab]
+        if banned:
+            if allow is None:
+                allow = np.ones(vocab, bool)
+            allow[banned] = False
+        if allow is not None and not allow.any():
+            allow[:] = True     # degenerate constraint: fail open
+        return allow
+
+    def _emit(self, job: DynamicJob, tok: int, results: list[dict]):
+        eos = False
+        if tok in job.stop_tokens or tok in self.tokenizer.eos_set():
+            eos = True
+            job.eos_reason = "stop_token"
+            # flush held text minus the stop token itself
+            full = self.tokenizer.decode(job.sequence[job.prompt_len:-1])
+            new_text = full[len(job.emitted_text):]
+            job.held_text = ""
+        else:
+            full = self.tokenizer.decode(job.sequence[job.prompt_len:])
+            # hold back an incomplete UTF-8 fragment: a trailing
+            # replacement char re-decodes once the codepoint completes
+            while full.endswith("�"):
+                full = full[:-1]
+            job.held_text += full[len(job.emitted_text)
+                                  + len(job.held_text):]
+            new_text = ""
+            stopped_at = None
+            if job.stop_strings:
+                pos, _ = find_first_match(job.held_text, job.stop_strings)
+                if pos >= 0:
+                    stopped_at = pos
+            if stopped_at is not None:
+                new_text = job.held_text[:stopped_at]
+                job.held_text = ""
+                eos = True
+                job.eos_reason = "stop_string"
+            else:
+                # hold back any suffix that prefixes a stop string
+                hold = max_partial_overlap(job.held_text, job.stop_strings) \
+                    if job.stop_strings else 0
+                release = len(job.held_text) - hold
+                if release > 0:
+                    new_text = job.held_text[:release]
+                    job.held_text = job.held_text[release:]
+
+        if not eos and job.new_tokens >= job.max_new_tokens:
+            eos = True
+            job.eos_reason = "max_new_tokens"
+            # flush everything, including a held-back UTF-8 fragment
+            full = self.tokenizer.decode(job.sequence[job.prompt_len:])
+            new_text = full[len(job.emitted_text):]
+            job.held_text = ""
+
+        job.emitted_text += new_text
+        r = {"job": job, "stage": "streaming", "eos": eos,
+             "text": new_text, "token_ids": np.asarray([tok]),
+             "identifier": job.identifier, "serial": id(job)}
+        if job.return_probs and job.last_prob is not None:
+            r["token_probs"] = np.asarray([job.last_prob], np.float32)
+        if job.return_top_tokens and job.last_top is not None:
+            r["top_k_tokens"] = job.last_top[0][None]
+            r["top_k_probs"] = job.last_top[1][None]
+        if job.return_logits and job.last_logits is not None:
+            r["logits"] = job.last_logits[None]
+        if eos:
+            job.status = "done"
+            t_gen = max(job.time_last_token - job.time_first_token, 1e-9)
+            r.update({
+                "eos_reason": job.eos_reason,
+                "full_completion": job.emitted_text,
+                "new_tokens": job.new_tokens,
+                "prompt_tokens": job.prompt_len,
+                "cached_tokens": job.reused_tokens,
+                "time_enqueued": job.time_first_token - job.time_enqueue,
+                "time_generate": t_gen,
+                "tokens_per_second": (job.new_tokens - 1) / t_gen
+                if job.new_tokens > 1 else 0.0,
+            })
+        results.append(r)
+
+    # ------------------------------------------------------------------
+    # convenience API
+    # ------------------------------------------------------------------
+
+    def generate(self, prompt, max_new_tokens: int = 128,
+                 settings: Settings | None = None, seed: int = 0,
+                 stop_conditions=None, add_bos: bool | None = None,
+                 completion_only: bool = True, embeddings: list | None = None,
+                 encode_special_tokens: bool = False):
+        """Generate for one prompt (str or ids) or a list of them, all
+        enqueued at once -> completion text(s)."""
+        if embeddings:
+            _unported("DynamicGenerator.generate(embeddings=...)")
+        if add_bos is None:
+            # the architecture decides (BOS-trained Llama / Gemma families)
+            cfg = getattr(self.model, "config", None)
+            add_bos = bool(cfg is not None
+                           and getattr(cfg.arch, "requires_bos", False))
+        prompts = prompt if isinstance(prompt, list) else [prompt]
+        jobs = []
+        for i, p in enumerate(prompts):
+            if isinstance(p, str):
+                ids = self.tokenizer.encode(
+                    p, add_bos=add_bos,
+                    encode_special_tokens=encode_special_tokens)
+            else:
+                ids = np.asarray(p, np.int32)
+            jobs.append(self.enqueue(DynamicJob(
+                ids, max_new_tokens=max_new_tokens, settings=settings,
+                seed=seed + i, stop_conditions=stop_conditions,
+                identifier=i)))
+        completions = {id(j): "" for j in jobs}
+        pending = {id(j) for j in jobs}
+        guard = 0
+        while pending:
+            for r in self.iterate():
+                if r["stage"] != "streaming":
+                    continue
+                completions[r["serial"]] += r.get("text", "")
+                if r["eos"]:
+                    pending.discard(r["serial"])
+            guard += 1
+            assert guard < 100000, "generator stuck"
+        outs = [completions[id(j)] if completion_only
+                else (prompts[i] + completions[id(j)])
+                for i, j in enumerate(jobs)]
+        return outs if isinstance(prompt, list) else outs[0]

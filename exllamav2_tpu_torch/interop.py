@@ -22,15 +22,16 @@ from exllamav2_tpu_torch.models.modules import (
 from exllamav2_tpu_torch.quant.qtensor import (
     DenseLinear, GptqSegment, QuantLinear, QuantSegment)
 
-__all__ = ["to_tensor", "linear_from_reference", "weights_from_reference"]
+__all__ = ["to_tensor", "linear_from_reference", "weights_from_reference",
+           "paged_cache_from_reference", "sampling_params_from_reference"]
 
 
 def to_tensor(a, device=None) -> torch.Tensor | None:
     """numpy array -> tensor with the same bits on `device` (the card by
     default; None passes through).
 
-    bf16 arrays (ml_dtypes) go through their int16 bits; uint32 plane words
-    become int32 with the same bits."""
+    bf16 and fp8 e5m2 arrays (ml_dtypes) go through their integer bits;
+    uint32 plane words become int32 with the same bits."""
     if a is None:
         return None
     device = resolve_device(device)
@@ -38,6 +39,9 @@ def to_tensor(a, device=None) -> torch.Tensor | None:
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
             torch.bfloat16).to(device)
+    if a.dtype.name == "float8_e5m2":
+        return torch.from_numpy(a.view(np.uint8)).view(
+            torch.float8_e5m2).to(device)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     return torch.from_numpy(a).to(device)
@@ -130,3 +134,24 @@ def weights_from_reference(w, st, *, device=None
                        linear_from_reference(w.head, device),
                        to_tensor(w.sin, device), to_tensor(w.cos, device))
     return out, _static(st)
+
+
+def paged_cache_from_reference(cache, device=None):
+    """A reference PagedKVCache whose leaves are numpy arrays -> this
+    package's PagedKVCache holding the same bits on `device` (the card by
+    default)."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    device = resolve_device(device)
+    return PagedKVCache(
+        to_tensor(cache.k_data, device), to_tensor(cache.k_scales, device),
+        to_tensor(cache.v_data, device), to_tensor(cache.v_scales, device),
+        cache.kind, cache.page_size, cache.head_dim)
+
+
+def sampling_params_from_reference(p, device=None):
+    """A reference SamplingParams with numpy leaves -> this package's
+    SamplingParams on `device` (the card by default)."""
+    from exllamav2_tpu_torch.ops.sampling import SamplingParams
+    device = resolve_device(device)
+    return SamplingParams(**{f.name: to_tensor(getattr(p, f.name), device)
+                             for f in dataclasses.fields(SamplingParams)})

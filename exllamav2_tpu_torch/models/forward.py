@@ -6,6 +6,10 @@ GQA by head grouping, f32 softmax, optional softcap and sliding window,
 causal masking against the linear KV cache. A single-token step
 (t = 1) goes through the decode-attention kernel (ops/decode_attn.py); longer
 inputs use two matrix products and a masked softmax.
+
+``model_forward_paged`` is the serving forward over the paged KV cache
+(cache_paged.PagedKVCache, per-sequence block tables and positions): its t = 1
+attention goes through the paged flash-decode kernel (ops/paged_attn.py).
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ from exllamav2_tpu_torch.cache import KVCache
 from exllamav2_tpu_torch.models.modules import (
     AttnWeights, MLPWeights, ModelWeights, NormWeights, StaticModel)
 from exllamav2_tpu_torch.ops.decode_attn import decode_attention
+from exllamav2_tpu_torch.ops.paged_attn import paged_attention
 from exllamav2_tpu_torch.ops.qmm import dot_dtype, linear_apply
 from exllamav2_tpu_torch.ops.rope import apply_rope
 
-__all__ = ["norm_apply", "attn_forward", "mlp_forward", "model_forward"]
+__all__ = ["norm_apply", "attn_forward", "mlp_forward", "model_forward",
+           "attn_forward_paged", "model_forward_paged"]
 
 _NEG = -1e30
 
@@ -168,6 +174,15 @@ def _block_forward(x, layer_w, st, layer, sin, cos, cache, past_len,
     return x, cache
 
 
+def _embed(w: ModelWeights, st: StaticModel, ids: torch.Tensor):
+    x = w.embed[ids.long()]                                  # [B, T, d]
+    if st.normalize_embeddings:
+        x = x.float() * (st.hidden_size ** 0.5)
+    if st.embedding_multiplier != 1.0:
+        x = x.float() * st.embedding_multiplier
+    return x.to(torch.float32 if st.residual_fp32 else torch.bfloat16)
+
+
 def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
                   cache: KVCache, past_len: int,
                   last_token_only: bool = False,
@@ -178,13 +193,7 @@ def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
     Chunking across max_input_len happens in the caller (Model.forward).
     """
     b, t = ids.shape
-    x = w.embed[ids.long()]                                  # [B, T, d]
-    if st.normalize_embeddings:
-        x = x.float() * (st.hidden_size ** 0.5)
-    if st.embedding_multiplier != 1.0:
-        x = x.float() * st.embedding_multiplier
-    x = x.to(torch.float32 if st.residual_fp32 else torch.bfloat16)
-
+    x = _embed(w, st, ids)
     pos = past_len + torch.arange(t, device=ids.device)
     sin = w.sin[pos]                                         # [T, rot/2]
     cos = w.cos[pos]
@@ -192,7 +201,73 @@ def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
     for layer in range(st.num_layers):
         x, cache = _block_forward(x, w.layers[layer], st, layer, sin, cos,
                                   cache, past_len, attn_limit)
+    return _head(w, st, x, last_token_only), cache
 
+
+def attn_forward_paged(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
+                       layer: int, sin: torch.Tensor, cos: torch.Tensor,
+                       cache, block_table: torch.Tensor,
+                       cache_seqlens: torch.Tensor):
+    """Paged-cache attention block: x [B, T, d] -> (attn output [B, T, d]
+    f32, cache updated in place). sin/cos [B, T, rot/2] are gathered at each
+    sequence's positions."""
+    b, t, d = x.shape
+    hq, hd = st.num_heads, st.head_dim
+    q, k, v = _attn_qkv(x, aw, st, sin, cos)
+    cache.append(layer, block_table, cache_seqlens, k, v)
+    scale = st.attn_scale if st.attn_scale is not None else hd ** -0.5
+    window = st.layers[layer].sliding_window if st.layers else 0
+    out = paged_attention(q, cache, layer, block_table, cache_seqlens,
+                          scale=scale, window=window,
+                          softcap=st.attn_logit_softcap,
+                          allow_kernel=st.fused_matmul)
+    out = out.to(torch.bfloat16).reshape(b * t, hq * hd)
+    out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, t, -1)
+    return out, cache
+
+
+def model_forward_paged(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
+                        cache, block_table: torch.Tensor,
+                        cache_seqlens: torch.Tensor,
+                        last_token_only: bool = False,
+                        input_embeds=None, rope_rows=None, pos_offsets=None,
+                        with_logits: bool = True):
+    """Paged-cache forward: ids [B, T] with per-sequence block tables
+    [B, P] and past lengths cache_seqlens [B] -> (logits [B, T or 1, vocab]
+    f32, cache updated in place).
+
+    with_logits=False skips the final norm and the head and returns
+    (None, cache): a prefill step that only fills the cache.
+    input_embeds, rope_rows and pos_offsets (multimodal embeddings and
+    MRoPE) are not ported yet and raise.
+    """
+    for name, val in (("input_embeds", input_embeds),
+                      ("rope_rows", rope_rows), ("pos_offsets", pos_offsets)):
+        if val is not None:
+            raise NotImplementedError(f"model_forward_paged({name}=...) is "
+                                      "not ported yet")
+    b, t = ids.shape
+    x = _embed(w, st, ids)
+    # per-sequence positions differ -> gather per-batch rope rows
+    pos = cache_seqlens.long()[:, None] + torch.arange(
+        t, device=ids.device)[None]                           # [B, T]
+    sin = w.sin[pos]                                          # [B, T, rot/2]
+    cos = w.cos[pos]
+    for layer in range(st.num_layers):
+        lw = w.layers[layer]
+        attn_out, cache = attn_forward_paged(
+            x, lw.attn, st, layer, sin, cos, cache, block_table,
+            cache_seqlens)
+        x = _residual_add(x, attn_out, st)
+        x = _residual_add(x, mlp_forward(x, lw.mlp, st), st)
+    if not with_logits:
+        return None, cache
+    return _head(w, st, x, last_token_only), cache
+
+
+def _head(w: ModelWeights, st: StaticModel, x: torch.Tensor,
+          last_token_only: bool) -> torch.Tensor:
+    """Final norm, head linear, logit scale / softcap -> logits f32."""
     if last_token_only:
         x = x[:, -1:, :]
     x = norm_apply(x, w.final_norm, st)
@@ -207,4 +282,4 @@ def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
         logits = torch.tanh(logits / cap) * cap
     if logits.shape[-1] > st.vocab_size:
         logits = logits[..., :st.vocab_size]
-    return logits, cache
+    return logits

@@ -58,7 +58,9 @@ class Model:
         if prescale:
             from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
             w = precompute_model_scales(w)
-        return cls(w, st, cfg)
+        m = cls(w, st, cfg)
+        m._prescale = prescale      # the generator's prescale default
+        return m
 
     def new_cache(self, batch: int = 1, max_seq: int | None = None,
                   dtype=torch.bfloat16) -> KVCache:

@@ -1,0 +1,254 @@
+"""Paged attention over the page pool (PagedKVCache).
+
+Counterpart of exllamav2_tpu/ops/paged_attn.py.
+
+* ``paged_decode_attention`` (t = 1) is the wrapper of csrc/paged_attn.cu,
+  the flash-decode kernel over the block table with in-kernel dequant of the
+  bf16 / fp8 / q8 / q4 kinds. On a card tensor it launches the kernel; on a
+  CPU tensor it runs ``paged_decode_attention_plain``, the same page
+  recurrence in torch.
+* ``paged_attention`` is the attention of the paged forward: the t = 1
+  branch folds the Hadamard rotation of the q4 / q8 kinds around the kernel
+  (q pre-rotated, output post-rotated); t > 1 gathers and dequantizes the
+  sequence's pages and runs a masked softmax.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from exllamav2_tpu_torch.cache_paged import _kinds, _raw
+from exllamav2_tpu_torch.ops.kvquant import hadamard32
+from exllamav2_tpu_torch.ops.qmm import dot_dtype
+
+__all__ = ["paged_attention", "paged_decode_attention",
+           "paged_decode_attention_plain", "LAUNCHES", "KIND_LAUNCHES"]
+
+# launches of csrc/paged_attn.cu, counted by its wrapper; KIND_LAUNCHES
+# splits the same count by (k kind, v kind) template
+LAUNCHES = {"paged_decode_attn": 0}
+KIND_LAUNCHES: dict[str, int] = {}
+
+_NEG = -1e30
+_KIND_CODE = {"bf16": 0, "fp8": 1, "q8": 2, "q4": 3}
+_DTYPE = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2,
+          "q8": torch.uint8, "q4": torch.uint8}
+_PAIRS = {("bf16", "bf16"), ("fp8", "fp8"), ("q8", "q8"), ("q4", "q4"),
+          ("q8", "q4")}
+
+# q, k, v, ks, vs, block_table, valid_lens, layer, batch, hkv, g, d, rows,
+# page, pw, scale, softcap, window, kk, vk, out, stream (csrc/paged_attn.cu)
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 2)
+
+
+def _dq_page(data: torch.Tensor, scales: torch.Tensor | None,
+             kind: str) -> torch.Tensor:
+    """[.., page, D'] -> f32 [.., page, D] WITHOUT the inverse Hadamard
+    (folded into the caller's q pre-rotation / output post-rotation)."""
+    if kind in ("bf16", "fp8"):
+        return data.float()
+    if kind == "q8":
+        v = data.float() - 128.0
+    else:
+        w = data.to(torch.int32)
+        v = torch.cat([(w & 15).float() - 8.0, ((w >> 4) & 15).float() - 8.0],
+                      dim=-1)                             # natural order
+    return v * scales.float().repeat_interleave(32, dim=-1)
+
+
+def paged_decode_attention_plain(q, k_data, v_data, layer: int,
+                                 block_table, valid_lens, k_scales, v_scales,
+                                 scale: float, page_size: int, hq: int,
+                                 kinds: tuple = ("bf16", "bf16"),
+                                 softcap: float = 0.0,
+                                 window: int = 0) -> torch.Tensor:
+    """Plain version of the kernel: the same recurrence over the page
+    columns of the block table, f32 state, K/V and p rounded to bf16.
+    -> [B, 1, Hq, D] f32."""
+    b, _, d = q.shape
+    hkv = k_data.shape[1]
+    g = hq // hkv
+    kk, vk = kinds
+    dev = q.device
+    qf = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    vl = valid_lens.to(dev).long()
+    bt = block_table.to(dev).long()
+    m = torch.full((b, hkv, g, 1), _NEG, device=dev)
+    l = torch.zeros((b, hkv, g, 1), device=dev)
+    acc = torch.zeros((b, hkv, g, d), device=dev)
+    offs = torch.arange(page_size, device=dev)
+
+    def page(data, scales, kind, rows):
+        raw = _raw(data)[layer][:, rows].view(data.dtype)  # [H, B, page, D']
+        s = scales[layer][:, rows] if scales is not None else None
+        out = _dq_page(raw.transpose(0, 1), None if s is None
+                       else s.transpose(0, 1), kind)
+        return out.to(torch.bfloat16).float()             # [B, H, page, D]
+
+    for p in range(bt.shape[1]):
+        start = p * page_size
+        live = start < vl
+        if window > 0:
+            live = live & (start + page_size > vl - window)
+        if not bool(live.any()):
+            continue
+        rows = bt[:, p, None] * page_size + offs          # [B, page]
+        kpg = page(k_data, k_scales, kk, rows)
+        vpg = page(v_data, v_scales, vk, rows)
+        s = torch.einsum("bhgd,bhpd->bhgp", qf, kpg) * scale
+        if softcap > 0.0:
+            s = torch.tanh(s * (1.0 / softcap)) * softcap
+        pos = start + offs
+        valid = pos[None] < vl[:, None]                   # [B, page]
+        if window > 0:
+            valid = valid & (pos[None] >= vl[:, None] - window)
+        s = torch.where(valid[:, None, None], s, torch.full_like(s, _NEG))
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_next)
+        pr = torch.exp(s - m_next)
+        l_new = alpha * l + pr.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhgp,bhpd->bhgd",
+                         pr.to(torch.bfloat16).float(), vpg)
+        acc_new = acc * alpha + o
+        lv = live[:, None, None, None]
+        m = torch.where(lv, m_next, m)
+        l = torch.where(lv, l_new, l)
+        acc = torch.where(lv, acc_new, acc)
+    out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
+    return out.reshape(b, 1, hq, d)
+
+
+def _kernel(q, k_data, v_data, layer, block_table, valid_lens, k_scales,
+            v_scales, scale, page_size, hq, kinds, softcap, window):
+    from exllamav2_tpu_torch import _build
+    b, hq_in, d = q.shape
+    nl, hkv, rows = k_data.shape[:3]
+    kk, vk = kinds
+    if hq_in != hq or hq % hkv or tuple(kinds) not in _PAIRS:
+        raise ValueError(f"q {tuple(q.shape)} hq {hq} hkv {hkv} kinds {kinds}")
+    g = hq // hkv
+    if (d % 32 or d > 256 or g > 16 or g * d > 2048 or page_size > 256
+            or page_size % 16):
+        raise NotImplementedError(f"head_dim {d}, {g} query heads per KV "
+                                  f"head, page {page_size}")
+    dev = q.device
+    want = [(q, torch.bfloat16), (k_data, _DTYPE[kk]), (v_data, _DTYPE[vk]),
+            (block_table, torch.int32), (valid_lens, torch.int32)]
+    for t, kind in ((k_scales, kk), (v_scales, vk)):
+        if kind in ("q4", "q8"):
+            if t is None:
+                raise ValueError(f"{kind} pool without scales")
+            want.append((t, torch.bfloat16))
+    for t, dt in want:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{t.dtype} {t.device} contiguous="
+                             f"{t.is_contiguous()} (want {dt} on {dev})")
+    if (v_data.shape[:3] != (nl, hkv, rows) or block_table.dim() != 2
+            or block_table.shape[0] != b or valid_lens.shape != (b,)
+            or not 0 <= layer < nl):
+        raise ValueError(f"pool {tuple(k_data.shape)} / "
+                         f"{tuple(v_data.shape)}, block table "
+                         f"{tuple(block_table.shape)}, layer {layer}")
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    fn = _build.function("paged_attn", "paged_decode_attention", _ARGTYPES)
+    ks = k_scales.data_ptr() if kk in ("q4", "q8") else None
+    vs = v_scales.data_ptr() if vk in ("q4", "q8") else None
+    rc = fn(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), ks, vs,
+            block_table.data_ptr(), valid_lens.data_ptr(), layer, b, hkv, g,
+            d, rows, page_size, block_table.shape[1], float(scale),
+            float(softcap), int(window), _KIND_CODE[kk], _KIND_CODE[vk],
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("paged_attn", rc, "paged_decode_attention")
+    LAUNCHES["paged_decode_attn"] += 1
+    key = f"{kk}/{vk}"
+    KIND_LAUNCHES[key] = KIND_LAUNCHES.get(key, 0) + 1
+    return out.reshape(b, 1, hq, d)
+
+
+def paged_decode_attention(q: torch.Tensor, k_data: torch.Tensor,
+                           v_data: torch.Tensor, layer: int,
+                           block_table: torch.Tensor,
+                           valid_lens: torch.Tensor, k_scales, v_scales,
+                           scale: float, page_size: int, hq: int,
+                           kinds: tuple = ("bf16", "bf16"),
+                           softcap: float = 0.0,
+                           window: int = 0) -> torch.Tensor:
+    """Paged flash-decode (t = 1) -> [B, 1, Hq, D] f32.
+
+    q [B, Hq, D] bf16; k/v_data the FULL pool [L, Hkv, rows, D'];
+    block_table [B, P] int32 (padding -> the null page 0); valid_lens [B]
+    int32 = number of valid KV rows (the cache already holds the current
+    token). softcap > 0 applies tanh score capping; window > 0 attends to
+    the trailing `window` positions only. Launches csrc/paged_attn.cu on a
+    card tensor, runs the plain version on a CPU tensor.
+    """
+    args = (q, k_data, v_data, layer, block_table, valid_lens, k_scales,
+            v_scales, scale, page_size, hq, tuple(kinds), float(softcap),
+            int(window))
+    if q.is_cuda:
+        return _kernel(*args)
+    return paged_decode_attention_plain(*args)
+
+
+def paged_attention(q: torch.Tensor, cache, layer: int,
+                    block_table: torch.Tensor, cache_seqlens: torch.Tensor,
+                    *, scale: float, window: int = 0, softcap: float = 0.0,
+                    allow_kernel: bool = True) -> torch.Tensor:
+    """q [B, T, Hq, D] -> attention output [B, T, Hq, D] f32.
+
+    cache_seqlens[b] = past length BEFORE the current q tokens; the cache
+    must already hold the q tokens' K/V at positions cache_seqlens[b] ..
+    cache_seqlens[b] + T - 1 (append comes first).
+    """
+    b, t, hq, d = q.shape
+    kk, vk = _kinds(cache.kind)
+    # t = 1 takes paged_decode_attention on the card and on the CPU alike:
+    # on a CPU tensor its plain version is the kernel's CPU counterpart.
+    # (The reference gates this branch on a TPU as well, because off the
+    # TPU its Pallas kernel could only run interpreted.)
+    if allow_kernel and t == 1 and d % 32 == 0:
+        qd = q[:, 0].to(torch.bfloat16)
+        eff_scale = float(scale)
+        if kk in ("q4", "q8"):
+            h32 = hadamard32(device=q.device)
+            qr = qd.float().reshape(b, hq, d // 32, 32) @ h32
+            qd = qr.reshape(b, hq, d).to(torch.bfloat16)
+            eff_scale = eff_scale / 32.0
+        out = paged_decode_attention(
+            qd.contiguous(), cache.k_data, cache.v_data, layer,
+            block_table, (cache_seqlens + 1).to(torch.int32),
+            cache.k_scales, cache.v_scales, eff_scale, cache.page_size, hq,
+            (kk, vk), float(softcap), int(window))
+        if vk in ("q4", "q8"):
+            h32 = hadamard32(device=q.device)
+            o = out.reshape(b, 1, hq, d // 32, 32) @ h32
+            out = (o * (1.0 / 32.0)).reshape(b, 1, hq, d)
+        return out
+
+    k, v = cache.gather_layer(layer, block_table)         # [B, Hkv, S, D]
+    s = k.shape[2]
+    hkv = k.shape[1]
+    g = hq // hkv
+    # operands bf16 on the card, f32 on the CPU (as the reference off its
+    # accelerator); products in f32 either way
+    dt = dot_dtype(q)
+    qg = q.to(dt).float().reshape(b, t, hkv, g, d)
+    scores = torch.einsum("btkgd,bksd->bkgts", qg,
+                          k.to(dt).float()) * scale
+    if softcap > 0.0:
+        scores = torch.tanh(scores / softcap) * softcap
+    pos_q = cache_seqlens.long()[:, None] + torch.arange(
+        t, device=q.device)[None]                           # [B, T]
+    pos_k = torch.arange(s, device=q.device)
+    mask = pos_k[None, None, :] <= pos_q[:, :, None]        # [B, T, S]
+    if window > 0:
+        mask &= pos_k[None, None, :] > pos_q[:, :, None] - window
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, _NEG))
+    probs = torch.softmax(scores, dim=-1).to(dt).float()
+    out = torch.einsum("bkgts,bksd->btkgd", probs, v.to(dt).float())
+    return out.reshape(b, t, hq, d)

@@ -1,4 +1,6 @@
-"""The port imports without JAX and imports nothing of the JAX package."""
+"""The port imports without JAX and imports nothing of the JAX package; its
+tokenizer module imports without the `tokenizers` / `sentencepiece`
+backends (the card's machine has neither)."""
 
 import ast
 import os
@@ -42,7 +44,8 @@ def test_no_jax_imports(path):
 def test_import_with_jax_absent():
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "for m in ('jax', 'tokenizers', 'sentencepiece'):\n"
+        "    sys.modules[m] = None\n"
         "import exllamav2_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -53,4 +56,4 @@ def test_import_with_jax_absent():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 15
+    assert int(r.stdout.strip()) >= 25

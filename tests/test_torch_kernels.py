@@ -65,3 +65,41 @@ def test_decode_attention_kernel_matches_plain(dev, hq, hkv, d, past, cap,
     got = A.decode_attention(q, k, v, 1, past, limit, 0.09, cap, win)
     ref = A.decode_attention_plain(q, k, v, 1, past, limit, 0.09, cap, win)
     assert (got - ref).abs().max() <= 1e-4 * v.float().abs().max()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
+@pytest.mark.parametrize("hq,hkv,d,cap,win", [
+    (8, 8, 128, 0.0, 0), (8, 2, 128, 0.0, 0), (8, 2, 128, 20.0, 0),
+    (16, 4, 128, 0.0, 300), (8, 1, 64, 0.0, 0), (4, 2, 256, 0.0, 0)])
+def test_paged_decode_attention_kernel_matches_plain(dev, kind, hq, hkv, d,
+                                                     cap, win):
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache, _kinds
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(hq + d)
+    cache = PagedKVCache.alloc(2, 8, hkv, d, kind, device=dev)
+    # rows 0..699 of sequence 0 and 0..299 of sequence 1 through shuffled
+    # tables; sequence 2 is a pad row on the null page
+    bt = torch.tensor([[5, 2, 7, 0], [3, 6, 0, 0], [0, 0, 0, 0]],
+                      dtype=torch.int32, device=dev)
+    seqlens = torch.zeros(3, dtype=torch.int32, device=dev)
+    k = torch.randn((3, 700, hkv, d), generator=gen, device=dev)
+    v = torch.randn((3, 700, hkv, d), generator=gen, device=dev)
+    cache.append(1, bt, seqlens, k.bfloat16(), v.bfloat16())
+    q = torch.randn((3, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+    vl = torch.tensor([700, 257, 1], dtype=torch.int32, device=dev)
+    # the scale paged_attention passes: q4 / q8 keys carry the Hadamard
+    # gain of 32 in the kernel's domain
+    scale = d ** -0.5 / (32 if _kinds(kind)[0] in ("q4", "q8") else 1)
+    args = (q, cache.k_data, cache.v_data, 1, bt, vl, cache.k_scales,
+            cache.v_scales, scale, 256, hq, _kinds(kind), cap, win)
+    before = P.LAUNCHES["paged_decode_attn"]
+    got = P.paged_decode_attention(*args)
+    assert P.LAUNCHES["paged_decode_attn"] == before + 1
+    ref = P.paged_decode_attention_plain(*args)
+    vk = _kinds(kind)[1]
+    vmax = P._dq_page(cache.v_data[1].view(torch.uint8).view(
+        cache.v_data.dtype), None if cache.v_scales is None
+        else cache.v_scales[1], vk).abs().max()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * vmax
