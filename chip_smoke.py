@@ -32,15 +32,36 @@ Phases (any failure raises and the script exits non-zero):
               with its launch counts asserted, tokens/s, p50 TTFT and the
               device idle share; paged logits of one job teacher-forced
               through the linear-cache forward; a q4-cache round whose later
-              jobs reuse the first job's prompt page.
+              jobs reuse the first job's prompt page;
+  8. partials the W4A8 kernel and the GPTQ scales-on-partials kernel against
+              their plain versions, m in {1, 4, 8, 16, 32}: W4A8 at the merged
+              7B shapes (q|k|v 4096x12288, o 4096x4096, gate|up 4096x22016,
+              down 11008x4096 padded to 11264 rows) for GPTQ 4-bit gs128 with
+              compressed and with plain meta, with act-order, EXL2 4-bit gs32
+              and mixed 8/3/5/6-bit EXL2; scales-on-partials at the unmerged
+              shapes for GPTQ 4-bit gs128; and the fused kernel's merged
+              (src_cols) meta kind on unprescaled EXL2 q|k|v and gate|up;
+  9. merged   the merged + W4A8 serving path at 7B width and full depth:
+              random GPTQ 4-bit gs128 weights through
+              DynamicGenerator(merged_weights=True, w4a8=True), the serving16
+              round of phase 7 with its launch counts asserted; W4A8 logits
+              of one job, teacher-forced, against the same weights through
+              the kernel's plain version and against the exact forward (both
+              limits at 2 layers, the numbers also at 8 and 32); a
+              generate_greedy call under QMM_PARTIALS=1 on the unmerged GPTQ
+              weights (the scales-on-partials kernel's path); a merged-only
+              EXL2 round whose greedy tokens must equal phase 7's.
 The last lines are the card's name and power limit, one JSON line of the
 kernels, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py paged` runs phases 1 and 6
-only (a quick check of the paged kernel).
+only (a quick check of the paged kernel), `python3 chip_smoke.py w4a8` phases
+1 and 8 (the W4A8, scales-on-partials and merged-meta kernels),
+`python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -60,9 +81,22 @@ SHAPES = [(HIDDEN, HIDDEN), (HIDDEN, INTER), (INTER, HIDDEN),
 # launches of each shape in one decode token: q, k, v, o | gate, up | down
 PER_TOKEN = {(HIDDEN, HIDDEN): 4 * LAYERS, (HIDDEN, INTER): 2 * LAYERS,
              (INTER, HIDDEN): LAYERS, (HIDDEN, VOCAB): 1}
-QMM_ROWS = (1, 4, 8, 16, 32)   # one m per row tile MT of csrc/qmm.cu
+# the merged serving linears of one layer: q|k|v, o, gate|up, down
+MERGED_SHAPES = [(HIDDEN, 3 * HIDDEN), (HIDDEN, HIDDEN), (HIDDEN, 2 * INTER),
+                 (INTER, HIDDEN)]
+QMM_ROWS = (1, 4, 8, 16, 32)   # one m per row tile MT of the qmm kernels
 QMM_TOL = 1e-4          # max |kernel - plain| <= QMM_TOL * max |plain|
 ATTN_TOL = 1e-4         # max |kernel - plain| <= ATTN_TOL * max |v|
+# W4A8 through a model, both limits at the depth of the reference's model
+# test (2 layers): a sum-order ulp can flip the int8 rounding of a later
+# activation, so two W4A8 runs drift apart with depth (the script prints the
+# numbers at 8 and 32 layers too).
+W4A8_LOGITS_TOL = 0.05  # vs the exact forward: mean |diff| / mean |exact|
+W4A8_PLAIN_TOL = 1e-3   # kernel vs plain version: max |diff| / max |plain|
+# scales-on-partials against the fused kernel through a 2-layer model (the
+# fused kernel rounds each weight to bf16: 1.4e-3 of max |y| on one linear)
+PARTIALS_LOGITS_TOL = 0.02
+MERGED_LOGITS_TOL = 1e-3    # max |merged - unmerged| / max |unmerged|
 L2_BYTES = 50 << 20
 # the serving leg of the JAX package's bench.py (serving16)
 SERVE_JOBS, SERVE_PROMPT, SERVE_NEW, SERVE_PAGES = 16, 128, 48, 20
@@ -158,35 +192,153 @@ def make_linear(kind: str, k: int, n: int, gen, dev):
                 .segments[0] for r, b in zip(rows, (3, 5, 6))]
         return precompute_scales_linear(
             QuantLinear(segs, None, None, k=k, n=n, n_orig=n))
-    if kind == "gptq_4b_gs128_actorder":
+    if kind in ("gptq_4b_gs128", "gptq_4b_gs128_actorder"):
         lin = random_gptq_linear(gen, k, n, bits=4, group_rows=128,
                                  device=dev)
+        if kind == "gptq_4b_gs128":
+            return lin
         perm = torch.randperm(k, generator=gen, device=dev).to(torch.int32)
         return QuantLinear(list(lin.segments), perm, None, k=k, n=n,
                            n_orig=n)
     raise ValueError(kind)
 
 
-def linear_bytes(lin, m: int) -> int:
-    """Bytes the fused kernel must move for one linear: planes, the meta it
-    reads, x (bf16) in and out (f32) once."""
+def make_w4a8_linear(kind: str, k: int, n: int, gen, dev):
+    """A linear flagged for the W4A8 kernel (every segment act8)."""
+    from exllamav2_tpu_torch.ops.dequant import enable_w4a8_linear
+    from exllamav2_tpu_torch.quant.qtensor import QuantLinear
+    from exllamav2_tpu_torch.utils.testing import random_quant_linear
+    if kind == "gptq_gs128_bf16meta":        # the flagship: compressed meta
+        return enable_w4a8_linear(make_linear("gptq_4b_gs128", k, n, gen,
+                                              dev))
+    if kind == "gptq_gs128_actorder":
+        return enable_w4a8_linear(make_linear("gptq_4b_gs128_actorder", k, n,
+                                              gen, dev))
+    if kind == "gptq_gs128_f32meta":         # f32 scale, int32 zero, no pad
+        lin = make_linear("gptq_4b_gs128", k, n, gen, dev)
+        return QuantLinear([s.replace(act8=True) for s in lin.segments],
+                           None, None, k=k, n=n, n_orig=n)
+    if kind == "exl2_4b_gs32":
+        return enable_w4a8_linear(make_linear("exl2_4b_qscale", k, n, gen,
+                                              dev))
+    if kind == "exl2_mixed_8356":
+        nsb = k // 256
+        rows = [(nsb // 4 + (i < nsb % 4)) * 256 for i in range(4)]
+        segs = [random_quant_linear(gen, r, n, bits=b, device=dev)
+                .segments[0] for r, b in zip(rows, (8, 3, 5, 6))]
+        return enable_w4a8_linear(
+            QuantLinear(segs, None, None, k=k, n=n, n_orig=n))
+    raise ValueError(kind)
+
+
+def make_merged_linear(k: int, widths, gen, dev):
+    """Unprescaled EXL2 4-bit sources merged by columns: the fused kernel's
+    src_cols meta kind."""
+    from exllamav2_tpu_torch.ops.dequant import merge_linears
+    from exllamav2_tpu_torch.utils.testing import random_quant_linear
+    lin = merge_linears([random_quant_linear(gen, k, w, bits=4, device=dev)
+                         for w in widths])
+    assert lin.segments[0].src_cols and lin.segments[0].scale_f is None
+    return lin
+
+
+def segment_meta(seg) -> list:
+    """The group-meta buffers the kernel that serves `seg` reads."""
+    from exllamav2_tpu_torch.ops.qmm import _w4a8_meta
     from exllamav2_tpu_torch.quant.qtensor import GptqSegment
+    if seg.act8:
+        _, scale, zero = _w4a8_meta(seg)
+        return [scale] if zero is scale else [scale, zero]
+    if isinstance(seg, GptqSegment):
+        return [seg.scale, seg.zero]
+    if seg.scale_f is not None:
+        return [seg.scale_f]
+    return [seg.qscale, seg.smax]
+
+
+def linear_bytes(lin, m: int) -> int:
+    """Bytes the kernels must move for one linear: planes, the meta they
+    read (f32/int32, bf16 or uint8 + f32, by kind), x in (f32 for a W4A8
+    segment, else bf16) and out (f32) once."""
     total = 0
     for seg in lin.segments:
         total += sum(p.numel() * 4 for p in seg.planes)
-        if isinstance(seg, GptqSegment):
-            total += seg.scale.numel() * 4 + seg.zero.numel() * 4
-        elif seg.scale_f is not None:
-            total += seg.scale_f.numel() * 2
-        else:
-            total += seg.qscale.numel() + seg.smax.numel() * 4
-        total += m * seg.rows_pad * 2
+        total += sum(t.numel() * t.element_size() for t in segment_meta(seg))
+        total += m * seg.rows_pad * (4 if seg.act8 else 2)
     return total + m * lin.n * 4
+
+
+def segment_inputs(lin, x):
+    """(activation slice, segment) pairs as qmm() feeds the kernels: the
+    act-order gather, zero-padded K, f32 for a W4A8 segment, else bf16."""
+    xg = x if lin.perm is None else x[:, lin.perm.long()]
+    out, row = [], 0
+    for seg in lin.segments:
+        xs = xg[:, row:row + seg.rows].to(
+            torch.float32 if seg.act8 else torch.bfloat16)
+        xs = torch.nn.functional.pad(xs, (0, seg.rows_pad - seg.rows))
+        out.append((xs.contiguous(), seg))
+        row += seg.rows
+    return out
+
+
+def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
+    """One linear kind at one shape: `kernel` against `plain` on every
+    segment at every row tile (raises beyond QMM_TOL), then the times of the
+    kernel (weights cycled past the L2), the plain version and torch.matmul
+    on the pre-dequantized bf16 weight, and the byte bound. Appends to
+    `rows`; returns the worst absolute error."""
+    from exllamav2_tpu_torch.ops.dequant import dequant_linear
+    one = make()
+    wbytes = linear_bytes(one, 0)
+    copies = [one] + [make() for _ in
+                      range(max(1, -(-2 * L2_BYTES // wbytes)) - 1)]
+    wdense = [dequant_linear(c, torch.bfloat16, original_order=False)
+              for c in copies[:max(1, -(-2 * L2_BYTES // (k * n * 2)))]]
+    worst = 0.0
+    for m in QMM_ROWS:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        xb = x.to(torch.bfloat16)
+        ins = [segment_inputs(c, x) for c in copies]
+        err, scale = 0.0, 0.0
+        for xs, seg in ins[0]:
+            got = kernel(xs, seg)
+            ref = plain(xs, seg)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all(), (tag, k, n, m)
+            err = max(err, (got - ref).abs().max().item())
+            scale = max(scale, ref.abs().max().item())
+        rel = err / scale
+        if rel > QMM_TOL:
+            raise AssertionError(
+                f"{tag} {k}x{n} m={m}: rel err {rel:.3g}")
+        worst = max(worst, err)
+
+        def kernel_call(pairs):
+            return lambda: [kernel(xs, s) for xs, s in pairs]
+
+        ms = graph_ms([kernel_call(p) for p in ins], 40)
+        plain_ms = eager_ms(lambda: [plain(xs, s) for xs, s in ins[0]], 3)
+        lib_ms = graph_ms([(lambda w=w: torch.matmul(xb, w))
+                           for w in wdense], 40)
+        nbytes = linear_bytes(one, m)
+        bound = nbytes / rate * 1e3
+        rows.append(dict(kind=tag, k=k, n=n, m=m, max_abs_err=err,
+                         rel_err=rel, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bytes=nbytes, bound_ms=bound))
+        log(f"[{tag.split(':')[0]}] {tag.split(':')[-1]:24s} "
+            f"{k:5d}x{n:5d} m={m:2d} "
+            f"err={err:.2e} rel={rel:.1e} kernel={ms * 1e3:8.1f}us "
+            f"plain={plain_ms * 1e3:9.1f}us lib={lib_ms * 1e3:7.1f}us "
+            f"bound={bound * 1e3:6.1f}us "
+            f"({bound / ms * 100:4.1f}% of roofline)")
+    del copies, wdense, ins
+    torch.cuda.empty_cache()
+    return worst
 
 
 def phase_qmm(dev, rate):
     from exllamav2_tpu_torch.ops import qmm as Q
-    from exllamav2_tpu_torch.ops.dequant import dequant_linear
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     rows, worst = [], 0.0
@@ -194,63 +346,12 @@ def phase_qmm(dev, rate):
              "gptq_4b_gs128_actorder"]
     for kind in kinds:
         for (k, n) in SHAPES:
-            one = make_linear(kind, k, n, gen, dev)
-            wbytes = linear_bytes(one, 0)
-            copies = [one] + [make_linear(kind, k, n, gen, dev) for _ in
-                              range(max(1, -(-2 * L2_BYTES // wbytes)) - 1)]
-            wdense = [dequant_linear(c, torch.bfloat16, original_order=False)
-                      for c in copies[:max(1, -(-2 * L2_BYTES //
-                                                 (k * n * 2)))]]
-            for m in QMM_ROWS:
-                x = (torch.randn((m, k), generator=gen, device=dev)
-                     ).to(torch.bfloat16)
-
-                def seg_inputs(lin):
-                    xg = x if lin.perm is None else x[:, lin.perm.long()]
-                    out, row = [], 0
-                    for seg in lin.segments:
-                        xs = xg[:, row:row + seg.rows].contiguous()
-                        out.append((xs, seg))
-                        row += seg.rows
-                    return out
-
-                ins = [seg_inputs(c) for c in copies]
-                err, scale = 0.0, 0.0
-                for xs, seg in ins[0]:
-                    got = Q.fused_segment_matmul(xs, seg)
-                    ref = Q.qmm_plain(xs, seg)
-                    torch.cuda.synchronize()
-                    assert torch.isfinite(got).all(), (kind, k, n, m)
-                    err = max(err, (got - ref).abs().max().item())
-                    scale = max(scale, ref.abs().max().item())
-                rel = err / scale
-                if rel > QMM_TOL:
-                    raise AssertionError(
-                        f"qmm {kind} {k}x{n} m={m}: rel err {rel:.3g}")
-                worst = max(worst, err)
-
-                def kernel_call(pairs):
-                    return lambda: [Q.fused_segment_matmul(xs, s)
-                                    for xs, s in pairs]
-
-                ms = graph_ms([kernel_call(p) for p in ins], 40)
-                plain_ms = eager_ms(lambda: [Q.qmm_plain(xs, s)
-                                             for xs, s in ins[0]], 3)
-                lib_ms = graph_ms([(lambda w=w: torch.matmul(x, w))
-                                   for w in wdense], 40)
-                nbytes = linear_bytes(one, m)
-                bound = nbytes / rate * 1e3
-                rows.append(dict(kind=kind, k=k, n=n, m=m, max_abs_err=err,
-                                 rel_err=rel, ms=ms, plain_ms=plain_ms,
-                                 library_ms=lib_ms, bytes=nbytes,
-                                 bound_ms=bound))
-                log(f"[qmm] {kind:24s} {k:5d}x{n:5d} m={m:2d} "
-                    f"err={err:.2e} rel={rel:.1e} kernel={ms * 1e3:8.1f}us "
-                    f"plain={plain_ms * 1e3:9.1f}us lib={lib_ms * 1e3:7.1f}us "
-                    f"bound={bound * 1e3:6.1f}us "
-                    f"({bound / ms * 100:4.1f}% of roofline)")
-            del copies, wdense, ins
-            torch.cuda.empty_cache()
+            worst = max(worst, check_and_time(
+                "qmm:" + kind, lambda: make_linear(kind, k, n, gen, dev),
+                k, n, Q.fused_segment_matmul, Q.qmm_plain, gen, dev, rate,
+                rows))
+    for r in rows:
+        r["kind"] = r["kind"].split(":")[1]
     return rows, worst
 
 
@@ -625,15 +726,114 @@ def phase_paged(dev, rate):
 
 # ---------------------------------------------------------------- phase 7
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from exllamav2_tpu_torch.ops import decode_attn as A
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    from exllamav2_tpu_torch.ops import qmm as Q
+    return {**Q.LAUNCHES, **A.LAUNCHES, **P.LAUNCHES}
+
+
+def zero_counts() -> None:
+    from exllamav2_tpu_torch.ops import decode_attn as A
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    from exllamav2_tpu_torch.ops import qmm as Q
+    for counts in (Q.LAUNCHES, A.LAUNCHES, P.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    P.KIND_LAUNCHES.clear()
+
+
+def serve_prompts(rng) -> list:
+    return [rng.integers(3, 250, SERVE_PROMPT).astype(np.int32)
+            for _ in range(SERVE_JOBS)]
+
+
+def serve_round(gen, prompts):
+    """One serving16 round through `gen`: enqueue every prompt, iterate
+    until all are done. Returns (jobs, new tokens, wall seconds)."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jobs = [gen.enqueue(DynamicJob(p, max_new_tokens=SERVE_NEW,
+                                   settings=Settings.greedy()))
+            for p in prompts]
+    while any(j.status != "done" for j in jobs):
+        gen.iterate()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    # (counted per job: a streaming result holds back the tokens of an
+    # unfinished UTF-8 sequence)
+    return jobs, sum(j.new_tokens for j in jobs), dt
+
+
+def check_round(name, jobs, new, dt):
+    """Every job ran all its tokens; returns (tokens/s, p50 TTFT ms, TTFTs
+    ms)."""
+    for j in jobs:
+        gen_ids = j.sequence[SERVE_PROMPT:]
+        if (j.new_tokens != SERVE_NEW or j.eos_reason != "max_new_tokens"
+                or gen_ids.min() < 0 or gen_ids.max() >= VOCAB):
+            raise AssertionError(f"{name} job: {j.new_tokens} tokens, "
+                                 f"{j.eos_reason}")
+    ttfts = sorted((j.time_first_token - j.time_enqueue) * 1e3 for j in jobs)
+    return new / dt, ttfts[len(ttfts) // 2], ttfts
+
+
+def profile_round(run):
+    """Device time by kernel name over one call of `run` (a serving round)
+    under torch.profiler: ({name: (ms, count)}, busy ms, wall seconds of
+    the profiled round)."""
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, dt_prof = run()
+    per = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None) \
+                or e.self_cuda_time_total
+            t, c = per.get(e.key, (0.0, 0))
+            per[e.key] = (t + us / 1e3, c + e.count)
+    return per, sum(t for t, _ in per.values()), dt_prof
+
+
+def teacher_forced_logits(model, prompt, toks) -> list:
+    """Logits of the linear-cache forward on a job's tokens: after the
+    prompt, then after each generated token but the last."""
+    lc = model.new_cache(1, 256)
+    lg, lc = model.forward(prompt[None], lc, 0, last_token_only=True)
+    ref = [lg[0, -1].cpu()]
+    for i, t in enumerate(toks[:-1]):
+        lg, lc = model.forward(np.asarray([[t]], np.int32), lc,
+                               len(prompt) + i)
+        ref.append(lg[0, -1].cpu())
+    return ref
+
+
+def job_logits(gen, prompt, new_tokens: int):
+    """Run one greedy job with return_logits: (per-step logits, tokens)."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    job = gen.enqueue(DynamicJob(prompt, max_new_tokens=new_tokens,
+                                 settings=Settings.greedy(),
+                                 return_logits=True))
+    got = []
+    while job.status != "done":
+        for r in gen.iterate():
+            if r.get("logits") is not None:
+                got.append(torch.from_numpy(r["logits"][0]))
+    return got, job.sequence[len(prompt):]
+
+
 def phase_serving(dev, rate):
     from exllamav2_tpu_torch.cache_paged import PagedKVCache
     from exllamav2_tpu_torch.generator.dynamic import (
         DynamicGenerator, DynamicJob)
     from exllamav2_tpu_torch.generator.sampler import Settings
     from exllamav2_tpu_torch.models.model import Model
-    from exllamav2_tpu_torch.ops import decode_attn as A
     from exllamav2_tpu_torch.ops import paged_attn as P
-    from exllamav2_tpu_torch.ops import qmm as Q
     from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
     from exllamav2_tpu_torch.tokenizer import ByteTokenizer
     from exllamav2_tpu_torch.utils.testing import random_model_weights
@@ -648,72 +848,30 @@ def phase_serving(dev, rate):
                            max_chunk_size=512, decode_burst=16)
     rng = np.random.default_rng(0)
 
-    def run_round():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        jobs = [gen.enqueue(DynamicJob(
-            rng.integers(3, 250, SERVE_PROMPT).astype(np.int32),
-            max_new_tokens=SERVE_NEW, settings=Settings.greedy()))
-            for _ in range(SERVE_JOBS)]
-        new = 0
-        while any(j.status != "done" for j in jobs):
-            for r in gen.iterate():
-                if r["stage"] == "streaming":
-                    new += len(r["token_ids"])
-        torch.cuda.synchronize()
-        return jobs, new, time.perf_counter() - t0
-
-    def counts():
-        return {"qmm": Q.LAUNCHES["qmm"], "decode_attn": A.LAUNCHES[
-            "decode_attn"], "paged_decode_attn": P.LAUNCHES[
-            "paged_decode_attn"]}
-
-    def zero():
-        Q.LAUNCHES["qmm"] = 0
-        A.LAUNCHES["decode_attn"] = 0
-        P.LAUNCHES["paged_decode_attn"] = 0
-        P.KIND_LAUNCHES.clear()
-
     t_warm = time.perf_counter()
-    run_round()                                          # warm round
+    serve_round(gen, serve_prompts(rng))                 # warm round
     t_warm = time.perf_counter() - t_warm
-    zero()
-    jobs, new, dt = run_round()                          # measured round
-    got = counts()
+    zero_counts()
+    round_prompts = serve_prompts(rng)
+    jobs, new, dt = serve_round(gen, round_prompts)      # measured round
+    got = launch_counts()
     # 48 decode steps, each 225 fused linears (32 x 7 + the head) at m = 16
     # and one paged-attention launch per layer; the batched 16 x 128-row
     # prefill takes the dequant + matmul path and skips the head
-    want = {"qmm": (7 * LAYERS + 1) * SERVE_NEW, "decode_attn": 0,
+    want = {"qmm": (7 * LAYERS + 1) * SERVE_NEW, "qmm_w4a8": 0,
+            "qmm_partials": 0, "decode_attn": 0,
             "paged_decode_attn": LAYERS * SERVE_NEW}
     log(f"[serve] serving16 launches {got} (expected {want})")
     if got != want:
         raise AssertionError(f"serving16 launch counts {got} != {want}")
-    for j in jobs:
-        gen_ids = j.sequence[SERVE_PROMPT:]
-        if (j.new_tokens != SERVE_NEW or j.eos_reason != "max_new_tokens"
-                or gen_ids.min() < 0 or gen_ids.max() >= VOCAB):
-            raise AssertionError(f"serving16 job: {j.new_tokens} tokens, "
-                                 f"{j.eos_reason}")
-    ttfts = sorted(j.time_first_token - j.time_enqueue for j in jobs)
-    p50 = ttfts[len(ttfts) // 2] * 1e3
-    tps = new / dt
+    tps, p50, ttfts = check_round("serving16", jobs, new, dt)
     log(f"[serve] serving16: {new} tokens in {dt * 1e3:.1f} ms = "
         f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms (warm round "
         f"{t_warm:.1f} s)")
 
     # device busy time of one more round, under the profiler
-    from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, dt_prof = run_round()
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) \
-                or e.self_cuda_time_total
-            t, c = per.get(e.key, (0.0, 0))
-            per[e.key] = (t + us / 1e3, c + e.count)
-    busy = sum(t for t, _ in per.values())
+    per, busy, dt_prof = profile_round(
+        lambda: serve_round(gen, serve_prompts(rng)))
     top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     paged_prof = [(t, c) for k, (t, c) in per.items()
                   if "paged_attn_kernel" in k]
@@ -730,22 +888,8 @@ def phase_serving(dev, rate):
     # paged logits of one job against the linear-cache forward,
     # teacher-forced on the same tokens
     prompt = rng.integers(3, 250, SERVE_PROMPT).astype(np.int32)
-    job = gen.enqueue(DynamicJob(prompt, max_new_tokens=8,
-                                 settings=Settings.greedy(),
-                                 return_logits=True))
-    paged = []
-    while job.status != "done":
-        for r in gen.iterate():
-            if r.get("logits") is not None:
-                paged.append(torch.from_numpy(r["logits"][0]))
-    toks = job.sequence[SERVE_PROMPT:]
-    lc = model.new_cache(1, 256)
-    lg, lc = model.forward(prompt[None], lc, 0, last_token_only=True)
-    ref = [lg[0, -1].cpu()]
-    for i, t in enumerate(toks[:-1]):
-        lg, lc = model.forward(np.asarray([[t]], np.int32), lc,
-                               SERVE_PROMPT + i)
-        ref.append(lg[0, -1].cpu())
+    paged, toks = job_logits(gen, prompt, 8)
+    ref = teacher_forced_logits(model, prompt, toks)
     rel = max(((a - b).abs().max() / b.abs().max()).item()
               for a, b in zip(paged, ref))
     log(f"[serve] paged vs linear-cache logits over {len(paged)} steps: "
@@ -792,7 +936,9 @@ def phase_serving(dev, rate):
     del gen4, cache4, model, w
     torch.cuda.empty_cache()
     return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
-            "p50_ttft_ms": p50, "ttft_ms": [t * 1e3 for t in ttfts],
+            "p50_ttft_ms": p50, "ttft_ms": ttfts,
+            "prompts": [p.tolist() for p in round_prompts],
+            "tokens": [j.sequence[SERVE_PROMPT:].tolist() for j in jobs],
             "device_busy_ms": busy, "idle_share": 1 - busy / (dt * 1e3),
             "profiled_round_ms": dt_prof * 1e3,
             "paged_kernel_us_in_round": paged_in_situ * 1e3,
@@ -801,37 +947,352 @@ def phase_serving(dev, rate):
             "q4_kernel_launches": q4_launches}
 
 
-def summarize(qrows, qerr, arows, aerr, prows, perr, launches, rate):
-    """One entry per kernel for the kernels line. qmm and decode_attention:
-    times of the launches one decode token at batch 1 makes (qmm: the 4-bit
-    prescaled rows at m=1 weighted by PER_TOKEN; attn: 32 layers at past_len
-    255, 32/32 heads), `launches` the count of the batch-1 path.
+# ---------------------------------------------------------------- phase 8
+
+W4A8_KINDS = ("gptq_gs128_bf16meta", "gptq_gs128_f32meta",
+              "gptq_gs128_actorder", "exl2_4b_gs32", "exl2_mixed_8356")
+
+
+def phase_partials(dev, rate):
+    """Kernels 4 and 5 and kernel 1's merged meta kind against their plain
+    versions. Returns (rows, worst abs err) per kernel."""
+    from exllamav2_tpu_torch.ops import qmm as Q
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    out = {}
+    rows, worst = [], 0.0
+    for kind in W4A8_KINDS:
+        for (k, n) in MERGED_SHAPES:
+            worst = max(worst, check_and_time(
+                "w4a8:" + kind,
+                lambda: make_w4a8_linear(kind, k, n, gen, dev), k, n,
+                Q.w4a8_segment_matmul, Q.qmm_w4a8_plain, gen, dev, rate,
+                rows))
+    out["w4a8"] = (rows, worst)
+    rows, worst = [], 0.0
+    for (k, n) in SHAPES:
+        worst = max(worst, check_and_time(
+            "partials:gptq_4b_gs128",
+            lambda: make_linear("gptq_4b_gs128", k, n, gen, dev), k, n,
+            Q.partials_segment_matmul, Q.qmm_partials_plain, gen, dev, rate,
+            rows))
+    out["partials"] = (rows, worst)
+    rows, worst = [], 0.0
+    for k, widths in ((HIDDEN, (HIDDEN,) * 3), (HIDDEN, (INTER,) * 2)):
+        worst = max(worst, check_and_time(
+            f"qmm:exl2_4b_merged{len(widths)}",
+            lambda: make_merged_linear(k, widths, gen, dev), k, sum(widths),
+            Q.fused_segment_matmul, Q.qmm_plain, gen, dev, rate, rows))
+    out["src_cols"] = (rows, worst)
+    for rs, _ in out.values():
+        for r in rs:
+            r["kind"] = r["kind"].split(":")[1]
+    return out
+
+
+# ---------------------------------------------------------------- phase 9
+
+def phase_merged(dev, rate, base):
+    """The merged + W4A8 serving path, the scales-on-partials greedy call
+    and the merged-only exactness round. `base` is phase 7's result."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.models.modules import ModelWeights
+    from exllamav2_tpu_torch.ops import qmm as Q
+    from exllamav2_tpu_torch.ops.dequant import (
+        enable_w4a8, merge_serving_weights, precompute_model_scales)
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    tok = ByteTokenizer(256)
+    prompts = [np.asarray(p, np.int32) for p in base["prompts"]]
+    rng = np.random.default_rng(1)
+
+    def new_cache():
+        return PagedKVCache.alloc(LAYERS, SERVE_PAGES, HEADS,
+                                  HIDDEN // HEADS, "bf16", device=dev)
+
+    def new_gen(model, **kw):
+        return DynamicGenerator(model, new_cache(), tok,
+                                max_batch_size=SERVE_JOBS,
+                                max_chunk_size=512, decode_burst=16, **kw)
+
+    # --- (a) GPTQ 4-bit gs128, merged + W4A8. The generator builds new
+    # modules (GPTQ needs no prescale), so `exact` stays the unmerged model.
+    w, st = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                 max_seq=2048, bits=4, seed=0, fmt="gptq",
+                                 device=dev)
+    exact = Model(w, st)
+    gen = new_gen(exact, merged_weights=True, w4a8=True)
+    lw = gen.model.weights.layers[0]
+    if not (lw.attn.qkv.segments[0].act8 and lw.mlp.gate_up.segments[0].act8
+            and lw.mlp.down.segments[0].rows_pad == 11264
+            and not gen.model.weights.head.segments[0].act8
+            and not w.layers[0].attn.q.segments[0].act8):
+        raise AssertionError("merged + W4A8 weights not as expected")
+    t_warm = time.perf_counter()
+    serve_round(gen, serve_prompts(rng))                 # warm round
+    t_warm = time.perf_counter() - t_warm
+    zero_counts()
+    jobs, new, dt = serve_round(gen, prompts)            # measured round
+    got = launch_counts()
+    # 48 decode steps at m = 16: per layer q|k|v, o, gate|up and down on the
+    # W4A8 kernel, the exact head on the fused kernel, one paged-attention
+    # launch per layer; the prefill dequantizes and skips the head
+    want = {"qmm": SERVE_NEW, "qmm_w4a8": 4 * LAYERS * SERVE_NEW,
+            "qmm_partials": 0, "decode_attn": 0,
+            "paged_decode_attn": LAYERS * SERVE_NEW}
+    log(f"[merged] serving16 merged+w4a8 launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"merged+w4a8 launch counts {got} != {want}")
+    tps, p50, ttfts = check_round("merged+w4a8", jobs, new, dt)
+    per, busy, dt_prof = profile_round(
+        lambda: serve_round(gen, serve_prompts(rng)))
+    idle = 1 - busy / (dt * 1e3)
+    top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
+    log(f"[merged] serving16 merged+w4a8 (GPTQ gs128): {new} tokens in "
+        f"{dt * 1e3:.1f} ms = {tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms, "
+        f"device busy {busy:.1f} ms, idle share {idle:.1%} (warm round "
+        f"{t_warm:.1f} s; profiled round {dt_prof * 1e3:.1f} ms)")
+    log(f"[merged] serving16 unmerged exact (EXL2, phase 7): "
+        f"{base['tokens_per_s']:.1f} tokens/s, p50 TTFT "
+        f"{base['p50_ttft_ms']:.1f} ms, device busy "
+        f"{base['device_busy_ms']:.1f} ms, idle share "
+        f"{base['idle_share']:.1%}")
+    for name, (t, c) in top:
+        log(f"[merged] profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
+
+    # W4A8 logits of one job, then teacher-forced on its tokens through the
+    # linear-cache forward: the same weights on the kernel and on the
+    # kernel's plain version (they differ by f32 sum order, which can flip
+    # an int8 rounding of a later activation), and the exact model
+    prompt = rng.integers(3, 250, SERVE_PROMPT).astype(np.int32)
+    got8, toks = job_logits(gen, prompt, 12)
+    got8 = torch.stack(got8)
+
+    def forced(model, plain=False):
+        kernel_wrapper = Q.w4a8_segment_matmul
+        if plain:
+            Q.w4a8_segment_matmul = Q.qmm_w4a8_plain
+        try:
+            return torch.stack(teacher_forced_logits(model, prompt, toks))
+        finally:
+            Q.w4a8_segment_matmul = kernel_wrapper
+
+    def max_rel(a, b):
+        return ((a - b).abs().amax(1) / b.abs().amax(1)).max().item()
+
+    def mean_dev(a, b):
+        return ((a - b).abs().mean() / b.abs().mean()).item()
+
+    ref = forced(exact)
+    lin8 = forced(gen.model)
+    n_launch = launch_counts()["qmm_w4a8"]
+    plain8 = forced(gen.model, plain=True)
+    if launch_counts()["qmm_w4a8"] != n_launch:
+        raise AssertionError("the plain pass launched the W4A8 kernel")
+    rel_plain = {LAYERS: max_rel(lin8, plain8)}
+    dev_exact = {LAYERS: mean_dev(lin8, ref)}
+    rel_paged = max_rel(got8, lin8)
+    dev8 = mean_dev(got8, ref)
+    agree = (got8.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    # the int8 rounding noise of every layer adds up along the residual, and
+    # a flipped rounding decorrelates two W4A8 runs further down: both
+    # limits are held at the depth of the reference's model test (2 layers)
+    # and the numbers are read at 8 layers and at full depth too
+    def cut_weights(depth):
+        """The first `depth` layers of the GPTQ model under its own head."""
+        return (ModelWeights(w.embed, list(w.layers[:depth]), w.final_norm,
+                             w.head, w.sin, w.cos),
+                dataclasses.replace(st, num_layers=depth,
+                                    layers=st.layers[:depth]))
+
+    for depth in (2, 8):
+        cut, st_cut = cut_weights(depth)
+        cut8 = Model(enable_w4a8(merge_serving_weights(cut)), st_cut)
+        a = forced(cut8)
+        rel_plain[depth] = max_rel(a, forced(cut8, plain=True))
+        dev_exact[depth] = mean_dev(a, forced(Model(cut, st_cut)))
+        del cut8
+    def fmt(by_depth):
+        return {d: float(f"{v:.3g}") for d, v in sorted(by_depth.items())}
+
+    log(f"[merged] W4A8 logits over {len(toks)} teacher-forced steps, by "
+        f"depth: kernel vs plain version max rel err {fmt(rel_plain)} "
+        f"(limit {W4A8_PLAIN_TOL} at 2 layers); vs the exact forward mean "
+        f"relative deviation {fmt(dev_exact)} (limit {W4A8_LOGITS_TOL} at 2 "
+        f"layers)")
+    log(f"[merged] the generator's own W4A8 logits (paged cache): vs the "
+        f"linear-cache W4A8 forward max rel err {rel_paged:.2e}; vs the "
+        f"exact forward mean relative deviation {dev8:.4f}, same argmax in "
+        f"{agree:.0%} of the steps")
+    if not (torch.isfinite(got8).all() and 0 < dev8 < 0.5
+            and rel_plain[2] < W4A8_PLAIN_TOL
+            and 0 < dev_exact[2] < W4A8_LOGITS_TOL):
+        raise AssertionError(f"W4A8 logits: vs plain {rel_plain}, vs exact "
+                             f"{dev_exact}, generator vs exact {dev8}")
+    del gen, lw
+    torch.cuda.empty_cache()
+
+    # --- (b) QMM_PARTIALS=1: the scales-on-partials kernel serves every
+    # linear of the unmerged GPTQ model, the gs128 head included
+    prompt1 = rng.integers(3, VOCAB, (1, 16)).astype(np.int32)
+    n_new = 8
+    shallow = Model(*cut_weights(2))
+
+    def prefill_logits():
+        return [m.forward(prompt1, m.new_cache(1, 32), 0)[0]
+                for m in (shallow, exact)]
+
+    fused_logits = prefill_logits()
+    os.environ["QMM_PARTIALS"] = "1"
+    try:
+        exact.generate_greedy(prompt1[:, :4], 2)             # warm-up
+        zero_counts()
+        seq = exact.generate_greedy(prompt1, n_new)
+        gotp = launch_counts()
+        part_logits = prefill_logits()
+    finally:
+        del os.environ["QMM_PARTIALS"]
+    wantp = {"qmm": 0, "qmm_w4a8": 0,
+             "qmm_partials": (7 * LAYERS + 1) * n_new,
+             "decode_attn": LAYERS * (n_new - 1), "paged_decode_attn": 0}
+    # the two kernels round differently (the fused one rounds every weight
+    # to bf16), and random layers amplify that with depth: the limit is held
+    # at 2 layers, the full depth is read
+    relp = {d: ((a - b).abs().max() / b.abs().max()).item()
+            for d, a, b in zip((2, LAYERS), part_logits, fused_logits)}
+    log(f"[merged] QMM_PARTIALS=1 generate_greedy: launches {gotp} "
+        f"(expected {wantp}); 16-token forward vs the fused kernel, max rel "
+        f"err by depth {fmt(relp)} (limit {PARTIALS_LOGITS_TOL} at 2 layers)")
+    if (gotp != wantp or seq.shape != (1, 16 + n_new)
+            or not (0 < relp[2] < PARTIALS_LOGITS_TOL and relp[LAYERS] < 0.5
+                    and all(torch.isfinite(x).all() for x in part_logits))):
+        raise AssertionError(f"QMM_PARTIALS path: {gotp}, rel {relp}")
+    del shallow, fused_logits, part_logits
+    del exact, w
+    torch.cuda.empty_cache()
+
+    # --- (c) merged only, on phase 7's EXL2 weights: merging is exact, so
+    # the greedy tokens of phase 7's measured round must come out again
+    w, st = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                 max_seq=2048, bits=4, seed=0, device=dev)
+    # unprescaled sources merge into the src_cols meta kind of the fused
+    # kernel: a short job drives it through the serving path
+    raw = new_gen(Model(w, st), merged_weights=True, prescale=False)
+    seg = raw.model.weights.layers[0].attn.qkv.segments[0]
+    if not (seg.src_cols == (0, HIDDEN, 2 * HIDDEN) and seg.scale_f is None):
+        raise AssertionError("unprescaled merge did not keep src_cols")
+    zero_counts()
+    lg_raw, _ = job_logits(raw, prompts[0], 4)
+    src_launches = launch_counts()["qmm"]
+    if src_launches != (4 * LAYERS + 1) * 4 or not all(
+            torch.isfinite(x).all() for x in lg_raw):
+        raise AssertionError(f"src_cols round: {src_launches} launches")
+    del raw, seg
+    torch.cuda.empty_cache()
+    model = Model(precompute_model_scales(w), st)
+    gen = new_gen(model, merged_weights=True)
+    if gen.model.weights.layers[0].attn.qkv.segments[0].scale_f is None:
+        raise AssertionError("merged prescaled sources lost scale_f")
+    zero_counts()
+    jobs_m, new_m, dt_m = serve_round(gen, prompts)
+    gotm = launch_counts()
+    wantm = dict(want, qmm=(4 * LAYERS + 1) * SERVE_NEW, qmm_w4a8=0)
+    tps_m, p50_m, _ = check_round("merged", jobs_m, new_m, dt_m)
+    same = [j.sequence[SERVE_PROMPT:].tolist() == t
+            for j, t in zip(jobs_m, base["tokens"])]
+    log(f"[merged] merged-only EXL2 round (first round of a new "
+        f"generator): launches {gotm} (expected {wantm}), {tps_m:.1f} "
+        f"tokens/s, p50 TTFT {p50_m:.1f} ms; {sum(same)} of {len(same)} "
+        f"jobs repeat phase 7's unmerged tokens")
+    if gotm != wantm:
+        raise AssertionError(f"merged launch counts {gotm} != {wantm}")
+    rel_m = None
+    if not all(same):
+        # a near-tie flipped by the other split-K order of the wider
+        # linears: hold the logits instead, teacher-forced on phase 7's
+        # tokens of the first job that differs
+        i = same.index(False)
+        toks = np.asarray(base["tokens"][i], np.int32)
+        merged = Model(merge_serving_weights(model.weights), st)
+        a = torch.stack(teacher_forced_logits(merged, prompts[i], toks))
+        b = torch.stack(teacher_forced_logits(model, prompts[i], toks))
+        rel_m = ((a - b).abs().max() / b.abs().max()).item()
+        log(f"[merged] job {i} differs: merged vs unmerged logits, "
+            f"teacher-forced over {len(toks)} steps, rel err {rel_m:.2e} "
+            f"(limit {MERGED_LOGITS_TOL})")
+        if not rel_m < MERGED_LOGITS_TOL:
+            raise AssertionError(f"merged vs unmerged logits rel {rel_m}")
+    del gen, model, w
+    torch.cuda.empty_cache()
+    return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
+            "p50_ttft_ms": p50, "ttft_ms": ttfts, "device_busy_ms": busy,
+            "idle_share": idle, "profiled_round_ms": dt_prof * 1e3,
+            "top_kernels": [(k[:70], t, c) for k, (t, c) in top],
+            "w4a8_kernel_vs_plain_rel_err_by_depth": rel_plain,
+            "w4a8_mean_rel_dev_by_depth": dev_exact,
+            "w4a8_paged_vs_linear_rel_err": rel_paged,
+            "w4a8_logits_mean_rel_dev": dev8, "w4a8_argmax_agreement": agree,
+            "partials_launches": gotp, "partials_logits_rel_err": relp,
+            "src_cols_launches": src_launches,
+            "merged_launches": gotm, "merged_tokens_per_s": tps_m,
+            "merged_p50_ttft_ms": p50_m, "merged_jobs_same_tokens": sum(same),
+            "merged_logits_rel_err": rel_m}
+
+
+def summarize(qrows, qerr, arows, aerr, prows, perr, partials, launches,
+              rate):
+    """One entry per kernel for the kernels line, each with the times of the
+    launches one decode step of its main path makes. qmm and
+    decode_attention: one batch-1 token (qmm: the 4-bit prescaled rows at
+    m=1 weighted by PER_TOKEN; attn: 32 layers at past_len 255, 32/32
+    heads), `launches` the count of the batch-1 path.
     paged_decode_attention: one serving16 decode step's 32 launches at bf16
     (16 rows of mean valid length 152), `launches` the count of the
-    serving16 round. `launches_by_path` holds each main path's own count."""
+    serving16 round. qmm_w4a8: one merged + W4A8 serving16 decode step (32
+    layers of q|k|v, o, gate|up, down at m=16, GPTQ gs128 with compressed
+    meta), `launches` the count of that round. qmm_partials: one batch-1
+    token under QMM_PARTIALS=1 (GPTQ gs128 rows at m=1 weighted by
+    PER_TOKEN), `launches` the count of that generate_greedy call.
+    `launches_by_path` holds each main path's own count."""
     main = launches["generate_greedy_b1"]
 
     def by_path(key):
         return {p: c[key] for p, c in launches.items() if key in c}
 
+    def tot(rows, key, weight):
+        return sum(weight[(r["k"], r["n"])] * r[key] for r in rows)
+
+    def entry(name, source, replaces, count_key, path, err, rows, weight):
+        return {"name": name, "route": "cuda",
+                "source": "exllamav2_tpu_torch/csrc/" + source,
+                "replaces": "exllamav2_tpu/ops/" + replaces,
+                "launches": launches[path][count_key],
+                "launches_by_path": by_path(count_key), "max_abs_err": err,
+                "ms": tot(rows, "ms", weight),
+                "plain_ms": tot(rows, "plain_ms", weight),
+                "bound_ms": tot(rows, "bytes", weight) / rate * 1e3,
+                "bound_by": "bytes",
+                "library_ms": tot(rows, "library_ms", weight)}
+
     sel = [r for r in qrows
            if r["kind"] == "exl2_4b_prescaled" and r["m"] == 1]
-
-    def tot(key):
-        return sum(PER_TOKEN[(r["k"], r["n"])] * r[key] for r in sel)
-
+    w4a8_rows, w4a8_err = partials["w4a8"]
+    part_rows, part_err = partials["partials"]
+    sel4 = [r for r in w4a8_rows
+            if r["kind"] == "gptq_gs128_bf16meta" and r["m"] == SERVE_JOBS]
+    sel5 = [r for r in part_rows if r["m"] == 1]
+    per_step = {shape: LAYERS for shape in MERGED_SHAPES}
     att = next(r for r in arows if r["b"] == 1 and r["hkv"] == 32
                and r["past_len"] == 255)
     srv = next(r for r in prows if r.get("serving"))
     return [
-        {"name": "qmm_fused_segment_matmul", "route": "cuda",
-         "source": "exllamav2_tpu_torch/csrc/qmm.cu",
-         "replaces": "exllamav2_tpu/ops/qmm.py:437",
-         "launches": main["qmm"], "launches_by_path": by_path("qmm"),
-         "max_abs_err": qerr,
-         "ms": tot("ms"), "plain_ms": tot("plain_ms"),
-         "bound_ms": tot("bytes") / rate * 1e3, "bound_by": "bytes",
-         "library_ms": tot("library_ms")},
+        entry("qmm_fused_segment_matmul", "qmm.cu", "qmm.py:437", "qmm",
+              "generate_greedy_b1", max(qerr, partials["src_cols"][1]), sel,
+              PER_TOKEN),
         {"name": "decode_attention", "route": "cuda",
          "source": "exllamav2_tpu_torch/csrc/decode_attn.cu",
          "replaces": "exllamav2_tpu/ops/decode_attn.py:32",
@@ -849,6 +1310,11 @@ def summarize(qrows, qerr, arows, aerr, prows, perr, launches, rate):
          "ms": LAYERS * srv["ms"], "plain_ms": LAYERS * srv["plain_ms"],
          "bound_ms": LAYERS * srv["bound_ms"], "bound_by": srv["bound_by"],
          "library_ms": LAYERS * srv["library_ms"]},
+        entry("qmm_w4a8_segment_matmul", "qmm_w4a8.cu", "qmm.py:276",
+              "qmm_w4a8", "serving16_merged_w4a8", w4a8_err, sel4, per_step),
+        entry("qmm_partials_segment_matmul", "qmm_partials.cu", "qmm.py:156",
+              "qmm_partials", "generate_greedy_b1_partials", part_err, sel5,
+              PER_TOKEN),
     ]
 
 
@@ -873,16 +1339,46 @@ def main() -> int:
         log(f"[done] build and paged kernel checks passed in "
             f"{time.perf_counter() - t_all:.1f} s (max err {perr:.2e})")
         return 0
-    detail["qmm"], qerr = phase_qmm(dev, rate)
-    detail["attn"], aerr = phase_attn(dev, rate)
-    detail["load"] = phase_load(dev)
-    detail["7b"] = phase_7b(dev)
-    detail["paged"], perr = phase_paged(dev, rate)
-    detail["serving"] = phase_serving(dev, rate)
+    if sys.argv[1:] == ["w4a8"]:
+        errs = {k: f"{e:.2e}"
+                for k, (_, e) in phase_partials(dev, rate).items()}
+        log(f"[done] build and W4A8 / scales-on-partials / merged-meta "
+            f"kernel checks passed in {time.perf_counter() - t_all:.1f} s "
+            f"(max err {errs})")
+        return 0
+    if sys.argv[1:] == ["merged"]:
+        phase_merged(dev, rate, phase_serving(dev, rate))
+        log(f"[done] build and the serving phases 7 and 9 passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    seconds = {"build": detail["build"]["seconds"]}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[time] phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    detail["qmm"], qerr = timed("qmm", phase_qmm, dev, rate)
+    detail["attn"], aerr = timed("attn", phase_attn, dev, rate)
+    detail["load"] = timed("load", phase_load, dev)
+    detail["7b"] = timed("7b", phase_7b, dev)
+    detail["paged"], perr = timed("paged", phase_paged, dev, rate)
+    detail["serving"] = timed("serving", phase_serving, dev, rate)
+    partials = timed("partials", phase_partials, dev, rate)
+    detail["partials"] = {k: rows for k, (rows, _) in partials.items()}
+    detail["merged"] = timed("merged", phase_merged, dev, rate,
+                             detail["serving"])
+    detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
+    launches["serving16_merged_w4a8"] = detail["merged"]["launches"]
+    launches["serving16_merged"] = detail["merged"]["merged_launches"]
+    launches["generate_greedy_b1_partials"] = \
+        detail["merged"]["partials_launches"]
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
-                        detail["paged"], perr, launches, rate)
+                        detail["paged"], perr, partials, launches, rate)
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

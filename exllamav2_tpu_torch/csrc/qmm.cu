@@ -11,6 +11,9 @@
 //   weight w  = bf16((q - z) * s), with
 //               EXL2 prescaled:  s = scale_f[g, n] (bf16),      z = 2^(bits-1)
 //               EXL2 encoded:    s = fp16(qs[g, n]^2 * smax[g]), z = 2^(bits-1)
+//               EXL2 merged:     the same with smax[g, source of n]: a
+//                                column-merged segment (q|k|v, gate|up) keeps
+//                                one smax column per source matrix
 //               GPTQ:            s = scale[g, n] (f32),          z = zero[g, n]
 //   out[i, n] = sum_k f32(x[i, k]) * f32(w[k, n]), accumulated in f32.
 // bf16 x bf16 products are exact in f32, so only the order of the sums can
@@ -25,7 +28,9 @@
 //   * one thread per output column, 128 columns per block: the words of a
 //     plane row are [K*bp/32, N] row-major, so a warp reads 128 contiguous
 //     bytes per plane row -- fully coalesced, no repack of the reference
-//     layout;
+//     layout; a thread of a merged segment finds its source from its own
+//     column, so a block may straddle two sources (the Pallas kernel picks
+//     the source per column tile and must keep tiles inside one source);
 //   * the activation rows of one 256-row sub-block are staged in shared
 //     memory as f32 (<= 32 KB) and read as 16-byte broadcasts;
 //   * each thread keeps its m accumulators in registers (template MT >= m);
@@ -52,7 +57,7 @@ namespace {
 constexpr int COLS = 128;
 constexpr int SB = 256;
 
-enum { META_SCALE_F = 0, META_QSCALE = 1, META_GPTQ = 2 };
+enum { META_SCALE_F = 0, META_QSCALE = 1, META_GPTQ = 2, META_SRC_COLS = 3 };
 
 struct Args {
   const __nv_bfloat16* x;
@@ -62,6 +67,7 @@ struct Args {
   int n, bits, group_rows, meta;
   const void* meta0;
   const void* meta1;
+  int nsrc, src1, src2;   // META_SRC_COLS: sources, start columns of 1 and 2
   float* dst;             // [splits, m, n] partials, or out when splits == 1
   int sb_per_split, nsb;
 };
@@ -78,7 +84,11 @@ __device__ __forceinline__ void load_meta(const Args& a, int g, int col,
       s = __bfloat162float(static_cast<const __nv_bfloat16*>(a.meta0)[i]);
     } else {
       const int qs = static_cast<const uint8_t*>(a.meta0)[i];
-      const float smax = static_cast<const float*>(a.meta1)[g];
+      // merged segment: smax is [G, nsrc]; src2 == n with two sources
+      const float smax = a.meta == META_SRC_COLS
+          ? static_cast<const float*>(a.meta1)[
+                (size_t)g * a.nsrc + (col >= a.src1) + (col >= a.src2)]
+          : static_cast<const float*>(a.meta1)[g];
       s = __half2float(__float2half_rn((float)(qs * qs) * smax));
     }
   }
@@ -216,15 +226,19 @@ const char* error_string(int e) {
 }
 
 // x [m, k_pad] bf16; planes int32/uint32 [k_pad*bp/32, n]; meta as in
-// load_meta; part [splits, m, n] f32 (ignored when splits == 1); out [m, n].
+// load_meta (nsrc, src1, src2 are read for META_SRC_COLS only);
+// part [splits, m, n] f32 (ignored when splits == 1); out [m, n].
 // Returns the cudaError_t of the launches (0 on success).
 int qmm_segment(const void* x, int m, int k_pad,
                 const void* plane0, const void* plane1, int bp0, int bp1,
                 int n, int bits, int group_rows, int meta,
                 const void* meta0, const void* meta1,
+                int nsrc, int src1, int src2,
                 void* part, void* out, int splits, int sb_per_split,
                 void* stream) {
   if (m < 1 || m > 32 || k_pad % SB || group_rows % 16 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  if (meta == META_SRC_COLS && (nsrc < 2 || nsrc > 3 || src1 > src2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   Args a;
@@ -239,6 +253,9 @@ int qmm_segment(const void* x, int m, int k_pad,
   a.meta = meta;
   a.meta0 = meta0;
   a.meta1 = meta1;
+  a.nsrc = nsrc;
+  a.src1 = src1;
+  a.src2 = src2;
   a.dst = (float*)(splits == 1 ? out : part);
   a.sb_per_split = sb_per_split;
   a.nsb = k_pad / SB;

@@ -18,9 +18,13 @@ stop strings with held UTF-8 text. The device side:
     no result; they are the shapes a CUDA graph of the step would be keyed
     on.
 
+``merged_weights=True`` serves from merged q|k|v and gate|up linears (exact;
+ops/dequant.merge_serving_weights), ``w4a8=True`` decodes through the W4A8
+kernel (int8 activations, approximate; the head and the prefill stay exact).
+
 Not ported yet (each raises NotImplementedError when asked for):
-speculative decoding (draft_model, use_ngram_draft), mesh, merged_weights,
-w4a8, CFG (negative_prompt_ids), filters, token_healing, banned_strings,
+speculative decoding (draft_model, use_ngram_draft), mesh, CFG
+(negative_prompt_ids), filters, token_healing, banned_strings,
 post_sampling_hooks, embeddings / MRoPE, set_loras and the MoE drop counters.
 """
 
@@ -189,15 +193,18 @@ class DynamicGenerator:
         many tokens per dispatch when no job needs per-step host work
         (default: the DECODE_BURST environment variable, else 8).
         ttft_slo_ms: shrink bursts while the rolling p50 time to first
-        token breaches this target."""
+        token breaches this target. merged_weights: serve from merged
+        q|k|v and gate|up linears (exact). w4a8: opt-in approximate decode
+        with int8 activations (decode steps only; the prefill and the head
+        stay exact). Neither changes the caller's model."""
         for name, val in (("draft_model", draft_model),
                           ("draft_cache", draft_cache),
                           ("use_ngram_draft", use_ngram_draft),
-                          ("mesh", mesh), ("merged_weights", merged_weights),
-                          ("w4a8", w4a8)):
+                          ("mesh", mesh)):
             if _given(val):
                 _unported(f"DynamicGenerator({name}=...)")
         from exllamav2_tpu_torch.models.model import Model
+        from exllamav2_tpu_torch.ops import dequant as D
         if decode_burst is None:
             decode_burst = int(os.environ.get("DECODE_BURST", 8))
         self.decode_burst = int(decode_burst)
@@ -207,12 +214,18 @@ class DynamicGenerator:
             prescale = getattr(model, "_prescale", None)
         if prescale is None:
             prescale = os.environ.get("EXL2_TPU_PRESCALE", "1") == "1"
+        # the reference's order: merge, then prescale, then w4a8
+        if merged_weights:
+            model = Model(D.merge_serving_weights(model.weights),
+                          model.static, model.config)
         if prescale:
             # decode EXL2 group scales once into bf16 rows (idempotent;
             # updates the model's weight modules in place)
-            from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
-            model = Model(precompute_model_scales(model.weights),
+            model = Model(D.precompute_model_scales(model.weights),
                           model.static, model.config)
+        if w4a8:
+            model = Model(D.enable_w4a8(model.weights), model.static,
+                          model.config)
         self.model = model
         self.device = torch.device(device) if device is not None \
             else model.device

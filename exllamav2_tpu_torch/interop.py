@@ -58,21 +58,22 @@ def linear_from_reference(lin, device=None):
                            to_tensor(lin.bias, device))
     segs = []
     for s in lin.segments:
-        if getattr(s, "act8", False) or getattr(s, "src_cols", ()):
-            raise NotImplementedError(
-                "W4A8 and column-merged segments are not ported yet")
         planes = tuple(to_tensor(p, device) for p in s.planes)
         if hasattr(s, "zero"):
             segs.append(GptqSegment(
                 planes, to_tensor(s.scale, device), to_tensor(s.zero, device),
                 bits=s.bits, plane_bits=s.plane_bits, rows=s.rows,
-                group_rows=s.group_rows))
+                group_rows=s.group_rows, act8=s.act8,
+                scale_bf=to_tensor(s.scale_bf, device),
+                zs_bf=to_tensor(s.zs_bf, device)))
         else:
+            # a column-merged segment's smax is [groups, n_sources]
             segs.append(QuantSegment(
                 planes, to_tensor(s.qscale, device), to_tensor(s.smax, device),
                 bits=s.bits, plane_bits=s.plane_bits, rows=s.rows,
                 group_rows=s.group_rows,
-                scale_f=to_tensor(s.scale_f, device)))
+                scale_f=to_tensor(s.scale_f, device),
+                src_cols=s.src_cols, act8=s.act8))
     return QuantLinear(segs, to_tensor(lin.perm, device),
                        to_tensor(lin.bias, device), k=lin.k, n=lin.n,
                        n_orig=lin.n_orig)
@@ -119,15 +120,15 @@ def weights_from_reference(w, st, *, device=None
                 raise NotImplementedError(f"attention {name} not ported yet")
         if not hasattr(mw, "up") or getattr(mw, "norm_post", None) is not None:
             raise NotImplementedError("MoE / post-norm MLPs not ported yet")
-        # merged qkv / gate_up fast-path copies are ignored: q/k/v and
-        # gate/up hold the same weights
         def lin(x):
             return None if x is None else linear_from_reference(x, device)
 
+        # the merged qkv / gate_up linears come along where the reference
+        # tree carries them
         attn = AttnWeights(_norm(aw.norm, device), lin(aw.q), lin(aw.k),
-                           lin(aw.v), lin(aw.o))
+                           lin(aw.v), lin(aw.o), qkv=lin(aw.qkv))
         mlp = MLPWeights(_norm(mw.norm, device), lin(mw.gate), lin(mw.up),
-                         lin(mw.down))
+                         lin(mw.down), gate_up=lin(mw.gate_up))
         layers.append(LayerWeights(attn, mlp))
     out = ModelWeights(to_tensor(w.embed, device), layers,
                        _norm(w.final_norm, device),

@@ -66,9 +66,17 @@ def _attn_qkv(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     hq, hkv, hd = st.num_heads, st.num_kv_heads, st.head_dim
     hidden = norm_apply(x, aw.norm, st)
     h2 = hidden.reshape(b * t, d)
-    q = linear_apply(h2, aw.q, fused=_fz(st)).reshape(b, t, hq, hd)
-    k = linear_apply(h2, aw.k, fused=_fz(st)).reshape(b, t, hkv, hd)
-    v = linear_apply(h2, aw.v, fused=_fz(st)).reshape(b, t, hkv, hd)
+    if aw.qkv is not None:
+        # merged fast path: one weight stream and one launch for q|k|v
+        nq, nkv = hq * hd, hkv * hd
+        y = linear_apply(h2, aw.qkv, fused=_fz(st))
+        q = y[:, :nq].reshape(b, t, hq, hd)
+        k = y[:, nq:nq + nkv].reshape(b, t, hkv, hd)
+        v = y[:, nq + nkv:].reshape(b, t, hkv, hd)
+    else:
+        q = linear_apply(h2, aw.q, fused=_fz(st)).reshape(b, t, hq, hd)
+        k = linear_apply(h2, aw.k, fused=_fz(st)).reshape(b, t, hkv, hd)
+        v = linear_apply(h2, aw.v, fused=_fz(st)).reshape(b, t, hkv, hd)
     style = _rope_style(st)
     q = apply_rope(q.to(torch.bfloat16), sin, cos, style)
     k = apply_rope(k.to(torch.bfloat16), sin, cos, style)
@@ -146,12 +154,18 @@ def mlp_forward(x: torch.Tensor, mw: MLPWeights, st: StaticModel) -> torch.Tenso
     """Gated/ungated MLP -> [B, T, d] f32."""
     b, t, d = x.shape
     hidden = norm_apply(x, mw.norm, st).reshape(b * t, d)
-    up = linear_apply(hidden, mw.up, fused=_fz(st))
-    if st.mlp_gated and mw.gate is not None:
-        gate = linear_apply(hidden, mw.gate, fused=_fz(st))
-        inter = _act(gate, st.mlp_act) * up
+    if mw.gate_up is not None and st.mlp_gated and mw.gate is not None:
+        # merged fast path: gate|up in one weight stream
+        y = linear_apply(hidden, mw.gate_up, fused=_fz(st))
+        half = mw.gate_up.n // 2
+        inter = _act(y[:, :half], st.mlp_act) * y[:, half:]
     else:
-        inter = _act(up, st.mlp_act)
+        up = linear_apply(hidden, mw.up, fused=_fz(st))
+        if st.mlp_gated and mw.gate is not None:
+            gate = linear_apply(hidden, mw.gate, fused=_fz(st))
+            inter = _act(gate, st.mlp_act) * up
+        else:
+            inter = _act(up, st.mlp_act)
     out = linear_apply(inter.to(torch.bfloat16), mw.down, fused=_fz(st))
     return out.reshape(b, t, -1)
 

@@ -29,24 +29,29 @@ class NormWeights(nn.Module):
 class AttnWeights(nn.Module):
     """One attention block. q/k/v/o are QuantLinear or DenseLinear;
     q_norm/k_norm are per-head-dim norms, norm_post the post-attention norm
-    (architectures not served by this package yet leave them None)."""
+    (architectures not served by this package yet leave them None). qkv is
+    the optional merged q|k|v linear (ops/dequant.merge_serving_weights),
+    which the forward prefers when it is there."""
 
     def __init__(self, norm, q, k, v, o, q_norm=None, k_norm=None,
-                 norm_post=None):
+                 norm_post=None, qkv=None):
         super().__init__()
         self.norm = norm
         self.q, self.k, self.v, self.o = q, k, v, o
         self.q_norm, self.k_norm, self.norm_post = q_norm, k_norm, norm_post
+        self.qkv = qkv
 
 
 class MLPWeights(nn.Module):
-    """Gated or ungated MLP; gate is None when ungated."""
+    """Gated or ungated MLP; gate is None when ungated. gate_up is the
+    optional merged gate|up linear (ops/dequant.merge_serving_weights)."""
 
-    def __init__(self, norm, gate, up, down, norm_post=None):
+    def __init__(self, norm, gate, up, down, norm_post=None, gate_up=None):
         super().__init__()
         self.norm = norm
         self.gate, self.up, self.down = gate, up, down
         self.norm_post = norm_post
+        self.gate_up = gate_up
 
 
 class LayerWeights(nn.Module):

@@ -5,23 +5,32 @@ Counterpart of exllamav2_tpu/ops/qmm.py. Two paths:
   * decode (<= FUSED_MAX_ROWS rows): the fused dequant-matmul kernel
     (csrc/qmm.cu) reads the plane-packed words once, unpacks and scales them
     in registers and accumulates the product in f32 -- the bandwidth-bound
-    path that sets decode tokens/s;
-  * prefill (more rows): dequantize to bf16, then one matrix product.
+    path that sets decode tokens/s. Two more kernels serve segments that ask
+    for them: W4A8 segments (``act8``, ops/dequant.enable_w4a8) go through
+    csrc/qmm_w4a8.cu, which multiplies int8 activations with the packed
+    values as int8 and applies scales and zeros to the integer group
+    partials (approximate); GPTQ segments with groups of >= 128 rows go
+    through csrc/qmm_partials.cu when QMM_PARTIALS=1 is set, the exact
+    scales-on-partials form y = sum_g s_g (x_g @ v_g - z_g sum(x_g));
+  * prefill (more rows): dequantize to bf16, then one matrix product
+    (exact; ``act8`` is ignored there).
 
 Mixed-bit-width EXL2 matrices are a sum of per-segment matmuls over disjoint
 K-row ranges. Act-order is an activation column gather (x[:, perm]).
 
 Operand precision: the fused path rounds activations and weights to bf16 and
-accumulates in f32 on every device. The prefill path and dense linears round
-their operands to bf16 on the card (the product then runs on bf16-valued
-operands with an f32 result); on the CPU they keep f32 operands, as the
-reference does off its accelerator.
+accumulates in f32 on every device (W4A8 segments take f32 activations, so no
+bf16 rounding lies under the int8 one). The prefill path and dense linears
+round their operands to bf16 on the card (the product then runs on
+bf16-valued operands with an f32 result); on the CPU they keep f32
+operands, as the reference does off its accelerator.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -30,24 +39,39 @@ from exllamav2_tpu_torch.quant.qtensor import (
 from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["qmm", "linear_apply", "FUSED_MAX_ROWS", "fused_segment_matmul",
-           "qmm_plain", "LAUNCHES"]
+           "qmm_plain", "w4a8_segment_matmul", "qmm_w4a8_plain",
+           "partials_segment_matmul", "qmm_partials_plain", "LAUNCHES"]
 
 # Below this many activation rows the fused kernel serves the linear.
 FUSED_MAX_ROWS = 32
 
-# launches of the fused kernel (csrc/qmm.cu), counted by its wrapper
-LAUNCHES = {"qmm": 0}
+# launches of each kernel, counted by its wrapper: csrc/qmm.cu,
+# csrc/qmm_w4a8.cu, csrc/qmm_partials.cu
+LAUNCHES = {"qmm": 0, "qmm_w4a8": 0, "qmm_partials": 0}
 
-_COLS = 128                 # columns per thread block (csrc/qmm.cu COLS)
+# The W4A8 integer group dots are exact in f32 (the plain version's type)
+# while 127 * 255 * group_rows < 2^24.
+W4A8_MAX_GROUP_ROWS = 512
+
+_COLS = 128                 # columns per thread block (COLS in the sources)
 _BLOCKS_PER_SM = 8          # split K until the grid holds this many per SM
-_META = {"scale_f": 0, "qscale": 1, "gptq": 2}
+_META = {"scale_f": 0, "qscale": 1, "gptq": 2, "src_cols": 3}
+_META_W4A8 = {"scale_f": 0, "gptq": 1, "gptq_bf": 2}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # x, m, k_pad, plane0, plane1, bp0, bp1, n, bits, group_rows, meta kind,
-# meta0, meta1, partials, out, splits, sub-blocks per split, stream
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-             + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p])
+# meta0, meta1, sources, start column of source 1 and 2, partials, out,
+# splits, sub-blocks per split, stream
+_ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+             _I, _I, _I, _P, _P, _I, _I, _P]
+# x f32, m, k_pad, xq, a, x1a, plane0, plane1, bp0, bp1, n, bits,
+# group_rows, meta kind, meta0, meta1, partials, out, splits, sub-blocks
+# per split, stream
+_ARGTYPES_W4A8 = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _P, _P, _P, _P, _I, _I, _P]
+# x bf16, m, k_pad, xsum, plane0, plane1, bp0, bp1, n, group_rows, scale,
+# zero, partials, out, splits, sub-blocks per split, stream
+_ARGTYPES_PARTIALS = [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                      _P, _I, _I, _P]
 
 
 def dot_dtype(t: torch.Tensor) -> torch.dtype:
@@ -71,7 +95,9 @@ def qmm_plain(x: torch.Tensor, seg) -> torch.Tensor:
 def _meta_kind(seg) -> str:
     if isinstance(seg, GptqSegment):
         return "gptq"
-    return "qscale" if seg.scale_f is None else "scale_f"
+    if seg.scale_f is not None:
+        return "scale_f"
+    return "src_cols" if seg.src_cols else "qscale"
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,17 +107,21 @@ def _target_blocks(device: torch.device) -> int:
     return _BLOCKS_PER_SM * sms
 
 
-def _split_k(n: int, nsb: int, target: int) -> tuple[int, int]:
-    """(splits, sub-blocks per split): about `target` blocks in the grid."""
+def _split_k(n: int, nsb: int, target: int, unit: int = 1
+             ) -> tuple[int, int]:
+    """(splits, sub-blocks per split): about `target` blocks in the grid.
+    A split holds a multiple of `unit` sub-blocks (a whole number of
+    groups, where a group spans several sub-blocks)."""
     nblk = -(-n // _COLS)
     want = max(1, min(nsb, -(-target // nblk)))
-    per = -(-nsb // want)
+    per = -(-(-(-nsb // want)) // unit) * unit
     return -(-nsb // per), per
 
 
-def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
-    """Launch csrc/qmm.cu on one segment (CUDA tensors only)."""
-    from exllamav2_tpu_torch import _build
+def _check_launch(x: torch.Tensor, seg, x_dtype, buffers) -> tuple:
+    """The checks the three kernels share; returns (m, k_pad, n, plane
+    widths). `buffers` pairs each segment buffer with the type the kernel
+    reads it as."""
     bp = seg.plane_bits
     if bp[0] not in (2, 4, 8) or len(bp) > 2:
         raise NotImplementedError(f"plane widths {bp} not supported")
@@ -100,10 +130,35 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     m, k_pad = x.shape
     if m > FUSED_MAX_ROWS or k_pad != seg.rows_pad:
         raise ValueError(f"x {tuple(x.shape)} vs rows_pad {seg.rows_pad}")
-    if x.dtype != torch.bfloat16 or not x.is_contiguous():
-        raise ValueError("x must be contiguous bf16")
+    if x.dtype != x_dtype or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous {x_dtype}")
+    for t, dt in buffers:
+        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"segment buffer {t.dtype} {t.device} "
+                             f"contiguous={t.is_contiguous()} (want {dt})")
+    return m, k_pad, seg.planes[0].shape[1], bp
+
+
+def _out_and_partials(x, m, n, k_pad, unit=1):
+    """Output, split-K scratch and the split the grid takes."""
+    splits, per = _split_k(n, k_pad // SUB_BLOCK, _target_blocks(x.device),
+                           unit)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    part = out if splits == 1 else torch.empty(
+        (splits, m, n), dtype=torch.float32, device=x.device)
+    return out, part, splits, per
+
+
+def _plane_args(seg, bp):
     planes = seg.planes
-    n = planes[0].shape[1]
+    return (planes[0].data_ptr(),
+            planes[1].data_ptr() if len(planes) > 1 else None,
+            bp[0], bp[1] if len(bp) > 1 else 0)
+
+
+def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+    """Launch csrc/qmm.cu on one segment (CUDA tensors only)."""
+    from exllamav2_tpu_torch import _build
     kind = _meta_kind(seg)
     if kind == "gptq":
         meta = (seg.scale, seg.zero)
@@ -114,22 +169,22 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     else:
         meta = (seg.qscale, seg.smax)
         dts = (torch.uint8, torch.float32)
-    for t, dt in zip((*planes, *meta), (torch.int32,) * len(planes) + dts):
-        if t.device != x.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"segment buffer {t.dtype} {t.device} "
-                             f"contiguous={t.is_contiguous()} (want {dt})")
-    nsb = k_pad // SUB_BLOCK
-    splits, per = _split_k(n, nsb, _target_blocks(x.device))
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    part = out if splits == 1 else torch.empty(
-        (splits, m, n), dtype=torch.float32, device=x.device)
+    m, k_pad, n, bp = _check_launch(
+        x, seg, torch.bfloat16,
+        [*((p, torch.int32) for p in seg.planes), *zip(meta, dts)])
+    src = (0, 0, 0)
+    if kind == "src_cols":
+        # one smax column per merged source; the kernel picks a column's
+        # source from the start columns
+        nsrc = len(seg.src_cols)
+        if nsrc not in (2, 3) or seg.smax.shape[1] != nsrc:
+            raise NotImplementedError(f"{nsrc} merged sources")
+        src = (nsrc, seg.src_cols[1], seg.src_cols[2] if nsrc > 2 else n)
+    out, part, splits, per = _out_and_partials(x, m, n, k_pad)
     fn = _build.function("qmm", "qmm_segment", _ARGTYPES)
-    rc = fn(x.data_ptr(), m, k_pad,
-            planes[0].data_ptr(),
-            planes[1].data_ptr() if len(planes) > 1 else None,
-            bp[0], bp[1] if len(bp) > 1 else 0,
+    rc = fn(x.data_ptr(), m, k_pad, *_plane_args(seg, bp),
             n, seg.bits, seg.group_rows, _META[kind],
-            meta[0].data_ptr(), meta[1].data_ptr(),
+            meta[0].data_ptr(), meta[1].data_ptr(), *src,
             part.data_ptr(), out.data_ptr(), splits, per,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("qmm", rc, "qmm_segment")
@@ -137,10 +192,188 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# W4A8: int8 activations, integer group partials
+# ---------------------------------------------------------------------------
+
+def _w4a8_meta(seg) -> tuple[str, torch.Tensor, torch.Tensor]:
+    """(meta kind, scale buffer, zero buffer) as the reference chooses."""
+    if isinstance(seg, GptqSegment):
+        if seg.zs_bf is not None:
+            return "gptq_bf", seg.scale_bf, seg.zs_bf
+        return "gptq", seg.scale, seg.zero
+    if seg.scale_f is None:
+        raise ValueError("W4A8 EXL2 segments need prescaled scale_f rows "
+                         "(ops/dequant.enable_w4a8_linear makes them)")
+    return "scale_f", seg.scale_f, seg.scale_f
+
+
+def _w4a8_check_groups(seg) -> None:
+    gr = seg.group_rows
+    if gr > W4A8_MAX_GROUP_ROWS or seg.rows_pad % gr or (
+            SUB_BLOCK % gr and gr % SUB_BLOCK):
+        raise NotImplementedError(
+            f"W4A8 group size {gr} over {seg.rows_pad} rows: want a divisor "
+            f"or multiple of {SUB_BLOCK}, at most {W4A8_MAX_GROUP_ROWS}")
+
+
+def w4a8_quantize_plain(x: torch.Tensor, group_rows: int):
+    """Per-token per-group absmax int8 quantization of x f32 [m, K] ->
+    (xq f32 [m, G, group_rows] of integers in [-127, 127], a f32 [m, G] the
+    group scales amax / 127, x1a f32 [m, G] = sum(xq) * a)."""
+    m, k = x.shape
+    xf = x.float().reshape(m, k // group_rows, group_rows)
+    amax = xf.abs().amax(dim=2)
+    a = amax * torch.tensor(1.0 / 127.0, dtype=torch.float32)
+    aq = torch.where(amax > 0, a, torch.ones_like(a))
+    xq = torch.clamp(torch.round(xf / aq[:, :, None]), -127, 127)
+    return xq, a, xq.sum(dim=2) * a
+
+
+def qmm_w4a8_plain(x: torch.Tensor, seg) -> torch.Tensor:
+    """Plain version of the W4A8 kernel: x f32 [m, rows_pad] -> f32 [m, N].
+
+    Per group g the integer dot p = xq_g . (v_g - off) (off = 128 for 8-bit
+    planes, else 0) is taken in f32, exact up to W4A8_MAX_GROUP_ROWS rows a
+    group; then, with a the activation scale and x1a = sum(xq_g) * a:
+    compressed GPTQ meta sums p*a*s - x1a*zs, plain GPTQ meta
+    (p*a - x1a*(z - off)) * s, EXL2 (p*a - x1a*(2^(bits-1) - off)) * s."""
+    _w4a8_check_groups(seg)
+    kind, s_buf, z_buf = _w4a8_meta(seg)
+    gr = seg.group_rows
+    xq, a, x1a = w4a8_quantize_plain(x, gr)
+    off = 128 if seg.bits == 8 else 0
+    vals = D.unpack_planes(seg.planes, seg.plane_bits) - off
+    g = seg.rows_pad // gr
+    n = vals.shape[1]
+    p = torch.bmm(xq.transpose(0, 1), vals.float().reshape(g, gr, n))
+    pa = p * a.t()[:, :, None]                              # [G, m, N]
+    x1a = x1a.t()[:, :, None]                               # [G, m, 1]
+    s = s_buf.float()[:, None, :]                           # [G, 1, N]
+    if kind == "gptq_bf":
+        return (pa * s - x1a * z_buf.float()[:, None, :]).sum(dim=0)
+    if kind == "gptq":
+        z = z_buf.float()[:, None, :] - float(off)
+    else:
+        z = float(2 ** (seg.bits - 1) - off)
+    return ((pa - x1a * z) * s).sum(dim=0)
+
+
+def _kernel_w4a8_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+    """Launch csrc/qmm_w4a8.cu on one segment (CUDA tensors only): the
+    quantization pass, then the integer partials kernel."""
+    from exllamav2_tpu_torch import _build
+    _w4a8_check_groups(seg)
+    kind, s_buf, z_buf = _w4a8_meta(seg)
+    dts = {"scale_f": (torch.bfloat16,) * 2,
+           "gptq_bf": (torch.bfloat16,) * 2,
+           "gptq": (torch.float32, torch.int32)}[kind]
+    m, k_pad, n, bp = _check_launch(
+        x, seg, torch.float32,
+        [*((p, torch.int32) for p in seg.planes), (s_buf, dts[0]),
+         (z_buf, dts[1])])
+    gr = seg.group_rows
+    groups = k_pad // gr
+    xq = torch.empty((m, k_pad), dtype=torch.int8, device=x.device)
+    a = torch.empty((m, groups), dtype=torch.float32, device=x.device)
+    x1a = torch.empty_like(a)
+    out, part, splits, per = _out_and_partials(
+        x, m, n, k_pad, unit=max(1, gr // SUB_BLOCK))
+    fn = _build.function("qmm_w4a8", "qmm_w4a8_segment", _ARGTYPES_W4A8)
+    rc = fn(x.data_ptr(), m, k_pad, xq.data_ptr(), a.data_ptr(),
+            x1a.data_ptr(), *_plane_args(seg, bp), n, seg.bits, gr,
+            _META_W4A8[kind], s_buf.data_ptr(), z_buf.data_ptr(),
+            part.data_ptr(), out.data_ptr(), splits, per,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("qmm_w4a8", rc, "qmm_w4a8_segment")
+    LAUNCHES["qmm_w4a8"] += 1
+    return out
+
+
+def w4a8_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+    """x [m <= 32, rows_pad] f32 (zero-padded K) -> f32 [m, N] through the
+    W4A8 arithmetic. Launches the CUDA kernel on a card tensor; on a CPU
+    tensor runs the plain version."""
+    if x.is_cuda:
+        return _kernel_w4a8_matmul(x, seg)
+    return qmm_w4a8_plain(x, seg)
+
+
+# ---------------------------------------------------------------------------
+# GPTQ scales-on-partials (exact)
+# ---------------------------------------------------------------------------
+
+def _use_partials(seg) -> bool:
+    """The scales-on-partials kernel serves GPTQ segments with groups of
+    >= 128 rows when the environment says QMM_PARTIALS=1."""
+    return (isinstance(seg, GptqSegment) and seg.group_rows >= 128
+            and seg.rows_pad % seg.group_rows == 0
+            and os.environ.get("QMM_PARTIALS") == "1")
+
+
+def qmm_partials_plain(x: torch.Tensor, seg) -> torch.Tensor:
+    """Plain version of the scales-on-partials kernel: x bf16
+    [m, rows_pad] -> f32 [m, N], y = sum_g s_g * (x_g @ v_g - z_g *
+    sum(x_g)) with f32 products of the bf16 activations and the packed
+    integer values (each product exact; the sums are f32)."""
+    gr = seg.group_rows
+    g = seg.rows_pad // gr
+    m = x.shape[0]
+    vals = D.unpack_planes(seg.planes, seg.plane_bits)
+    n = vals.shape[1]
+    xg = x.float().reshape(m, g, gr).transpose(0, 1)        # [G, m, gr]
+    pg = torch.bmm(xg, vals.float().reshape(g, gr, n))      # [G, m, N]
+    xs = xg.sum(dim=2, keepdim=True)                        # [G, m, 1]
+    z = seg.zero.float()[:, None, :]
+    return ((pg - xs * z) * seg.scale[:, None, :]).sum(dim=0)
+
+
+def _kernel_partials_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+    """Launch csrc/qmm_partials.cu on one segment (CUDA tensors only): the
+    group sums of x, then the partials kernel."""
+    from exllamav2_tpu_torch import _build
+    gr = seg.group_rows
+    if SUB_BLOCK % gr and gr % SUB_BLOCK:
+        raise NotImplementedError(
+            f"group size {gr}: want a divisor or multiple of {SUB_BLOCK}")
+    m, k_pad, n, bp = _check_launch(
+        x, seg, torch.bfloat16,
+        [*((p, torch.int32) for p in seg.planes),
+         (seg.scale, torch.float32), (seg.zero, torch.int32)])
+    xsum = torch.empty((m, k_pad // gr), dtype=torch.float32,
+                       device=x.device)
+    out, part, splits, per = _out_and_partials(
+        x, m, n, k_pad, unit=max(1, gr // SUB_BLOCK))
+    fn = _build.function("qmm_partials", "qmm_partials_segment",
+                         _ARGTYPES_PARTIALS)
+    rc = fn(x.data_ptr(), m, k_pad, xsum.data_ptr(), *_plane_args(seg, bp),
+            n, gr, seg.scale.data_ptr(), seg.zero.data_ptr(),
+            part.data_ptr(), out.data_ptr(), splits, per,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("qmm_partials", rc, "qmm_partials_segment")
+    LAUNCHES["qmm_partials"] += 1
+    return out
+
+
+def partials_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+    """x [m <= 32, rows_pad] bf16 @ dequant(GPTQ seg) -> f32 [m, N] in the
+    scales-on-partials form. Launches the CUDA kernel on a card tensor; on
+    a CPU tensor runs the plain version."""
+    if x.is_cuda:
+        return _kernel_partials_matmul(x, seg)
+    return qmm_partials_plain(x, seg)
+
+
 def fused_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
-    """x [m <= 32, rows_pad] bf16 (zero-padded K) @ dequant(seg) -> f32
-    [m, N]. Launches the CUDA kernel on a card tensor; on a CPU tensor runs
-    the plain version."""
+    """x [m <= 32, rows_pad] (zero-padded K; f32 for a W4A8 segment, else
+    bf16) @ dequant(seg) -> f32 [m, N]. Dispatch as the reference's: W4A8
+    segments, then GPTQ scales-on-partials where asked for, else the fused
+    dequant-matmul. Each launches its CUDA kernel on a card tensor; on a
+    CPU tensor it runs the plain version."""
+    if seg.act8:
+        return w4a8_segment_matmul(x, seg)
+    if _use_partials(seg):
+        return partials_segment_matmul(x, seg)
     if x.is_cuda:
         return _kernel_segment_matmul(x, seg)
     return qmm_plain(x, seg)
@@ -162,10 +395,16 @@ def qmm(x: torch.Tensor, lin: QuantLinear, *,
         fused = m <= FUSED_MAX_ROWS
     y = None
     row = 0
+    if fused:
+        # W4A8 segments quantize their activations to int8 themselves:
+        # they are fed f32, so no bf16 rounding lies under the int8 one
+        any_act8 = any(seg.act8 for seg in lin.segments)
+        x2 = x2.to(torch.float32 if any_act8 else torch.bfloat16)
     for seg in lin.segments:
         xs = x2[:, row:row + seg.rows]
         if fused:
-            xs = xs.to(torch.bfloat16)
+            if not seg.act8:
+                xs = xs.to(torch.bfloat16)
             if seg.rows < seg.rows_pad:
                 xs = torch.nn.functional.pad(
                     xs, (0, seg.rows_pad - seg.rows))

@@ -10,7 +10,10 @@ word for word, so both packages hold identical bits:
     r lives in word (r mod Qsb) at bit slot (r div Qsb), Qsb = 256*bp/32;
   * EXL2 per-group scales are uint8 qs in [1,16] plus per-group f32
     q_scale_max/256 (fp16-rounded), or load-time-decoded bf16 rows
-    (``scale_f``); GPTQ keeps explicit f32 scales / int32 zeros;
+    (``scale_f``); GPTQ keeps explicit f32 scales / int32 zeros, and for the
+    W4A8 path also their bf16 forms (``scale_bf``, ``zs_bf``);
+  * a column-merged segment (q|k|v, gate|up) keeps one smax column per source
+    (``src_cols``);
   * act-order is an activation gather through ``perm`` (x[:, perm]).
 
 Plane words are stored as **int32** with the bits of the uint32 words (PyTorch
@@ -90,12 +93,19 @@ class QuantSegment(nn.Module):
     Buffers: ``plane{i}`` int32 [rows_pad*bp/32, N] per plane, ``qscale``
     uint8 [groups_pad, N] (qs in [1, 16]), ``smax`` f32 [groups_pad, 1]
     (q_scale_max/256) and the optional prescaled ``scale_f`` bf16
-    [groups_pad, N]. Column-merged and W4A8 segments of the reference are
-    not ported yet.
+    [groups_pad, N].
+
+    ``src_cols`` marks a column-merged segment (ops/dequant.merge_linears):
+    the start column of each source matrix; ``smax`` is then
+    [groups_pad, n_sources] and a column decodes its scale with its own
+    source's smax, so the merge is bitwise exact. ``act8`` routes the fused
+    decode path through the W4A8 kernel (ops/dequant.enable_w4a8): int8
+    activations, approximate; it needs ``scale_f``.
     """
 
     def __init__(self, planes, qscale, smax, bits: int, plane_bits,
-                 rows: int, group_rows: int, scale_f=None):
+                 rows: int, group_rows: int, scale_f=None,
+                 src_cols: tuple = (), act8: bool = False):
         super().__init__()
         for i, p in enumerate(planes):
             self.register_buffer(f"plane{i}", p)
@@ -106,6 +116,8 @@ class QuantSegment(nn.Module):
         self.plane_bits = tuple(int(b) for b in plane_bits)
         self.rows = int(rows)
         self.group_rows = int(group_rows)
+        self.src_cols = tuple(int(c) for c in src_cols)
+        self.act8 = bool(act8)
 
     @property
     def planes(self) -> tuple[torch.Tensor, ...]:
@@ -116,10 +128,11 @@ class QuantSegment(nn.Module):
     def rows_pad(self) -> int:
         return self.plane0.shape[0] * 32 // self.plane_bits[0]
 
-    def replace(self, planes=None, **cols):
-        """Copy with some buffers swapped (slice_columns / prescaling)."""
-        kw = dict(qscale=self.qscale, smax=self.smax, scale_f=self.scale_f)
-        kw.update(cols)
+    def replace(self, planes=None, **fields):
+        """Copy with some buffers or flags swapped; the rest is shared."""
+        kw = dict(qscale=self.qscale, smax=self.smax, scale_f=self.scale_f,
+                  src_cols=self.src_cols, act8=self.act8)
+        kw.update(fields)
         return QuantSegment(planes if planes is not None else self.planes,
                             bits=self.bits, plane_bits=self.plane_bits,
                             rows=self.rows, group_rows=self.group_rows, **kw)
@@ -127,26 +140,36 @@ class QuantSegment(nn.Module):
 
 class GptqSegment(nn.Module):
     """GPTQ layout: explicit per-group f32 ``scale`` and int32 ``zero``
-    [groups_pad, N] (+1 already applied) beside the plane buffers."""
+    [groups_pad, N] (+1 already applied) beside the plane buffers.
+
+    ``act8`` as in QuantSegment. ``scale_bf`` / ``zs_bf`` (bf16
+    [groups_pad, N], None by default) are the W4A8 kernel's compressed meta:
+    the scale and the product (zero - off) * scale, off = 128 for 8-bit
+    planes (ops/dequant.enable_w4a8_linear)."""
 
     def __init__(self, planes, scale, zero, bits: int, plane_bits,
-                 rows: int, group_rows: int):
+                 rows: int, group_rows: int, act8: bool = False,
+                 scale_bf=None, zs_bf=None):
         super().__init__()
         for i, p in enumerate(planes):
             self.register_buffer(f"plane{i}", p)
         self.register_buffer("scale", scale)
         self.register_buffer("zero", zero)
+        self.register_buffer("scale_bf", scale_bf)
+        self.register_buffer("zs_bf", zs_bf)
         self.bits = int(bits)
         self.plane_bits = tuple(int(b) for b in plane_bits)
         self.rows = int(rows)
         self.group_rows = int(group_rows)
+        self.act8 = bool(act8)
 
     planes = QuantSegment.planes
     rows_pad = QuantSegment.rows_pad
 
-    def replace(self, planes=None, **cols):
-        kw = dict(scale=self.scale, zero=self.zero)
-        kw.update(cols)
+    def replace(self, planes=None, **fields):
+        kw = dict(scale=self.scale, zero=self.zero, act8=self.act8,
+                  scale_bf=self.scale_bf, zs_bf=self.zs_bf)
+        kw.update(fields)
         return GptqSegment(planes if planes is not None else self.planes,
                            bits=self.bits, plane_bits=self.plane_bits,
                            rows=self.rows, group_rows=self.group_rows, **kw)
@@ -272,8 +295,14 @@ def _seg_columns(seg, take):
     """Apply a column selector to every [*, N] buffer of a segment."""
     planes = tuple(take(p) for p in seg.planes)
     if isinstance(seg, GptqSegment):
-        return seg.replace(planes, scale=take(seg.scale),
-                           zero=take(seg.zero))
+        return seg.replace(
+            planes, scale=take(seg.scale), zero=take(seg.zero),
+            scale_bf=None if seg.scale_bf is None else take(seg.scale_bf),
+            zs_bf=None if seg.zs_bf is None else take(seg.zs_bf))
+    if seg.src_cols:
+        # smax is per source there, not per column: take the columns of the
+        # source linears and merge those
+        raise ValueError("cannot take columns of a column-merged segment")
     return seg.replace(planes, qscale=take(seg.qscale),
                        scale_f=None if seg.scale_f is None
                        else take(seg.scale_f))

@@ -75,17 +75,22 @@ def random_gptq_linear(gen: torch.Generator, k: int, n: int, bits: int = 4,
 
 def random_model_weights(*, vocab=32000, hidden=4096, layers=32, heads=32,
                          kv_heads=32, inter=11008, max_seq=2048, bits=4,
-                         seed=0, device=None
+                         seed=0, fmt="exl2", device=None
                          ) -> tuple[ModelWeights, StaticModel]:
-    """In-memory random EXL2 model (ModelWeights, StaticModel) of real
-    geometry, built on `device` (the card by default). The defaults are
-    Llama-2-7B's geometry."""
+    """In-memory random model (ModelWeights, StaticModel) of real geometry,
+    built on `device` (the card by default): EXL2 linears with 32-row
+    groups, or with fmt="gptq" GPTQ linears with 128-row groups. The
+    defaults are Llama-2-7B's geometry."""
+    if fmt not in ("exl2", "gptq"):
+        raise ValueError(f"fmt {fmt!r}: want 'exl2' or 'gptq'")
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     head_dim = hidden // heads
 
     def lin(k, n):
+        if fmt == "gptq":
+            return random_gptq_linear(gen, k, n, bits=bits, device=device)
         return random_quant_linear(gen, k, n, bits=bits, device=device)
 
     def norm():

@@ -320,11 +320,26 @@ def test_unported_job_arguments_raise(arg):
 
 
 @pytest.mark.parametrize("arg", [
-    "draft_model", "draft_cache", "use_ngram_draft", "mesh",
-    "merged_weights", "w4a8"])
+    "draft_model", "draft_cache", "use_ngram_draft", "mesh"])
 def test_unported_generator_arguments_raise(model, arg):
     with pytest.raises(NotImplementedError, match=arg):
         _gen(model, **{arg: True})
+
+
+@pytest.mark.parametrize("arg", ["merged_weights", "w4a8"])
+def test_ported_generator_arguments_work(model, arg):
+    """merged_weights= and w4a8= serve from new weight modules and leave
+    the model they were given alone."""
+    gen = _gen(model, **{arg: True})
+    lw = gen.model.weights.layers[0]
+    if arg == "merged_weights":
+        assert lw.attn.qkv is not None and lw.mlp.gate_up is not None
+    else:
+        assert all(s.act8 for s in lw.attn.q.segments)
+    assert model.weights.layers[0].attn.qkv is None
+    assert not any(s.act8 for s in model.weights.layers[0].attn.q.segments)
+    out = gen.generate("hello", max_new_tokens=6, settings=Settings.greedy())
+    assert isinstance(out, str) and gen.num_remaining_jobs() == 0
 
 
 def test_unported_generator_methods_raise(model):

@@ -10,7 +10,9 @@ import torch
 
 from exllamav2_tpu_torch.ops import decode_attn as A
 from exllamav2_tpu_torch.ops import qmm as Q
-from exllamav2_tpu_torch.ops.dequant import precompute_scales_linear
+from exllamav2_tpu_torch.ops.dequant import (
+    enable_w4a8_linear, merge_linears, precompute_scales_linear)
+from exllamav2_tpu_torch.quant.qtensor import QuantLinear
 from exllamav2_tpu_torch.utils.testing import (
     random_gptq_linear, random_quant_linear)
 
@@ -46,6 +48,82 @@ def test_qmm_kernel_matches_plain(dev, kind, m):
     assert Q.LAUNCHES["qmm"] == before + 1
     ref = Q.qmm_plain(x, seg)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("nsrc", [2, 3])
+def test_qmm_kernel_merged_meta_matches_plain(dev, nsrc, m):
+    """The src_cols meta kind: unprescaled EXL2 sources merged by columns,
+    with a 128-column block straddling two sources (widths 192 and 320)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(nsrc * 10 + m)
+    widths = (192, 320, 128)[:nsrc]
+    lin = merge_linears([random_quant_linear(gen, 512, w, bits=4, device=dev)
+                         for w in widths])
+    seg = lin.segments[0]
+    assert seg.src_cols and seg.scale_f is None
+    x = torch.randn((m, 512), generator=gen, device=dev).to(torch.bfloat16)
+    before = Q.LAUNCHES["qmm"]
+    got = Q.fused_segment_matmul(x, seg)
+    assert Q.LAUNCHES["qmm"] == before + 1
+    ref = Q.qmm_plain(x, seg)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 32])
+@pytest.mark.parametrize("kind", [
+    "exl2_2", "exl2_3", "exl2_4", "exl2_5", "exl2_6", "exl2_8",
+    "gptq_4_gs64_bf16meta", "gptq_4_gs128_f32meta", "gptq_4_gs512_bf16meta",
+    "gptq_8_gs128_bf16meta"])
+def test_w4a8_kernel_matches_plain(dev, kind, m):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m)
+    k, n = 1024, 384
+    parts = kind.split("_")
+    bits = int(parts[1])
+    if parts[0] == "gptq":
+        lin = random_gptq_linear(gen, k, n, bits=bits,
+                                 group_rows=int(parts[2][2:]), device=dev)
+        if parts[3] == "f32meta":
+            lin = QuantLinear([s.replace(act8=True) for s in lin.segments],
+                              None, None, k, n, n)
+        else:
+            lin = enable_w4a8_linear(lin)
+    else:
+        lin = enable_w4a8_linear(
+            random_quant_linear(gen, k, n, bits=bits, device=dev))
+    seg = lin.segments[0]
+    assert seg.act8
+    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev)
+    before = dict(Q.LAUNCHES)
+    got = Q.fused_segment_matmul(x, seg)
+    assert Q.LAUNCHES == dict(before, qmm_w4a8=before["qmm_w4a8"] + 1)
+    ref = Q.qmm_w4a8_plain(x, seg)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 32])
+@pytest.mark.parametrize("bits,gs", [(4, 128), (4, 256), (4, 512), (3, 128),
+                                     (8, 128), (2, 128)])
+def test_partials_kernel_matches_plain(dev, bits, gs, m, monkeypatch):
+    monkeypatch.setenv("QMM_PARTIALS", "1")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m + gs)
+    lin = random_gptq_linear(gen, 1024, 384, bits=bits, group_rows=gs,
+                             device=dev)
+    seg = lin.segments[0]
+    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev).to(
+        torch.bfloat16)
+    before = dict(Q.LAUNCHES)
+    got = Q.fused_segment_matmul(x, seg)          # dispatch by QMM_PARTIALS
+    assert Q.LAUNCHES == dict(before,
+                              qmm_partials=before["qmm_partials"] + 1)
+    ref = Q.qmm_partials_plain(x, seg)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    # the exact form agrees with the fused kernel to its bf16 weight rounding
+    fused = Q.qmm_plain(x, seg)
+    assert (got - fused).abs().max() <= 5e-3 * fused.abs().max()
 
 
 @pytest.mark.parametrize("hq,hkv,d,past,cap,win", [

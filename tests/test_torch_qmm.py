@@ -102,6 +102,46 @@ def test_dense_linear_matches_reference():
            M.linear_apply(jnp.asarray(x), ql))
 
 
+@pytest.mark.parametrize("m", [1, 2, 17])
+def test_qmm_gptq_partials_gs128(monkeypatch, m):
+    """QMM_PARTIALS=1 sends GPTQ segments with groups of >= 128 rows through
+    the scales-on-partials form in both packages: the same f32 products in
+    another sum order (1e-4 of max |ref|). Against the fused kernel's plain
+    version, which rounds every dequantized weight to bf16, it differs by
+    that rounding: measured 1.4e-3 of max |y|, held at 5e-3."""
+    rng = np.random.default_rng(5)
+    k, n, gs = 512, 256, 128
+    g = k // gs
+    qv = rng.integers(0, 16, size=(k, n)).astype(np.uint16)
+    zeros = rng.integers(0, 16, size=(g, n)).astype(np.uint16)
+    scales = rng.random((g, n)).astype(np.float32) * 0.02 + 0.001
+    ql = Q.from_gptq(F.gptq_pack(qv, zeros, scales, bits=4))
+    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql),
+                               "cpu")
+    x = rng.standard_normal((m, k)).astype(np.float32) * 0.1
+    xt = torch.from_numpy(x)
+    assert not TM._use_partials(tl.segments[0])
+    fused = TM.qmm(xt, tl, fused=True)
+    monkeypatch.setenv("QMM_PARTIALS", "1")
+    assert M._use_partials(ql.segments[0])
+    assert TM._use_partials(tl.segments[0])
+    before = dict(TM.LAUNCHES)
+    got = TM.qmm(xt, tl, fused=True)
+    assert TM.LAUNCHES == before                  # plain version on the CPU
+    _close(got, M.qmm(jnp.asarray(x), ql, fused=True))
+    assert torch.equal(got, TM.qmm_partials_plain(
+        xt.to(torch.bfloat16), tl.segments[0]))
+    err = (got - fused).abs().max() / fused.abs().max()
+    assert 0 < err < 5e-3
+    # groups under 128 rows and EXL2 segments keep the fused kernel
+    small = linear_from_reference(jax.tree_util.tree_map(
+        np.asarray, _gptq(rng, 512, 128, gs=64)), "cpu")
+    assert not TM._use_partials(small.segments[0])
+    exl2 = linear_from_reference(jax.tree_util.tree_map(
+        np.asarray, CASES["act_order"](rng)), "cpu")
+    assert not TM._use_partials(exl2.segments[0])
+
+
 def test_fused_segment_matmul_cpu_is_plain():
     """On a CPU tensor the kernel wrapper runs the plain version and does
     not count a launch."""
