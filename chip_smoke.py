@@ -51,12 +51,32 @@ Phases (any failure raises and the script exits non-zero):
               generate_greedy call under QMM_PARTIALS=1 on the unmerged GPTQ
               weights (the scales-on-partials kernel's path); a merged-only
               EXL2 round whose greedy tokens must equal phase 7's.
-The last lines are the card's name and power limit, one JSON line of the
-kernels, and {"ok": true, "device": {...}}. Details go to
+ 10. tools    the ten feature probes (csrc/probe_features.cu) and the three
+              roofline kernels of the perf_qmm tool (csrc/perf_qmm.cu: the
+              streaming ceiling, group partials with bf16 and int8
+              activations, the nibble split at its three tile variants)
+              against their plain versions at the three 7B shapes, M = 8,
+              4 bits, groups of 32 and 128 (int32 partials exact; f32 sums
+              over groups in another order, 1e-4 of max |plain|; every K
+              tile of the ceiling within 1e-5); timed with
+              utils/timing.device_time; every variant and probe through the
+              functions the entry points call, launch counts asserted; then
+              `python -m exllamav2_tpu_torch.tools.perf_qmm` and
+              `... probe_features` as a user starts them;
+ 11. constrained  the serving path at 7B width under constraints: a free
+              round of 16 jobs, then 16 concurrent jobs under SelectFilter,
+              PrefixFilter, banned strings from their own free text (with
+              rewinds), token healing and post-sampling hooks, one token a
+              dispatch with the launch counts asserted from the step count;
+              a StreamingGenerator stream and four jobs under asyncio.
+The last lines are one JSON line of the kernels, the card's name and power
+limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py paged` runs phases 1 and 6
 only (a quick check of the paged kernel), `python3 chip_smoke.py w4a8` phases
 1 and 8 (the W4A8, scales-on-partials and merged-meta kernels),
-`python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds).
+`python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
+`python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
+constrained` phases 1 and 11.
 """
 
 from __future__ import annotations
@@ -1243,6 +1263,453 @@ def phase_merged(dev, rate, base):
             "merged_logits_rel_err": rel_m}
 
 
+# --------------------------------------------------------------- phase 10
+
+TOOLS_GROUPS = (32, 128)    # QMM_GROUP values the tool kernels are held at
+DMA_TOL = 1e-5              # per K tile, of max |plain|: f32 sum order only
+# operations/s by operand type: the tensor-core rates, and the f32 rate of
+# the plain ALUs for the casts and shifts
+PEAK_OPS = {"bf16": PEAK_BF16, "int8": 1979e12, "int32": 67e12}
+# per variant and shape: 2 warm-up calls and the two captures of
+# device_time(iters=64) go through the wrapper (replays do not)
+TOOL_CALLS = 2 + 16 + 64
+
+
+def nibble_dense(plane, qs, smax, gr):
+    """The bf16 weight the nibble kernel's function multiplies by: group g
+    holds the lo bytes of its words, then the hi bytes (mapping A)."""
+    from exllamav2_tpu_torch.ops import dequant as D
+    k, n = plane.shape[0] * 8, plane.shape[1]
+    shifts = torch.arange(4, dtype=torch.int32, device=plane.device) * 8
+    byts = (plane[:, None, :] >> shifts[None, :, None]) & 0xFF
+    lo = (byts & 0x0F).reshape(k // gr, gr // 2, n)
+    hi = ((byts >> 4) & 0x0F).reshape(k // gr, gr // 2, n)
+    vals = torch.cat([lo, hi], dim=1).reshape(k, n)
+    s = D.broadcast_groups(D.exl2_scales(qs, smax), gr)
+    return ((vals - 8).float() * s).to(torch.bfloat16)
+
+
+def phase_tools(dev, rate):
+    """The tools path: the ten probes and the three perf_qmm kernels against
+    their plain versions, timed; then the path itself (every variant and
+    every probe through the functions the entry points call) with its
+    launch counts; then both entry points as a user starts them."""
+    from exllamav2_tpu_torch.ops import dequant as D
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    from exllamav2_tpu_torch.tools import probe_features as PF
+    from exllamav2_tpu_torch.utils.timing import device_time
+    card = card_line()
+
+    def us(call, like):
+        return device_time(lambda _: call(), like, iters=64) * 1e3
+
+    # --- the probes: kernel against plain version, result strings, times
+    probes = {}
+    for name, probe in PF.PROBES.items():
+        tensors = PF.probe_tensors(name, dev)
+        out = probe.kernel(*tensors)
+        torch.cuda.synchronize()
+        result = probe.verdict(tensors, out)
+        ref = probe.plain(*tensors)
+        err = (out.double() - ref.double()).abs().max().item()
+        on_cpu = PF.run_probe(name, "cpu")
+        if result != on_cpu:
+            raise AssertionError(f"probe {name}: card says {result!r}, the "
+                                 f"plain version on the CPU {on_cpu!r}")
+        nbytes, ops, kind = probe.work
+        lib = None
+        if name == "bf16_dot_bf16_acc_f32":
+            lib = us(lambda: torch.matmul(*tensors), tensors[0])
+        elif name == "int8_dot" and hasattr(torch, "_int_mm"):
+            lib = us(lambda: torch._int_mm(*tensors), tensors[0])
+        probes[name] = dict(
+            result=result, max_abs_err=err,
+            ms=us(lambda: probe.kernel(*tensors), tensors[0]),
+            plain_ms=eager_ms(lambda: probe.plain(*tensors), 5),
+            bound_ms=max(nbytes / rate, ops / PEAK_OPS[kind]) * 1e3,
+            bound_by="bytes" if nbytes / rate >= ops / PEAK_OPS[kind]
+            else "operations", library_ms=lib)
+        r = probes[name]
+        log(f"[probe] {name} -> {result}  (err {err:.1e}, kernel "
+            f"{r['ms'] * 1e3:.1f}us, plain {r['plain_ms'] * 1e3:.1f}us, "
+            f"bound {r['bound_ms'] * 1e3:.2f}us by {r['bound_by']})")
+
+    # --- the perf_qmm kernels at the 7B shapes, M = 8, 4 bits
+    def rel(got, ref):
+        assert torch.isfinite(got).all()
+        return ((got - ref).abs().max() / ref.abs().max()).item(), \
+            (got - ref).abs().max().item()
+
+    rows = []
+
+    def timed_row(kernel, k, n, gr, err, call, plain, lib, planes, nbytes,
+                  ops, kind):
+        ms = T.time_cycled(call, planes, planes[0]) * 1e3
+        lib_ms = None if lib is None else T.time_cycled(
+            lib[0], lib[1], planes[0]) * 1e3
+        bound = max(nbytes / rate, ops / PEAK_OPS[kind]) * 1e3
+        rows.append(dict(
+            kernel=kernel, k=k, n=n, gr=gr, max_abs_err=err, ms=ms,
+            plain_ms=eager_ms(plain, 3), library_ms=lib_ms, bytes=nbytes,
+            plane_bytes=planes[0].numel() * 4, bound_ms=bound,
+            bound_by="bytes" if nbytes / rate * 1e3 >= bound
+            else "operations"))
+        r = rows[-1]
+        lib_s = "   n/a" if lib_ms is None else f"{lib_ms * 1e3:7.1f}us"
+        log(f"[tools] {kernel:22s} {k:5d}x{n:5d} gr={gr:3d} err={err:.2e} "
+            f"kernel={ms * 1e3:7.1f}us plain={r['plain_ms'] * 1e3:9.1f}us "
+            f"lib={lib_s} bound={bound * 1e3:5.1f}us "
+            f"({bound / ms * 100:4.1f}% of roofline)")
+
+    for k, n in T.SHAPES:
+        plane = T.mk_inputs(k, n, dev)[0]
+        planes = T._copies(plane)
+        tiles = T.dma_only_tiles(plane)
+        ref = T.dma_only_tiles_plain(plane)
+        torch.cuda.synchronize()
+        r, err = rel(tiles, ref)
+        last = plane.shape[0] // T.DMA_TILE - 1
+        if (r > DMA_TOL or tiles.shape[0] != -(-plane.shape[0] // T.DMA_TILE)
+                or not torch.equal(T.dma_only(plane),
+                                   tiles[last].expand(8, n))):
+            raise AssertionError(f"dma_only {k}x{n}: rel err {r:.3g}")
+        timed_row("perf_qmm_dma_only", k, n, 0, err,
+                  lambda p: T.dma_only(p),
+                  lambda: T.dma_only_tiles_plain(plane),
+                  (lambda p: p.sum(0, dtype=torch.float32), planes),
+                  planes, plane.numel() * 4 + tiles.numel() * 4,
+                  plane.numel(), "int32")
+        for gr in TOOLS_GROUPS:
+            plane, qs, smax, x = T.mk_inputs(k, n, dev, gr=gr)
+            xb, xq = x.to(torch.bfloat16), T.quantize_x(x)
+            x1 = T.group_sums(xq, gr)
+            meta = qs.numel() + smax.numel() * 4 + T.M * n * 4
+            dense = D.broadcast_groups(D.exl2_scales(qs, smax), gr)
+            dense = ((D.unpack_plane(plane, 4) - 8).float()
+                     * dense).to(torch.bfloat16)
+            denses = [dense] + [dense.clone() for _ in
+                                range(T.n_copies(dense.numel() * 2) - 1)]
+            for mode, xa in (("bf16", xb), ("int8", xq)):
+                got = T.gp(xa, plane, qs, smax, bits=4, gr=gr)
+                ref = T.gp_plain(xa, plane, qs, smax, 4, gr)
+                torch.cuda.synchronize()
+                r, err = rel(got, ref)
+                if r > QMM_TOL:
+                    raise AssertionError(
+                        f"gp_{mode} {k}x{n} gr={gr}: rel err {r:.3g}")
+                timed_row(
+                    f"perf_qmm_gp_{mode}", k, n, gr, err,
+                    lambda p, xa=xa: T.gp(xa, p, qs, smax, bits=4, gr=gr),
+                    lambda xa=xa: T.gp_plain(xa, plane, qs, smax, 4, gr),
+                    (lambda w: torch.matmul(xb, w), denses), planes,
+                    plane.numel() * 4 + meta + xa.numel() * xa.element_size(),
+                    2 * T.M * k * n, mode)
+            ref = T.nibble_i8_plain(xq, x1, plane, qs, smax, gr)
+            del denses, dense
+            dense = nibble_dense(plane, qs, smax, gr)
+            denses = [dense] + [dense.clone() for _ in
+                                range(T.n_copies(dense.numel() * 2) - 1)]
+            for tag, hints in (("", {}), ("_k2048", {"kt0": 2048}),
+                               ("_n4096", {"nt0": 4096})):
+                got = T.nibble_i8(xq, x1, plane, qs, smax, gr=gr, **hints)
+                torch.cuda.synchronize()
+                r, err = rel(got, ref)
+                if r > QMM_TOL:
+                    raise AssertionError(
+                        f"nibble_i8{tag} {k}x{n} gr={gr}: rel err {r:.3g}")
+                timed_row(
+                    "perf_qmm_nibble_i8" + tag, k, n, gr, err,
+                    lambda p, hints=hints: T.nibble_i8(xq, x1, p, qs, smax,
+                                                       gr=gr, **hints),
+                    lambda: T.nibble_i8_plain(xq, x1, plane, qs, smax, gr),
+                    (lambda w: torch.matmul(xb, w), denses), planes,
+                    plane.numel() * 4 + meta + xq.numel() + x1.numel() * 4,
+                    2 * T.M * k * n, "int8")
+            del denses, dense
+        del planes
+        torch.cuda.empty_cache()
+    lines = []
+    for kernel in dict.fromkeys(r["kernel"] for r in rows):
+        for gr in dict.fromkeys(r["gr"] for r in rows
+                                if r["kernel"] == kernel):
+            sel = [r for r in rows if r["kernel"] == kernel and r["gr"] == gr]
+            lines.append(T.report_line(
+                f"{kernel.removeprefix('perf_qmm_')}"
+                f"{f' (group {gr})' if gr else ''}",
+                [(r["plane_bytes"], r["ms"] * 1e-3) for r in sel]))
+            log(f"[tools] {lines[-1]} | {card}")
+
+    # --- the tools path itself: every variant and every probe through the
+    # functions the entry points call, counts set to 0 before, read after
+    for counts in (T.LAUNCHES, PF.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+    zero_counts()
+    for name, fn in T.VARIANTS.items():
+        lines.append(T.report_line(*fn(dev)))
+        log(f"[tools] variant {lines[-1]} | {card}")
+    strings = {name: PF.run_probe(name, dev) for name in PF.PROBES}
+    got = {**T.LAUNCHES, **PF.LAUNCHES,
+           **{k: v for k, v in launch_counts().items()
+              if k in ("qmm", "qmm_w4a8")}}
+    per = TOOL_CALLS * len(T.SHAPES)
+    want = {"perf_qmm_dma_only": per, "perf_qmm_gp_bf16": per,
+            "perf_qmm_gp_int8": per, "perf_qmm_nibble_i8": 3 * per,
+            "probe_features": len(PF.PROBES), "qmm": per,
+            "qmm_w4a8": 2 * per}
+    log(f"[tools] launches on the tools path {got} (expected {want})")
+    if got != want or strings != {n: p["result"] for n, p in probes.items()}:
+        raise AssertionError(f"tools path: launches {got} != {want} or "
+                             f"probe strings {strings}")
+
+    # --- both entry points as a user starts them, side by side (their
+    # timings share the card and are not kept)
+    t0 = time.perf_counter()
+    procs = {tool: subprocess.Popen(
+        [sys.executable, "-m", "exllamav2_tpu_torch.tools." + tool],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tool in ("perf_qmm", "probe_features")}
+    entry = {}
+    for tool, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        entry[tool] = out.strip().splitlines()
+        log(f"[tools] python -m exllamav2_tpu_torch.tools.{tool}: exit "
+            f"{proc.returncode}, {len(entry[tool])} lines")
+        if proc.returncode != 0 or any("FAIL" in x for x in entry[tool]):
+            raise AssertionError(f"{tool} entry point failed:\n{out}")
+    log(f"[tools] entry points ran in {time.perf_counter() - t0:.1f} s")
+    return {"probes": probes, "rows": rows, "lines": lines, "launches": got,
+            "entry_points": entry}
+
+
+# --------------------------------------------------------------- phase 11
+
+CONS_NEW = 24               # new tokens of a constrained job
+SELECT_OPTIONS = ["alpha", "bravo", "charlie", "delta"]
+PREFIX = "Answer: "
+
+
+def phase_constrained(dev):
+    """Constrained generation on the serving path at 7B width: a free round
+    of 16 jobs to learn their text, then 16 concurrent jobs under filters,
+    banned strings, token healing and hooks, one token a dispatch; then a
+    StreamingGenerator stream and four jobs under asyncio. Every job writes
+    printable ASCII only (Settings.banned_tokens), so texts are readable."""
+    import asyncio
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import (
+        DynamicGenerator, DynamicJob)
+    from exllamav2_tpu_torch.generator.dynamic_async import (
+        DynamicGeneratorAsync, DynamicJobAsync)
+    from exllamav2_tpu_torch.generator.filters import (
+        PrefixFilter, SelectFilter)
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    from exllamav2_tpu_torch.generator.streaming import StreamingGenerator
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    w, st = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                 max_seq=2048, bits=4, seed=0, device=dev)
+    model = Model(precompute_model_scales(w), st)     # phase 7's model
+    tok = ByteTokenizer(256)
+    cache = PagedKVCache.alloc(LAYERS, SERVE_PAGES, HEADS, HIDDEN // HEADS,
+                               "bf16", device=dev)
+    gen = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
+                           max_chunk_size=512, decode_burst=16)
+    not_text = [t for t in range(VOCAB) if not 32 <= t < 127]
+
+    def text_only():
+        s = Settings.greedy()
+        s.banned_tokens = not_text
+        return s
+
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(97, 123, SERVE_PROMPT).astype(np.int32)
+               for _ in range(SERVE_JOBS)]
+
+    def run_round(jobs):
+        """Enqueue, iterate to the end; -> (decode steps, rewinds, seconds
+        inside enqueue() and iterate()). The cache check after every step is
+        not timed."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in jobs:
+            gen.enqueue(j)
+        busy = time.perf_counter() - t0
+        steps = rewinds = 0
+        while any(j.status != "done" for j in jobs):
+            t0 = time.perf_counter()
+            res = [r for r in gen.iterate() if r["stage"] == "streaming"]
+            busy += time.perf_counter() - t0
+            steps += bool(res)
+            rewinds += sum(1 for r in res if len(r["token_ids"]) == 0)
+            gen._validate_cache()
+        return steps, rewinds, busy
+
+    free = [DynamicJob(p, max_new_tokens=CONS_NEW, settings=text_only())
+            for p in prompts]
+    run_round(free)                                   # also the warm round
+    texts = [j.emitted_text for j in free]
+    if any(len(t) != CONS_NEW or not t.isascii() for t in texts):
+        raise AssertionError(f"free round texts {texts}")
+    log(f"[cons] free round: {texts[8]!r} ...")
+
+    seen = {14: [], 15: []}
+    banned = {i: texts[i][4:7] for i in range(8, 12)}
+    jobs = []
+    for i, p in enumerate(prompts):
+        kw = {}
+        if i < 4:
+            kw["filters"] = [SelectFilter(tok, SELECT_OPTIONS)]
+        elif i < 8:
+            kw["filters"] = [PrefixFilter(tok, PREFIX)]
+        elif i < 12:
+            kw["banned_strings"] = [banned[i]]
+        elif i < 14:
+            kw["token_healing"] = True
+        else:
+            kw["post_sampling_hooks"] = [seen[i].append]
+            kw["return_top_tokens"] = 4
+        jobs.append(DynamicJob(p, max_new_tokens=CONS_NEW,
+                               settings=text_only(), **kw))
+    zero_counts()
+    steps, rewinds, dt = run_round(jobs)
+    got = launch_counts()
+    want = {"qmm": (7 * LAYERS + 1) * steps, "qmm_w4a8": 0,
+            "qmm_partials": 0, "decode_attn": 0,
+            "paged_decode_attn": LAYERS * steps}
+    new = sum(j.new_tokens for j in jobs)
+    log(f"[cons] constrained round: {steps} steps, {rewinds} rewinds, "
+        f"launches {got} (expected {want})")
+    log(f"[cons] constrained round: {new} tokens in {dt * 1e3:.1f} ms = "
+        f"{new / dt:.1f} tokens/s, {dt / steps * 1e3:.2f} ms of host clock "
+        f"per step, the prefill included (one token a dispatch, "
+        f"{SERVE_JOBS} jobs at the start)")
+    if got != want:
+        raise AssertionError(f"constrained launch counts {got} != {want}")
+    for i, j in enumerate(jobs):
+        t = j.emitted_text
+        ok = t.isascii()
+        if i < 4:
+            ok &= t in SELECT_OPTIONS and j.eos_reason == "end_filter"
+        elif i < 8:
+            ok &= t.startswith(PREFIX) and j.new_tokens == CONS_NEW
+        elif i < 12:
+            ok &= (banned[i].lower() not in t.lower()
+                   and j.new_tokens == CONS_NEW and t != texts[i])
+        elif i < 14:
+            # the first new token's piece starts with the healed piece
+            healed = tok.id_to_piece(int(prompts[i][-1]))
+            ok &= (j.prompt_len == SERVE_PROMPT - 1 and tok.id_to_piece(
+                int(j.sequence[SERVE_PROMPT - 1])).startswith(healed))
+        else:
+            ok &= (len(seen[i]) == CONS_NEW and all(
+                len(r.candidate_tokens) == 4
+                and r.candidate_tokens[0] == r.sampled_token
+                for r in seen[i]))
+        if not ok:
+            raise AssertionError(f"constrained job {i}: {t!r}, "
+                                 f"{j.eos_reason}, {j.new_tokens} tokens")
+    if rewinds < 4:
+        raise AssertionError(f"{rewinds} rewinds for 4 banned-string jobs")
+    gen.validate_cache()
+    log(f"[cons] texts: select {[j.emitted_text for j in jobs[:4]]}, prefix "
+        f"{jobs[4].emitted_text!r}, banned {banned[8]!r}: {texts[8]!r} -> "
+        f"{jobs[8].emitted_text!r}")
+
+    # one stream through the streaming generator (its own scheduler over
+    # the same, now idle, cache)
+    sg = StreamingGenerator(model, cache, tok)
+    sg.begin_stream_ex(prompts[0], text_only(), max_new_tokens=12,
+                       token_healing=True)
+    chunks, eos = [], False
+    while not eos:
+        chunk, eos, _ = sg.stream()
+        chunks.append(chunk)
+    streamed = "".join(chunks)
+    if len(streamed) != 12 or not streamed.isascii():
+        raise AssertionError(f"stream: {streamed!r}")
+    del sg
+
+    async def four_jobs():
+        agen = DynamicGeneratorAsync(gen)
+        ajobs = [DynamicJobAsync(agen, p, max_new_tokens=12,
+                                 settings=text_only(),
+                                 filters=[PrefixFilter(tok, "ok ")])
+                 for p in prompts[:4]]
+        for j in ajobs:
+            await agen.enqueue(j)
+        out = []
+        for j in ajobs:
+            text = ""
+            async for r in j:
+                text += r.get("text", "")
+            out.append(text)
+        await agen.close()
+        return out
+
+    atexts = asyncio.run(four_jobs())
+    if any(len(t) != 12 or not t.startswith("ok ") for t in atexts):
+        raise AssertionError(f"async jobs: {atexts}")
+    log(f"[cons] stream {streamed!r}; async {atexts}")
+    del gen, cache, model, w
+    torch.cuda.empty_cache()
+    return {"launches": got, "steps": steps, "rewinds": rewinds,
+            "tokens": new, "round_ms": dt * 1e3, "tokens_per_s": new / dt,
+            "host_ms_per_step": dt / steps * 1e3,
+            "texts": [j.emitted_text for j in jobs], "free_texts": texts,
+            "stream": streamed, "async": atexts}
+
+
+def tools_entries(tools, rate) -> list:
+    """The kernels-line entries of the tools path: each perf_qmm kernel
+    summed over the three 7B shapes at M = 8, 4 bits, groups of 32 (the
+    tool's defaults; nibble_i8 at its default tiles), and the ten probes
+    summed into one entry with the per-probe numbers beside it."""
+    out = []
+    for name, line in (("perf_qmm_dma_only", "139"),
+                       ("perf_qmm_gp_bf16", "177"),
+                       ("perf_qmm_gp_int8", "177"),
+                       ("perf_qmm_nibble_i8", "289")):
+        sel = [r for r in tools["rows"] if r["kernel"] == name
+               and r["gr"] in (0, TOOLS_GROUPS[0])]
+        every = [r for r in tools["rows"] if r["kernel"].startswith(name)]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "exllamav2_tpu_torch/csrc/perf_qmm.cu",
+            "replaces": "tools/perf_qmm.py:" + line,
+            "launches": tools["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in every),
+            "ms": sum(r["ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "bound_ms": sum(r["bytes"] for r in sel) / rate * 1e3,
+            "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in sel),
+            "plane_gb_per_s": sum(r["plane_bytes"] for r in sel)
+            / sum(r["ms"] for r in sel) / 1e6})
+    probes = tools["probes"]
+    out.append({
+        "name": "probe_features", "route": "cuda",
+        "source": "exllamav2_tpu_torch/csrc/probe_features.cu",
+        "replaces": "tools/probe_features.py:23",
+        "launches": tools["launches"]["probe_features"],
+        "probes": {n: p["result"] for n, p in probes.items()},
+        "max_abs_err": max(p["max_abs_err"] for p in probes.values()),
+        "ms": sum(p["ms"] for p in probes.values()),
+        "plain_ms": sum(p["plain_ms"] for p in probes.values()),
+        "bound_ms": sum(p["bound_ms"] for p in probes.values()),
+        "bound_by": "bytes",
+        # one call per probe where PyTorch has one (the two dots); the sum
+        # would mix probes, so the per-probe numbers carry it
+        "library_ms": None,
+        "by_probe": {n: {k: p[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+                     for n, p in probes.items()}})
+    return out
+
+
 def summarize(qrows, qerr, arows, aerr, prows, perr, partials, launches,
               rate):
     """One entry per kernel for the kernels line, each with the times of the
@@ -1346,6 +1813,16 @@ def main() -> int:
             f"kernel checks passed in {time.perf_counter() - t_all:.1f} s "
             f"(max err {errs})")
         return 0
+    if sys.argv[1:] == ["tools"]:
+        phase_tools(dev, rate)
+        log(f"[done] build and the tools phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    if sys.argv[1:] == ["constrained"]:
+        phase_constrained(dev)
+        log(f"[done] build and the constrained phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -1370,6 +1847,8 @@ def main() -> int:
     detail["partials"] = {k: rows for k, (rows, _) in partials.items()}
     detail["merged"] = timed("merged", phase_merged, dev, rate,
                              detail["serving"])
+    detail["tools"] = timed("tools", phase_tools, dev, rate)
+    detail["constrained"] = timed("constrained", phase_constrained, dev)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -1377,8 +1856,11 @@ def main() -> int:
     launches["serving16_merged"] = detail["merged"]["merged_launches"]
     launches["generate_greedy_b1_partials"] = \
         detail["merged"]["partials_launches"]
+    launches["serving16_constrained"] = detail["constrained"]["launches"]
+    launches["tools"] = detail["tools"]["launches"]
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
                         detail["paged"], perr, partials, launches, rate)
+    kernels += tools_entries(detail["tools"], rate)
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

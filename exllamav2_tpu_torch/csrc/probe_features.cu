@@ -1,0 +1,276 @@
+// Feature probes: ten small kernels, one per question about what the card's
+// instructions do with low-precision data. Each computes the function of the
+// probe of the same name in the JAX package's tools/probe_features.py, with
+// the instruction a redesign of the quantized-matmul kernels would rely on.
+//
+// Replaces: tools/probe_features.py -- the Pallas kernels of int8_dot (:36),
+// int8_dot_batched (:65), u32_to_int8_cast (:90), bitcast_u32_u16 (:117),
+// u16_shift_and (:140), u8_shift_and (:164), int4_array (:187), int4_dot
+// (:212), bf16_dot_bf16_acc_f32 (:237) and bitcast_u32_i8 (:263).
+//
+// Bound: every probe is at most [256, 256]; its bytes and operations are
+// far below a microsecond of the card, so a launch is latency. What counts
+// is that the instruction exists and gives the plain version's values.
+//
+// Design: one warp per output tile for the dots, one thread per 32-bit
+// register for the rest.
+//   * int8 dots: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. A is
+//     row-major [M, K]; B is row-major [K, N], so the four k-consecutive
+//     bytes of a B register are gathered one by one. The batched probe is
+//     the W4A8 kernel's group-of-32 partial: 8 activation rows padded to the
+//     16 of the tile (the upper A registers are zero), one mma per group.
+//   * bf16 dot: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//   * int4: there is no 4-bit storage type here. The input is packed two
+//     signed nibbles a byte, low nibble first (element 2c of a row is the low
+//     nibble of byte c); the kernel sign-extends with a shift pair.
+//   * casts and shifts work on whole registers: four masked values packed
+//     into one register with prmt (__byte_perm); (v >> 4) & 15 on two 16-bit
+//     or four 8-bit sub-words with one shift and one mask.
+//   * reinterpretations take the register apart through ushort2 / char4:
+//     element j goes to row 2k + j (4k + j), so the host can tell which
+//     byte the card calls element j (little-endian: mapping A).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// element (k, n) of B as a byte: int8 storage, or two signed nibbles a byte
+template <bool INT4>
+__device__ __forceinline__ uint32_t b_byte(const uint8_t* b, int k, int n,
+                                           int ncols) {
+  if constexpr (INT4) {
+    const uint8_t packed = b[(size_t)k * (ncols / 2) + n / 2];
+    const int8_t v = (n & 1) ? (int8_t)packed >> 4
+                             : (int8_t)(packed << 4) >> 4;
+    return (uint8_t)v;
+  } else {
+    return b[(size_t)k * ncols + n];
+  }
+}
+
+// c[g, :mrows, :] = a[g, :mrows, :] @ b[g]: one warp per (16-row tile, 8-column
+// tile, g); rows past mrows are fed as zeros and not written
+template <bool INT4>
+__global__ void int8_dot_kernel(const int8_t* __restrict__ a,
+                                const uint8_t* __restrict__ b,
+                                int* __restrict__ c, int mrows, int kdim,
+                                int ncols) {
+  const int lane = threadIdx.x, gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * 8, m0 = blockIdx.y * 16, g = blockIdx.z;
+  a += (size_t)g * mrows * kdim;
+  b += (size_t)g * kdim * (INT4 ? ncols / 2 : ncols);
+  c += (size_t)g * mrows * ncols;
+  int acc[4] = {0, 0, 0, 0};
+  for (int k0 = 0; k0 < kdim; k0 += 32) {
+    uint32_t ra[4], rb[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + gid + (i & 1) * 8;
+      const int col = k0 + tig * 4 + (i >> 1) * 16;
+      ra[i] = row < mrows ? *reinterpret_cast<const uint32_t*>(
+                                a + (size_t)row * kdim + col)
+                          : 0u;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      uint32_t r = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r |= b_byte<INT4>(b, k0 + i * 16 + tig * 4 + j, n0 + gid, ncols)
+             << (8 * j);
+      rb[i] = r;
+    }
+    mma_s8(acc, ra, rb);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + gid + (i >> 1) * 8;
+    if (row < mrows) c[(size_t)row * ncols + n0 + tig * 2 + (i & 1)] = acc[i];
+  }
+}
+
+// c [16, n] f32 = a [16, k] bf16 @ b [k, n] bf16: one warp per 8 columns
+__global__ void bf16_dot_kernel(const __nv_bfloat16* __restrict__ a,
+                                const __nv_bfloat16* __restrict__ b,
+                                float* __restrict__ c, int kdim, int ncols) {
+  const int lane = threadIdx.x, gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * 8;
+  const uint16_t* bu = reinterpret_cast<const uint16_t*>(b);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < kdim; k0 += 16) {
+    uint32_t ra[4], rb[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = gid + (i & 1) * 8;
+      const int col = k0 + tig * 2 + (i >> 1) * 8;
+      ra[i] = *reinterpret_cast<const uint32_t*>(a + (size_t)row * kdim + col);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = k0 + i * 8 + tig * 2;
+      rb[i] = (uint32_t)bu[(size_t)k * ncols + n0 + gid] |
+              ((uint32_t)bu[(size_t)(k + 1) * ncols + n0 + gid] << 16);
+    }
+    mma_bf16(acc, ra, rb);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    c[(size_t)(gid + (i >> 1) * 8) * ncols + n0 + tig * 2 + (i & 1)] = acc[i];
+}
+
+// out int8[i] = in u32[i] & 15: four words in, one packed register out
+__global__ void u32_to_int8_kernel(const uint4* __restrict__ in,
+                                   uint32_t* __restrict__ out, int count4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count4) return;
+  const uint4 w = in[i];
+  const uint32_t lo = __byte_perm(w.x & 15u, w.y & 15u, 0x0040);
+  const uint32_t hi = __byte_perm(w.z & 15u, w.w & 15u, 0x0040);
+  out[i] = __byte_perm(lo, hi, 0x5410);
+}
+
+// one mask serves every sub-word of the register: 0x000F000F for two uint16,
+// 0x0F0F0F0F for four uint8
+__global__ void shift_and_kernel(const uint32_t* __restrict__ in,
+                                 uint32_t* __restrict__ out, int count,
+                                 uint32_t mask) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = (in[i] >> 4) & mask;
+}
+
+// in u32 [k, n] -> out u16 [2k, n]: element j of the register to row 2k + j
+__global__ void bitcast_u16_kernel(const uint32_t* __restrict__ in,
+                                   uint16_t* __restrict__ out, int k, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k * n) return;
+  const int r = i / n, c = i % n;
+  uint32_t w = in[i];
+  const ushort2 h = *reinterpret_cast<ushort2*>(&w);
+  out[(size_t)(2 * r + 0) * n + c] = h.x;
+  out[(size_t)(2 * r + 1) * n + c] = h.y;
+}
+
+// in u32 [k, n] -> out int8 [4k, n] of (w & 0x0F0F0F0F): element j of the
+// register to row 4k + j
+__global__ void bitcast_i8_kernel(const uint32_t* __restrict__ in,
+                                  int8_t* __restrict__ out, int k, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= k * n) return;
+  const int r = i / n, c = i % n;
+  uint32_t lo = in[i] & 0x0F0F0F0Fu;
+  const char4 b = *reinterpret_cast<char4*>(&lo);
+  out[(size_t)(4 * r + 0) * n + c] = b.x;
+  out[(size_t)(4 * r + 1) * n + c] = b.y;
+  out[(size_t)(4 * r + 2) * n + c] = b.z;
+  out[(size_t)(4 * r + 3) * n + c] = b.w;
+}
+
+// packed bytes (two signed nibbles, low first) -> int8, two per byte
+__global__ void int4_array_kernel(const uint8_t* __restrict__ in,
+                                  int8_t* __restrict__ out, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  const uint8_t p = in[i];
+  out[2 * i + 0] = (int8_t)(p << 4) >> 4;
+  out[2 * i + 1] = (int8_t)p >> 4;
+}
+
+inline unsigned blocks(int count) { return (unsigned)((count + 255) / 256); }
+
+}  // namespace
+
+extern "C" {
+
+const char* error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+// a int8 [g, m, k], b int8 [g, k, n] (int4 != 0: packed [g, k, n/2]) ->
+// c int32 [g, m, n]; k % 32 == 0, n % 8 == 0
+int probe_int8_dot(const void* a, const void* b, void* c, int g, int m, int k,
+                   int n, int int4, void* stream) {
+  if (g < 1 || m < 1 || k % 32 || n % 8) return (int)cudaErrorInvalidValue;
+  dim3 grid(n / 8, (m + 15) / 16, g);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (int4)
+    int8_dot_kernel<true><<<grid, 32, 0, st>>>(
+        (const int8_t*)a, (const uint8_t*)b, (int*)c, m, k, n);
+  else
+    int8_dot_kernel<false><<<grid, 32, 0, st>>>(
+        (const int8_t*)a, (const uint8_t*)b, (int*)c, m, k, n);
+  return (int)cudaGetLastError();
+}
+
+// a bf16 [16, k], b bf16 [k, n] -> c f32 [16, n]; k % 16 == 0, n % 8 == 0
+int probe_bf16_dot(const void* a, const void* b, void* c, int k, int n,
+                   void* stream) {
+  if (k % 16 || n % 8) return (int)cudaErrorInvalidValue;
+  bf16_dot_kernel<<<n / 8, 32, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)c, k, n);
+  return (int)cudaGetLastError();
+}
+
+// in u32 [count] -> out int8 [count]; count % 4 == 0
+int probe_u32_to_int8(const void* in, void* out, int count, void* stream) {
+  if (count % 4) return (int)cudaErrorInvalidValue;
+  u32_to_int8_kernel<<<blocks(count / 4), 256, 0, (cudaStream_t)stream>>>(
+      (const uint4*)in, (uint32_t*)out, count / 4);
+  return (int)cudaGetLastError();
+}
+
+// (v >> 4) & 15 on `count` sub-words of `width` bytes (1 or 2)
+int probe_shift_and(const void* in, void* out, int count, int width,
+                    void* stream) {
+  const int per = 4 / width;
+  if ((width != 1 && width != 2) || count % per)
+    return (int)cudaErrorInvalidValue;
+  shift_and_kernel<<<blocks(count / per), 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)in, (uint32_t*)out, count / per,
+      width == 2 ? 0x000F000Fu : 0x0F0F0F0Fu);
+  return (int)cudaGetLastError();
+}
+
+// in u32 [k, n] -> out u16 [2k, n] (width 2) or int8 [4k, n] of the low
+// nibbles (width 1)
+int probe_bitcast(const void* in, void* out, int k, int n, int width,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (width == 2)
+    bitcast_u16_kernel<<<blocks(k * n), 256, 0, st>>>(
+        (const uint32_t*)in, (uint16_t*)out, k, n);
+  else if (width == 1)
+    bitcast_i8_kernel<<<blocks(k * n), 256, 0, st>>>(
+        (const uint32_t*)in, (int8_t*)out, k, n);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// in packed bytes [count] -> out int8 [2 * count]
+int probe_int4_array(const void* in, void* out, int count, void* stream) {
+  int4_array_kernel<<<blocks(count), 256, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)in, (int8_t*)out, count);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

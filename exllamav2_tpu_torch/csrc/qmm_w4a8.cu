@@ -294,9 +294,11 @@ const char* error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// x [m, k_pad] f32; scratch xq [m, k_pad] int8, a and x1a [m, k_pad /
-// group_rows] f32; planes int32/uint32 [k_pad*bp/32, n]; meta as in
-// load_meta; part [splits, m, n] f32 (ignored when splits == 1); out [m, n].
+// x [m, k_pad] f32, or null when the caller has quantized already: then
+// pass 1 is skipped and xq, a, x1a are inputs; else they are scratch: xq
+// [m, k_pad] int8, a and x1a [m, k_pad / group_rows] f32; planes
+// int32/uint32 [k_pad*bp/32, n]; meta as in load_meta; part [splits, m, n]
+// f32 (ignored when splits == 1); out [m, n].
 // A split holds whole groups. Returns the cudaError_t of the launches.
 int qmm_w4a8_segment(const void* x, int m, int k_pad, void* xq, void* a_out,
                      void* x1a_out, const void* plane0, const void* plane1,
@@ -310,11 +312,14 @@ int qmm_w4a8_segment(const void* x, int m, int k_pad, void* xq, void* a_out,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int groups = k_pad / group_rows;
-  quantize_kernel<<<dim3((groups + 3) / 4, m), 128, 0, st>>>(
-      (const float*)x, k_pad, group_rows, groups, (int8_t*)xq, (float*)a_out,
-      (float*)x1a_out);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaSuccess;
+  if (x != nullptr) {
+    quantize_kernel<<<dim3((groups + 3) / 4, m), 128, 0, st>>>(
+        (const float*)x, k_pad, group_rows, groups, (int8_t*)xq,
+        (float*)a_out, (float*)x1a_out);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
   Args a;
   a.xq = (const int8_t*)xq;
   a.a = (const float*)a_out;

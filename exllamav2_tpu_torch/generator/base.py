@@ -25,9 +25,6 @@ class BaseGenerator:
                         add_bos: bool = False, completion_only: bool = False,
                         stop_token: int | None = -1):
         """prompt str or list[str] -> completed text(s)."""
-        if token_healing:
-            raise NotImplementedError("token_healing is not ported to "
-                                      "exllamav2_tpu_torch yet")
         single = isinstance(prompt, str)
         prompts = [prompt] if single else list(prompt)
         stop_conditions = []
@@ -45,7 +42,8 @@ class BaseGenerator:
             jobs.append(self.generator.enqueue(DynamicJob(
                 ids, max_new_tokens=num_tokens,
                 settings=gen_settings or Settings(),
-                seed=(seed or 0) + i, stop_conditions=stop_conditions)))
+                seed=(seed or 0) + i, stop_conditions=stop_conditions,
+                token_healing=token_healing)))
         while any(j.status != "done" for j in jobs):
             self.generator.iterate()
         outs = [(("" if completion_only else p) + j.emitted_text)

@@ -22,10 +22,19 @@ stop strings with held UTF-8 text. The device side:
 ops/dequant.merge_serving_weights), ``w4a8=True`` decodes through the W4A8
 kernel (int8 activations, approximate; the head and the prefill stay exact).
 
+Constrained generation runs on the host, one token a dispatch: filters
+(generator/filters) and token healing become per-job allow-masks for the
+sampler, banned strings rewind the job to the checkpoint where the string
+began and block its first token once (pages whose fill dropped are
+unpublished, or copied when another job shares them), and post-sampling
+hooks see every sampled token. The device history needs no repair after a
+rewind: row `slot` holds the job's sequence up to the rewound length, the
+next step reads hist[slot, kv_pos] and overwrites what lies behind it.
+
 Not ported yet (each raises NotImplementedError when asked for):
 speculative decoding (draft_model, use_ngram_draft), mesh, CFG
-(negative_prompt_ids), filters, token_healing, banned_strings,
-post_sampling_hooks, embeddings / MRoPE, set_loras and the MoE drop counters.
+(negative_prompt_ids), embeddings / MRoPE, set_loras and the MoE drop
+counters.
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ import numpy as np
 import torch
 
 from exllamav2_tpu_torch.cache_paged import PagedKVCache
+from exllamav2_tpu_torch.generator.filters.base import piece_table
+from exllamav2_tpu_torch.generator.hooks import PostSamplingResult
 from exllamav2_tpu_torch.generator.sampler import Settings, stack_settings
 from exllamav2_tpu_torch.models.forward import model_forward_paged
 from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
@@ -107,12 +118,8 @@ class DynamicJob:
                  min_new_tokens: int = 0,
                  max_skips: int | None = 4,
                  return_logits: bool = False):
-        for name, val in (("filters", filters),
-                          ("token_healing", token_healing),
-                          ("banned_strings", banned_strings),
-                          ("negative_prompt_ids", negative_prompt_ids),
-                          ("embeddings", embeddings),
-                          ("post_sampling_hooks", post_sampling_hooks)):
+        for name, val in (("negative_prompt_ids", negative_prompt_ids),
+                          ("embeddings", embeddings)):
             if _given(val):
                 _unported(f"DynamicJob({name}=...)")
         ids = np.asarray(input_ids, np.int32).reshape(-1)
@@ -124,6 +131,7 @@ class DynamicJob:
         self.return_probs = return_probs
         self.return_logits = return_logits
         self.filter_prefer_eos = filter_prefer_eos
+        self.post_sampling_hooks = post_sampling_hooks or []
         self.last_logits = None
         self.last_prob: float | None = None
         self.last_top: tuple | None = None      # (tokens, probs) np arrays
@@ -132,6 +140,13 @@ class DynamicJob:
         self.identifier = identifier
         self.seed = seed
         self.decode_special_tokens = decode_special_tokens
+        self.filters = filters or []
+        self.token_healing = token_healing
+        self.healing_token: int | None = None
+        self.banned_strings = [s.lower() for s in (banned_strings or [])]
+        self.blocked_tokens: set[int] = set()   # one-shot (rewind/healing)
+        self.checkpoint = None                  # banned-string rewind state
+        self.rewind_deferred = False            # awaiting a page for rewind
 
         self.stop_tokens: set[int] = set()
         self.stop_strings: list[str] = []
@@ -499,6 +514,14 @@ class DynamicGenerator:
                 f"job needs {demand} cache pages (prompt {job.prompt_len} "
                 f"+ max_new_tokens {job.max_new_tokens}) but the cache only "
                 f"has {usable} usable pages")
+        # token healing: re-predict the last prompt token constrained to
+        # pieces extending it
+        if job.token_healing and job.prompt_len >= 2:
+            job.healing_token = int(job.prompt_ids[-1])
+            job.prompt_ids = job.prompt_ids[:-1]
+            job.sequence = job.prompt_ids.copy()
+        for f in job.filters:
+            f.begin("")
         # prompt page hash chain
         job.page_hashes = []
         prev = b""
@@ -736,6 +759,49 @@ class DynamicGenerator:
                     page.tokens = np.asarray(chunk, np.int32).copy()
                     self.referenced[h] = page
 
+    def _rewind_pages(self, job: DynamicJob) -> bool:
+        """After a banned-string rewind, fix up pages whose fill dropped.
+
+        A page published as full (phash in referenced/unreferenced) may no
+        longer match its hash once kv_pos moves back across its boundary:
+        unpublish it so dedup cannot attach stale KV. If another job shares
+        it, this job gets a private copy instead (the shared KV must not be
+        overwritten by the re-generation).
+
+        Returns False when a needed private copy could not be made (no free
+        or evictable page anywhere): the rewound history is already applied,
+        so the caller defers decoding this job and retries -- writing at
+        kv_pos inside the still-shared page would corrupt the other jobs'
+        KV."""
+        ok = True
+        for i, page in enumerate(job.pages):
+            fill = min(max(job.kv_pos - i * self.page_size, 0),
+                       self.page_size)
+            if page.phash is not None and fill < self.page_size:
+                if page.ref_count > 1:
+                    fresh = self._take_free_page()
+                    if fresh is None:
+                        # defer: leave the page shared and untouched; the
+                        # job sits out decode until a page frees up
+                        ok = False
+                        continue
+                    self.cache.copy_pages([page.index], [fresh.index])
+                    page.ref_count -= 1
+                    fresh.ref_count = 1
+                    fresh.kv_position = fill
+                    self._touch(fresh)
+                    job.pages[i] = fresh
+                    continue
+                self.referenced.pop(page.phash, None)
+                self.unreferenced.pop(page.phash, None)
+                page.phash = None
+                page.prev_hash = None
+                page.tokens = None
+            if fill < page.kv_position and page.ref_count <= 1:
+                page.kv_position = fill
+        job.rewind_deferred = not ok
+        return ok
+
     def _step(self, bts, seqlens, slots, params, use_pen: bool,
               use_dry: bool, biased: bool, lf=None):
         """One decode step on the device: the token at hist[slot, seqlen]
@@ -780,7 +846,7 @@ class DynamicGenerator:
             sett.append(Settings.greedy())
             mus.append(0.0)
 
-        # per-job logit masks (min_new_tokens EOS floor, banned tokens)
+        # per-job logit masks (filters, healing, EOS floor, banned tokens)
         vocab = self.model.static.vocab_size
         masks = [self._job_mask(j, vocab) for j in jobs]
         any_masked = any(m is not None for m in masks)
@@ -804,12 +870,19 @@ class DynamicGenerator:
         bts_t, sl_t, slots_t = (self._dev(x) for x in (bts, seqlens, slots))
 
         # ---- burst: k tokens per readback, when no job needs per-step host
-        # work (masks, top-k, logits) and every job has room for k rows in
-        # its own pages. Pending jobs force k = 1 so a new job's first token
-        # does not wait behind a burst.
+        # work (masks, top-k, logits, banned-string rewinds) and every job
+        # has room for k rows in its own pages. Pending jobs force k = 1 so
+        # a new job's first token does not wait behind a burst. A job with a
+        # LIVE filter decodes per token even when this step's mask is None:
+        # an external filter may be unconstrained on one step and constrain
+        # the next while is_completed() stays False.
+        live_filters = any(
+            not f.is_completed() for j in jobs for f in j.filters)
         burst_limit = self._burst_limit()
         if (burst_limit > 1 and not any_masked and not topk
-                and not ret_logits and not self.pending):
+                and not ret_logits and not self.pending
+                and not live_filters
+                and not any(j.banned_strings for j in jobs)):
             room = min(
                 min(j.max_new_tokens - j.new_tokens for j in jobs),
                 min(len(j.pages) * self.page_size - j.kv_pos for j in jobs),
@@ -926,8 +999,35 @@ class DynamicGenerator:
                     "max_progress": job.prompt_len - 1,
                     "serial": id(job)})
 
+        # retry deferred banned-string rewinds (a shared page needed a
+        # private copy but none was free); still-deferred jobs sit out this
+        # round's decode so the shared KV is never overwritten
+        for job in self.active:
+            if job.rewind_deferred:
+                self._rewind_pages(job)
+
+        # forward-progress guarantee: if EVERY active job sits out on a
+        # deferred rewind (each holds shared pages another deferred job
+        # needs privately copied), no page can ever free on its own and
+        # iterate() would spin forever. Finish the youngest deferred job at
+        # its rewound state (its emitted text is valid: the rewind already
+        # retracted the banned string) so its pages release and the others
+        # retry.
+        if self.active and all(j.rewind_deferred for j in self.active):
+            victim = max(self.active, key=lambda j: j.time_enqueue)
+            victim.rewind_deferred = False
+            victim.eos_reason = "rewind_page_starvation"
+            victim.status = "done"
+            victim.held_text = ""
+            r = {"job": victim, "stage": "streaming", "eos": True,
+                 "text": "", "token_ids": np.zeros((0,), np.int64),
+                 "identifier": victim.identifier, "serial": id(victim)}
+            r.update(self._final_stats(victim))
+            results.append(r)
+
         # batched decode (split into max_batch_size groups; no starvation)
-        gen_jobs = [j for j in self.active if j.status == "generating"]
+        gen_jobs = [j for j in self.active
+                    if j.status == "generating" and not j.rewind_deferred]
         for i in range(0, len(gen_jobs), self.max_batch_size):
             self._decode(gen_jobs[i:i + self.max_batch_size], results)
 
@@ -945,17 +1045,60 @@ class DynamicGenerator:
     # ------------------------------------------------------------------
 
     def _job_mask(self, job: DynamicJob, vocab: int) -> np.ndarray | None:
-        """Allow-mask for the next sample, or None if unconstrained."""
+        """Combined allow-mask for the next sample, or None if free."""
         allow = None
+        if job.healing_token is not None and job.new_tokens == 0:
+            pieces = piece_table(self.tokenizer)
+            pre = pieces[job.healing_token] \
+                if job.healing_token < len(pieces) else ""
+            allow = np.zeros(vocab, bool)
+            if pre:
+                # sorted-prefix binary search: O(log V + matches) instead
+                # of scanning the vocabulary
+                ids = self.tokenizer.prefix_ids(pre) \
+                    if hasattr(self.tokenizer, "prefix_ids") else None
+                if ids is not None:
+                    ids = ids[ids < vocab]
+                    allow[ids] = True
+                else:
+                    for t, p in enumerate(pieces):
+                        if p.startswith(pre):
+                            allow[t] = True
+            else:
+                allow[:] = True
         eos_ids = [t for t in (self.tokenizer.eos_set() | job.stop_tokens)
                    if 0 <= t < vocab]
         if job.new_tokens < job.min_new_tokens and eos_ids:
             # EOS floor: ban stop tokens until min_new_tokens is met
-            allow = np.ones(vocab, bool)
+            if allow is None:
+                allow = np.ones(vocab, bool)
             allow[eos_ids] = False
-        banned = [t for t in (job.settings.banned_tokens or [])
-                  if 0 <= t < vocab]
-        if banned:
+        for f in job.filters:
+            if f.is_completed():
+                continue
+            ps, es = f.next()
+            if ps is None:
+                continue
+            # filter_prefer_eos: when a stop token is currently allowed,
+            # force it
+            if job.filter_prefer_eos and es and any(t in es or t in ps
+                                                    for t in eos_ids):
+                m = np.zeros(vocab, bool)
+                for t in eos_ids:
+                    if t in es or t in ps:
+                        m[t] = True
+                allow = m if allow is None else (allow & m)
+                continue
+            m = np.zeros(vocab, bool)
+            if ps:
+                m[np.fromiter((t for t in ps if t < vocab), int,
+                              count=-1)] = True
+            allow = m if allow is None else (allow & m)
+        # in numpy: a settings list may ban most of the vocabulary
+        banned = np.asarray(list(job.settings.banned_tokens or [])
+                            + list(job.blocked_tokens), np.int64)
+        banned = banned[(banned >= 0) & (banned < vocab)]
+        if banned.size:
             if allow is None:
                 allow = np.ones(vocab, bool)
             allow[banned] = False
@@ -965,6 +1108,20 @@ class DynamicGenerator:
 
     def _emit(self, job: DynamicJob, tok: int, results: list[dict]):
         eos = False
+        job.blocked_tokens.clear()          # one-shot rewind blocks
+        feed_filters = True
+        if job.post_sampling_hooks:
+            psr = PostSamplingResult(
+                sampled_token=tok,
+                sampled_prob=job.last_prob,
+                candidate_tokens=job.last_top[0] if job.last_top else None,
+                candidate_probs=job.last_top[1] if job.last_top else None)
+            for hook in job.post_sampling_hooks:
+                hook(psr)
+            feed_filters = psr.feed_filters
+        if feed_filters:
+            for f in job.filters:
+                f.feed(tok)
         if tok in job.stop_tokens or tok in self.tokenizer.eos_set():
             eos = True
             job.eos_reason = "stop_token"
@@ -978,9 +1135,39 @@ class DynamicGenerator:
             # replacement char re-decodes once the codepoint completes
             while full.endswith("�"):
                 full = full[:-1]
-            job.held_text += full[len(job.emitted_text)
-                                  + len(job.held_text):]
+            added = full[len(job.emitted_text) + len(job.held_text):]
+            held_before = job.held_text
+            job.held_text += added
             new_text = ""
+
+            # banned strings: rewind to where the string began and block
+            # its first token for one step
+            low = job.held_text.lower()
+            if any(b in low for b in job.banned_strings):
+                ck = job.checkpoint
+                if ck is None:
+                    # the banned string arrived within a single token:
+                    # rewind exactly that token
+                    ck = {"seq_len": len(job.sequence) - 1,
+                          "kv_pos": job.kv_pos - 1,
+                          "new_tokens": job.new_tokens - 1,
+                          "held_text": held_before}
+                first_tok = int(job.sequence[ck["seq_len"]]) \
+                    if len(job.sequence) > ck["seq_len"] else None
+                job.sequence = job.sequence[:ck["seq_len"]]
+                job.kv_pos = ck["kv_pos"]
+                job.new_tokens = ck["new_tokens"]
+                job.held_text = ck["held_text"]
+                job.checkpoint = None
+                self._rewind_pages(job)
+                if first_tok is not None:
+                    job.blocked_tokens.add(first_tok)
+                results.append({
+                    "job": job, "stage": "streaming", "eos": False,
+                    "text": "", "token_ids": np.asarray([], np.int32),
+                    "identifier": job.identifier, "serial": id(job)})
+                return
+
             stopped_at = None
             if job.stop_strings:
                 pos, _ = find_first_match(job.held_text, job.stop_strings)
@@ -992,13 +1179,36 @@ class DynamicGenerator:
                 eos = True
                 job.eos_reason = "stop_string"
             else:
-                # hold back any suffix that prefixes a stop string
+                # hold back any suffix that prefixes a stop or banned string
                 hold = max_partial_overlap(job.held_text, job.stop_strings) \
                     if job.stop_strings else 0
+                hold_banned = max_partial_overlap(low, job.banned_strings) \
+                    if job.banned_strings else 0
+                was_held = hold_banned > 0
+                hold = max(hold, hold_banned)
+                if was_held and job.checkpoint is None:
+                    job.checkpoint = {
+                        "seq_len": len(job.sequence) - 1,
+                        "kv_pos": job.kv_pos - 1,
+                        "new_tokens": job.new_tokens - 1,
+                        "held_text": held_before,
+                    }
+                elif not was_held:
+                    job.checkpoint = None
                 release = len(job.held_text) - hold
                 if release > 0:
                     new_text = job.held_text[:release]
                     job.held_text = job.held_text[release:]
+
+            # constrained region completed (SelectFilter end)
+            if not eos and job.filters and \
+                    all(f.is_completed() for f in job.filters):
+                nxt = [f.next() for f in job.filters]
+                if any(ps is not None and len(ps) == 0 for ps, _ in nxt):
+                    eos = True
+                    job.eos_reason = "end_filter"
+                    new_text += job.held_text
+                    job.held_text = ""
 
         if not eos and job.new_tokens >= job.max_new_tokens:
             eos = True
@@ -1021,19 +1231,24 @@ class DynamicGenerator:
             r["logits"] = job.last_logits[None]
         if eos:
             job.status = "done"
-            t_gen = max(job.time_last_token - job.time_first_token, 1e-9)
-            r.update({
-                "eos_reason": job.eos_reason,
-                "full_completion": job.emitted_text,
-                "new_tokens": job.new_tokens,
-                "prompt_tokens": job.prompt_len,
-                "cached_tokens": job.reused_tokens,
-                "time_enqueued": job.time_first_token - job.time_enqueue,
-                "time_generate": t_gen,
-                "tokens_per_second": (job.new_tokens - 1) / t_gen
-                if job.new_tokens > 1 else 0.0,
-            })
+            r.update(self._final_stats(job))
         results.append(r)
+
+    @staticmethod
+    def _final_stats(job: DynamicJob) -> dict:
+        """The fields a job's last result carries."""
+        t_gen = max(job.time_last_token - job.time_first_token, 1e-9)
+        return {
+            "eos_reason": job.eos_reason,
+            "full_completion": job.emitted_text,
+            "new_tokens": job.new_tokens,
+            "prompt_tokens": job.prompt_len,
+            "cached_tokens": job.reused_tokens,
+            "time_enqueued": job.time_first_token - job.time_enqueue,
+            "time_generate": t_gen,
+            "tokens_per_second": (job.new_tokens - 1) / t_gen
+            if job.new_tokens > 1 else 0.0,
+        }
 
     # ------------------------------------------------------------------
     # convenience API

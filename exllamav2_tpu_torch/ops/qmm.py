@@ -39,7 +39,8 @@ from exllamav2_tpu_torch.quant.qtensor import (
 from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["qmm", "linear_apply", "FUSED_MAX_ROWS", "fused_segment_matmul",
-           "qmm_plain", "w4a8_segment_matmul", "qmm_w4a8_plain",
+           "qmm_plain", "w4a8_segment_matmul", "w4a8_quantize",
+           "qmm_w4a8_plain",
            "partials_segment_matmul", "qmm_partials_plain", "LAUNCHES"]
 
 # Below this many activation rows the fused kernel serves the linear.
@@ -259,9 +260,19 @@ def qmm_w4a8_plain(x: torch.Tensor, seg) -> torch.Tensor:
     return ((pa - x1a * z) * s).sum(dim=0)
 
 
-def _kernel_w4a8_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+def w4a8_quantize(x: torch.Tensor, group_rows: int):
+    """The W4A8 activation quantization as buffers the kernel reads: (xq
+    int8 [m, K], a f32 [m, G], x1a f32 [m, G]), by the plain version. For
+    callers that quantize once and launch many times."""
+    xq, a, x1a = w4a8_quantize_plain(x, group_rows)
+    return (xq.reshape(x.shape).to(torch.int8).contiguous(),
+            a.contiguous(), x1a.contiguous())
+
+
+def _kernel_w4a8_matmul(x: torch.Tensor, seg, quantized=None) -> torch.Tensor:
     """Launch csrc/qmm_w4a8.cu on one segment (CUDA tensors only): the
-    quantization pass, then the integer partials kernel."""
+    quantization pass, then the integer partials kernel. With `quantized`
+    (from w4a8_quantize on the same x) the pass is skipped."""
     from exllamav2_tpu_torch import _build
     _w4a8_check_groups(seg)
     kind, s_buf, z_buf = _w4a8_meta(seg)
@@ -274,13 +285,24 @@ def _kernel_w4a8_matmul(x: torch.Tensor, seg) -> torch.Tensor:
          (z_buf, dts[1])])
     gr = seg.group_rows
     groups = k_pad // gr
-    xq = torch.empty((m, k_pad), dtype=torch.int8, device=x.device)
-    a = torch.empty((m, groups), dtype=torch.float32, device=x.device)
-    x1a = torch.empty_like(a)
+    if quantized is None:
+        xq = torch.empty((m, k_pad), dtype=torch.int8, device=x.device)
+        a = torch.empty((m, groups), dtype=torch.float32, device=x.device)
+        x1a = torch.empty_like(a)
+    else:
+        xq, a, x1a = quantized
+        for t, dt, shape in ((xq, torch.int8, (m, k_pad)),
+                             (a, torch.float32, (m, groups)),
+                             (x1a, torch.float32, (m, groups))):
+            if (t.device != x.device or t.dtype != dt or t.shape != shape
+                    or not t.is_contiguous()):
+                raise ValueError(f"quantized buffer {t.dtype} "
+                                 f"{tuple(t.shape)} (want {dt} {shape})")
     out, part, splits, per = _out_and_partials(
         x, m, n, k_pad, unit=max(1, gr // SUB_BLOCK))
     fn = _build.function("qmm_w4a8", "qmm_w4a8_segment", _ARGTYPES_W4A8)
-    rc = fn(x.data_ptr(), m, k_pad, xq.data_ptr(), a.data_ptr(),
+    rc = fn(x.data_ptr() if quantized is None else None, m, k_pad,
+            xq.data_ptr(), a.data_ptr(),
             x1a.data_ptr(), *_plane_args(seg, bp), n, seg.bits, gr,
             _META_W4A8[kind], s_buf.data_ptr(), z_buf.data_ptr(),
             part.data_ptr(), out.data_ptr(), splits, per,
@@ -290,12 +312,14 @@ def _kernel_w4a8_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     return out
 
 
-def w4a8_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+def w4a8_segment_matmul(x: torch.Tensor, seg, quantized=None
+                        ) -> torch.Tensor:
     """x [m <= 32, rows_pad] f32 (zero-padded K) -> f32 [m, N] through the
     W4A8 arithmetic. Launches the CUDA kernel on a card tensor; on a CPU
-    tensor runs the plain version."""
+    tensor runs the plain version. `quantized` = w4a8_quantize(x, group
+    rows) lets the kernel skip its quantization pass."""
     if x.is_cuda:
-        return _kernel_w4a8_matmul(x, seg)
+        return _kernel_w4a8_matmul(x, seg, quantized)
     return qmm_w4a8_plain(x, seg)
 
 

@@ -28,6 +28,16 @@ TRAINED = os.path.join(os.path.dirname(__file__), "fixtures", "trained_tiny")
 TOK = ByteTokenizer(384)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread, so that test workers
+    running side by side do not fight over the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_gen")
@@ -306,17 +316,26 @@ def test_base_generator(model):
     outs = gen.generate_simple(["ab", "cd"], Settings.greedy(), num_tokens=5,
                                completion_only=True)
     assert len(outs) == 2 and all(isinstance(o, str) for o in outs)
-    with pytest.raises(NotImplementedError, match="token_healing"):
-        gen.generate_simple("ab", token_healing=True)
+    healed = gen.generate_simple("ab", Settings.greedy(), num_tokens=5,
+                                 token_healing=True, completion_only=True)
+    # the healed first token extends the removed "b": with one byte a
+    # token, that is "b" itself
+    assert healed.startswith("b")
 
 
 @pytest.mark.parametrize("arg", [
     "filters", "token_healing", "banned_strings", "negative_prompt_ids",
     "embeddings", "post_sampling_hooks"])
 def test_unported_job_arguments_raise(arg):
+    """CFG and embeddings still raise; the constrained-generation arguments
+    are ported and land on the job."""
     val = {"token_healing": True, "negative_prompt_ids": np.array([1, 2])}
-    with pytest.raises(NotImplementedError, match=arg):
-        DynamicJob([1, 2, 3], **{arg: val.get(arg, ["x"])})
+    if arg in ("negative_prompt_ids", "embeddings"):
+        with pytest.raises(NotImplementedError, match=arg):
+            DynamicJob([1, 2, 3], **{arg: val.get(arg, ["x"])})
+    else:
+        job = DynamicJob([1, 2, 3], **{arg: val.get(arg, ["x"])})
+        assert getattr(job, arg) == val.get(arg, ["x"])
 
 
 @pytest.mark.parametrize("arg", [

@@ -181,3 +181,86 @@ def test_paged_decode_attention_kernel_matches_plain(dev, kind, hq, hkv, d,
         else cache.v_scales[1], vk).abs().max()
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-4 * vmax
+
+
+@pytest.mark.parametrize("kq,n", [(512, 256), (1376, 4096), (600, 132)])
+def test_perf_dma_only_kernel_matches_plain(dev, kq, n):
+    """Every K tile's sums, a ragged last tile and a ragged column block."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(kq)
+    plane = torch.randint(-2 ** 31, 2 ** 31, (kq, n), dtype=torch.int32,
+                          generator=gen, device=dev)
+    before = T.LAUNCHES["perf_qmm_dma_only"]
+    got = T.dma_only_tiles(plane)
+    assert T.LAUNCHES["perf_qmm_dma_only"] == before + 1
+    ref = T.dma_only_tiles_plain(plane)
+    assert got.shape == ref.shape == (-(-kq // 512), n)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(T.dma_only(plane), got[kq // 512 - 1].expand(8, n))
+
+
+@pytest.mark.parametrize("gr", [16, 32, 128, 256])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_perf_gp_kernel_matches_plain(dev, mode, bits, gr):
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    k, n = 1024, 392                      # a ragged column block
+    plane, qs, smax, x = T.mk_inputs(k, n, dev, seed=bits, bits=bits, gr=gr)
+    xa = T.quantize_x(x) if mode == "int8" else x.to(torch.bfloat16)
+    key = "perf_qmm_gp_" + mode
+    before = T.LAUNCHES[key]
+    got = T.gp(xa, plane, qs, smax, bits=bits, gr=gr)
+    assert T.LAUNCHES[key] == before + 1
+    ref = T.gp_plain(xa, plane, qs, smax, bits, gr)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("gr", [16, 32, 128, 256])
+@pytest.mark.parametrize("hints", [{}, {"kt0": 2048}, {"nt0": 4096},
+                                   {"kt0": 256, "nt0": 512}])
+def test_perf_nibble_kernel_matches_plain(dev, hints, gr):
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    k, n = 2048, 392
+    plane, qs, smax, x = T.mk_inputs(k, n, dev, seed=gr, bits=4, gr=gr)
+    xq = T.quantize_x(x)
+    x1 = T.group_sums(xq, gr)
+    before = T.LAUNCHES["perf_qmm_nibble_i8"]
+    got = T.nibble_i8(xq, x1, plane, qs, smax, gr=gr, **hints)
+    assert T.LAUNCHES["perf_qmm_nibble_i8"] == before + 1
+    ref = T.nibble_i8_plain(xq, x1, plane, qs, smax, gr)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("name", [
+    "int8_dot", "int8_dot_batched", "u32_to_int8_cast", "bitcast_u32_u16",
+    "u16_shift_and", "u8_shift_and", "int4_array", "int4_dot",
+    "bf16_dot_bf16_acc_f32", "bitcast_u32_i8"])
+def test_probe_kernel_matches_plain(dev, name):
+    from exllamav2_tpu_torch.tools import probe_features as PF
+    before = PF.LAUNCHES["probe_features"]
+    on_card = PF.run_probe(name, dev, seed=5)       # asserts kernel == plain
+    assert PF.LAUNCHES["probe_features"] == before + 1
+    assert on_card == PF.run_probe(name, "cpu", seed=5)
+
+
+def test_device_time_on_the_card(dev):
+    from exllamav2_tpu_torch.utils.timing import device_time
+    x = torch.randn((2048, 2048), device=dev)
+    t = device_time(lambda a: a @ a, x, iters=32)
+    assert 1e-6 < t < 1e-2
+
+
+def test_w4a8_kernel_takes_prequantized_activations(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    lin = enable_w4a8_linear(random_gptq_linear(gen, 1024, 384, device=dev))
+    seg = lin.segments[0]
+    x = torch.randn((8, seg.rows_pad), generator=gen, device=dev)
+    q = Q.w4a8_quantize(x, seg.group_rows)
+    before = Q.LAUNCHES["qmm_w4a8"]
+    got = Q.w4a8_segment_matmul(x, seg, quantized=q)
+    assert Q.LAUNCHES["qmm_w4a8"] == before + 1
+    ref = Q.qmm_w4a8_plain(x, seg)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
