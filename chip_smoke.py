@@ -82,6 +82,7 @@ constrained` phases 1 and 11.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -142,24 +143,14 @@ def mem_rate(card: str) -> float:
 
 
 def graph_ms(fns, iters: int) -> float:
-    """Device time per call: `iters` calls (cycling through fns) captured
-    in one CUDA graph, replayed between two events."""
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for i in range(iters):
-            fns[i % len(fns)]()
-    g.replay()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    g.replay()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / iters
+    """Device ms per call, cycling through fns: the slope of
+    utils/timing.device_time between CUDA graphs of iters // 4 and iters
+    calls, so every `ms` of the kernels line is taken by one method."""
+    from exllamav2_tpu_torch.utils.timing import device_time
+    step = itertools.count()
+    like = torch.empty(0, device="cuda")
+    return device_time(lambda _: fns[next(step) % len(fns)](), like,
+                       iters=iters) * 1e3
 
 
 def eager_ms(fn, iters: int = 5) -> float:
@@ -1270,23 +1261,6 @@ DMA_TOL = 1e-5              # per K tile, of max |plain|: f32 sum order only
 # operations/s by operand type: the tensor-core rates, and the f32 rate of
 # the plain ALUs for the casts and shifts
 PEAK_OPS = {"bf16": PEAK_BF16, "int8": 1979e12, "int32": 67e12}
-# per variant and shape: 2 warm-up calls and the two captures of
-# device_time(iters=64) go through the wrapper (replays do not)
-TOOL_CALLS = 2 + 16 + 64
-
-
-def nibble_dense(plane, qs, smax, gr):
-    """The bf16 weight the nibble kernel's function multiplies by: group g
-    holds the lo bytes of its words, then the hi bytes (mapping A)."""
-    from exllamav2_tpu_torch.ops import dequant as D
-    k, n = plane.shape[0] * 8, plane.shape[1]
-    shifts = torch.arange(4, dtype=torch.int32, device=plane.device) * 8
-    byts = (plane[:, None, :] >> shifts[None, :, None]) & 0xFF
-    lo = (byts & 0x0F).reshape(k // gr, gr // 2, n)
-    hi = ((byts >> 4) & 0x0F).reshape(k // gr, gr // 2, n)
-    vals = torch.cat([lo, hi], dim=1).reshape(k, n)
-    s = D.broadcast_groups(D.exl2_scales(qs, smax), gr)
-    return ((vals - 8).float() * s).to(torch.bfloat16)
 
 
 def phase_tools(dev, rate):
@@ -1384,9 +1358,7 @@ def phase_tools(dev, rate):
             xb, xq = x.to(torch.bfloat16), T.quantize_x(x)
             x1 = T.group_sums(xq, gr)
             meta = qs.numel() + smax.numel() * 4 + T.M * n * 4
-            dense = D.broadcast_groups(D.exl2_scales(qs, smax), gr)
-            dense = ((D.unpack_plane(plane, 4) - 8).float()
-                     * dense).to(torch.bfloat16)
+            dense = T.dense_weight(D.unpack_plane(plane, 4), qs, smax, gr)
             denses = [dense] + [dense.clone() for _ in
                                 range(T.n_copies(dense.numel() * 2) - 1)]
             for mode, xa in (("bf16", xb), ("int8", xq)):
@@ -1406,7 +1378,7 @@ def phase_tools(dev, rate):
                     2 * T.M * k * n, mode)
             ref = T.nibble_i8_plain(xq, x1, plane, qs, smax, gr)
             del denses, dense
-            dense = nibble_dense(plane, qs, smax, gr)
+            dense = T.dense_weight(T.nibble_values(plane, gr), qs, smax, gr)
             denses = [dense] + [dense.clone() for _ in
                                 range(T.n_copies(dense.numel() * 2) - 1)]
             for tag, hints in (("", {}), ("_k2048", {"kt0": 2048}),
@@ -1439,8 +1411,50 @@ def phase_tools(dev, rate):
                 [(r["plane_bytes"], r["ms"] * 1e-3) for r in sel]))
             log(f"[tools] {lines[-1]} | {card}")
 
+    # --- the variants that time kernels 1 and 4: what each of their calls
+    # returns against the plain version, on random activations at the
+    # variant's own shapes and linears (EXL2, BITS, GR), before any timing
+    from exllamav2_tpu_torch.ops import qmm as Q
+    variant_err = {}
+    for k, n in T.SHAPES:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(k + n)
+        x = torch.randn((T.M, k), dtype=torch.float32, generator=gen,
+                        device=dev)
+        xb = x.to(torch.bfloat16)
+        lin = T.variant_linear(gen, k, n, dev, w4a8=False)
+        lin8 = T.variant_linear(gen, k, n, dev, w4a8=True)
+        (seg,), (seg8,) = lin.segments, lin8.segments
+        assert lin.perm is None and seg.rows_pad == k == seg8.rows_pad
+        ref, ref8 = Q.qmm_plain(xb, seg), Q.qmm_w4a8_plain(x, seg8)
+        for name, got, want in (
+                ("current", Q.qmm(xb, lin, fused=True), ref),
+                ("w4a8_prod", Q.qmm(x, lin8, fused=True), ref8),
+                ("w4a8_kernel", Q.w4a8_segment_matmul(
+                    x, seg8, quantized=Q.w4a8_quantize(x, seg8.group_rows)),
+                 ref8)):
+            torch.cuda.synchronize()
+            r, err = rel(got, want)
+            log(f"[tools] variant {name:12s} {k:5d}x{n:5d} gr={T.GR:3d} "
+                f"against its plain version: err={err:.2e} rel={r:.2e}")
+            if r > QMM_TOL:
+                raise AssertionError(
+                    f"variant {name} {k}x{n}: rel err {r:.3g}")
+            variant_err[name] = max(variant_err.get(name, 0.0), err)
+
     # --- the tools path itself: every variant and every probe through the
-    # functions the entry points call, counts set to 0 before, read after
+    # functions the entry points call, counts set to 0 before, read after.
+    # A wrapper counts a call, also one made while a CUDA graph is captured
+    # (a replay goes through no wrapper), so the expected count per variant
+    # and shape is the number of calls one timing makes of its function,
+    # counted here on a function that launches no kernel of the port.
+    calls = [0]
+
+    def counted(t):
+        calls[0] += 1
+        return t + 1
+
+    T.time_cycled(counted, [torch.zeros(8, device=dev)], x)
     for counts in (T.LAUNCHES, PF.LAUNCHES):
         for key in counts:
             counts[key] = 0
@@ -1452,12 +1466,13 @@ def phase_tools(dev, rate):
     got = {**T.LAUNCHES, **PF.LAUNCHES,
            **{k: v for k, v in launch_counts().items()
               if k in ("qmm", "qmm_w4a8")}}
-    per = TOOL_CALLS * len(T.SHAPES)
+    per = calls[0] * len(T.SHAPES)
     want = {"perf_qmm_dma_only": per, "perf_qmm_gp_bf16": per,
             "perf_qmm_gp_int8": per, "perf_qmm_nibble_i8": 3 * per,
             "probe_features": len(PF.PROBES), "qmm": per,
             "qmm_w4a8": 2 * per}
-    log(f"[tools] launches on the tools path {got} (expected {want})")
+    log(f"[tools] wrapper calls on the tools path {got} (expected {want}: "
+        f"{calls[0]} calls a timing, {len(T.SHAPES)} shapes)")
     if got != want or strings != {n: p["result"] for n, p in probes.items()}:
         raise AssertionError(f"tools path: launches {got} != {want} or "
                              f"probe strings {strings}")
@@ -1479,6 +1494,7 @@ def phase_tools(dev, rate):
             raise AssertionError(f"{tool} entry point failed:\n{out}")
     log(f"[tools] entry points ran in {time.perf_counter() - t0:.1f} s")
     return {"probes": probes, "rows": rows, "lines": lines, "launches": got,
+            "calls_per_timing": calls[0], "variant_err": variant_err,
             "entry_points": entry}
 
 

@@ -37,8 +37,9 @@ from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["VARIANTS", "SHAPES", "M", "LAUNCHES", "dma_only",
            "dma_only_tiles", "dma_only_tiles_plain", "gp", "gp_plain",
-           "nibble_i8", "nibble_i8_plain", "nibble_tiles", "mk_inputs",
-           "report_line", "time_cycled",
+           "nibble_i8", "nibble_i8_plain", "nibble_tiles", "nibble_values",
+           "dense_weight", "mk_inputs",
+           "report_line", "time_cycled", "variant_linear",
            "quantize_x", "group_sums", "main"]
 
 VARIANTS = {}
@@ -263,25 +264,44 @@ def gp(x: torch.Tensor, plane: torch.Tensor, qs: torch.Tensor,
 # nibble_i8: the 4-bit nibble split
 # ---------------------------------------------------------------------------
 
+def nibble_values(plane: torch.Tensor, gr: int) -> torch.Tensor:
+    """int32 [K, N] in 0..15: the values of a 4-bit plane in the row order
+    the nibble split meets them. lo = w & 0x0F0F0F0F, hi = (w >> 4) &
+    0x0F0F0F0F, each word reinterpreted as four int8 rows under ROW MAPPING
+    A (row 4k + j is byte j of word k, little-endian). Group g takes word
+    rows g*gr/8 .. (g+1)*gr/8: its first gr/2 rows are the lo rows, its
+    second gr/2 the hi rows."""
+    kq, n = plane.shape
+    g = kq * 8 // gr
+    shifts = torch.arange(4, dtype=torch.int32, device=plane.device) * 8
+    byts = (plane[:, None, :] >> shifts[None, :, None]) & 0xFF  # [kq, 4, N]
+    lo = (byts & 0x0F).reshape(g, gr // 2, n)
+    hi = ((byts >> 4) & 0x0F).reshape(g, gr // 2, n)
+    return torch.cat([lo, hi], dim=1).reshape(kq * 8, n)
+
+
+def dense_weight(vals: torch.Tensor, qs: torch.Tensor, smax: torch.Tensor,
+                 gr: int) -> torch.Tensor:
+    """bf16 [K, N]: (vals - 8) times the fp16-rounded group scales, the
+    weight a library matmul of the same function multiplies by (vals from
+    `unpack_plane` for gp, from `nibble_values` for the nibble split)."""
+    s = D.broadcast_groups(D.exl2_scales(qs, smax), gr)
+    return ((vals - 8).to(torch.float32) * s).to(torch.bfloat16)
+
+
 def nibble_i8_plain(xq: torch.Tensor, x1: torch.Tensor, plane: torch.Tensor,
                     qs: torch.Tensor, smax: torch.Tensor,
                     gr: int) -> torch.Tensor:
-    """Plain version. lo = w & 0x0F0F0F0F, hi = (w >> 4) & 0x0F0F0F0F, each
-    word reinterpreted as four int8 rows under ROW MAPPING A (row 4k + j is
-    byte j of word k, little-endian). Group g takes word rows g*gr/8 ..
-    (g+1)*gr/8: its first gr/2 activations meet the lo rows, its second gr/2
-    the hi rows. y = sum_g s_g * p_g - 8 * (x1 @ s) -> f32 [M, N]."""
+    """Plain version: per group the activations meet the rows of
+    `nibble_values` (the dot in f32 on integer values, exact), then
+    y = sum_g s_g * p_g - 8 * (x1 @ s) -> f32 [M, N]."""
     m, k = xq.shape
     g = k // gr
     n = plane.shape[1]
     s = D.exl2_scales(qs, smax)                              # [G, N]
-    shifts = torch.arange(4, dtype=torch.int32, device=plane.device) * 8
-    byts = (plane[:, None, :] >> shifts[None, :, None]) & 0xFF  # [kq, 4, N]
-    lo = (byts & 0x0F).reshape(g, gr // 2, n).to(torch.float32)
-    hi = ((byts >> 4) & 0x0F).reshape(g, gr // 2, n).to(torch.float32)
-    xh = xq.to(torch.float32).reshape(m, g, 2, gr // 2)
-    p = torch.bmm(xh[:, :, 0].transpose(0, 1), lo) \
-        + torch.bmm(xh[:, :, 1].transpose(0, 1), hi)         # [G, M, N]
+    w = nibble_values(plane, gr).to(torch.float32).reshape(g, gr, n)
+    xg = xq.to(torch.float32).reshape(m, g, gr).transpose(0, 1)
+    p = torch.bmm(xg, w)                                     # [G, M, N]
     return (p * s[:, None, :]).sum(dim=0) - 8.0 * torch.matmul(x1, s)
 
 
@@ -366,20 +386,25 @@ def _shapes(device) -> list:
     return SHAPES if torch.device(device).type == "cuda" else CPU_SHAPES
 
 
+def variant_linear(gen: torch.Generator, k: int, n: int, device,
+                   w4a8: bool):
+    """One random EXL2 linear of BITS and GR as the variants `current`
+    (w4a8=False) and `w4a8_prod` / `w4a8_kernel` (w4a8=True) time it."""
+    from exllamav2_tpu_torch.utils.testing import random_quant_linear
+    lin = random_quant_linear(gen, k, n, bits=BITS, group_rows=GR,
+                              device=device)
+    return D.enable_w4a8_linear(lin) if w4a8 else lin
+
+
 def _linears(k, n, device, w4a8: bool) -> list:
     """Copies of one random EXL2 linear of BITS and GR, past the L2."""
-    from exllamav2_tpu_torch.utils.testing import random_quant_linear
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-
-    def make():
-        lin = random_quant_linear(gen, k, n, bits=BITS, group_rows=GR,
-                                  device=device)
-        return D.enable_w4a8_linear(lin) if w4a8 else lin
-    one = make()
-    nbytes = sum(p.numel() * 4 for s in one.segments for p in s.planes)
-    extra = n_copies(nbytes) - 1 if torch.device(device).type == "cuda" else 0
-    return [one] + [make() for _ in range(extra)]
+    one = variant_linear(gen, k, n, device, w4a8)
+    extra = n_copies(_plane_bytes(one)) - 1 \
+        if torch.device(device).type == "cuda" else 0
+    return [one] + [variant_linear(gen, k, n, device, w4a8)
+                    for _ in range(extra)]
 
 
 def _plane_bytes(lin) -> int:
