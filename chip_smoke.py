@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
               torch.matmul on the pre-dequantized bf16 weight (yardstick);
   3. attn     the decode-attention kernel against its plain version at
               B in {1, 4}, 32/32 and 32/8 heads, D 128, S 2048, past_len in
-              {0, 255, 1500}, plus softcap and window; SDPA as yardstick;
+              {0, 255, 1500}, plus softcap and a window of 512 (the attended
+              rows start inside a split); the split of each case (more than
+              one at batch 1); SDPA as yardstick;
   4. load     Model.from_dir(tests/fixtures/trained_tiny) on the card, greedy
               tokens equal to the CPU run of the same checkpoint;
   5. 7B       random EXL2 4.0 bpw weights at Llama-2-7B geometry (32 layers,
@@ -38,9 +40,11 @@ Phases (any failure raises and the script exits non-zero):
               7B shapes (q|k|v 4096x12288, o 4096x4096, gate|up 4096x22016,
               down 11008x4096 padded to 11264 rows) for GPTQ 4-bit gs128 with
               compressed and with plain meta, with act-order, EXL2 4-bit gs32
-              and mixed 8/3/5/6-bit EXL2; scales-on-partials at the unmerged
-              shapes for GPTQ 4-bit gs128; and the fused kernel's merged
-              (src_cols) meta kind on unprescaled EXL2 q|k|v and gate|up;
+              and mixed 8/3/5/6-bit EXL2 (each m logs the W4A8 template
+              it took: dp4a below 8 rows, mma from 8); scales-on-partials
+              at the unmerged shapes for GPTQ 4-bit gs128; and the fused
+              kernel's merged (src_cols) meta kind on unprescaled EXL2
+              q|k|v and gate|up;
   9. merged   the merged + W4A8 serving path at 7B width and full depth:
               random GPTQ 4-bit gs128 weights through
               DynamicGenerator(merged_weights=True, w4a8=True), the serving16
@@ -61,8 +65,8 @@ Phases (any failure raises and the script exits non-zero):
               tile of the ceiling within 1e-5); timed with
               utils/timing.device_time; every variant and probe through the
               functions the entry points call, launch counts asserted; then
-              `python -m exllamav2_tpu_torch.tools.perf_qmm` and
-              `... probe_features` as a user starts them;
+              `python -m exllamav2_tpu_torch.tools.perf_qmm w4a8_kernel` and
+              `... probe_features int8_dot_batched` as a user starts them;
  11. constrained  the serving path at 7B width under constraints: a free
               round of 16 jobs, then 16 concurrent jobs under SelectFilter,
               PrefixFilter, banned strings from their own free text (with
@@ -71,8 +75,9 @@ Phases (any failure raises and the script exits non-zero):
               a StreamingGenerator stream and four jobs under asyncio.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
-build/chip_smoke.json. `python3 chip_smoke.py paged` runs phases 1 and 6
-only (a quick check of the paged kernel), `python3 chip_smoke.py w4a8` phases
+build/chip_smoke.json. `python3 chip_smoke.py attn` runs phases 1 and 3
+only (a quick check of the decode-attention kernel), `python3 chip_smoke.py
+paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 1 and 8 (the W4A8, scales-on-partials and merged-meta kernels),
 `python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
@@ -300,6 +305,7 @@ def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
     on the pre-dequantized bf16 weight, and the byte bound. Appends to
     `rows`; returns the worst absolute error."""
     from exllamav2_tpu_torch.ops.dequant import dequant_linear
+    from exllamav2_tpu_torch.ops.qmm import w4a8_template
     one = make()
     wbytes = linear_bytes(one, 0)
     copies = [one] + [make() for _ in
@@ -334,11 +340,16 @@ def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
                            for w in wdense], 40)
         nbytes = linear_bytes(one, m)
         bound = nbytes / rate * 1e3
+        # the template of each W4A8 segment (csrc/qmm_w4a8.cu: mma or dp4a)
+        tmpl = "/".join(sorted({w4a8_template(m, s.group_rows,
+                                              s.planes[0].shape[1])
+                                for s in one.segments if s.act8}))
         rows.append(dict(kind=tag, k=k, n=n, m=m, max_abs_err=err,
                          rel_err=rel, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bytes=nbytes, bound_ms=bound))
+                         library_ms=lib_ms, bytes=nbytes, bound_ms=bound,
+                         template=tmpl or None))
         log(f"[{tag.split(':')[0]}] {tag.split(':')[-1]:24s} "
-            f"{k:5d}x{n:5d} m={m:2d} "
+            f"{k:5d}x{n:5d} m={m:2d}{' ' + tmpl if tmpl else ''} "
             f"err={err:.2e} rel={rel:.1e} kernel={ms * 1e3:8.1f}us "
             f"plain={plain_ms * 1e3:9.1f}us lib={lib_ms * 1e3:7.1f}us "
             f"bound={bound * 1e3:6.1f}us "
@@ -375,9 +386,13 @@ def phase_attn(dev, rate):
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     d, s_max, nl = 128, 2048, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # past_len 0 leaves every split but the first empty; with a window of
+    # 512 at past_len 1500 the attended rows start inside a split
     cases = [(b, hq, hkv, p, 0.0, 0) for b in (1, 4)
              for hq, hkv in ((32, 32), (32, 8)) for p in (0, 255, 1500)]
-    cases += [(1, 32, 8, 1500, 30.0, 0), (1, 32, 8, 1500, 0.0, 512)]
+    cases += [(1, 32, 8, 1500, 30.0, 0), (1, 32, 8, 1500, 0.0, 512),
+              (1, 32, 32, 1500, 0.0, 512)]
     rows, worst = [], 0.0
     for b, hq, hkv, past, cap, win in cases:
         shape = (nl, b, hkv, s_max, d)
@@ -386,6 +401,10 @@ def phase_attn(dev, rate):
         qs = [torch.randn((b, hq, d), generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(nl)]
         limit = _limit_bucket(past + 1, s_max)
+        splits, per = A.split_count(b, hkv, limit, sms)
+        if b == 1 and splits < 2:
+            raise AssertionError(f"attn b=1 {hq}/{hkv} limit={limit}: one "
+                                 "split")
         scale = d ** -0.5
         got = A.decode_attention(qs[3], k, v, 3, past, limit, scale, cap, win)
         ref = A.decode_attention_plain(qs[3], k, v, 3, past, limit, scale,
@@ -395,7 +414,8 @@ def phase_attn(dev, rate):
         vmax = v[3].float().abs().max().item()
         if not torch.isfinite(got).all() or err > ATTN_TOL * vmax:
             raise AssertionError(f"attn b={b} {hq}/{hkv} past={past} "
-                                 f"cap={cap} win={win}: err {err:.3g}")
+                                 f"cap={cap} win={win} splits={splits}: "
+                                 f"err {err:.3g}")
         worst = max(worst, err)
         ms = graph_ms([(lambda l=l: A.decode_attention(
             qs[l], k, v, l, past, limit, scale, cap, win))
@@ -417,11 +437,13 @@ def phase_attn(dev, rate):
         nbytes = 2 * b * hkv * rows_read * d * 2 + b * hq * d * (2 + 4)
         bound = nbytes / rate * 1e3
         rows.append(dict(b=b, hq=hq, hkv=hkv, past_len=past, limit=limit,
+                         splits=splits, rows_per_split=per,
                          softcap=cap, window=win, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
                          bound_ms=bound))
         lib_s = f"{lib_ms * 1e3:7.1f}us" if lib_ms is not None else "   n/a"
         log(f"[attn] b={b} {hq:2d}/{hkv:2d} past={past:4d} limit={limit:4d} "
+            f"splits={splits:2d}x{per:4d} "
             f"cap={cap:4.1f} win={win:3d} err={err:.2e} "
             f"kernel={ms * 1e3:7.1f}us plain={plain_ms * 1e3:8.1f}us "
             f"sdpa={lib_s} bound={bound * 1e3:5.1f}us "
@@ -1477,13 +1499,15 @@ def phase_tools(dev, rate):
         raise AssertionError(f"tools path: launches {got} != {want} or "
                              f"probe strings {strings}")
 
-    # --- both entry points as a user starts them, side by side (their
+    # --- both entry points as a user starts them, side by side, on one
+    # variant and one probe each (the path above ran them all; their
     # timings share the card and are not kept)
     t0 = time.perf_counter()
     procs = {tool: subprocess.Popen(
-        [sys.executable, "-m", "exllamav2_tpu_torch.tools." + tool],
+        [sys.executable, "-m", "exllamav2_tpu_torch.tools." + tool, arg],
         cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for tool in ("perf_qmm", "probe_features")}
+        for tool, arg in (("perf_qmm", "w4a8_kernel"),
+                          ("probe_features", "int8_dot_batched"))}
     entry = {}
     for tool, proc in procs.items():
         out, _ = proc.communicate(timeout=600)
@@ -1817,6 +1841,11 @@ def main() -> int:
     t_all = time.perf_counter()
     detail = {"card": card, "torch": torch.__version__}
     detail["build"] = phase_build()
+    if sys.argv[1:] == ["attn"]:
+        _, aerr = phase_attn(dev, rate)
+        log(f"[done] build and decode-attention kernel checks passed in "
+            f"{time.perf_counter() - t_all:.1f} s (max err {aerr:.2e})")
+        return 0
     if sys.argv[1:] == ["paged"]:
         detail["paged"], perr = phase_paged(dev, rate)
         log(f"[done] build and paged kernel checks passed in "

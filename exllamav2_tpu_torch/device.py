@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "sm_count"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -17,3 +19,10 @@ def resolve_device(device=None) -> torch.device:
                                "the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card `device` (kernels size their
+    grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -1,9 +1,16 @@
 """Decode attention (t = 1) over the linear KV cache.
 
 Counterpart of exllamav2_tpu/ops/decode_attn.py. On a card tensor the
-wrapper launches csrc/decode_attn.cu (one block per batch row and KV head,
-online softmax over tiles of the live rows); on a CPU tensor it runs the
+wrapper launches csrc/decode_attn.cu (flash-decoding: the cache rows below
+`limit` are split across blocks, `split_count` picks the split from the
+bucket and the SM count, each split runs an online softmax and the last
+block of a (batch, KV head) merges the splits); on a CPU tensor it runs the
 plain version below, which computes the reference's exp / sum softmax.
+
+Scratch of a launch with more than one split: the splits' unnormalised
+outputs f32 [splits, B, Hq, D] and their (max, sum) f32 [splits, B, Hq, 2],
+from torch.empty; and one int32 counter per (batch, KV head), kept per
+device, which the kernel leaves at 0 (launches share it in stream order).
 
 Cache layout is [L, B, H_kv, S, D]; only rows below `limit` are read (the
 caller buckets past_len). GQA maps G query heads onto each KV head.
@@ -15,7 +22,10 @@ import ctypes
 
 import torch
 
-__all__ = ["decode_attention", "decode_attention_plain", "LAUNCHES"]
+from exllamav2_tpu_torch.device import sm_count
+
+__all__ = ["decode_attention", "decode_attention_plain", "split_count",
+           "LAUNCHES"]
 
 # launches of csrc/decode_attn.cu, counted by its wrapper
 LAUNCHES = {"decode_attn": 0}
@@ -23,10 +33,38 @@ LAUNCHES = {"decode_attn": 0}
 _NEG = -1e30
 
 # q, k, v, the four cache strides, layer, batch, hkv, g, d, past_len, limit,
-# scale, softcap, window, out, stream (csrc/decode_attn.cu)
+# scale, softcap, window, splits, rows per split, out, the two scratch
+# buffers, the counters, stream (csrc/decode_attn.cu)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
              + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+
+_BLOCKS_PER_SM = 3      # the split fills the card with about this many
+_SPLIT_ROWS = 32        # fewest cache rows a split takes
+MAX_SPLITS = 64         # MAX_SPLITS in the source
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def split_count(batch: int, hkv: int, limit: int, sms: int
+                ) -> tuple[int, int]:
+    """(splits, rows per split) of the kernel's grid (batch * hkv, splits):
+    about _BLOCKS_PER_SM blocks per SM, a multiple of _SPLIT_ROWS rows a
+    split, at most MAX_SPLITS. A function of the bucket `limit`, not of
+    past_len, so the grid is fixed for a bucket."""
+    want = -(-_BLOCKS_PER_SM * sms // (batch * hkv))
+    want = max(1, min(want, MAX_SPLITS, -(-limit // _SPLIT_ROWS)))
+    per = -(-limit // want)
+    per = -(-per // _SPLIT_ROWS) * _SPLIT_ROWS
+    return -(-limit // per), per
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n int32 zeros on `device`, kept for every later launch."""
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -74,18 +112,29 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
     if d % 32 or d > 256 or g > 16 or g * d > 2048:
         raise NotImplementedError(f"head_dim {d}, {g} query heads per KV "
                                   "head")
-    if any(st % 8 for st in k.stride()[:4]) or v.data_ptr() % 16:
+    if (any(st % 8 for st in k.stride()[:4]) or k.data_ptr() % 16
+            or v.data_ptr() % 16):
         raise ValueError("K/V rows must be 16-byte aligned")
     limit = min(limit, s_max)
     if not 0 <= past_len < limit or not 0 <= layer < nl:
         raise ValueError(f"past_len {past_len}, limit {limit}, layer {layer}")
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    dev = q.device
+    splits, per = split_count(b, hkv, limit, sm_count(dev))
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
+    scratch = ()
+    if splits > 1:
+        scratch = (torch.empty((splits, b, hq, d), dtype=torch.float32,
+                               device=dev),
+                   torch.empty((splits, b, hq, 2), dtype=torch.float32,
+                               device=dev),
+                   _counters(dev, b * hkv))
     fn = _build.function("decode_attn", "decode_attention", _ARGTYPES)
     sl, sb, sh, ss, _ = k.stride()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sl, sb, sh, ss,
             layer, b, hkv, g, d, int(past_len), limit, float(scale),
-            float(softcap), int(window), out.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            float(softcap), int(window), splits, per, out.data_ptr(),
+            *([t.data_ptr() for t in scratch] or [None] * 3),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check("decode_attn", rc, "decode_attention")
     LAUNCHES["decode_attn"] += 1
     return out

@@ -9,7 +9,9 @@ Counterpart of exllamav2_tpu/ops/qmm.py. Two paths:
     for them: W4A8 segments (``act8``, ops/dequant.enable_w4a8) go through
     csrc/qmm_w4a8.cu, which multiplies int8 activations with the packed
     values as int8 and applies scales and zeros to the integer group
-    partials (approximate); GPTQ segments with groups of >= 128 rows go
+    partials (approximate) -- on int8 tensor-core tiles (mma.sync) from 8
+    rows up, with dp4a below 8 rows or for 16-row groups (w4a8_template);
+    GPTQ segments with groups of >= 128 rows go
     through csrc/qmm_partials.cu when QMM_PARTIALS=1 is set, the exact
     scales-on-partials form y = sum_g s_g (x_g @ v_g - z_g sum(x_g));
   * prefill (more rows): dequantize to bf16, then one matrix product
@@ -29,18 +31,18 @@ operands, as the reference does off its accelerator.
 from __future__ import annotations
 
 import ctypes
-import functools
 import os
 
 import torch
 
 from exllamav2_tpu_torch.quant.qtensor import (
     QuantLinear, DenseLinear, GptqSegment, SUB_BLOCK)
+from exllamav2_tpu_torch.device import sm_count
 from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["qmm", "linear_apply", "FUSED_MAX_ROWS", "fused_segment_matmul",
            "qmm_plain", "w4a8_segment_matmul", "w4a8_quantize",
-           "qmm_w4a8_plain",
+           "qmm_w4a8_plain", "w4a8_template",
            "partials_segment_matmul", "qmm_partials_plain", "LAUNCHES"]
 
 # Below this many activation rows the fused kernel serves the linear.
@@ -56,6 +58,9 @@ W4A8_MAX_GROUP_ROWS = 512
 
 _COLS = 128                 # columns per thread block (COLS in the sources)
 _BLOCKS_PER_SM = 8          # split K until the grid holds this many per SM
+# the same for the W4A8 mma template: its two-stage pipeline holds 60 KB of
+# shared memory at 4 bits and m <= 16, room for three blocks per SM
+_MMA_BLOCKS_PER_SM = 3
 _META = {"scale_f": 0, "qscale": 1, "gptq": 2, "src_cols": 3}
 _META_W4A8 = {"scale_f": 0, "gptq": 1, "gptq_bf": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -66,9 +71,9 @@ _ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
              _I, _I, _I, _P, _P, _I, _I, _P]
 # x f32, m, k_pad, xq, a, x1a, plane0, plane1, bp0, bp1, n, bits,
 # group_rows, meta kind, meta0, meta1, partials, out, splits, sub-blocks
-# per split, stream
+# per split, mma template, stream
 _ARGTYPES_W4A8 = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _P, _P, _P, _P, _I, _I, _P]
+                  _P, _P, _P, _P, _I, _I, _I, _P]
 # x bf16, m, k_pad, xsum, plane0, plane1, bp0, bp1, n, group_rows, scale,
 # zero, partials, out, splits, sub-blocks per split, stream
 _ARGTYPES_PARTIALS = [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -101,11 +106,10 @@ def _meta_kind(seg) -> str:
     return "src_cols" if seg.src_cols else "qscale"
 
 
-@functools.lru_cache(maxsize=None)
-def _target_blocks(device: torch.device) -> int:
-    """Thread blocks that fill `device`: _BLOCKS_PER_SM per SM."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return _BLOCKS_PER_SM * sms
+def _target_blocks(device: torch.device,
+                   per_sm: int = _BLOCKS_PER_SM) -> int:
+    """Thread blocks that fill `device`: per_sm per SM."""
+    return per_sm * sm_count(device)
 
 
 def _split_k(n: int, nsb: int, target: int, unit: int = 1
@@ -140,10 +144,10 @@ def _check_launch(x: torch.Tensor, seg, x_dtype, buffers) -> tuple:
     return m, k_pad, seg.planes[0].shape[1], bp
 
 
-def _out_and_partials(x, m, n, k_pad, unit=1):
+def _out_and_partials(x, m, n, k_pad, unit=1, per_sm=_BLOCKS_PER_SM):
     """Output, split-K scratch and the split the grid takes."""
-    splits, per = _split_k(n, k_pad // SUB_BLOCK, _target_blocks(x.device),
-                           unit)
+    splits, per = _split_k(n, k_pad // SUB_BLOCK,
+                           _target_blocks(x.device, per_sm), unit)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     part = out if splits == 1 else torch.empty(
         (splits, m, n), dtype=torch.float32, device=x.device)
@@ -216,6 +220,17 @@ def _w4a8_check_groups(seg) -> None:
         raise NotImplementedError(
             f"W4A8 group size {gr} over {seg.rows_pad} rows: want a divisor "
             f"or multiple of {SUB_BLOCK}, at most {W4A8_MAX_GROUP_ROWS}")
+
+
+def w4a8_template(m: int, group_rows: int, n: int) -> str:
+    """The template of csrc/qmm_w4a8.cu that serves m activation rows:
+    "mma" (int8 tensor-core tiles of 16 tokens x 8 columns x 32 rows) from
+    8 rows up where a 32-row k-step stays inside a group and the 16-byte
+    column chunks are whole, else "dp4a" (below 8 rows an m16 tile would be
+    mostly padding)."""
+    if m >= 8 and group_rows % 32 == 0 and n % 8 == 0:
+        return "mma"
+    return "dp4a"
 
 
 def w4a8_quantize_plain(x: torch.Tensor, group_rows: int):
@@ -298,14 +313,16 @@ def _kernel_w4a8_matmul(x: torch.Tensor, seg, quantized=None) -> torch.Tensor:
                     or not t.is_contiguous()):
                 raise ValueError(f"quantized buffer {t.dtype} "
                                  f"{tuple(t.shape)} (want {dt} {shape})")
+    mma = w4a8_template(m, gr, n) == "mma"
     out, part, splits, per = _out_and_partials(
-        x, m, n, k_pad, unit=max(1, gr // SUB_BLOCK))
+        x, m, n, k_pad, unit=max(1, gr // SUB_BLOCK),
+        per_sm=_MMA_BLOCKS_PER_SM if mma else _BLOCKS_PER_SM)
     fn = _build.function("qmm_w4a8", "qmm_w4a8_segment", _ARGTYPES_W4A8)
     rc = fn(x.data_ptr() if quantized is None else None, m, k_pad,
             xq.data_ptr(), a.data_ptr(),
             x1a.data_ptr(), *_plane_args(seg, bp), n, seg.bits, gr,
             _META_W4A8[kind], s_buf.data_ptr(), z_buf.data_ptr(),
-            part.data_ptr(), out.data_ptr(), splits, per,
+            part.data_ptr(), out.data_ptr(), splits, per, int(mma),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("qmm_w4a8", rc, "qmm_w4a8_segment")
     LAUNCHES["qmm_w4a8"] += 1

@@ -70,12 +70,15 @@ def test_qmm_kernel_merged_meta_matches_plain(dev, nsrc, m):
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 32])
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 24, 32])
 @pytest.mark.parametrize("kind", [
     "exl2_2", "exl2_3", "exl2_4", "exl2_5", "exl2_6", "exl2_8",
+    "exl2_4_gs32", "exl2_4_gs16",
     "gptq_4_gs64_bf16meta", "gptq_4_gs128_f32meta", "gptq_4_gs512_bf16meta",
     "gptq_8_gs128_bf16meta"])
 def test_w4a8_kernel_matches_plain(dev, kind, m):
+    """Both templates: dp4a below 8 rows and for 16-row groups, the int8
+    mma tiles from 8 rows (m = 16 one tile, 17-32 two)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(m)
     k, n = 1024, 384
@@ -90,10 +93,13 @@ def test_w4a8_kernel_matches_plain(dev, kind, m):
         else:
             lin = enable_w4a8_linear(lin)
     else:
-        lin = enable_w4a8_linear(
-            random_quant_linear(gen, k, n, bits=bits, device=dev))
+        gr = int(parts[2][2:]) if len(parts) > 2 else 32
+        lin = enable_w4a8_linear(random_quant_linear(
+            gen, k, n, bits=bits, group_rows=gr, device=dev))
     seg = lin.segments[0]
     assert seg.act8
+    assert Q.w4a8_template(m, seg.group_rows, n) == (
+        "mma" if m >= 8 and seg.group_rows >= 32 else "dp4a")
     x = torch.randn((m, seg.rows_pad), generator=gen, device=dev)
     before = dict(Q.LAUNCHES)
     got = Q.fused_segment_matmul(x, seg)
@@ -143,6 +149,34 @@ def test_decode_attention_kernel_matches_plain(dev, hq, hkv, d, past, cap,
     got = A.decode_attention(q, k, v, 1, past, limit, 0.09, cap, win)
     ref = A.decode_attention_plain(q, k, v, 1, past, limit, 0.09, cap, win)
     assert (got - ref).abs().max() <= 1e-4 * v.float().abs().max()
+
+
+@pytest.mark.parametrize("hkv,g,limit,past,win", [
+    (2, 4, 256, 0, 0), (4, 2, 512, 300, 0), (8, 4, 1024, 700, 0),
+    (16, 1, 2048, 2000, 0), (8, 4, 2048, 1500, 512), (2, 8, 1024, 1000, 100),
+    (16, 2, 256, 255, 0)])
+def test_decode_attention_kernel_splits_match_plain(dev, hkv, g, limit, past,
+                                                    win):
+    """Batch 1 over more than one split: an empty split (past_len 0), a
+    window whose first row lies inside a split, rows past the attended end."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(limit + past)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, per = A.split_count(1, hkv, limit, sms)
+    assert splits > 1 and splits * per >= limit
+    shape = (2, 1, hkv, 2048, 128)
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((1, hkv * g, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    before = A.LAUNCHES["decode_attn"]
+    got = A.decode_attention(q, k, v, 1, past, limit, 0.09, 0.0, win)
+    assert A.LAUNCHES["decode_attn"] == before + 1
+    ref = A.decode_attention_plain(q, k, v, 1, past, limit, 0.09, 0.0, win)
+    assert (got - ref).abs().max() <= 1e-4 * v.float().abs().max()
+    # the counters are back at 0: a second launch gives the same bits
+    again = A.decode_attention(q, k, v, 1, past, limit, 0.09, 0.0, win)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])

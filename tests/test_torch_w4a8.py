@@ -318,3 +318,109 @@ def test_w4a8_flagship_chain_gptq_merged():
     assert fed == fed_exact                       # same greedy tokens
     ref = run_ref(wf, fed)                        # teacher-forced
     assert np.abs(got - ref).max() <= 5e-3 * np.abs(ref).max()
+
+
+# ---------------------------------------------------------------------------
+# The B fragment of the kernel's int8 mma template (csrc/qmm_w4a8.cu), on
+# the CPU: lane l = 4g + t of an mma.m16n8k32 holds column g and k values
+# 16hf + 4t + i (register hf, byte i). k-step ks covers natural rows
+# 32ks..32ks+31 of a 256-row sub-block; the lane's four values of a register
+# sit in words (32ks + 16hf + 4t) % Q + i, Q = 8 * plane bits, at one slot,
+# gathered as one byte of each word, then one shift and one mask.
+# ---------------------------------------------------------------------------
+
+from exllamav2_tpu_torch.quant.qtensor import pack_planes, plane_split
+
+
+def _fragment_source(bp, ks, hf, t, i):
+    """(word, bit offset) of the plane of width bp holding the value that
+    lane (g, t) puts in byte i of B register hf at k-step ks."""
+    q = 8 * bp
+    base = 32 * ks + 16 * hf + 4 * t
+    return base % q + i, (base // q) * bp
+
+
+def _gather(words, bp, ks, hf, t, col):
+    """The kernel's prmt gather on column `col`: byte `bit // 8` of the four
+    words, shifted by `bit % 8`, masked to bp bits, as four values."""
+    vals = []
+    for i in range(4):
+        w, bit = _fragment_source(bp, ks, hf, t, i)
+        byte = (int(words[w, col]) >> (8 * (bit // 8))) & 0xFF
+        vals.append((byte >> (bit % 8)) & ((1 << bp) - 1))
+    return vals
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 8])
+def test_mma_fragment_map_covers_each_row_once(bits):
+    """Every (lane, register, byte) of the 8 k-steps of a sub-block names a
+    (word, slot) that holds natural row 32ks + k: each of the 256 rows comes
+    out once per column, in k order, for every plane of the value."""
+    rng = np.random.default_rng(bits)
+    values = rng.integers(0, 2 ** bits, size=(256, 8), dtype=np.uint32)
+    planes = pack_planes(values, bits)
+    seen = np.zeros(256, np.int64)
+    for ks in range(8):
+        for t in range(4):
+            for hf in range(2):
+                for g in range(8):
+                    got = [0] * 4
+                    shift = 0
+                    for bp, words in zip(plane_split(bits), planes):
+                        got = [v | (p << shift) for v, p in zip(
+                            got, _gather(words, bp, ks, hf, t, g))]
+                        shift += bp
+                    rows = [32 * ks + 16 * hf + 4 * t + i for i in range(4)]
+                    assert got == [int(values[r, g]) for r in rows]
+                    if g == 0:
+                        seen[rows] += 1
+                for bp in plane_split(bits):
+                    # one slot for the four words, no wrap past the sub-block
+                    srcs = [_fragment_source(bp, ks, hf, t, i)
+                            for i in range(4)]
+                    assert len({b for _, b in srcs}) == 1
+                    assert [w for w, _ in srcs] == list(
+                        range(srcs[0][0], srcs[0][0] + 4))
+                    assert srcs[3][0] < 8 * bp and srcs[0][1] < 32
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("gs", [16, 32, 64, 128, 256, 512])
+def test_mma_k_step_stays_inside_a_group(gs):
+    """A k-step's 32 rows lie in one group for every group size the mma
+    template takes; 16-row groups go to the dp4a template."""
+    for sb in range(4):
+        for ks in range(8):
+            first = sb * 256 + 32 * ks
+            inside = first // gs == (first + 31) // gs
+            assert inside == (gs % 32 == 0)
+    want = "mma" if gs % 32 == 0 else "dp4a"
+    assert TM.w4a8_template(16, gs, 4096) == want
+    assert TM.w4a8_template(32, gs, 4096) == want
+    assert TM.w4a8_template(4, gs, 4096) == "dp4a"
+    assert TM.w4a8_template(16, gs, 4100) == "dp4a"      # n % 8 != 0
+
+
+@pytest.mark.parametrize("bp", [1, 2, 4, 8])
+def test_mma_plane_tile_loads_have_no_bank_conflict(bp):
+    """The swizzled plane tile ([Q words][128 columns], word w, column c at
+    w * 128 + (c ^ 8 * ((w >> 2) & 3))): each 16-byte load of a lane's four
+    n-tiles (words of _fragment_source, columns 4g..4g+3 of the warp's 32)
+    keeps the eight lanes of a quarter warp on distinct banks, or on one
+    address (a broadcast)."""
+    def swz(w, c):
+        return w * 128 + (c ^ (((w >> 2) & 3) << 3))
+
+    for warp in range(4):
+        for ks in range(8):
+            for hf in range(2):
+                for i in range(4):
+                    for quarter in range(4):
+                        addrs = set()
+                        for lane in range(8 * quarter, 8 * quarter + 8):
+                            g, t = lane >> 2, lane & 3
+                            w, _ = _fragment_source(bp, ks, hf, t, i)
+                            addrs.add(swz(w, warp * 32 + 4 * g))
+                        banks = [(a + e) % 32 for a in addrs for e in range(4)]
+                        assert all(a % 4 == 0 for a in addrs)
+                        assert len(banks) == len(set(banks))
