@@ -6,11 +6,15 @@ Phases (any failure raises and the script exits non-zero):
   1. build    compile csrc/*.cu with nvcc (one process per source, in
               parallel) and print the build time and ptxas report;
   2. qmm      the fused dequant-matmul kernel against its plain version at the
-              Llama-2-7B decode shapes, m in {1, 4, 8, 16, 32} (every row
-              tile of the kernel; the main path runs 1, 4 and 16), for EXL2 4-bit
+              Llama-2-7B decode shapes, m in {1, 4, 8, 16, 32} (both
+              templates: gemv below 8 rows, mma from 8, one or two m16
+              tiles; the main path runs 1, 4 and 16), for EXL2 4-bit
               prescaled, EXL2 4-bit with qscale/smax, mixed 3/5/6-bit EXL2 and
-              GPTQ 4-bit gs128 act-order; times kernel, plain version and
-              torch.matmul on the pre-dequantized bf16 weight (yardstick);
+              GPTQ 4-bit gs128 act-order; each m logs its template; times
+              kernel, plain version and torch.matmul on the pre-dequantized
+              bf16 weight (yardstick); then every m of 1-32 at 4096x4096
+              for those kinds and for 2- and 8-bit EXL2 and GPTQ (every plane
+              pair and meta kind), checked only;
   3. attn     the decode-attention kernel against its plain version at
               B in {1, 4}, 32/32 and 32/8 heads, D 128, S 2048, past_len in
               {0, 255, 1500}, plus softcap and a window of 512 (the attended
@@ -34,7 +38,9 @@ Phases (any failure raises and the script exits non-zero):
               with its launch counts asserted, tokens/s, p50 TTFT and the
               device idle share; paged logits of one job teacher-forced
               through the linear-cache forward; a q4-cache round whose later
-              jobs reuse the first job's prompt page;
+              jobs reuse the first job's prompt page; the prefill's matrix
+              products by kernel name (bf16 on the tensor cores: no f32
+              GEMM may appear);
   8. partials the W4A8 kernel and the GPTQ scales-on-partials kernel against
               their plain versions, m in {1, 4, 8, 16, 32}: W4A8 at the merged
               7B shapes (q|k|v 4096x12288, o 4096x4096, gate|up 4096x22016,
@@ -49,9 +55,12 @@ Phases (any failure raises and the script exits non-zero):
               random GPTQ 4-bit gs128 weights through
               DynamicGenerator(merged_weights=True, w4a8=True), the serving16
               round of phase 7 with its launch counts asserted; W4A8 logits
-              of one job, teacher-forced, against the same weights through
-              the kernel's plain version and against the exact forward (both
-              limits at 2 layers, the numbers also at 8 and 32); a
+              of one job, teacher-forced: every W4A8 call against the
+              kernel's plain version on the same activations, and the
+              logits against the exact forward (both limits at 2 layers,
+              the numbers also at 8 and 32; the logits of a plain-version
+              pass printed beside them); the
+              prefill's matrix products by kernel name, as in phase 7; a
               generate_greedy call under QMM_PARTIALS=1 on the unmerged GPTQ
               weights (the scales-on-partials kernel's path); a merged-only
               EXL2 round whose greedy tokens must equal phase 7's.
@@ -75,8 +84,10 @@ Phases (any failure raises and the script exits non-zero):
               a StreamingGenerator stream and four jobs under asyncio.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
-build/chip_smoke.json. `python3 chip_smoke.py attn` runs phases 1 and 3
-only (a quick check of the decode-attention kernel), `python3 chip_smoke.py
+build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
+phase 8's merged-meta (src_cols) cases of the fused kernel (a quick check of
+csrc/qmm.cu), `python3 chip_smoke.py attn` phases 1 and 3 (the
+decode-attention kernel), `python3 chip_smoke.py
 paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 1 and 8 (the W4A8, scales-on-partials and merged-meta kernels),
 `python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
@@ -118,7 +129,11 @@ ATTN_TOL = 1e-4         # max |kernel - plain| <= ATTN_TOL * max |v|
 # activation, so two W4A8 runs drift apart with depth (the script prints the
 # numbers at 8 and 32 layers too).
 W4A8_LOGITS_TOL = 0.05  # vs the exact forward: mean |diff| / mean |exact|
-W4A8_PLAIN_TOL = 1e-3   # kernel vs plain version: max |diff| / max |plain|
+# kernel vs plain version on the same activations, every W4A8 call of a
+# 2-layer teacher-forced pass: max |diff| / max |plain| (f32 sum order; the
+# logits of two whole passes part after an int8 rounding flips, and are
+# printed beside it)
+W4A8_PLAIN_TOL = 1e-3
 # scales-on-partials against the fused kernel through a 2-layer model (the
 # fused kernel rounds each weight to bf16: 1.4e-3 of max |y| on one linear)
 PARTIALS_LOGITS_TOL = 0.02
@@ -298,6 +313,15 @@ def segment_inputs(lin, x):
     return out
 
 
+def kernel_template(m: int, seg) -> str:
+    """The template of the kernel that serves `seg` at m rows: csrc/qmm_w4a8.cu
+    (mma / dp4a) for a W4A8 segment, else csrc/qmm.cu (gemv / mma)."""
+    from exllamav2_tpu_torch.ops.qmm import qmm_template, w4a8_template
+    if seg.act8:
+        return w4a8_template(m, seg.group_rows, seg.planes[0].shape[1])
+    return qmm_template(m)
+
+
 def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
     """One linear kind at one shape: `kernel` against `plain` on every
     segment at every row tile (raises beyond QMM_TOL), then the times of the
@@ -305,7 +329,6 @@ def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
     on the pre-dequantized bf16 weight, and the byte bound. Appends to
     `rows`; returns the worst absolute error."""
     from exllamav2_tpu_torch.ops.dequant import dequant_linear
-    from exllamav2_tpu_torch.ops.qmm import w4a8_template
     one = make()
     wbytes = linear_bytes(one, 0)
     copies = [one] + [make() for _ in
@@ -340,10 +363,10 @@ def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
                            for w in wdense], 40)
         nbytes = linear_bytes(one, m)
         bound = nbytes / rate * 1e3
-        # the template of each W4A8 segment (csrc/qmm_w4a8.cu: mma or dp4a)
-        tmpl = "/".join(sorted({w4a8_template(m, s.group_rows,
-                                              s.planes[0].shape[1])
-                                for s in one.segments if s.act8}))
+        # the template of each segment's kernel (csrc/qmm_w4a8.cu: mma or
+        # dp4a; csrc/qmm.cu: gemv or mma); none for scales-on-partials
+        tmpl = "" if kernel.__name__.startswith("partials") else "/".join(
+            sorted({kernel_template(m, s) for s in one.segments}))
         rows.append(dict(kind=tag, k=k, n=n, m=m, max_abs_err=err,
                          rel_err=rel, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bytes=nbytes, bound_ms=bound,
@@ -353,7 +376,8 @@ def check_and_time(tag, make, k, n, kernel, plain, gen, dev, rate, rows):
             f"err={err:.2e} rel={rel:.1e} kernel={ms * 1e3:8.1f}us "
             f"plain={plain_ms * 1e3:9.1f}us lib={lib_ms * 1e3:7.1f}us "
             f"bound={bound * 1e3:6.1f}us "
-            f"({bound / ms * 100:4.1f}% of roofline)")
+            f"({bound / ms * 100:4.1f}% of roofline, lib/kernel "
+            f"{lib_ms / ms:4.2f}x)")
     del copies, wdense, ins
     torch.cuda.empty_cache()
     return worst
@@ -372,9 +396,53 @@ def phase_qmm(dev, rate):
                 "qmm:" + kind, lambda: make_linear(kind, k, n, gen, dev),
                 k, n, Q.fused_segment_matmul, Q.qmm_plain, gen, dev, rate,
                 rows))
+    worst = max(worst, qmm_every_m(dev, gen))
     for r in rows:
         r["kind"] = r["kind"].split(":")[1]
     return rows, worst
+
+
+def qmm_every_m(dev, gen) -> float:
+    """The fused kernel against its plain version at every m of 1-32 at
+    4096x4096, for every plane pair and meta kind (checked, not timed);
+    returns the worst absolute error."""
+    from exllamav2_tpu_torch.ops import qmm as Q
+    from exllamav2_tpu_torch.ops.dequant import precompute_scales_linear
+    from exllamav2_tpu_torch.quant.qtensor import QuantLinear
+    from exllamav2_tpu_torch.utils.testing import (
+        random_gptq_linear, random_quant_linear)
+    k = n = HIDDEN
+    lins = {kind: make_linear(kind, k, n, gen, dev) for kind in
+            ("exl2_4b_prescaled", "exl2_4b_qscale", "exl2_mixed_356",
+             "gptq_4b_gs128_actorder")}
+    half = [random_quant_linear(gen, k // 2, n, bits=b, device=dev)
+            .segments[0] for b in (2, 8)]
+    lins["exl2_mixed_28"] = precompute_scales_linear(
+        QuantLinear(half, None, None, k=k, n=n, n_orig=n))
+    lins["exl2_mixed_28_qscale"] = QuantLinear(half, None, None, k=k, n=n,
+                                               n_orig=n)
+    for b in (2, 3, 8):
+        lins[f"gptq_{b}b_gs32"] = random_gptq_linear(
+            gen, k, n, bits=b, group_rows=32, device=dev)
+    worst, rel_worst = 0.0, 0.0
+    for kind, lin in lins.items():
+        for m in range(1, 33):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            for xs, seg in segment_inputs(lin, x):
+                got = Q.fused_segment_matmul(xs, seg)
+                ref = Q.qmm_plain(xs, seg)
+                err = (got - ref).abs().max().item()
+                rel = err / ref.abs().max().item()
+                if not (torch.isfinite(got).all() and rel <= QMM_TOL):
+                    raise AssertionError(f"qmm {kind} m={m}: rel err {rel}")
+                worst, rel_worst = max(worst, err), max(rel_worst, rel)
+    torch.cuda.synchronize()
+    log(f"[qmm] every m of 1-32 at {k}x{n}, {len(lins)} kinds (plane pairs "
+        f"2, 2+1, 4, 4+1, 4+2, 8; meta scale_f, qscale, GPTQ): worst rel err "
+        f"{rel_worst:.1e} (limit {QMM_TOL:g})")
+    del lins
+    torch.cuda.empty_cache()
+    return worst
 
 
 # ---------------------------------------------------------------- phase 3
@@ -832,6 +900,28 @@ def profile_round(run):
     return per, sum(t for t, _ in per.values()), dt_prof
 
 
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def prefill_products(per, tag) -> dict:
+    """The matrix-product kernels of a profiled serving round (the batched
+    prefill's linears and t > 1 attention; the decode steps run the port's
+    kernels): logged by name, and an f32 GEMM fails the phase (the prefill
+    multiplies bf16 on the tensor cores with f32 results: ops/qmm._dot,
+    ops/paged_attn.gqa_scores / gqa_values)."""
+    gemms = {k: v for k, v in per.items()
+             if any(g in k.lower() for g in GEMM_NAMES)}
+    total = sum(t for t, _ in gemms.values())
+    log(f"[{tag}] prefill products: {total:.1f} ms in "
+        f"{sum(c for _, c in gemms.values())} launches")
+    for name, (t, c) in sorted(gemms.items(), key=lambda kv: -kv[1][0]):
+        log(f"[{tag}] prefill products: {t:8.2f} ms {c:6d}x  {name[:90]}")
+    f32 = [k for k in gemms if "f32f32" in k or "sgemm" in k.lower()]
+    if f32:
+        raise AssertionError(f"{tag}: f32 GEMM in the prefill: {f32}")
+    return {"ms": total, "by_kernel": {k[:90]: v for k, v in gemms.items()}}
+
+
 def teacher_forced_logits(model, prompt, toks) -> list:
     """Logits of the linear-cache forward on a job's tokens: after the
     prompt, then after each generated token but the last."""
@@ -917,6 +1007,7 @@ def phase_serving(dev, rate):
         f"{paged_in_situ * 1e3:.1f} us per launch in the round")
     for name, (t, c) in top:
         log(f"[serve] profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
+    prefill = prefill_products(per, "serve")
 
     # paged logits of one job against the linear-cache forward,
     # teacher-forced on the same tokens
@@ -973,6 +1064,7 @@ def phase_serving(dev, rate):
             "prompts": [p.tolist() for p in round_prompts],
             "tokens": [j.sequence[SERVE_PROMPT:].tolist() for j in jobs],
             "device_busy_ms": busy, "idle_share": 1 - busy / (dt * 1e3),
+            "prefill_products": prefill,
             "profiled_round_ms": dt_prof * 1e3,
             "paged_kernel_us_in_round": paged_in_situ * 1e3,
             "top_kernels": [(k[:70], t, c) for k, (t, c) in top],
@@ -1010,17 +1102,24 @@ def phase_partials(dev, rate):
             Q.partials_segment_matmul, Q.qmm_partials_plain, gen, dev, rate,
             rows))
     out["partials"] = (rows, worst)
+    out["src_cols"] = qmm_src_cols(dev, rate, gen)
+    for rs, _ in out.values():
+        for r in rs:
+            r["kind"] = r["kind"].split(":")[1]
+    return out
+
+
+def qmm_src_cols(dev, rate, gen):
+    """Kernel 1's merged meta kind (src_cols) at the merged q|k|v and
+    gate|up shapes: (rows, worst abs err)."""
+    from exllamav2_tpu_torch.ops import qmm as Q
     rows, worst = [], 0.0
     for k, widths in ((HIDDEN, (HIDDEN,) * 3), (HIDDEN, (INTER,) * 2)):
         worst = max(worst, check_and_time(
             f"qmm:exl2_4b_merged{len(widths)}",
             lambda: make_merged_linear(k, widths, gen, dev), k, sum(widths),
             Q.fused_segment_matmul, Q.qmm_plain, gen, dev, rate, rows))
-    out["src_cols"] = (rows, worst)
-    for rs, _ in out.values():
-        for r in rs:
-            r["kind"] = r["kind"].split(":")[1]
-    return out
+    return rows, worst
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1095,6 +1194,7 @@ def phase_merged(dev, rate, base):
         f"{base['idle_share']:.1%}")
     for name, (t, c) in top:
         log(f"[merged] profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
+    prefill = prefill_products(per, "merged")
 
     # W4A8 logits of one job, then teacher-forced on its tokens through the
     # linear-cache forward: the same weights on the kernel and on the
@@ -1104,10 +1204,21 @@ def phase_merged(dev, rate, base):
     got8, toks = job_logits(gen, prompt, 12)
     got8 = torch.stack(got8)
 
-    def forced(model, plain=False):
+    def forced(model, plain=False, calls=None):
+        """Teacher-forced logits; `plain` runs the W4A8 plain version,
+        `calls` (a list) gets, for every W4A8 call, the kernel's max
+        relative difference from the plain version on the same input."""
         kernel_wrapper = Q.w4a8_segment_matmul
         if plain:
             Q.w4a8_segment_matmul = Q.qmm_w4a8_plain
+        elif calls is not None:
+            def both(x, seg, quantized=None):
+                got = kernel_wrapper(x, seg, quantized)
+                ref = Q.qmm_w4a8_plain(x, seg)
+                calls.append(((got - ref).abs().max()
+                              / ref.abs().max()).item())
+                return got
+            Q.w4a8_segment_matmul = both
         try:
             return torch.stack(teacher_forced_logits(model, prompt, toks))
         finally:
@@ -1141,30 +1252,37 @@ def phase_merged(dev, rate, base):
                 dataclasses.replace(st, num_layers=depth,
                                     layers=st.layers[:depth]))
 
+    rel_calls = {}
     for depth in (2, 8):
         cut, st_cut = cut_weights(depth)
         cut8 = Model(enable_w4a8(merge_serving_weights(cut)), st_cut)
-        a = forced(cut8)
+        calls = []
+        a = forced(cut8, calls=calls)
+        rel_calls[depth] = max(calls)
         rel_plain[depth] = max_rel(a, forced(cut8, plain=True))
         dev_exact[depth] = mean_dev(a, forced(Model(cut, st_cut)))
         del cut8
     def fmt(by_depth):
         return {d: float(f"{v:.3g}") for d, v in sorted(by_depth.items())}
 
+    log(f"[merged] W4A8 kernel vs plain version on the same activations, "
+        f"every call of the teacher-forced pass, by depth: max rel err "
+        f"{fmt(rel_calls)} (limit {W4A8_PLAIN_TOL} at 2 layers)")
     log(f"[merged] W4A8 logits over {len(toks)} teacher-forced steps, by "
-        f"depth: kernel vs plain version max rel err {fmt(rel_plain)} "
-        f"(limit {W4A8_PLAIN_TOL} at 2 layers); vs the exact forward mean "
-        f"relative deviation {fmt(dev_exact)} (limit {W4A8_LOGITS_TOL} at 2 "
-        f"layers)")
+        f"depth: a kernel pass vs a plain-version pass max rel err "
+        f"{fmt(rel_plain)} (they part after an int8 rounding flips); vs the "
+        f"exact forward mean relative deviation {fmt(dev_exact)} (limit "
+        f"{W4A8_LOGITS_TOL} at 2 layers)")
     log(f"[merged] the generator's own W4A8 logits (paged cache): vs the "
         f"linear-cache W4A8 forward max rel err {rel_paged:.2e}; vs the "
         f"exact forward mean relative deviation {dev8:.4f}, same argmax in "
         f"{agree:.0%} of the steps")
     if not (torch.isfinite(got8).all() and 0 < dev8 < 0.5
-            and rel_plain[2] < W4A8_PLAIN_TOL
+            and rel_calls[2] < W4A8_PLAIN_TOL
             and 0 < dev_exact[2] < W4A8_LOGITS_TOL):
-        raise AssertionError(f"W4A8 logits: vs plain {rel_plain}, vs exact "
-                             f"{dev_exact}, generator vs exact {dev8}")
+        raise AssertionError(f"W4A8: per call vs plain {rel_calls}, logits "
+                             f"vs exact {dev_exact}, generator vs exact "
+                             f"{dev8}")
     del gen, lw
     torch.cuda.empty_cache()
 
@@ -1264,8 +1382,10 @@ def phase_merged(dev, rate, base):
     return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
             "p50_ttft_ms": p50, "ttft_ms": ttfts, "device_busy_ms": busy,
             "idle_share": idle, "profiled_round_ms": dt_prof * 1e3,
+            "prefill_products": prefill,
             "top_kernels": [(k[:70], t, c) for k, (t, c) in top],
             "w4a8_kernel_vs_plain_rel_err_by_depth": rel_plain,
+            "w4a8_kernel_vs_plain_per_call_rel_err_by_depth": rel_calls,
             "w4a8_mean_rel_dev_by_depth": dev_exact,
             "w4a8_paged_vs_linear_rel_err": rel_paged,
             "w4a8_logits_mean_rel_dev": dev8, "w4a8_argmax_agreement": agree,
@@ -1841,6 +1961,15 @@ def main() -> int:
     t_all = time.perf_counter()
     detail = {"card": card, "torch": torch.__version__}
     detail["build"] = phase_build()
+    if sys.argv[1:] == ["qmm"]:
+        _, qerr = phase_qmm(dev, rate)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(4321)
+        _, serr = qmm_src_cols(dev, rate, gen)
+        log(f"[done] build and fused dequant-matmul kernel checks passed in "
+            f"{time.perf_counter() - t_all:.1f} s (max err "
+            f"{max(qerr, serr):.2e})")
+        return 0
     if sys.argv[1:] == ["attn"]:
         _, aerr = phase_attn(dev, rate)
         log(f"[done] build and decode-attention kernel checks passed in "

@@ -38,7 +38,8 @@
 //     through shared memory, in fixed order;
 //   * with one split the block writes `out`. Otherwise it writes its
 //     unnormalised acc [G, D] and (m, l) to f32 scratch; the last block of a
-//     (batch, KV head), found through a counter, merges the splits in split
+//     (batch, KV head), found through a counter (the wrapper keeps one
+//     counter buffer per stream: device.stream_counters), merges the splits in split
 //     order (M = max m_s, L = sum l_s e^(m_s-M), out = sum acc_s e^(m_s-M)
 //     / L; the first eight splits' acc loaded beside every (m, l), eight
 //     splits a round after that) and sets the counter back to 0. No float atomics: the result does not depend on

@@ -6,7 +6,7 @@ import functools
 
 import torch
 
-__all__ = ["resolve_device", "sm_count"]
+__all__ = ["resolve_device", "sm_count", "stream_counters"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,3 +26,26 @@ def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of the card `device` (kernels size their
     grids by it)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# merge counters of the kernels, one buffer per (device, stream)
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def stream_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least n int32 zeros on `device` for the current stream, kept for
+    every later launch on that stream.
+
+    A kernel that merges its splits in the last block to arrive counts
+    arrivals in these slots and leaves them at 0, so launches that run in
+    order on one stream can share them; two streams never do (launches on
+    two streams may be in flight together). Under graph capture the buffer
+    of the capturing stream is allocated inside the capture and is the
+    graph's for every replay."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c

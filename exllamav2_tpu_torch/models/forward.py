@@ -22,8 +22,9 @@ from exllamav2_tpu_torch.cache import KVCache
 from exllamav2_tpu_torch.models.modules import (
     AttnWeights, MLPWeights, ModelWeights, NormWeights, StaticModel)
 from exllamav2_tpu_torch.ops.decode_attn import decode_attention
-from exllamav2_tpu_torch.ops.paged_attn import paged_attention
-from exllamav2_tpu_torch.ops.qmm import dot_dtype, linear_apply
+from exllamav2_tpu_torch.ops.paged_attn import (
+    gqa_scores, gqa_values, paged_attention)
+from exllamav2_tpu_torch.ops.qmm import linear_apply
 from exllamav2_tpu_torch.ops.rope import apply_rope
 
 __all__ = ["norm_apply", "attn_forward", "mlp_forward", "model_forward",
@@ -118,12 +119,7 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     s = ck.shape[2]
 
     g = st.q_per_kv
-    # operands bf16 on the card, f32 on the CPU (ops/qmm.dot_dtype); the
-    # products run in f32 either way and return f32 scores
-    adt = dot_dtype(x)
-    qg = q.reshape(b, t, hkv, g, hd).to(adt).float()
-    scores = torch.einsum("btkgd,bksd->bkgts", qg,
-                          ck.to(adt).float()) * scale     # [B, Hkv, G, T, S]
+    scores = gqa_scores(q.reshape(b, t, hkv, g, hd), ck) * scale
     if st.attn_logit_softcap > 0.0:
         cap = st.attn_logit_softcap
         scores = torch.tanh(scores / cap) * cap
@@ -135,8 +131,7 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
         mask &= pos_k[None, :] > pos_q[:, None] - window
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
 
-    probs = torch.softmax(scores, dim=-1).to(adt).float()
-    out = torch.einsum("bkgts,bksd->btkgd", probs, cv.to(adt).float())
+    out = gqa_values(torch.softmax(scores, dim=-1), cv)
     out = out.to(torch.bfloat16).reshape(b * t, hq * hd)
     out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, t, -1)
     return out, cache

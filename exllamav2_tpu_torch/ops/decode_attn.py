@@ -10,7 +10,8 @@ plain version below, which computes the reference's exp / sum softmax.
 Scratch of a launch with more than one split: the splits' unnormalised
 outputs f32 [splits, B, Hq, D] and their (max, sum) f32 [splits, B, Hq, 2],
 from torch.empty; and one int32 counter per (batch, KV head), kept per
-device, which the kernel leaves at 0 (launches share it in stream order).
+(device, stream) by device.stream_counters, which the kernel leaves at 0
+(launches on one stream share it in stream order; two streams never do).
 
 Cache layout is [L, B, H_kv, S, D]; only rows below `limit` are read (the
 caller buckets past_len). GQA maps G query heads onto each KV head.
@@ -22,7 +23,7 @@ import ctypes
 
 import torch
 
-from exllamav2_tpu_torch.device import sm_count
+from exllamav2_tpu_torch.device import sm_count, stream_counters
 
 __all__ = ["decode_attention", "decode_attention_plain", "split_count",
            "LAUNCHES"]
@@ -42,7 +43,6 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
 _BLOCKS_PER_SM = 3      # the split fills the card with about this many
 _SPLIT_ROWS = 32        # fewest cache rows a split takes
 MAX_SPLITS = 64         # MAX_SPLITS in the source
-_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def split_count(batch: int, hkv: int, limit: int, sms: int
@@ -56,15 +56,6 @@ def split_count(batch: int, hkv: int, limit: int, sms: int
     per = -(-limit // want)
     per = -(-per // _SPLIT_ROWS) * _SPLIT_ROWS
     return -(-limit // per), per
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least n int32 zeros on `device`, kept for every later launch."""
-    c = _COUNTERS.get(device)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device] = c
-    return c
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -127,7 +118,7 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
                                device=dev),
                    torch.empty((splits, b, hq, 2), dtype=torch.float32,
                                device=dev),
-                   _counters(dev, b * hkv))
+                   stream_counters(dev, b * hkv))
     fn = _build.function("decode_attn", "decode_attention", _ARGTYPES)
     sl, sb, sh, ss, _ = k.stride()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sl, sb, sh, ss,

@@ -21,7 +21,6 @@ import torch
 
 from exllamav2_tpu_torch.cache_paged import _kinds, _raw
 from exllamav2_tpu_torch.ops.kvquant import hadamard32
-from exllamav2_tpu_torch.ops.qmm import dot_dtype
 
 __all__ = ["paged_attention", "paged_decode_attention",
            "paged_decode_attention_plain", "LAUNCHES", "KIND_LAUNCHES"]
@@ -194,6 +193,35 @@ def paged_decode_attention(q: torch.Tensor, k_data: torch.Tensor,
     return paged_decode_attention_plain(*args)
 
 
+def gqa_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """einsum("btkgd,bksd->bkgts") of queries [B, T, Hkv, G, D] and keys
+    [B, Hkv, S, D] -> f32 [B, Hkv, G, T, S], operands in ops/qmm.dot_dtype:
+    on the card one bf16 x bf16 batched product with an f32 result on the
+    tensor cores (the reference's einsum with preferred_element_type), on
+    the CPU the f32 einsum."""
+    if not qg.is_cuda:
+        return torch.einsum("btkgd,bksd->bkgts", qg.float(), k.float())
+    b, t, hkv, g, d = qg.shape
+    a = qg.permute(0, 2, 3, 1, 4).reshape(b * hkv, g * t, d)
+    kt = k.reshape(b * hkv, -1, d).transpose(1, 2)
+    y = torch.bmm(a.to(torch.bfloat16), kt.to(torch.bfloat16),
+                  out_dtype=torch.float32)
+    return y.reshape(b, hkv, g, t, -1)
+
+
+def gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """einsum("bkgts,bksd->btkgd") of probabilities [B, Hkv, G, T, S] and
+    values [B, Hkv, S, D] -> f32 [B, T, Hkv, G, D], operands in dot_dtype
+    (bf16 on the card with an f32 result, f32 on the CPU)."""
+    if not p.is_cuda:
+        return torch.einsum("bkgts,bksd->btkgd", p.float(), v.float())
+    b, hkv, g, t, s = p.shape
+    y = torch.bmm(p.reshape(b * hkv, g * t, s).to(torch.bfloat16),
+                  v.reshape(b * hkv, s, -1).to(torch.bfloat16),
+                  out_dtype=torch.float32)
+    return y.reshape(b, hkv, g, t, -1).permute(0, 3, 1, 2, 4)
+
+
 def paged_attention(q: torch.Tensor, cache, layer: int,
                     block_table: torch.Tensor, cache_seqlens: torch.Tensor,
                     *, scale: float, window: int = 0, softcap: float = 0.0,
@@ -233,12 +261,7 @@ def paged_attention(q: torch.Tensor, cache, layer: int,
     s = k.shape[2]
     hkv = k.shape[1]
     g = hq // hkv
-    # operands bf16 on the card, f32 on the CPU (as the reference off its
-    # accelerator); products in f32 either way
-    dt = dot_dtype(q)
-    qg = q.to(dt).float().reshape(b, t, hkv, g, d)
-    scores = torch.einsum("btkgd,bksd->bkgts", qg,
-                          k.to(dt).float()) * scale
+    scores = gqa_scores(q.reshape(b, t, hkv, g, d), k) * scale
     if softcap > 0.0:
         scores = torch.tanh(scores / softcap) * softcap
     pos_q = cache_seqlens.long()[:, None] + torch.arange(
@@ -249,6 +272,5 @@ def paged_attention(q: torch.Tensor, cache, layer: int,
         mask &= pos_k[None, None, :] > pos_q[:, :, None] - window
     scores = torch.where(mask[:, None, None], scores,
                          torch.full_like(scores, _NEG))
-    probs = torch.softmax(scores, dim=-1).to(dt).float()
-    out = torch.einsum("bkgts,bksd->btkgd", probs, v.to(dt).float())
+    out = gqa_values(torch.softmax(scores, dim=-1), v)
     return out.reshape(b, t, hq, d)

@@ -3,12 +3,15 @@
 Counterpart of exllamav2_tpu/ops/qmm.py. Two paths:
 
   * decode (<= FUSED_MAX_ROWS rows): the fused dequant-matmul kernel
-    (csrc/qmm.cu) reads the plane-packed words once, unpacks and scales them
-    in registers and accumulates the product in f32 -- the bandwidth-bound
-    path that sets decode tokens/s. Two more kernels serve segments that ask
-    for them: W4A8 segments (``act8``, ops/dequant.enable_w4a8) go through
-    csrc/qmm_w4a8.cu, which multiplies int8 activations with the packed
-    values as int8 and applies scales and zeros to the integer group
+    (csrc/qmm.cu) reads the plane-packed words once, dequantizes them in
+    registers into the B fragments of bf16 tensor-core tiles and sums the
+    product in f32 -- the bandwidth-bound path that sets decode tokens/s; its
+    template follows m (qmm_template: "gemv" below 8 rows, "mma" from 8), and
+    K is split across a thread-block cluster whose blocks merge their
+    partial tiles in one launch (qmm_split). Two more kernels serve segments
+    that ask for them: W4A8 segments (``act8``, ops/dequant.enable_w4a8) go
+    through csrc/qmm_w4a8.cu, which multiplies int8 activations with the
+    packed values as int8 and applies scales and zeros to the integer group
     partials (approximate) -- on int8 tensor-core tiles (mma.sync) from 8
     rows up, with dp4a below 8 rows or for 16-row groups (w4a8_template);
     GPTQ segments with groups of >= 128 rows go
@@ -23,9 +26,10 @@ K-row ranges. Act-order is an activation column gather (x[:, perm]).
 Operand precision: the fused path rounds activations and weights to bf16 and
 accumulates in f32 on every device (W4A8 segments take f32 activations, so no
 bf16 rounding lies under the int8 one). The prefill path and dense linears
-round their operands to bf16 on the card (the product then runs on
-bf16-valued operands with an f32 result); on the CPU they keep f32
-operands, as the reference does off its accelerator.
+multiply bf16 operands with an f32 result on the card (torch.mm with
+out_dtype, on the tensor cores, as the reference's jnp.dot with
+preferred_element_type); on the CPU they keep f32 operands, as the reference
+does off its accelerator.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from exllamav2_tpu_torch.device import sm_count
 from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["qmm", "linear_apply", "FUSED_MAX_ROWS", "fused_segment_matmul",
-           "qmm_plain", "w4a8_segment_matmul", "w4a8_quantize",
+           "qmm_plain", "qmm_template", "qmm_split",
+           "w4a8_segment_matmul", "w4a8_quantize",
            "qmm_w4a8_plain", "w4a8_template",
            "partials_segment_matmul", "qmm_partials_plain", "LAUNCHES"]
 
@@ -58,6 +63,11 @@ W4A8_MAX_GROUP_ROWS = 512
 
 _COLS = 128                 # columns per thread block (COLS in the sources)
 _BLOCKS_PER_SM = 8          # split K until the grid holds this many per SM
+# the same for the two templates of csrc/qmm.cu, whose K-splits are the
+# blocks of one thread-block cluster: at most _QMM_MAX_SPLITS (MAX_SPLITS in
+# the source, the portable cluster size)
+_QMM_BLOCKS_PER_SM = {"gemv": 3, "mma": 2}
+_QMM_MAX_SPLITS = 8
 # the same for the W4A8 mma template: its two-stage pipeline holds 60 KB of
 # shared memory at 4 bits and m <= 16, room for three blocks per SM
 _MMA_BLOCKS_PER_SM = 3
@@ -65,10 +75,10 @@ _META = {"scale_f": 0, "qscale": 1, "gptq": 2, "src_cols": 3}
 _META_W4A8 = {"scale_f": 0, "gptq": 1, "gptq_bf": 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # x, m, k_pad, plane0, plane1, bp0, bp1, n, bits, group_rows, meta kind,
-# meta0, meta1, sources, start column of source 1 and 2, partials, out,
-# splits, sub-blocks per split, stream
+# meta0, meta1, sources, start column of source 1 and 2, out, splits,
+# sub-blocks per split, stream
 _ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
-             _I, _I, _I, _P, _P, _I, _I, _P]
+             _I, _I, _I, _P, _I, _I, _P]
 # x f32, m, k_pad, xq, a, x1a, plane0, plane1, bp0, bp1, n, bits,
 # group_rows, meta kind, meta0, meta1, partials, out, splits, sub-blocks
 # per split, mma template, stream
@@ -86,9 +96,14 @@ def dot_dtype(t: torch.Tensor) -> torch.dtype:
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b with operands rounded to dot_dtype and an f32 result."""
-    dt = dot_dtype(a)
-    return torch.matmul(a.to(dt).float(), b.to(dt).float())
+    """a [..., K] @ b [K, N] with operands in dot_dtype and an f32 result:
+    on the card one bf16 x bf16 product with f32 output on the tensor
+    cores, on the CPU an f32 product."""
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    y = torch.mm(a.reshape(-1, a.shape[-1]).to(torch.bfloat16),
+                 b.to(torch.bfloat16), out_dtype=torch.float32)
+    return y.reshape(*a.shape[:-1], b.shape[-1])
 
 
 def qmm_plain(x: torch.Tensor, seg) -> torch.Tensor:
@@ -161,6 +176,23 @@ def _plane_args(seg, bp):
             bp[0], bp[1] if len(bp) > 1 else 0)
 
 
+def qmm_template(m: int) -> str:
+    """The template of csrc/qmm.cu that serves m activation rows: "gemv"
+    below 8 rows (one bf16 m16 tile whose rows 8-15 are known zero), "mma"
+    from 8 (one or two full m16 tiles)."""
+    return "gemv" if m < 8 else "mma"
+
+
+def qmm_split(n: int, nsb: int, target: int) -> tuple[int, int]:
+    """(splits, sub-blocks per split) of csrc/qmm.cu's grid (column blocks,
+    splits): about `target` blocks, at most _QMM_MAX_SPLITS splits (the
+    blocks of one cluster), every split non-empty."""
+    nblk = -(-n // _COLS)
+    want = max(1, min(nsb, _QMM_MAX_SPLITS, -(-target // nblk)))
+    per = -(-nsb // want)
+    return -(-nsb // per), per
+
+
 def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     """Launch csrc/qmm.cu on one segment (CUDA tensors only)."""
     from exllamav2_tpu_torch import _build
@@ -177,6 +209,11 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     m, k_pad, n, bp = _check_launch(
         x, seg, torch.bfloat16,
         [*((p, torch.int32) for p in seg.planes), *zip(meta, dts)])
+    if n % 4:
+        raise NotImplementedError(f"{n} columns: the kernel reads 4-column "
+                                  "chunks")
+    if x.data_ptr() % 16:
+        x = x.clone()                     # a view at an odd offset
     src = (0, 0, 0)
     if kind == "src_cols":
         # one smax column per merged source; the kernel picks a column's
@@ -185,12 +222,15 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
         if nsrc not in (2, 3) or seg.smax.shape[1] != nsrc:
             raise NotImplementedError(f"{nsrc} merged sources")
         src = (nsrc, seg.src_cols[1], seg.src_cols[2] if nsrc > 2 else n)
-    out, part, splits, per = _out_and_partials(x, m, n, k_pad)
+    splits, per = qmm_split(
+        n, k_pad // SUB_BLOCK,
+        _target_blocks(x.device, _QMM_BLOCKS_PER_SM[qmm_template(m)]))
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("qmm", "qmm_segment", _ARGTYPES)
     rc = fn(x.data_ptr(), m, k_pad, *_plane_args(seg, bp),
             n, seg.bits, seg.group_rows, _META[kind],
             meta[0].data_ptr(), meta[1].data_ptr(), *src,
-            part.data_ptr(), out.data_ptr(), splits, per,
+            out.data_ptr(), splits, per,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("qmm", rc, "qmm_segment")
     LAUNCHES["qmm"] += 1

@@ -14,7 +14,8 @@ Usage: python -m exllamav2_tpu_torch.tools.perf_qmm            # all variants
        python -m exllamav2_tpu_torch.tools.perf_qmm <variant>  # one, in-process
        ... --device cpu    # the plain versions at a small shape
 QMM_BITS (default 4) and QMM_GROUP (default 32; 128 = GPTQ-like groups) set
-the plane width and the group size.
+the plane width and the group size; QMM_M (default 8) the activation rows of
+the variant `current` (the fused kernel's template follows m).
 
 The three kernels of csrc/perf_qmm.cu have their wrappers and plain versions
 here: `dma_only` (the streaming ceiling), `gp` (group partials, bf16 or int8
@@ -62,6 +63,7 @@ SHAPES = [  # (K, N) of Llama-2-7B linears
 ]
 CPU_SHAPES = [(4096, 256)]     # what --device cpu runs
 M = 8
+CURRENT_M = int(os.environ.get("QMM_M", M))
 BITS = int(os.environ.get("QMM_BITS", 4))
 GR = int(os.environ.get("QMM_GROUP", 32))
 DMA_TILE = 512                 # word rows per K tile of dma_only
@@ -418,7 +420,7 @@ def _current(device):
     rows = []
     for k, n in _shapes(device):
         lins = _linears(k, n, device, w4a8=False)
-        x = torch.ones((M, k), dtype=torch.bfloat16, device=device)
+        x = torch.ones((CURRENT_M, k), dtype=torch.bfloat16, device=device)
         t = time_cycled(lambda lin: qmm(x, lin, fused=True), lins, x)
         rows.append((_plane_bytes(lins[0]), t))
     return "current", rows

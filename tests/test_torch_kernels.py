@@ -26,31 +26,78 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("m", [1, 3, 4, 8, 16, 17, 32])
-@pytest.mark.parametrize("kind", ["exl2_2", "exl2_3", "exl2_4_prescaled",
-                                  "exl2_5", "exl2_6", "exl2_8", "gptq_4"])
-def test_qmm_kernel_matches_plain(dev, kind, m):
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(m)
-    k, n = 768, 384
-    if kind == "gptq_4":
-        lin = random_gptq_linear(gen, k, n, group_rows=64, device=dev)
-    else:
-        bits = int(kind.split("_")[1])
-        lin = random_quant_linear(gen, k, n, bits=bits, device=dev)
-        if kind.endswith("prescaled"):
-            lin = precompute_scales_linear(lin)
-    seg = lin.segments[0]
-    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev).to(
-        torch.bfloat16)
-    before = Q.LAUNCHES["qmm"]
+QMM_ROWS = [1, 2, 3, 4, 7, 8, 9, 16, 17, 24, 32]   # both templates
+
+
+def _qmm_linear(kind, k, n, gen, dev):
+    """A linear of `kind`: exl2_<bits>[_prescaled][_gs<rows>] or
+    gptq_<bits>[_gs<rows>]."""
+    parts = kind.split("_")
+    bits = int(parts[1])
+    gs = [int(p[2:]) for p in parts if p.startswith("gs")]
+    if parts[0] == "gptq":
+        return random_gptq_linear(gen, k, n, bits=bits,
+                                  group_rows=gs[0] if gs else 64, device=dev)
+    lin = random_quant_linear(gen, k, n, bits=bits,
+                              group_rows=gs[0] if gs else 32, device=dev)
+    return precompute_scales_linear(lin) if "prescaled" in parts else lin
+
+
+def _check_qmm(x, seg):
+    before = dict(Q.LAUNCHES)
     got = Q.fused_segment_matmul(x, seg)
-    assert Q.LAUNCHES["qmm"] == before + 1
+    assert Q.LAUNCHES == dict(before, qmm=before["qmm"] + 1)
     ref = Q.qmm_plain(x, seg)
+    assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
-@pytest.mark.parametrize("m", [1, 4, 17])
+@pytest.mark.parametrize("m", QMM_ROWS)
+@pytest.mark.parametrize("kind", [
+    "exl2_2", "exl2_3", "exl2_4_prescaled", "exl2_5", "exl2_6", "exl2_8",
+    "gptq_4", "exl2_2_prescaled", "exl2_3_prescaled", "exl2_5_prescaled",
+    "exl2_6_prescaled", "exl2_8_prescaled", "exl2_4_prescaled_gs16",
+    "exl2_4_gs128", "gptq_2", "gptq_3", "gptq_8", "gptq_4_gs16"])
+def test_qmm_kernel_matches_plain(dev, kind, m):
+    """Every meta kind and plane pair on both templates (gemv below 8 rows,
+    mma from 8; m = 17-32 two m16 tiles)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m)
+    seg = _qmm_linear(kind, 768, 384, gen, dev).segments[0]
+    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev).to(
+        torch.bfloat16)
+    _check_qmm(x, seg)
+
+
+@pytest.mark.parametrize("m", [1, 5, 8, 20])
+@pytest.mark.parametrize("kind", ["exl2_4_prescaled", "exl2_6", "gptq_8"])
+@pytest.mark.parametrize("k,n", [(2816, 200), (256, 72), (4096, 4100)])
+def test_qmm_kernel_ragged_columns_and_splits(dev, k, n, kind, m):
+    """n % 128 != 0 (a partial column block, a partial warp), one sub-block
+    of K, and K over the most splits a cluster takes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + m)
+    seg = _qmm_linear(kind, k, n, gen, dev).segments[0]
+    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev).to(
+        torch.bfloat16)
+    _check_qmm(x, seg)
+    # deterministic: the cluster merges its splits in rank order
+    assert torch.equal(Q.fused_segment_matmul(x, seg),
+                       Q.fused_segment_matmul(x, seg))
+
+
+def test_qmm_kernel_unaligned_activation_view(dev):
+    """A contiguous view of x at an offset that is not 16-byte aligned."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    seg = _qmm_linear("exl2_4_prescaled", 512, 256, gen, dev).segments[0]
+    base = torch.randn(512 + 3, generator=gen, device=dev).to(torch.bfloat16)
+    x = base[3:].view(1, 512)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    _check_qmm(x, seg)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 17, 32])
 @pytest.mark.parametrize("nsrc", [2, 3])
 def test_qmm_kernel_merged_meta_matches_plain(dev, nsrc, m):
     """The src_cols meta kind: unprescaled EXL2 sources merged by columns,
@@ -63,11 +110,7 @@ def test_qmm_kernel_merged_meta_matches_plain(dev, nsrc, m):
     seg = lin.segments[0]
     assert seg.src_cols and seg.scale_f is None
     x = torch.randn((m, 512), generator=gen, device=dev).to(torch.bfloat16)
-    before = Q.LAUNCHES["qmm"]
-    got = Q.fused_segment_matmul(x, seg)
-    assert Q.LAUNCHES["qmm"] == before + 1
-    ref = Q.qmm_plain(x, seg)
-    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    _check_qmm(x, seg)
 
 
 @pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 24, 32])
@@ -298,3 +341,91 @@ def test_w4a8_kernel_takes_prequantized_activations(dev):
     assert Q.LAUNCHES["qmm_w4a8"] == before + 1
     ref = Q.qmm_w4a8_plain(x, seg)
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_decode_attention_two_streams(dev):
+    """Two launches with different inputs in flight on two streams: each has
+    its own merge counters (device.stream_counters), so both match their
+    plain versions."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    hkv, g, limit = 8, 4, 2048
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert A.split_count(1, hkv, limit, sms)[0] > 1
+    cases = []
+    for past in (1900, 1300):
+        shape = (2, 1, hkv, 2048, 128)
+        k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q = torch.randn((1, hkv * g, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        cases.append((q, k, v, past))
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[] for _ in cases]
+    for _ in range(20):              # interleaved launches on both streams
+        for (q, k, v, past), st, o in zip(cases, streams, outs):
+            with torch.cuda.stream(st):
+                o.append(A.decode_attention(q, k, v, 1, past, limit, 0.09))
+    torch.cuda.synchronize(dev)
+    from exllamav2_tpu_torch import device as DV
+    keys = {(st.device_index, st.cuda_stream) for st in streams}
+    assert keys <= set(DV._COUNTERS)
+    for (q, k, v, past), o in zip(cases, outs):
+        ref = A.decode_attention_plain(q, k, v, 1, past, limit, 0.09)
+        for got in o:
+            assert (got - ref).abs().max() <= 1e-4 * v.float().abs().max()
+
+
+def test_prefill_dot_is_bf16_on_tensor_cores(dev):
+    """The prefill product: bf16 operands, an f32 result, and no f32 GEMM
+    in the profiler's kernels."""
+    from torch.profiler import profile, ProfilerActivity
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    a = torch.randn((2, 64, 512), generator=gen, device=dev)
+    b = torch.randn((512, 384), generator=gen, device=dev).to(torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = Q._dot(a, b)
+        torch.cuda.synchronize(dev)
+    assert y.dtype == torch.float32 and y.shape == (2, 64, 384)
+    ref = torch.matmul(a.to(torch.bfloat16).double(), b.double())
+    assert (y - ref).abs().max() <= 1e-4 * ref.abs().max()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and not any("f32f32" in k or "sgemm" in k.lower()
+                             for k in names), names
+
+
+def test_prefill_attention_products_are_bf16(dev):
+    """The t > 1 attention's two products (both caches): bf16 operands, f32
+    results equal to the einsums on the rounded operands, and no f32 GEMM in
+    the profiler's kernels."""
+    from torch.profiler import profile, ProfilerActivity
+    from exllamav2_tpu_torch.ops.paged_attn import gqa_scores, gqa_values
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    q = torch.randn((2, 16, 4, 2, 128), generator=gen, device=dev)
+    k = torch.randn((2, 4, 300, 128), generator=gen, device=dev)[:, :, :272]
+    v = torch.randn((2, 4, 272, 128), generator=gen, device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sc = gqa_scores(q, k)
+        out = gqa_values(torch.softmax(sc, dim=-1), v)
+        torch.cuda.synchronize(dev)
+    b16 = torch.bfloat16
+    ref = torch.einsum("btkgd,bksd->bkgts", q.to(b16).double(),
+                       k.to(b16).double())
+    assert sc.dtype == torch.float32 and sc.shape == ref.shape
+    assert (sc - ref).abs().max() <= 1e-4 * ref.abs().max()
+    p = torch.softmax(sc, dim=-1)
+    ref = torch.einsum("bkgts,bksd->btkgd", p.to(b16).double(),
+                       v.to(b16).double())
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert (out - ref).abs().max() <= 1e-4 * ref.abs().max()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not any("f32f32" in n or "sgemm" in n.lower() for n in names), \
+        names
