@@ -30,8 +30,10 @@ Phases (any failure raises and the script exits non-zero):
               24-page pool with shuffled block tables: B in {1, 16}, 32/32
               and 32/8 heads, D 128, valid lengths {1, 255, 256, 257, 1500}
               and a pad row on the null page, every cache kind (bf16, fp8,
-              q8, q4, q6), plus softcap and window; SDPA on the gathered,
-              dequantized K/V as yardstick (gather not timed);
+              q8, q4, q6), plus softcap and window; each case logs the
+              kernel's split (blocks of one thread-block cluster; more than
+              one at batch 1); SDPA on the gathered, dequantized K/V as
+              yardstick (gather not timed);
   7. serving  the serving path at 7B width: DynamicGenerator over a 20-page
               bf16 PagedKVCache runs 16 jobs (128-token prompts, 48 greedy new
               tokens, decode_burst 16) -- a warm round, then a measured round
@@ -62,8 +64,10 @@ Phases (any failure raises and the script exits non-zero):
               pass printed beside them); the
               prefill's matrix products by kernel name, as in phase 7; a
               generate_greedy call under QMM_PARTIALS=1 on the unmerged GPTQ
-              weights (the scales-on-partials kernel's path); a merged-only
-              EXL2 round whose greedy tokens must equal phase 7's.
+              weights (the scales-on-partials kernel's path), the device
+              kernels of one of its tokens printed (one kernel a linear:
+              no group-sum or split-reduce kernels); a merged-only EXL2
+              round whose greedy tokens must equal phase 7's.
  10. tools    the ten feature probes (csrc/probe_features.cu) and the three
               roofline kernels of the perf_qmm tool (csrc/perf_qmm.cu: the
               streaming ceiling, group partials with bf16 and int8
@@ -667,10 +671,11 @@ def profile_decode(model, prompt, n: int = 8) -> dict:
     per = {k: ((t - short.get(k, (0.0, 0))[0]) / n / 1e3,
                (c - short.get(k, (0.0, 0))[1]) / n)
            for k, (t, c) in long.items()}
-    top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    ranked = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)
     return {"device_ms_per_token": sum(t for t, _ in per.values()),
             "device_launches_per_token": sum(c for _, c in per.values()),
-            "top": [(k[:70], t) for k, (t, _) in top]}
+            "top": [(k[:70], t) for k, (t, _) in ranked[:6]],
+            "kernels": [(k[:90], t, c) for k, (t, c) in ranked if c > 0]}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -719,6 +724,7 @@ def phase_paged(dev, rate):
     cpu_gen = torch.Generator().manual_seed(7)
     hq, d, ps = HEADS, 128, 256
     scale = d ** -0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, worst, pools = [], 0.0, {}
     for case in paged_cases():
         kind, b, hkv = case["kind"], case["b"], case["hkv"]
@@ -747,6 +753,11 @@ def phase_paged(dev, rate):
         vl = torch.tensor(lens, dtype=torch.int32, device=dev)
         qs = [torch.randn((b, hq, d), generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(PAGED_LAYERS)]
+        # the kernel's split: blocks of one cluster over the block table
+        # (one split where the batch's pairs fill the card, as serving16's)
+        splits, per = P.split_count(b, hkv, pw, ps, sms, hq // hkv)
+        if b == 1 and splits < 2:
+            raise AssertionError(f"paged {case}: one split ({per} rows)")
 
         # q4 / q8 keys carry the Hadamard gain of 32 in the kernel's
         # domain; paged_attention folds 1/32 into the scale, and so do we
@@ -811,10 +822,12 @@ def phase_paged(dev, rate):
         rows.append(dict(case, lens=lens, max_abs_err=err, max_abs_v=vmax,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bytes=nbytes, flops=flops, bound_ms=bound,
-                         bound_by=bound_by))
+                         bound_by=bound_by, splits=splits,
+                         rows_per_split=per, cluster=splits))
         lib_s = f"{lib_ms * 1e3:7.1f}us" if lib_ms is not None else "   n/a"
         log(f"[paged] {kind:4s} b={b:2d} {hq}/{hkv:2d} cap={cap:4.1f} "
             f"win={win:3d}{' serving' if case.get('serving') else ''} "
+            f"splits={splits:2d}x{per:4d} rows (cluster {splits:2d}) "
             f"err={err:.2e} (|v|<={vmax:.1f}) kernel={ms * 1e3:7.1f}us "
             f"plain={plain_ms * 1e3:8.1f}us sdpa(gathered)={lib_s} "
             f"bound={bound * 1e3:5.1f}us ({bound / ms * 100:4.1f}% of "
@@ -1304,8 +1317,22 @@ def phase_merged(dev, rate, base):
         seq = exact.generate_greedy(prompt1, n_new)
         gotp = launch_counts()
         part_logits = prefill_logits()
+        prof_p = profile_decode(exact, prompt1, 4)
     finally:
         del os.environ["QMM_PARTIALS"]
+    # the device kernels of one QMM_PARTIALS=1 decode token: the
+    # scales-on-partials kernel is one device kernel a linear (no separate
+    # group-sum or split-reduce kernels)
+    for name, ms_k, cnt in prof_p["kernels"]:
+        log(f"[merged] QMM_PARTIALS=1 token: {ms_k:7.3f} ms {cnt:6.1f}x  "
+            f"{name}")
+    part_k = [(ms_k, cnt) for name, ms_k, cnt in prof_p["kernels"]
+              if "partials_kernel" in name]
+    stray = [name for name, _, _ in prof_p["kernels"]
+             if "group_sum" in name or "reduce_splits" in name]
+    if stray or sum(c for _, c in part_k) != 7 * LAYERS + 1:
+        raise AssertionError(f"QMM_PARTIALS=1 token kernels: {part_k}, "
+                             f"stray {stray}")
     wantp = {"qmm": 0, "qmm_w4a8": 0,
              "qmm_partials": (7 * LAYERS + 1) * n_new,
              "decode_attn": LAYERS * (n_new - 1), "paged_decode_attn": 0}
@@ -1390,6 +1417,8 @@ def phase_merged(dev, rate, base):
             "w4a8_paged_vs_linear_rel_err": rel_paged,
             "w4a8_logits_mean_rel_dev": dev8, "w4a8_argmax_agreement": agree,
             "partials_launches": gotp, "partials_logits_rel_err": relp,
+            "partials_token_kernels": prof_p["kernels"],
+            "partials_token_device_ms": prof_p["device_ms_per_token"],
             "src_cols_launches": src_launches,
             "merged_launches": gotm, "merged_tokens_per_s": tps_m,
             "merged_p50_ttft_ms": p50_m, "merged_jobs_same_tokens": sum(same),
@@ -1936,12 +1965,17 @@ def summarize(qrows, qerr, arows, aerr, prows, perr, partials, launches,
          "max_abs_err": perr,
          "ms": LAYERS * srv["ms"], "plain_ms": LAYERS * srv["plain_ms"],
          "bound_ms": LAYERS * srv["bound_ms"], "bound_by": srv["bound_by"],
-         "library_ms": LAYERS * srv["library_ms"]},
+         "library_ms": LAYERS * srv["library_ms"],
+         "design": "split over the sequence in a thread-block cluster that "
+                   "shares its score maxima; merge in rank order",
+         "splits": srv["splits"]},
         entry("qmm_w4a8_segment_matmul", "qmm_w4a8.cu", "qmm.py:276",
               "qmm_w4a8", "serving16_merged_w4a8", w4a8_err, sel4, per_step),
-        entry("qmm_partials_segment_matmul", "qmm_partials.cu", "qmm.py:156",
-              "qmm_partials", "generate_greedy_b1_partials", part_err, sel5,
-              PER_TOKEN),
+        dict(entry("qmm_partials_segment_matmul", "qmm_partials.cu",
+                   "qmm.py:156", "qmm_partials",
+                   "generate_greedy_b1_partials", part_err, sel5, PER_TOKEN),
+             design="bf16 mma.sync tile, scale and zero on the group "
+                    "partials, K split over a cluster: one device kernel"),
     ]
 
 

@@ -3,7 +3,8 @@
 Each source ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so`` at the root
 of the checkout; the hash of the source names the library, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Nothing here runs at
+is rebuilt and an unchanged one is loaded as it is (the shared headers
+``csrc/*.cuh`` count as part of every source). Nothing here runs at
 import time: the CPU tests import every module on machines with no toolkit.
 """
 
@@ -43,10 +44,15 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple[str, str]:
+    """(source, library path): the hash covers the source and the shared
+    headers of csrc/ (*.cuh), so editing a header rebuilds what uses it."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return src, os.path.join(_BUILD, f"lib{name}-{digest}.so")
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(_BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _compile_cmd(src: str, out: str) -> list[str]:

@@ -13,46 +13,77 @@
 //            - 8 times s; element j of a q4 row is the low nibble of byte j
 //            for j < D/2, else the high nibble of byte j - D/2)
 //   s[pos] = (sum_d f32(q[d]) * k[pos, d]) * scale, then tanh softcap
-//   per page of rows, in order:  m' = max(m, max_page s), a = exp(m - m'),
-//            p = exp(s - m'), l = a*l + sum p, acc = a*acc + bf16(p) . v
+//   M_j    = max of the scores of pages 0 .. j (the reference's running max)
+//   p      = exp(s - M_j) for a row of page j; l = sum_j exp(M_j - M_last)
+//            * sum p;  acc = sum_j exp(M_j - M_last) * (bf16(p) . v)
 //   out    = acc / (l == 0 ? 1 : l)                       (f32 [B, Hq, D])
-// These are the rounding points of the Pallas kernel (paged_attn.py:151-184):
-// kernel and plain version (ops/paged_attn.py) differ in summation order
-// only. The inverse Hadamard of the q4/q8 kinds stays outside (the caller
-// pre-rotates q and post-rotates the output).
+// p rounds to bf16 against the running max of the pages so far, as in the
+// Pallas kernel (paged_attn.py:151-184): kernel and plain version
+// (ops/paged_attn.py) differ in f32 summation order only. The inverse
+// Hadamard of the q4/q8 kinds stays outside (the caller pre-rotates q and
+// post-rotates the output).
 //
 // Bound on the H100: memory. Every live K and V row is read once (bf16, D
 // 128: 512 B per row and head; q4: 128 B + 8 B of scales) for 4*G flops per
 // element, so the least time is those bytes over 3.35 TB/s (serving, 16
-// sequences of 151 rows, 32 KV heads: 39.7 MB per layer, 11.9 us).
+// sequences of 152 rows, 32 KV heads: 39.9 MB per layer, 11.9 us).
 //
 // Design:
-//   * one block of 256 threads per (sequence, KV head) serves its G query
-//     heads, so every row is read once for all of them; the block walks its
-//     live pages through the block table and skips pages past the valid
-//     length or wholly before the window (dead-page skip), and rows outside
-//     [n - window, n) inside a live page are never loaded: masking goes by
-//     position, never by page index (page 0 is the null page of pad rows);
-//   * staging: the live rows of a page (K, V and their scales) are copied
-//     into shared memory with cp.async, all requests issued before any is
-//     waited on, so a page costs one memory latency. When K and V of a page
-//     exceed 160 KB (bf16 at D = 256) V is staged again after the page's
-//     softmax. K rows sit 16 bytes apart beyond their length, so the lanes
-//     of a warp read 32 different rows without bank conflicts;
-//   * scores: one thread per row (a page has at most 256 rows), 16-byte
-//     chunks of the row dequantized in registers and dotted with q for all G
-//     heads: no cross-lane reduction;
-//   * softmax: the page's max is taken over all its scores before any
-//     exponent, so p rounds to bf16 at the reference's point;
-//   * P.V: each thread owns one element d of the head and a slice of the
-//     page's rows (256 / D row groups), accumulates the G heads in registers
-//     and the row groups are summed once at the end;
+//   * split over the sequence: the grid is (batch * Hkv, splits) and split
+//     r takes positions [r*per, (r+1)*per), per a multiple of 16 rows that
+//     may cross page boundaries (ops/paged_attn.split_count picks splits
+//     and per from the block table's width and the SM count, never from
+//     valid_lens, so a page bucket has one grid). A split's live rows are
+//     those inside [n - window, n). A split with none exits at once, so it
+//     holds no SM slot while its cluster works (a cluster barrier waits for
+//     the threads that have not exited); the live splits are contiguous
+//     ranks, which every block computes from valid_lens, and only they are
+//     read by the exchange and the merge. Copies take whole 16-row
+//     groups; masking goes by position, never by page index (page 0 is the
+//     null page of pad rows), and rows outside the live range are never
+//     read.
+//   * the splits of one (sequence, KV head) form a thread-block cluster.
+//     Each block scores its rows into shared memory and publishes T (the
+//     max of its scores) and F (the max of its rows in its first page) per
+//     query head. After a cluster barrier every block reads those of the
+//     others through distributed shared memory: M_j of its page j is the
+//     max of E (the T of every earlier split), its own scores of pages up
+//     to j, and, for its last page, the F of later splits that start in
+//     that page. p and its weight exp(M_j - M_last) follow; P.V sums the
+//     weighted bf16(p) . v. The live splits' acc and l are summed in rank
+//     order through distributed shared memory (as csrc/qmm.cu merges its K
+//     splits): one launch, deterministic, no float atomics, no global
+//     scratch, so a CUDA graph can replay it with new valid_lens.
+//   * copies: a three-stage ring of row chunks in shared memory (K rows in
+//     the scoring pass, V rows and their scales in the P.V pass, ~8 KB a
+//     chunk: 32 bf16 rows at D = 128; 16 KB where a split holds 48 KB of
+//     rows or more), two chunks in flight while one is scored or
+//     accumulated. One thread starts a chunk with one
+//     tensor-memory-accelerator bulk copy for each page it touches (a
+//     page's rows are contiguous in the pool), completing on the stage's
+//     mbarrier; per-thread 16-byte cp.async copies of the same chunks
+//     streamed at about half the rate (PERF.md). The split's block-table
+//     entries are staged in shared memory first, so a copy's address waits
+//     on no load. A block takes 25-90 KB of shared memory.
+//   * scores: THREADS / chunk rows lanes per K row (4 for bf16 at D = 128),
+//     16-byte pieces of the row dequantized in registers and dotted with q
+//     for all G heads, summed across the row's lanes by shuffles; the lanes
+//     of a load phase take their pieces in an order that puts them on
+//     distinct bank groups.
+//   * the cluster's values (T, F, then l) are read one a lane and the
+//     merge issues every rank's read before it sums, so a distributed
+//     shared memory round trip is paid once, not once a rank.
+//   * P.V: a lane owns 4 consecutive elements of the head (one 8-byte load
+//     a bf16 row) for every query head of a row group; the row groups are
+//     summed in order at the end.
+//   * scores of up to 8192 / G rows are kept; a split with more live rows
+//     (a bucket past 16 * 8192 / G positions) keeps the max pass but
+//     scores its rows again, window by window, in the P.V pass (K read
+//     twice). Windows hold whole pages, so a page's max is known in one.
 //   * G is a template bucket (1, 4 or 16 heads per KV head) so the per-head
 //     loops unroll to what the model needs.
-// Later work: split the pages of one sequence across blocks (flash-decoding;
-// batch 1 fills Hkv of 132 SMs), double-buffer the next page's copy behind
-// the current page's math, tensor-core dots for large G.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -60,15 +91,21 @@
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_PAGE = 256;       // rows per page (<= THREADS)
-constexpr int MAX_G = 16;           // query heads per KV head
-constexpr int MAX_GD = 2048;        // G * D
-constexpr int STAGE_BYTES = 160 * 1024;   // K (+ V) rows staged per chunk
-constexpr int MAX_STAGE = STAGE_BYTES + 2 * 4352;  // + two scale buffers
+constexpr int NST = 3;               // stages of the copy ring
+constexpr int MAX_SPLITS = 16;       // blocks of a cluster (non-portable)
+constexpr int MAX_G = 16;            // query heads per KV head
+constexpr int MAX_GD = 2048;         // G * D
+constexpr int CHUNK_BYTES = 8192;    // rows of a chunk: about this many bytes
+constexpr int CHUNK_LONG = 16384;    // ... where a split holds three of these
+constexpr int BT_MAX = 64;           // block-table entries staged per split
+constexpr int SC_FLOATS = 8192;      // scores a block keeps (G x rows)
+constexpr int MAX_SMEM = 100 * 1024;
 constexpr float NEG = -1e30f;
 
 enum Kind { BF16 = 0, FP8 = 1, Q8 = 2, Q4 = 3 };
@@ -81,39 +118,143 @@ struct Args {
   const __nv_bfloat16* q;           // [B, Hq, D]
   const uint8_t* k;                 // pool bases [L, Hkv, rows, D']
   const uint8_t* v;
-  const __nv_bfloat16* ks;          // [L, Hkv, rows, D/32] or null
-  const __nv_bfloat16* vs;
+  const uint8_t* ks;                // [L, Hkv, rows, D/32] bf16 or null
+  const uint8_t* vs;
   const int* bt;                    // [B, pw]
   const int* vl;                    // [B]
   int layer, hkv, g, d, rows, ps, pw, window;
   float scale, softcap, inv_softcap;
   float* out;                       // [B, Hq, D]
-  // staging in dynamic shared memory: tr rows per chunk; whole: K and V
-  // of a page fit together (else V is staged after the page's softmax)
-  int tr, whole, koff, voff, ksoff, vsoff;
+  int per;                          // positions of a split (multiple of 16)
+  int cr, tpr;                      // rows of a chunk; lanes per K row
+  int swz;                          // K pieces a row is a power of two
+  int wr;                           // score rows of a window
+  int stage_bytes, off_scl;         // one ring stage; its scales' offset
+  int off_ring, off_sc;             // dynamic smem: q at 0, ring, scores
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
+// what a block knows of its split
+struct Blk {
+  int b, h, rank;
+  int r_lo, r_hi;                   // the cluster's live ranks [r_lo, r_hi)
+  int a0, a1;                       // live positions [a0, a1)
+  int a0a, a1a;                     // aligned out to 16
+  int j0, jl;                       // pages of the split's first and last row
+  bool live, keep;                  // keep: one window holds every score
+  bool tab;                         // the split's pages are staged in bts
+  size_t head;                      // layer * hkv + h
+};
+
+// the chunk the ring fetches next: pass 0 scores, pass 1 weights and P.V
+// (K again first where the scores were not kept), pass 2 nothing left
+struct Cur {
+  int pass, ws, we, c0;
+  bool isv;
+};
+
+__device__ __forceinline__ int win_end(const Args& a, const Blk& k, int ws) {
+  return k.a1a - ws <= a.wr ? k.a1a : (ws + a.wr) / a.ps * a.ps;
 }
 
-// Start copying `nrows` rows of `rb` bytes (a multiple of 16, 16-byte
-// aligned) from device memory to shared memory rows `ds` bytes apart.
-__device__ __forceinline__ void stage(uint8_t* dst, const uint8_t* src,
-                                      int nrows, int rb, int ds) {
-  const int per = rb / 16;
-  for (int i = threadIdx.x; i < nrows * per; i += THREADS) {
-    const int r = i / per, c = i - r * per;
-    cp_async16(dst + r * ds + c * 16, src + (size_t)i * 16);
+__device__ __forceinline__ void advance(const Args& a, const Blk& k,
+                                        Cur& c) {
+  c.c0 += a.cr;
+  if (c.c0 < c.we) return;
+  if (c.pass == 0) {
+    if (c.we < k.a1a) {
+      c.ws = c.we;
+    } else {
+      c.pass = 1;
+      c.ws = k.a0a;
+      c.isv = k.keep;
+    }
+  } else if (c.pass == 1) {
+    if (!c.isv) {
+      c.isv = true;
+      c.c0 = c.ws;
+      return;
+    }
+    if (c.we >= k.a1a) {
+      c.pass = 2;
+      return;
+    }
+    c.ws = c.we;
+    c.isv = false;
+  } else {
+    return;
   }
+  c.we = win_end(a, k, c.ws);
+  c.c0 = c.ws;
 }
 
-__device__ __forceinline__ void stage_wait() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// a tensor-memory-accelerator copy of `bytes` (a multiple of 16) from device
+// memory to shared memory, counted on the stage's mbarrier
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// the pool row of position pos: the block-table entry from shared memory
+// (bts holds pages j0 .. jl of the split) or, for a long split, from device
+// memory
+__device__ __forceinline__ size_t phys_row(const Args& a, const Blk& k,
+                                           const int* bts, int pos) {
+  const int page = pos / a.ps;
+  const int e = k.tab ? bts[page - k.j0] : a.bt[(size_t)k.b * a.pw + page];
+  return (size_t)e * a.ps + (pos - page * a.ps);
+}
+
+// Thread 0 starts the copies of chunk `c` (K or V rows and their scales)
+// into stage `st`: one bulk copy for each page the chunk touches (a page's
+// rows are contiguous in the pool), all counted on the stage's mbarrier.
+// The chunk's 16-row groups are copied whole; rows outside the live range
+// are never read.
+template <int KK, int VK>
+__device__ __forceinline__ void issue(const Args& a, const Blk& k,
+                                      const int* bts, const Cur& c,
+                                      uint8_t* st, uint64_t* bar) {
+  if (c.pass == 2 || threadIdx.x != 0) return;
+  const int kind = c.isv ? VK : KK;
+  const uint32_t rb = row_bytes(kind, a.d);
+  const uint32_t sb = kind >= Q8 ? a.d / 16 : 0;    // scale bytes a row
+  const uint8_t* base = (c.isv ? a.v : a.k) + k.head * a.rows * rb;
+  const uint8_t* sbase = (c.isv ? a.vs : a.ks) + k.head * a.rows * sb;
+  const int c1 = min(c.c0 + a.cr, c.we);
+  mbar_expect(bar, (uint32_t)(c1 - c.c0) * (rb + sb));
+  for (int p0 = c.c0, pe; p0 < c1; p0 = pe) {
+    const int page = p0 / a.ps;
+    pe = min(c1, (page + 1) * a.ps);
+    const size_t row = phys_row(a, k, bts, p0);
+    const uint32_t n = pe - p0;
+    bulk_copy(st + (p0 - c.c0) * rb, base + row * rb, n * rb, bar);
+    if (sb)
+      bulk_copy(st + a.off_scl + (p0 - c.c0) * sb, sbase + row * sb, n * sb,
+                bar);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -144,7 +285,7 @@ __device__ __forceinline__ uint32_t byte_of(const uint4& w, int j) {
   return (word >> (8 * (j & 3))) & 255u;
 }
 
-// part[g] += q[g] . k over the 16-byte chunk `c` of a staged K row
+// part[g] += q[g] . k over the 16-byte piece `c` of a staged K row
 // (dequantized and rounded to bf16 first). srow: the row's group scales.
 template <int KK, int GB>
 __device__ __forceinline__ void dot_chunk(const uint4& w, int c, int D,
@@ -229,206 +370,406 @@ __device__ __forceinline__ void dot_chunk(const uint4& w, int c, int D,
   }
 }
 
-// Element dd of a staged V row, dequantized and rounded to bf16.
+// Elements d0 .. d0 + 3 of a staged V row, dequantized and rounded to bf16.
 template <int KIND>
-__device__ __forceinline__ float v_elem(const uint8_t* row,
-                                        const __nv_bfloat16* srow, int dd,
-                                        int d) {
-  if constexpr (KIND == BF16)
-    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(row)[dd]);
-  if constexpr (KIND == FP8) return fp8_val(row[dd]);
-  const float s = __bfloat162float(srow[dd >> 5]);
-  if constexpr (KIND == Q8) return rbf((float)((int)row[dd] - 128) * s);
-  const int half = d / 2;
-  const uint32_t b = row[dd < half ? dd : dd - half];
-  const uint32_t nib = dd < half ? (b & 15u) : (b >> 4);
-  return rbf((float)((int)nib - 8) * s);
+__device__ __forceinline__ void v_elems(const uint8_t* row,
+                                        const __nv_bfloat16* srow, int d0,
+                                        int d, float (&x)[4]) {
+  if constexpr (KIND == BF16) {
+    const uint2 w = *reinterpret_cast<const uint2*>(row + 2 * d0);
+    x[0] = __uint_as_float(w.x << 16);
+    x[1] = __uint_as_float(w.x & 0xffff0000u);
+    x[2] = __uint_as_float(w.y << 16);
+    x[3] = __uint_as_float(w.y & 0xffff0000u);
+  } else if constexpr (KIND == FP8) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(row + d0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = fp8_val((w >> (8 * e)) & 255u);
+  } else if constexpr (KIND == Q8) {
+    const float s = __bfloat162float(srow[d0 >> 5]);
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(row + d0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[e] = rbf((float)((int)((w >> (8 * e)) & 255u) - 128) * s);
+  } else {
+    const float s = __bfloat162float(srow[d0 >> 5]);
+    const int half = d / 2;
+    const bool lo = d0 < half;
+    const uint32_t w =
+        *reinterpret_cast<const uint32_t*>(row + (lo ? d0 : d0 - half));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t b = (w >> (8 * e)) & 255u;
+      x[e] = rbf((float)((int)(lo ? (b & 15u) : (b >> 4)) - 8) * s);
+    }
+  }
+}
+
+// Scores of the chunk rows [c0, c1) into sc[g][pos - ws]; NEG outside the
+// live range.
+template <int KK, int GB>
+__device__ __forceinline__ void score_chunk(const Args& a, const Blk& k,
+                                            int c0, int c1, int ws,
+                                            const uint8_t* st,
+                                            const float* qs, float* sc) {
+  const int i = threadIdx.x / a.tpr, part = threadIdx.x % a.tpr;
+  const int pos = c0 + i;
+  const int kch = row_bytes(KK, a.d) / 16;
+  float ps[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) ps[g] = 0.f;
+  if (pos < c1) {
+    const uint4* kr =
+        reinterpret_cast<const uint4*>(st + i * row_bytes(KK, a.d));
+    const __nv_bfloat16* sr =
+        reinterpret_cast<const __nv_bfloat16*>(st + a.off_scl) +
+        i * (a.d / 32);
+    // the lanes of a 16-byte load phase (8 / tpr rows, tpr pieces each)
+    // take pieces on distinct bank groups: piece j*tpr + part XOR x(i)
+    int x = 0;
+    if (a.swz)
+      x = kch >= 8 ? a.tpr * (i % (8 / a.tpr))
+                   : a.tpr * ((i / (8 / kch)) % (kch / a.tpr));
+    for (int c = part; c < kch; c += a.tpr)
+      dot_chunk<KK, GB>(kr[c ^ x], c ^ x, a.d, a.g, qs, sr, ps);
+  }
+  for (int o = a.tpr >> 1; o > 0; o >>= 1) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g)
+      ps[g] += __shfl_xor_sync(0xffffffffu, ps[g], o);
+  }
+  if (part == 0 && pos < c1) {
+    const bool ok = pos >= k.a0 && pos < k.a1;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < a.g) {
+        float s = ps[g] * a.scale;
+        if (a.softcap > 0.f) s = tanhf(s * a.inv_softcap) * a.softcap;
+        sc[g * a.wr + pos - ws] = ok ? s : NEG;
+      }
+    }
+  }
+}
+
+// acc += weight . v over the live rows of the V chunk [c0, c1)
+template <int VK, int GB>
+__device__ __forceinline__ void pv_chunk(const Args& a, const Blk& k, int c0,
+                                         int c1, int ws, const uint8_t* st,
+                                         const float* sc,
+                                         float (&acc)[GB][4]) {
+  const int w4 = a.d / 4;                 // lanes of a row group
+  const int rg = threadIdx.x / w4, d0 = 4 * (threadIdx.x % w4);
+  const int ngr = THREADS / w4;
+  if (rg >= ngr) return;
+  const int vb = row_bytes(VK, a.d);
+  const __nv_bfloat16* sbuf =
+      reinterpret_cast<const __nv_bfloat16*>(st + a.off_scl);
+  const int r_hi = min(c1, k.a1);
+#pragma unroll 2
+  for (int pos = max(c0, k.a0) + rg; pos < r_hi; pos += ngr) {
+    const int i = pos - c0;
+    float x[4];
+    v_elems<VK>(st + i * vb, sbuf + i * (a.d / 32), d0, a.d, x);
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < a.g) {
+        const float w = sc[g * a.wr + pos - ws];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(w, x[e], acc[g][e]);
+      }
+    }
+  }
+}
+
+// blocks per SM the register budget is cut for (at G = 1 shared memory lets
+// eight share an SM)
+__host__ __device__ constexpr int min_blocks(int gb) {
+  return gb == 1 ? 8 : gb == 4 ? 4 : 2;
 }
 
 template <int KK, int VK, int GB>
-__global__ void __launch_bounds__(THREADS) paged_attn_kernel(const Args a) {
-  __shared__ __align__(16) float qs[MAX_GD];
-  __shared__ float ps[MAX_G * MAX_PAGE];    // scores, then p; final sums
-  __shared__ float m_run[MAX_G], l_run[MAX_G], alpha[MAX_G];
-  extern __shared__ __align__(16) uint8_t stage_buf[];
-  uint8_t* kbuf = stage_buf + a.koff;
-  uint8_t* vbuf = stage_buf + a.voff;
-  const __nv_bfloat16* ksbuf =
-      reinterpret_cast<const __nv_bfloat16*>(stage_buf + a.ksoff);
-  const __nv_bfloat16* vsbuf =
-      reinterpret_cast<const __nv_bfloat16*>(stage_buf + a.vsoff);
+__global__ void __launch_bounds__(THREADS, min_blocks(GB))
+    paged_attn_kernel(const Args a) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  // per query head: published T, F (read by the cluster), this block's l
+  // (read by the merge), the running max of the weights pass, and E, X,
+  // M_last from the exchange; the values read from the cluster [G][splits]
+  __shared__ float t_sh[MAX_G], f_sh[MAX_G], l_sh[MAX_G], run_sh[MAX_G];
+  __shared__ float e_sh[MAX_G], x_sh[MAX_G], ml_sh[MAX_G];
+  __shared__ float xt[MAX_G * MAX_SPLITS], xf[MAX_G * MAX_SPLITS];
+  __shared__ int bts[BT_MAX];
+  __shared__ __align__(8) uint64_t bars[NST];   // one mbarrier a stage
+  float* qs = reinterpret_cast<float*>(smem);
+  uint8_t* ring = smem + a.off_ring;
+  float* sc = reinterpret_cast<float*>(smem + a.off_sc);
+  cg::cluster_group cluster = cg::this_cluster();
 
-  const int b = blockIdx.x / a.hkv, h = blockIdx.x % a.hkv;
-  const int G = a.g, D = a.d, GD = G * D;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.g, D = a.d, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  Blk k;
+  k.b = blockIdx.x / a.hkv;
+  k.h = blockIdx.x % a.hkv;
+  k.rank = (int)cluster.block_rank();
+  k.head = (size_t)a.layer * a.hkv + k.h;
   const int hq = a.hkv * G;
-
-  const __nv_bfloat16* qp = a.q + ((size_t)b * hq + (size_t)h * G) * D;
-  for (int i = tid; i < GD; i += THREADS) qs[i] = __bfloat162float(qp[i]);
-  if (tid < G) { m_run[tid] = NEG; l_run[tid] = 0.f; }
-
-  const size_t head = (size_t)a.layer * a.hkv + h;
-  const int kbytes = row_bytes(KK, D), vbytes = row_bytes(VK, D);
-  const int kstride = kbytes + 16;          // staged K row pitch
-  const int kchunks = kbytes / 16;
-  const int ng = D / 32, sbytes = 2 * ng;   // scale bytes per row
-  const uint8_t* kbase = a.k + head * a.rows * kbytes;
-  const uint8_t* vbase = a.v + head * a.rows * vbytes;
-  const uint8_t* ksbase =
-      KK >= Q8 ? reinterpret_cast<const uint8_t*>(a.ks) + head * a.rows * sbytes
-               : nullptr;
-  const uint8_t* vsbase =
-      VK >= Q8 ? reinterpret_cast<const uint8_t*>(a.vs) + head * a.rows * sbytes
-               : nullptr;
-
-  const int n = a.vl[b];
+  const size_t qoff = ((size_t)k.b * hq + (size_t)k.h * G) * D;
+  for (int i = tid; i < G * D; i += THREADS)
+    qs[i] = __bfloat162float(a.q[qoff + i]);
+  if (tid < G) {
+    t_sh[tid] = NEG;
+    f_sh[tid] = NEG;
+    l_sh[tid] = 0.f;
+    run_sh[tid] = NEG;
+  }
+  const int n = a.vl[k.b];
   const int lo_abs = a.window > 0 ? max(n - a.window, 0) : 0;
-  const int p_first = lo_abs / a.ps;
-  const int p_end = n > 0 ? min((n - 1) / a.ps + 1, a.pw) : 0;
-
-  // P.V ownership: element dd of the head, row group rg of RG
-  const int RG = THREADS / D;
-  const int rg = tid / D, dd = tid % D;
-  float acc[GB];
+  const int s0 = k.rank * a.per, s1 = min(s0 + a.per, a.pw * a.ps);
+  k.a0 = max(s0, lo_abs);
+  k.a1 = min(s1, n);
+  k.live = k.a0 < k.a1;
+  k.a0a = k.a0 & ~15;
+  k.a1a = (k.a1 + 15) & ~15;
+  k.keep = k.a1a - k.a0a <= a.wr;
+  k.j0 = s0 / a.ps;
+  k.jl = (s1 - 1) / a.ps;
+  // the splits with live rows are contiguous; every block of the cluster
+  // computes the same range from valid_lens
+  const int n_end = min(n, a.pw * a.ps);
+  k.r_lo = lo_abs / a.per;
+  k.r_hi = lo_abs < n_end ? (n_end - 1) / a.per + 1 : k.r_lo;
+  k.tab = k.jl - k.j0 < BT_MAX;
+  if (k.tab) {
+    for (int i = tid; i <= k.jl - k.j0; i += THREADS)
+      bts[i] = a.bt[(size_t)k.b * a.pw + k.j0 + i];
+  }
+  if (!k.live) {
+    // an empty split leaves at once: no block reads it (the exchange and
+    // the merge take the live ranks only) and a cluster barrier waits for
+    // the threads that have not exited. With no live row anywhere, rank 0
+    // writes the zero output.
+    if (k.r_lo >= k.r_hi && k.rank == 0) {
+      for (int o = tid; o < G * D; o += THREADS) a.out[qoff + o] = 0.f;
+    }
+    return;
+  }
+  if (tid == 0) {
 #pragma unroll
-  for (int g = 0; g < GB; ++g) acc[g] = 0.f;
+    for (int s = 0; s < NST; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(smem_addr(&bars[s])) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int p = p_first; p < p_end; ++p) {
-    const int start = p * a.ps;
-    const int lo = max(lo_abs - start, 0), hi = min(n - start, a.ps);
-    const size_t row0 = (size_t)a.bt[(size_t)b * a.pw + p] * a.ps;
+  float acc[GB][4];
+#pragma unroll
+  for (int g = 0; g < GB; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[g][e] = 0.f;
 
-    // ---- scores of rows [lo, hi) into ps[g][r], a chunk of tr rows at a
-    // time staged in shared memory (K, with V too when the page fits)
-    for (int c0 = lo; c0 < hi; c0 += a.tr) {
-      const int c1 = min(c0 + a.tr, hi);
-      const int c0a = c0 & ~7, c1a = (c1 + 7) & ~7;
-      __syncthreads();                        // the buffers are free
-      stage(kbuf, kbase + (row0 + c0) * kbytes, c1 - c0, kbytes, kstride);
-      if constexpr (KK >= Q8)
-        stage(stage_buf + a.ksoff, ksbase + (row0 + c0a) * sbytes, 1,
-              (c1a - c0a) * sbytes, 0);
-      if (a.whole) {
-        stage(vbuf, vbase + (row0 + c0) * vbytes, 1, (c1 - c0) * vbytes, 0);
-        if constexpr (VK >= Q8)
-          stage(stage_buf + a.vsoff, vsbase + (row0 + c0a) * sbytes, 1,
-                (c1a - c0a) * sbytes, 0);
+  // the ring: chunk ci sits in stage ci % NST, its mbarrier's phase is
+  // (ci / NST) & 1; consume() waits for chunk ci and, once every thread is
+  // done with chunk ci - 1, starts the copy of chunk ci + NST - 1 into its
+  // stage
+  Cur nx = {0, k.a0a, 0, k.a0a, false};
+  nx.we = win_end(a, k, k.a0a);
+  int ci = 0;
+  auto consume = [&]() -> const uint8_t* {
+    const int s = ci % NST;
+    mbar_wait(&bars[s], (ci / NST) & 1);
+    __syncthreads();
+    const int s2 = (ci + NST - 1) % NST;
+    issue<KK, VK>(a, k, bts, nx, ring + s2 * a.stage_bytes, &bars[s2]);
+    advance(a, k, nx);
+    ++ci;
+    return ring + s * a.stage_bytes;
+  };
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    issue<KK, VK>(a, k, bts, nx, ring + s * a.stage_bytes, &bars[s]);
+    advance(a, k, nx);
+  }
+  // ---- pass 0: scores, and per head T (all rows) and F (first page)
+  for (int ws = k.a0a, we; ws < k.a1a; ws = we) {
+    we = win_end(a, k, ws);
+    for (int c0 = ws; c0 < we; c0 += a.cr) {
+      const uint8_t* st = consume();
+      score_chunk<KK, GB>(a, k, c0, min(c0 + a.cr, we), ws, st, qs, sc);
+    }
+    __syncthreads();
+    for (int g = warp; g < G; g += WARPS) {
+      for (int p0 = ws, pe; p0 < we; p0 = pe) {
+        const int page = p0 / a.ps;
+        pe = min(we, (page + 1) * a.ps);
+        float mx = NEG;
+        for (int r = p0 + lane; r < pe; r += 32)
+          mx = fmaxf(mx, sc[g * a.wr + r - ws]);
+        mx = warp_max(mx);
+        if (lane == 0) {
+          t_sh[g] = fmaxf(t_sh[g], mx);
+          if (page == k.j0) f_sh[g] = fmaxf(f_sh[g], mx);
+        }
       }
-      stage_wait();
+    }
+  }
+
+  // ---- exchange over the live ranks: E (earlier splits), X (later splits
+  // starting in this split's last page) and M_last of every head
+  const int nl = k.r_hi - k.r_lo;
+  cluster.sync();
+  for (int i = tid; i < G * nl; i += THREADS) {         // one read a lane
+    const int g = i / nl, r = k.r_lo + i - g * nl;
+    xt[i] = *cluster.map_shared_rank(&t_sh[g], r);
+    xf[i] = *cluster.map_shared_rank(&f_sh[g], r);
+  }
+  __syncthreads();
+  if (tid < G) {
+    float e = NEG, x = NEG, ml = NEG;
+    for (int j = 0; j < nl; ++j) {
+      const int r = k.r_lo + j;
+      const float t = xt[tid * nl + j];
+      ml = fmaxf(ml, t);
+      if (r < k.rank) e = fmaxf(e, t);
+      if (r > k.rank && r * a.per / a.ps == k.jl)
+        x = fmaxf(x, xf[tid * nl + j]);
+    }
+    e_sh[tid] = e;
+    x_sh[tid] = x;
+    ml_sh[tid] = ml;
+  }
+  __syncthreads();
+
+  // ---- pass 1: weights bf16(exp(s - M_j)) * exp(M_j - M_last), l, P.V
+  for (int ws = k.a0a, we; ws < k.a1a; ws = we) {
+    we = win_end(a, k, ws);
+    if (!k.keep) {
+      for (int c0 = ws; c0 < we; c0 += a.cr) {
+        const uint8_t* st = consume();
+        score_chunk<KK, GB>(a, k, c0, min(c0 + a.cr, we), ws, st, qs, sc);
+      }
       __syncthreads();
-      const int r = c0 + tid;                 // one row per thread
-      if (r < c1) {
-        const uint4* kr =
-            reinterpret_cast<const uint4*>(kbuf + (size_t)tid * kstride);
-        const __nv_bfloat16* sr = ksbuf + (r - c0a) * ng;
-        float part[GB];
-#pragma unroll
-        for (int g = 0; g < GB; ++g) part[g] = 0.f;
-        for (int c = 0; c < kchunks; ++c)
-          dot_chunk<KK, GB>(kr[c], c, D, G, qs, sr, part);
+    }
+    for (int g = warp; g < G; g += WARPS) {
+      const float e = e_sh[g], x = x_sh[g], ml = ml_sh[g];
+      float run = run_sh[g], lsum = 0.f;
+      for (int p0 = ws, pe; p0 < we; p0 = pe) {
+        const int page = p0 / a.ps;
+        pe = min(we, (page + 1) * a.ps);
+        float mx = NEG;
+        for (int r = p0 + lane; r < pe; r += 32)
+          mx = fmaxf(mx, sc[g * a.wr + r - ws]);
+        run = fmaxf(run, warp_max(mx));
+        float mj = fmaxf(e, run);
+        if (page == k.jl) mj = fmaxf(mj, x);
+        const float fac = expf(mj - ml);
+        for (int r = p0 + lane; r < pe; r += 32) {
+          float* sp = sc + g * a.wr + r - ws;
+          const bool ok = r >= k.a0 && r < k.a1;
+          const float p = ok ? expf(*sp - mj) : 0.f;
+          lsum += p * fac;
+          *sp = rbf(p) * fac;
+        }
+      }
+      lsum = warp_sum(lsum);
+      if (lane == 0) {
+        l_sh[g] += lsum;
+        run_sh[g] = run;
+      }
+    }
+    for (int c0 = ws; c0 < we; c0 += a.cr) {
+      const uint8_t* st = consume();
+      pv_chunk<VK, GB>(a, k, c0, min(c0 + a.cr, we), ws, st, sc, acc);
+    }
+  }
+  __syncthreads();
+
+  // ---- the row groups summed in order into buf [G][D] (the ring)
+  float* buf = reinterpret_cast<float*>(ring);
+  {
+    const int w4 = D / 4, ngr = THREADS / w4;
+    const int rg = tid / w4, d0 = 4 * (tid % w4);
+    for (int r = 0; r < ngr; ++r) {
+      if (rg == r) {
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
           if (g < G) {
-            float s = part[g] * a.scale;
-            if (a.softcap > 0.f) s = tanhf(s * a.inv_softcap) * a.softcap;
-            ps[g * MAX_PAGE + r] = s;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float* o = buf + g * D + d0 + e;
+              *o = r == 0 ? acc[g][e] : *o + acc[g][e];
+            }
           }
         }
       }
-    }
-    __syncthreads();
-
-    // ---- page softmax statistics; p rounded to bf16 in place
-    for (int g = warp; g < G; g += WARPS) {
-      float* sg = ps + g * MAX_PAGE;
-      float mx = NEG;
-      for (int r = lo + lane; r < hi; r += 32) mx = fmaxf(mx, sg[r]);
-      const float m_prev = m_run[g];
-      const float m_next = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-      for (int r = lo + lane; r < hi; r += 32) {
-        const float pr = expf(sg[r] - m_next);
-        sum += pr;
-        sg[r] = rbf(pr);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float al = expf(m_prev - m_next);
-        alpha[g] = al;
-        l_run[g] = l_run[g] * al + sum;
-        m_run[g] = m_next;
-      }
-    }
-    __syncthreads();
-
-    // ---- acc = alpha * acc + p . v over this thread's rows
-    if (rg < RG) {
-#pragma unroll
-      for (int g = 0; g < GB; ++g)
-        if (g < G) acc[g] *= alpha[g];
-    }
-    for (int c0 = lo; c0 < hi; c0 += a.tr) {
-      const int c1 = min(c0 + a.tr, hi);
-      const int c0a = c0 & ~7, c1a = (c1 + 7) & ~7;
-      if (!a.whole) {                         // V was not staged with K
-        __syncthreads();
-        stage(vbuf, vbase + (row0 + c0) * vbytes, 1, (c1 - c0) * vbytes, 0);
-        if constexpr (VK >= Q8)
-          stage(stage_buf + a.vsoff, vsbase + (row0 + c0a) * sbytes, 1,
-                (c1a - c0a) * sbytes, 0);
-        stage_wait();
-        __syncthreads();
-      }
-      if (rg < RG) {
-#pragma unroll 4
-        for (int r = c0 + rg; r < c1; r += RG) {
-          const float vv = v_elem<VK>(vbuf + (size_t)(r - c0) * vbytes,
-                                      vsbuf + (r - c0a) * ng, dd, D);
-#pragma unroll
-          for (int g = 0; g < GB; ++g)
-            if (g < G) acc[g] = fmaf(ps[g * MAX_PAGE + r], vv, acc[g]);
-        }
-      }
+      __syncthreads();
     }
   }
-  __syncthreads();
 
-  // ---- sum the row groups, normalize
-  if (rg < RG) {
-#pragma unroll
-    for (int g = 0; g < GB; ++g)
-      if (g < G) ps[(rg * G + g) * D + dd] = acc[g];
+  // ---- the live splits summed in rank order, normalized; each writes a
+  // slice of the output
+  cluster.sync();
+  for (int i = tid; i < G * nl; i += THREADS) {
+    const int g = i / nl, r = k.r_lo + i - g * nl;
+    xt[i] = *cluster.map_shared_rank(&l_sh[g], r);
   }
   __syncthreads();
-  float* op = a.out + ((size_t)b * hq + (size_t)h * G) * D;
-  for (int o = tid; o < GD; o += THREADS) {
-    const int g = o / D, e = o % D;
+  if (tid < G) {
+    float l = 0.f;
+    for (int j = 0; j < nl; ++j) l += xt[tid * nl + j];
+    e_sh[tid] = l == 0.f ? 1.f : l;
+  }
+  __syncthreads();
+  for (int o = (k.rank - k.r_lo) * THREADS + tid; o < G * D;
+       o += nl * THREADS) {
+    float v[MAX_SPLITS];                // every rank's read in flight at once
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j)
+      v[j] = j < nl ? *cluster.map_shared_rank(buf + o, k.r_lo + j) : 0.f;
     float s = 0.f;
-    for (int r = 0; r < RG; ++r) s += ps[(r * G + g) * D + e];
-    const float l = l_run[g];
-    op[o] = s / (l == 0.f ? 1.f : l);
+#pragma unroll
+    for (int j = 0; j < MAX_SPLITS; ++j) s += v[j];
+    a.out[qoff + o] = s / e_sh[o / D];
   }
+  cluster.sync();               // no block leaves while others read it
 }
 
 template <int KK, int VK, int GB>
-int launch(const Args& a, int blocks, int smem, cudaStream_t st) {
-  static bool configured = false;             // opt in to > 48 KB once
+int launch(const Args& a, int blocks, int splits, int smem, cudaStream_t st) {
+  static bool configured = false;             // opt in once
   if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         paged_attn_kernel<KK, VK, GB>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_STAGE);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(paged_attn_kernel<KK, VK, GB>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  paged_attn_kernel<KK, VK, GB><<<blocks, THREADS, smem, st>>>(a);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, splits);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, paged_attn_kernel<KK, VK, GB>, a);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <int KK, int VK>
-int launch_g(const Args& a, int blocks, int smem, cudaStream_t st) {
-  if (a.g == 1) return launch<KK, VK, 1>(a, blocks, smem, st);
-  if (a.g <= 4) return launch<KK, VK, 4>(a, blocks, smem, st);
-  return launch<KK, VK, 16>(a, blocks, smem, st);
+int launch_g(const Args& a, int blocks, int splits, int smem,
+             cudaStream_t st) {
+  if (a.g == 1) return launch<KK, VK, 1>(a, blocks, splits, smem, st);
+  if (a.g <= 4) return launch<KK, VK, 4>(a, blocks, splits, smem, st);
+  return launch<KK, VK, 16>(a, blocks, splits, smem, st);
 }
 
 }  // namespace
@@ -443,32 +784,37 @@ const char* error_string(int e) {
 // aligned) of kinds kk, vk (0 bf16, 1 fp8 e5m2, 2 q8, 3 q4); ks, vs their
 // bf16 scales [L, Hkv, rows, D/32] (null for bf16 / fp8, else 16-byte
 // aligned); block_table [B, pw] and valid_lens [B] int32; out [B, Hq, D] f32.
-// Requires D % 32 == 0, D <= 256, 1 <= G <= 16, G * D <= 2048, page <= 256
-// and a multiple of 16, and the supported kind pairs (bf16, bf16),
-// (fp8, fp8), (q8, q8), (q4, q4), (q8, q4). Returns the cudaError_t of the
-// launch (0 on success).
+// splits (<= 16) blocks of a cluster take `per` positions each (a multiple
+// of 16; the last split may be shorter). Requires D % 32 == 0, D <= 256,
+// 1 <= G <= 16, G * D <= 2048, page <= 256 and a multiple of 16, and the
+// supported kind pairs (bf16, bf16), (fp8, fp8), (q8, q8), (q4, q4),
+// (q8, q4). Returns the cudaError_t of the launch (0 on success).
 int paged_decode_attention(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* bt,
                            const void* vl, int layer, int batch, int hkv,
                            int g, int d, int rows, int page, int pw,
                            float scale, float softcap, int window, int kk,
-                           int vk, void* out, void* stream) {
+                           int vk, int splits, int per, void* out,
+                           void* stream) {
   const auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
   if (d % 32 || d > 256 || g < 1 || g > MAX_G || g * d > MAX_GD ||
-      page < 16 || page > MAX_PAGE || page % 16 || batch < 1 || hkv < 1 ||
+      page < 16 || page > 256 || page % 16 || batch < 1 || hkv < 1 ||
       pw < 1 || kk < BF16 || kk > Q4 || vk < BF16 || vk > Q4 ||
       misaligned(k) || misaligned(v) ||
       (kk >= Q8 && (ks == nullptr || misaligned(ks))) ||
       (vk >= Q8 && (vs == nullptr || misaligned(vs))))
     return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > MAX_SPLITS || per < 16 || per % 16 ||
+      (splits - 1) * per >= pw * page || splits * per < pw * page)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.q = (const __nv_bfloat16*)q;
   a.k = (const uint8_t*)k;
   a.v = (const uint8_t*)v;
-  a.ks = (const __nv_bfloat16*)ks;
-  a.vs = (const __nv_bfloat16*)vs;
+  a.ks = (const uint8_t*)ks;
+  a.vs = (const uint8_t*)vs;
   a.bt = (const int*)bt;
   a.vl = (const int*)vl;
   a.layer = layer; a.hkv = hkv; a.g = g; a.d = d; a.rows = rows;
@@ -477,29 +823,47 @@ int paged_decode_attention(const void* q, const void* k, const void* v,
   a.softcap = softcap;
   a.inv_softcap = softcap > 0.f ? (float)(1.0 / (double)softcap) : 0.f;
   a.out = (float*)out;
-  // staging layout: a page's K and V rows together when they fit in
-  // STAGE_BYTES, else chunks of tr rows in one buffer (K, then V)
-  const int kp = row_bytes(kk, d) + 16, vb = row_bytes(vk, d);
-  const int sb = ((page + 16) * (d / 16) + 15) & ~15;   // one scale buffer
-  if (page * (kp + vb) <= STAGE_BYTES) {
-    a.whole = 1; a.tr = page;
-    a.koff = 0; a.voff = page * kp;
-    a.ksoff = a.voff + page * vb;
-  } else {
-    a.whole = 0;
-    a.tr = min(page, (STAGE_BYTES / max(kp, vb)) & ~15);
-    a.koff = a.voff = 0;
-    a.ksoff = a.tr * max(kp, vb);
-  }
-  a.vsoff = a.ksoff + sb;
-  const int smem = a.vsoff + sb;
+  a.per = per;
+  // a chunk: the power of two of rows (16 .. THREADS) nearest below
+  // CHUNK_BYTES of the wider row, CHUNK_LONG where a split holds three such
+  // chunks (fewer, longer blocks stream faster with more in flight; short
+  // splits keep the smaller ring and more blocks an SM); tpr lanes score a
+  // K row
+  const int kb = row_bytes(kk, d), vb = row_bytes(vk, d);
+  const int mr = kb > vb ? kb : vb;
+  const int chunk = per * mr >= 3 * CHUNK_LONG ? CHUNK_LONG : CHUNK_BYTES;
+  a.cr = 16;
+  while (a.cr * 2 <= THREADS && a.cr * 2 * mr <= chunk) a.cr *= 2;
+  a.tpr = THREADS / a.cr;
+  const int kch = kb / 16;
+  a.swz = (kch & (kch - 1)) == 0 && kch >= a.tpr;
+  const int rowsz = a.cr * mr;
+  const int scl = (kk >= Q8 || vk >= Q8) ? a.cr * d / 16 : 0;
+  a.off_scl = rowsz;
+  a.stage_bytes = (rowsz + scl + 15) & ~15;
+  // scores: a window of wr rows (>= page, whole pages when it is not the
+  // split's whole live range)
+  int cap = (SC_FLOATS / g) & ~15;
+  if (cap < page) cap = page;
+  a.wr = per < cap ? per : cap;
+  a.off_ring = (g * d * 4 + 15) & ~15;
+  int ring = NST * a.stage_bytes;
+  if (ring < g * d * 4) ring = g * d * 4;           // the merge buffer
+  a.off_sc = a.off_ring + ring;
+  const int smem = a.off_sc + g * a.wr * 4;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = batch * hkv;
-  if (kk == BF16 && vk == BF16) return launch_g<BF16, BF16>(a, blocks, smem, st);
-  if (kk == FP8 && vk == FP8) return launch_g<FP8, FP8>(a, blocks, smem, st);
-  if (kk == Q8 && vk == Q8) return launch_g<Q8, Q8>(a, blocks, smem, st);
-  if (kk == Q4 && vk == Q4) return launch_g<Q4, Q4>(a, blocks, smem, st);
-  if (kk == Q8 && vk == Q4) return launch_g<Q8, Q4>(a, blocks, smem, st);
+  if (kk == BF16 && vk == BF16)
+    return launch_g<BF16, BF16>(a, blocks, splits, smem, st);
+  if (kk == FP8 && vk == FP8)
+    return launch_g<FP8, FP8>(a, blocks, splits, smem, st);
+  if (kk == Q8 && vk == Q8)
+    return launch_g<Q8, Q8>(a, blocks, splits, smem, st);
+  if (kk == Q4 && vk == Q4)
+    return launch_g<Q4, Q4>(a, blocks, splits, smem, st);
+  if (kk == Q8 && vk == Q4)
+    return launch_g<Q8, Q4>(a, blocks, splits, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

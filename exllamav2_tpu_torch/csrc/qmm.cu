@@ -85,17 +85,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qmm_tile.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int SB = 256;
-constexpr int WARPS = 4;
-constexpr int NB = 32 * WARPS;      // columns of a block
-constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_SPLITS = 8;       // blocks of a cluster (portable limit)
-constexpr int NCH = SB / 16;        // 16-row chunks of a sub-block
-constexpr int XSTR = SB + 32;       // bf16 per staged activation row
 
 enum { META_SCALE_F = 0, META_QSCALE = 1, META_GPTQ = 2, META_SRC_COLS = 3 };
 
@@ -114,53 +108,6 @@ struct Args {
   // each 16-row chunk of the sub-block (meta0, meta1, smax), at these byte
   // offsets; gr_shift = log2(group_rows) where that is a power of two
   int es0, es1, gr_shift, off_m0, off_m1, off_sm, stage_bytes;
-};
-
-// weights are read once: no L1 allocation
-__device__ __forceinline__ uint4 ld_stream(const uint32_t* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
-// (x & m) | c in one lop3 (constants in registers, not immediates)
-__device__ __forceinline__ uint32_t and_or(uint32_t x, uint32_t m,
-                                           uint32_t c) {
-  uint32_t r;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(r) : "r"(x), "r"(m), "r"(c));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t comp(const uint4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-
-// the words of one sub-block that a lane holds: plane-0 words
-// R*t .. R*t + R - 1 and the plane-1 words of the same rows, each a uint4
-// over the lane's four columns
-template <int BP0, int BP1>
-struct Words {
-  static constexpr int R = 2 * BP0;
-  uint4 w0[R];
-  uint4 w1[BP1 ? R : 1];
 };
 
 // a lane's activations and its columns' group meta for one slot
@@ -183,39 +130,6 @@ struct LanePtrs {
   const unsigned char* m1;
   const unsigned char* sm;
 };
-
-template <int BP0, int BP1>
-__device__ __forceinline__ void load_words(const Args& a, int sb, int t,
-                                           int c4, bool live,
-                                           Words<BP0, BP1>& w) {
-  constexpr int R = 2 * BP0, Q0 = 8 * BP0, Q1 = 8 * BP1;
-  const uint32_t* p = a.p0 + ((size_t)sb * Q0 + R * t) * a.n + c4;
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-    w.w0[i] = live ? ld_stream(p + (size_t)i * a.n) : make_uint4(0, 0, 0, 0);
-  if constexpr (BP1 > 0) {
-    const uint32_t* p1 =
-        a.p1 + ((size_t)sb * Q1 + (R * t) % Q1) * a.n + c4;
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-      w.w1[i] =
-          live ? ld_stream(p1 + (size_t)i * a.n) : make_uint4(0, 0, 0, 0);
-  }
-}
-
-// cp.async of `bytes` (0..P) valid bytes of a P-byte piece, the rest of the
-// piece zero-filled
-template <int P>
-__device__ __forceinline__ void cp_piece(void* dst, const void* src,
-                                         int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (P == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-                 "l"(src), "n"(P), "r"(bytes) : "memory");
-}
 
 // the meta rows of a stage's 16 chunks: for chunk ch, the row of its group
 // in a table of es bytes a column, the block's 128 columns (cut at column
@@ -363,16 +277,9 @@ __device__ __forceinline__ uint32_t deq(uint32_t wa, uint32_t wb,
                                         uint32_t w1a, uint32_t w1b,
                                         uint32_t sel1, int rot1, uint32_t zc2,
                                         const SlotIn<MT, R>& in, int j) {
-  constexpr uint32_t MASK0 = ((1u << BP0) - 1u) * 0x00010001u;
-  constexpr int SH0 = (BP0 * S) & 15;
-  const uint32_t p0 = __byte_perm(wa, wb, BP0 * S < 16 ? 0x5410 : 0x7632);
   // FAST: bf16 (128 + q) in each half; else the bare values
-  uint32_t q = and_or(p0 >> SH0, MASK0, FAST ? 0x43004300u : 0u);
-  if constexpr (BP1 > 0) {
-    constexpr uint32_t MASK1 = (((1u << BP1) - 1u) << BP0) * 0x00010001u;
-    const uint32_t p1 = __byte_perm(w1a, w1b, sel1);
-    q = and_or(__funnelshift_r(p1, p1, rot1), MASK1, q);
-  }
+  const uint32_t q = pair_bits<BP0, BP1, S>(wa, wb, w1a, w1b, sel1, rot1,
+                                            FAST ? 0x43004300u : 0u);
   if constexpr (FAST) {
     // (128 + q) - (128 + z) is exact; the multiply rounds the exact
     // product once
@@ -393,16 +300,10 @@ template <int BP0, int BP1, int MT, bool FAST, int S>
 __device__ __forceinline__ void slot_mma(
     const Words<BP0, BP1>& w, const SlotIn<MT, 2 * BP0>& in,
     int t, uint32_t zc2, float (&acc)[MT == 32 ? 2 : 1][4][4]) {
-  constexpr int R = 2 * BP0, Q0 = 8 * BP0, Q1 = BP1 ? 8 * BP1 : 1;
   constexpr int MTL = MT == 32 ? 2 : 1;
-  // plane 1: the lane's rows Q0*S + R*t + i sit at slot (Q0*S + R*t) / Q1
-  uint32_t sel1 = 0;
-  int rot1 = 0;
-  if constexpr (BP1 > 0) {
-    const int sh1 = BP1 * ((Q0 * S + R * t) / Q1);
-    sel1 = sh1 >= 16 ? 0x7632u : 0x5410u;
-    rot1 = ((sh1 & 15) - BP0) & 31;
-  }
+  uint32_t sel1;
+  int rot1;
+  plane1_shift<BP0, BP1, S>(t, sel1, rot1);
   // k-step h of the slot: the lane's words 4h .. 4h + 3
 #pragma unroll
   for (int h = 0; h < BP0 / 2; ++h) {
@@ -498,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, min_blocks(MT))
 
   Words<BP0, BP1> w;
   if (sb0 < sb1) {
-    load_words<BP0, BP1>(a, sb0, t, c4, live, w);
+    load_words<BP0, BP1>(a.p0, a.p1, a.n, sb0, t, c4, live, w);
     load_stage(a, smem, sb0);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -507,7 +408,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(MT))
     Words<BP0, BP1> nw;
     if (sb + 1 < sb1) {
       load_stage(a, smem + (a.stage_bytes - off), sb + 1);
-      if constexpr (AHEAD) load_words<BP0, BP1>(a, sb + 1, t, c4, live, nw);
+      if constexpr (AHEAD)
+        load_words<BP0, BP1>(a.p0, a.p1, a.n, sb + 1, t, c4, live, nw);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
@@ -517,7 +419,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(MT))
     if constexpr (AHEAD) {
       w = nw;
     } else {
-      if (sb + 1 < sb1) load_words<BP0, BP1>(a, sb + 1, t, c4, live, w);
+      if (sb + 1 < sb1)
+        load_words<BP0, BP1>(a.p0, a.p1, a.n, sb + 1, t, c4, live, w);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");

@@ -7,13 +7,11 @@
 // kernel at qmm.py:225). Serves GPTQ segments with groups of >= 128 rows
 // when QMM_PARTIALS=1 (ops/qmm.py:_use_partials).
 //
-// Function (groups of gr rows, G = K / gr):
-//   pass 1 (group_sum_kernel): xs[i, g] = sum of the bf16 activations of
-//     token i over group g, in f32;
-//   pass 2 (partials_kernel), per group: pg = sum_r f32(x[i, r]) * v[r, n]
-//     (a bf16 times an integer <= 255 is exact in f32, the sum is f32);
-//     term = (pg - xs * z) * s with f32 s and integer z;
-//     out[i, n] = sum_g term.
+// Function (groups of gr rows): per group g and token i,
+//   pg = sum_r f32(x[i, r]) * v[r, n]  (a bf16 times an integer <= 255 is
+//        exact in f32, the sum is f32);
+//   xs = sum_r f32(x[i, r]);
+//   out[i, n] = sum_g (pg - xs * z[g, n]) * s[g, n]   (f32 s, integer z).
 // Kernel and plain version (ops/qmm.py:qmm_partials_plain) differ in the
 // order of the f32 sums only. Against the fused dequant-matmul (qmm.cu) the
 // result differs by that kernel's bf16 rounding of each weight.
@@ -21,203 +19,398 @@
 // Bound on the H100: memory, as for qmm.cu: the weight and meta bytes over
 // 3.35 TB/s.
 //
-// Design: as qmm_w4a8.cu. One thread per output column, 128 columns per
-// block, K split across blockIdx.y with a fixed-order second pass; a thread
-// holds the plane words of its column for a whole 256-row sub-block in
-// registers and walks the slots in order, so rows arrive in natural order
-// and one set of m f32 group accumulators serves one group at a time; the
-// per-value work is one integer-to-float conversion and m fused
-// multiply-adds; scale, zero and xs are staged in shared memory per 16-row
-// chunk and applied where a chunk ends a group.
+// Design: kernel 1's bf16 tensor-core tile (csrc/qmm_tile.cuh), one launch.
+//   * B fragments straight from the plane words with kernel 1's lane map;
+//     the dequant is only the exact integer: for <= 7 bits one lop3 ORs
+//     0x4300 into each half (bf16 128 + q) and one bf16x2 subtract of
+//     (128, 128) leaves q; 8-bit values go through f32 (2^23 + q by a prmt,
+//     less 2^23) and one cvt.rn.bf16x2.f32, exact because q <= 255 has 8
+//     significant bits. mma.sync.m16n8k16 (bf16 x bf16, f32 accumulate)
+//     sums the group partials pg in registers.
+//   * xs in the same tile: one more mma a k-step whose B is all ones
+//     (bf16 1.0) sums the staged activations of the lane's token rows in
+//     f32, so every lane holds xs for the rows of its accumulators.
+//   * A slot covers Qsb = 8*bp0 consecutive rows (16 / 32 / 64), which
+//     divides every group size served (128, or a multiple of 256), so a
+//     group ends on a slot boundary; there the epilogue adds
+//     (pg - xs*z)*s into a running f32 tile (f32 multiply, subtract,
+//     multiply, add, as the plain version rounds) and clears pg and xs.
+//     Scale and zero of the ending groups for the block's 128 columns ride
+//     in the cp.async stage with the sub-block's activations.
+//   * K is split across a thread-block cluster of at most 8 blocks, each
+//     split a whole number of groups; the partial tiles are summed in rank
+//     order through distributed shared memory: one device kernel a call,
+//     deterministic, no global scratch.
+// Constraints: n % 4 == 0 and 16-byte aligned buffers (the wrapper checks).
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qmm_tile.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int COLS = 128;
-constexpr int SB = 256;
-constexpr int NCHUNK = SB / 16;
+constexpr uint32_t ONES = 0x3F803F80u;     // bf16x2 (1.0, 1.0)
 
 struct Args {
   const __nv_bfloat16* x;   // [m, k_pad]
-  const float* xsum;        // [m, groups]
-  int m, k_pad, groups;
+  int m, k_pad;
   const uint32_t* p0;
   const uint32_t* p1;
   int n, group_rows;
   const float* scale;       // [groups, n]
   const int* zero;          // [groups, n]
-  float* dst;               // [splits, m, n] partials, or out
+  float* out;               // [m, n]
   int sb_per_split, nsb;
+  // a stage: activation rows, then at off_meta the scale rows and at
+  // off_meta + nme*NB*4 the zero rows of the nme groups that end in the
+  // sub-block (nme = 2 for groups of 128 rows, else 1)
+  int nme, off_meta, stage_bytes;
 };
 
-// one warp per (token, group)
-__global__ void group_sum_kernel(const __nv_bfloat16* __restrict__ x,
-                                 int k_pad, int gr, int groups,
-                                 float* __restrict__ xsum) {
-  const int lane = threadIdx.x & 31;
-  const int g = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int r = blockIdx.y;
-  if (g >= groups) return;
-  const size_t base = (size_t)r * k_pad + (size_t)g * gr;
-  float s = 0.f;
-  for (int i = lane; i < gr; i += 32) s += __bfloat162float(x[base + i]);
+// one pipeline stage: the sub-block's activation rows < m, and the scale
+// and zero rows of its groups for the block's columns (cut at column n)
+__device__ __forceinline__ void load_stage(const Args& a, unsigned char* st,
+                                           int sb) {
+  const int tid = threadIdx.x;
+  const __nv_bfloat16* xs = a.x + (size_t)sb * SB;
+  for (int i = tid; i < a.m * (SB / 8); i += THREADS) {
+    const int r = i >> 5, c = (i & 31) << 3;
+    cp_piece<16>(st + (r * XSTR + c) * 2, xs + (size_t)r * a.k_pad + c, 16);
+  }
+  const int n0 = blockIdx.x * NB;
+  const int valid = (a.n - n0) * 4;               // bytes left in a row
+  for (int i = tid; i < 2 * a.nme * (NB / 4); i += THREADS) {
+    const int tab = i / (a.nme * (NB / 4));      // 0 scale, 1 zero
+    const int e = i % (a.nme * (NB / 4));
+    const int mi = e / (NB / 4), bo = (e % (NB / 4)) * 16;
+    const int grp = (sb * SB) / a.group_rows + mi;
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        tab ? static_cast<const void*>(a.zero)
+            : static_cast<const void*>(a.scale)) + ((size_t)grp * a.n + n0) * 4;
+    const int ok = min(16, max(0, valid - bo));
+    cp_piece<16>(st + a.off_meta + (tab * a.nme + mi) * NB * 4 + bo,
+                 src + (ok ? bo : 0), ok);
+  }
+}
+
+// The B register of two rows of one column: the exact integers q as bf16
+template <int BP0, int BP1, int S>
+__device__ __forceinline__ uint32_t deq_q(uint32_t wa, uint32_t wb,
+                                          uint32_t w1a, uint32_t w1b,
+                                          uint32_t sel1, int rot1) {
+  if constexpr (BP0 + BP1 <= 7) {
+    const uint32_t q = pair_bits<BP0, BP1, S>(wa, wb, w1a, w1b, sel1, rot1,
+                                              0x43004300u);
+    return bf2_bits(__hsub2(bits_bf2(q), bits_bf2(0x43004300u)));
+  } else {
+    const uint32_t q = pair_bits<BP0, BP1, S>(wa, wb, w1a, w1b, sel1, rot1,
+                                              0u);
+    const uint32_t mg = 0x4b000000u;
+    const float lo = __uint_as_float(__byte_perm(q, mg, 0x7610)) - 8388608.f;
+    const float hi = __uint_as_float(__byte_perm(q, mg, 0x7632)) - 8388608.f;
+    return bf2_bits(__floats2bfloat162_rn(lo, hi));
+  }
+}
+
+template <int MT>
+struct Tile {
+  static constexpr int MTL = MT == 32 ? 2 : 1;
+  float pg[MTL][4][4];      // group partials of the lane's accumulators
+  float xs[MTL][4];         // activation sums (the ones tile)
+  float acc[MTL][4][4];     // running sum of (pg - xs*z)*s
+};
+
+// (pg - xs*z)*s into acc for the group whose meta sits at index mi of the
+// stage at `meta` (the lane's columns 8t .. 8t + 7 of its warp); clears pg
+// and xs
+template <int MT>
+__device__ __forceinline__ void epilogue(const Args& a,
+                                         const unsigned char* meta, int mi,
+                                         Tile<MT>& tl) {
+  const float4 s0 = *reinterpret_cast<const float4*>(meta + mi * NB * 4);
+  const float4 s1 = *reinterpret_cast<const float4*>(meta + mi * NB * 4 + 16);
+  const unsigned char* zp = meta + (a.nme + mi) * NB * 4;
+  const int4 z0 = *reinterpret_cast<const int4*>(zp);
+  const int4 z1 = *reinterpret_cast<const int4*>(zp + 16);
+  const float s[2][4] = {{s0.x, s0.y, s0.z, s0.w}, {s1.x, s1.y, s1.z, s1.w}};
+  const float z[2][4] = {{(float)z0.x, (float)z0.y, (float)z0.z, (float)z0.w},
+                         {(float)z1.x, (float)z1.y, (float)z1.z,
+                          (float)z1.w}};
 #pragma unroll
-  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  if (lane == 0) xsum[(size_t)r * groups + g] = s;
+  for (int mt = 0; mt < Tile<MT>::MTL; ++mt) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        // register r: token row g + 8(r >> 1), column 8t + 4(r & 1) + j
+        const float xv = tl.xs[mt][r & 2];
+        const float sv = s[r & 1][j], zv = z[r & 1][j];
+        const float term =
+            __fmul_rn(__fsub_rn(tl.pg[mt][j][r], __fmul_rn(xv, zv)), sv);
+        tl.acc[mt][j][r] = __fadd_rn(tl.acc[mt][j][r], term);
+        tl.pg[mt][j][r] = 0.f;
+      }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) tl.xs[mt][r] = 0.f;
+  }
+}
+
+// slots S .. of one sub-block: xp the lane's activations in the stage (row
+// g at column R*t), meta the lane's scale rows; is128: groups of 128 rows,
+// sb_end: (else) a group ends with this sub-block
+template <int BP0, int BP1, int MT, int S>
+__device__ __forceinline__ void run_slots(
+    const Args& a, const unsigned char* xp, const unsigned char* meta,
+    const bool (&xok)[MT == 8 ? 1 : MT / 8], int t, bool is128, bool sb_end,
+    const Words<BP0, BP1>& w, Tile<MT>& tl) {
+  constexpr int R = 2 * BP0, Q0 = 8 * BP0;
+  constexpr int XR = MT == 8 ? 1 : MT / 8;
+  constexpr int MTL = Tile<MT>::MTL;
+  if constexpr (S < 32 / BP0) {
+    // the lane's R activations of rows g + 8u in the slot
+    uint32_t x[XR][R / 2];
+#pragma unroll
+    for (int u = 0; u < XR; ++u) {
+      const unsigned char* p = xp + (8 * u * XSTR + Q0 * S) * 2;
+      if constexpr (R == 4) {
+        const uint2 v = xok[u] ? *reinterpret_cast<const uint2*>(p)
+                               : make_uint2(0, 0);
+        x[u][0] = v.x;
+        x[u][1] = v.y;
+      } else {
+#pragma unroll
+        for (int q = 0; q < R / 8; ++q) {
+          const uint4 v = xok[u] ? reinterpret_cast<const uint4*>(p)[q]
+                                 : make_uint4(0, 0, 0, 0);
+          x[u][4 * q + 0] = v.x;
+          x[u][4 * q + 1] = v.y;
+          x[u][4 * q + 2] = v.z;
+          x[u][4 * q + 3] = v.w;
+        }
+      }
+    }
+    uint32_t sel1;
+    int rot1;
+    plane1_shift<BP0, BP1, S>(t, sel1, rot1);
+#pragma unroll
+    for (int h = 0; h < BP0 / 2; ++h) {
+      uint32_t af[MTL][4];
+#pragma unroll
+      for (int mt = 0; mt < MTL; ++mt) {
+        af[mt][0] = x[2 * mt][2 * h];
+        af[mt][2] = x[2 * mt][2 * h + 1];
+        if constexpr (MT == 8) {
+          af[mt][1] = 0u;
+          af[mt][3] = 0u;
+        } else {
+          af[mt][1] = x[2 * mt + 1][2 * h];
+          af[mt][3] = x[2 * mt + 1][2 * h + 1];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = 4 * h;
+        const uint32_t b0 = deq_q<BP0, BP1, S>(
+            comp(w.w0[i], j), comp(w.w0[i + 1], j),
+            BP1 ? comp(w.w1[BP1 ? i : 0], j) : 0u,
+            BP1 ? comp(w.w1[BP1 ? i + 1 : 0], j) : 0u, sel1, rot1);
+        const uint32_t b1 = deq_q<BP0, BP1, S>(
+            comp(w.w0[i + 2], j), comp(w.w0[i + 3], j),
+            BP1 ? comp(w.w1[BP1 ? i + 2 : 0], j) : 0u,
+            BP1 ? comp(w.w1[BP1 ? i + 3 : 0], j) : 0u, sel1, rot1);
+#pragma unroll
+        for (int mt = 0; mt < MTL; ++mt) mma_bf16(tl.pg[mt][j], af[mt], b0, b1);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MTL; ++mt) mma_bf16(tl.xs[mt], af[mt], ONES, ONES);
+    }
+    // does a group end with this slot? groups of 128 rows end at slot rows
+    // 128 and 256 of the sub-block, larger ones with a sub-block
+    constexpr bool END128 = (Q0 * (S + 1)) % 128 == 0;
+    constexpr bool LAST = S + 1 == 32 / BP0;
+    if (is128) {
+      if constexpr (END128) epilogue<MT>(a, meta, (Q0 * (S + 1) - 1) / 128, tl);
+    } else if constexpr (LAST) {
+      if (sb_end) epilogue<MT>(a, meta, 0, tl);
+    }
+    run_slots<BP0, BP1, MT, S + 1>(a, xp, meta, xok, t, is128, sb_end, w, tl);
+  }
+}
+
+// blocks per SM the register budget is cut for
+__host__ __device__ constexpr int min_blocks(int mt) {
+  return mt == 32 ? 2 : mt == 16 ? 3 : 4;
 }
 
 template <int BP0, int BP1, int MT>
-__global__ void __launch_bounds__(COLS) partials_kernel(const Args a) {
-  constexpr int QSB0 = SB * BP0 / 32;       // plane-0 words per sub-block
-  constexpr int PER0 = 32 / BP0;            // slots per plane-0 word
-  constexpr int NCH = QSB0 / 16;            // 16-row chunks per slot
-  constexpr int QSB1 = BP1 ? SB * BP1 / 32 : 1;
-  constexpr uint32_t MASK0 = (1u << BP0) - 1u;
-  constexpr uint32_t MASK1 = BP1 ? (1u << BP1) - 1u : 0u;
-  static_assert(QSB0 % 16 == 0, "plane 0 needs >= 16 words per sub-block");
-  static_assert(BP1 == 0 || QSB1 == 8 || QSB1 == 16, "plane 1 is 1 or 2 bits");
+__global__ void __launch_bounds__(THREADS, min_blocks(MT))
+    partials_kernel(const Args a) {
+  constexpr int R = 2 * BP0;
+  constexpr int MTL = Tile<MT>::MTL;
+  constexpr int XR = MT == 8 ? 1 : MT / 8;
+  // the next sub-block's words are loaded ahead where registers allow
+  constexpr bool AHEAD = BP1 == 0 && BP0 <= 4 && MT <= 8;
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  __shared__ __align__(16) float xs[MT][SB];
-  // per 16-row chunk of the sub-block: its group's scale and zero for the
-  // thread's column, and its group's activation sum for each token
-  // (zeros are integers <= 256; 16 bits keep the block under 48 KB)
-  __shared__ float cs[NCHUNK][COLS];
-  __shared__ uint16_t cz[NCHUNK][COLS];
-  __shared__ float sx[NCHUNK][MT];
-
-  const int col = blockIdx.x * COLS + threadIdx.x;
-  const bool live = col < a.n;
-  const int gr = a.group_rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * NB;
+  const int cw4 = warp * 32 + 4 * g;               // the lane's B columns
+  const int c4 = n0 + cw4;
+  const bool live = c4 < a.n;
   const int sb0 = blockIdx.y * a.sb_per_split;
   const int sb1 = min(sb0 + a.sb_per_split, a.nsb);
-
-  float gacc[MT], facc[MT];
+  const bool is128 = a.group_rows == 128;
+  const int cw = warp * 32 + 8 * t;                // the lane's out columns
+  const unsigned char* xp0 = smem + (g * XSTR + R * t) * 2;
+  const unsigned char* mp0 = smem + a.off_meta + cw * 4;
+  bool xok[XR];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    gacc[i] = 0.f;
-    facc[i] = 0.f;
-  }
+  for (int u = 0; u < XR; ++u) xok[u] = g + 8 * u < a.m;
 
-  for (int sb = sb0; sb < sb1; ++sb) {
-    __syncthreads();                        // previous sub-block's reads done
-    for (int i = threadIdx.x; i < MT * SB; i += COLS) {
-      const int r = i / SB, c = i % SB;
-      xs[r][c] = r < a.m
-          ? __bfloat162float(a.x[(size_t)r * a.k_pad + (size_t)sb * SB + c])
-          : 0.f;
-    }
-    for (int i = threadIdx.x; i < NCHUNK * MT; i += COLS) {
-      const int c = i / MT, r = i % MT;
-      sx[c][r] = r < a.m
-          ? a.xsum[(size_t)r * a.groups + (sb * SB + c * 16) / gr] : 0.f;
-    }
-    if (live) {
-      float s = 0.f;
-      uint16_t z = 0;
+  Tile<MT> tl;
 #pragma unroll
-      for (int c = 0; c < NCHUNK; ++c) {
-        const int row = sb * SB + c * 16;
-        if (c == 0 || row % gr == 0) {
-          const size_t i = (size_t)(row / gr) * a.n + col;
-          s = a.scale[i];
-          z = (uint16_t)a.zero[i];
-        }
-        cs[c][threadIdx.x] = s;
-        cz[c][threadIdx.x] = z;
+  for (int mt = 0; mt < MTL; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        tl.pg[mt][j][r] = 0.f;
+        tl.acc[mt][j][r] = 0.f;
+        tl.xs[mt][r] = 0.f;
       }
+
+  Words<BP0, BP1> w;
+  if (sb0 < sb1) {
+    load_words<BP0, BP1>(a.p0, a.p1, a.n, sb0, t, c4, live, w);
+    load_stage(a, smem, sb0);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int sb = sb0, off = 0; sb < sb1;
+       ++sb, off = a.stage_bytes - off) {
+    Words<BP0, BP1> nw;
+    if (sb + 1 < sb1) {
+      load_stage(a, smem + (a.stage_bytes - off), sb + 1);
+      if constexpr (AHEAD)
+        load_words<BP0, BP1>(a.p0, a.p1, a.n, sb + 1, t, c4, live, nw);
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();
-    if (!live) continue;
-
-    uint32_t w0[QSB0];
-#pragma unroll
-    for (int i = 0; i < QSB0; ++i)
-      w0[i] = a.p0[((size_t)sb * QSB0 + i) * a.n + col];
-    uint32_t w1[QSB1];
-    if (BP1) {
-#pragma unroll
-      for (int j = 0; j < QSB1; ++j)
-        w1[j] = a.p1[((size_t)sb * QSB1 + j) * a.n + col];
+    const bool sb_end = ((sb + 1) * SB) % a.group_rows == 0;
+    run_slots<BP0, BP1, MT, 0>(a, xp0 + off, mp0 + off, xok, t, is128,
+                               sb_end, w, tl);
+    __syncthreads();                    // the stage is overwritten next
+    if constexpr (AHEAD) {
+      w = nw;
+    } else {
+      if (sb + 1 < sb1)
+        load_words<BP0, BP1>(a.p0, a.p1, a.n, sb + 1, t, c4, live, w);
     }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 
-#pragma unroll 1
-    for (int j = 0; j < PER0; ++j) {
+  // lane register r of n-tile j: row 16mt + g + 8(r >> 1), the warp's
+  // column 8t + 4(r & 1) + j
+  float* red = reinterpret_cast<float*>(smem);     // [MT][NB], stage 0
+  if (gridDim.y == 1) {
 #pragma unroll
-      for (int wc = 0; wc < NCH; ++wc) {
-        // rows c*16 + i (i < 16) of the sub-block: slot j of words
-        // wc*16 + i
-        const int c = j * NCH + wc;
-        float wv[16];
+    for (int mt = 0; mt < MTL; ++mt)
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          uint32_t v = (w0[wc * 16 + i] >> (j * BP0)) & MASK0;
-          if (BP1) {
-            // plane 1: row r lives in word r % QSB1 (== i % QSB1 since
-            // 16 % QSB1 == 0) at slot r / QSB1
-            const int r = c * 16 + i;
-            v |= ((w1[i % QSB1] >> ((r / QSB1) * BP1)) & MASK1) << BP0;
-          }
-          wv[i] = (float)v;
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = 16 * mt + g + 8 * e, col = n0 + cw + 4 * hh;
+          const int r = 2 * e + hh;
+          if (row < a.m && col < a.n)
+            *reinterpret_cast<float4*>(a.out + (size_t)row * a.n + col) =
+                make_float4(tl.acc[mt][0][r], tl.acc[mt][1][r],
+                            tl.acc[mt][2][r], tl.acc[mt][3][r]);
         }
+    return;
+  }
+
+  // K split over the cluster: partial tiles in shared memory (stage 0, free
+  // now), each block sums a slice of the tile over the blocks in rank order
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          const float4* xr = reinterpret_cast<const float4*>(&xs[mi][c * 16]);
-          float acc = gacc[mi];
+  for (int mt = 0; mt < MTL; ++mt)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const float4 xv = xr[q];
-            acc = fmaf(xv.x, wv[4 * q + 0], acc);
-            acc = fmaf(xv.y, wv[4 * q + 1], acc);
-            acc = fmaf(xv.z, wv[4 * q + 2], acc);
-            acc = fmaf(xv.w, wv[4 * q + 3], acc);
-          }
-          gacc[mi] = acc;
-        }
-        if ((sb * SB + (c + 1) * 16) % gr == 0) {
-          // the chunk ends its group: scale and zero on the partial
-          const float s = cs[c][threadIdx.x];
-          const float z = (float)cz[c][threadIdx.x];
+    for (int e = 0; e < 2; ++e)
 #pragma unroll
-          for (int mi = 0; mi < MT; ++mi) {
-            const float t = __fmul_rn(
-                __fsub_rn(gacc[mi], __fmul_rn(sx[c][mi], z)), s);
-            facc[mi] = __fadd_rn(facc[mi], t);
-            gacc[mi] = 0.f;
-          }
-        }
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = 16 * mt + g + 8 * e;
+        const int r = 2 * e + hh;
+        if (row < MT && row < a.m)
+          *reinterpret_cast<float4*>(&red[row * NB + cw + 4 * hh]) =
+              make_float4(tl.acc[mt][0][r], tl.acc[mt][1][r],
+                          tl.acc[mt][2][r], tl.acc[mt][3][r]);
       }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)gridDim.y;
+  const int rank = (int)cluster.block_rank();
+  const int chunks = a.m * (NB / 4);
+  for (int e = rank * THREADS + threadIdx.x; e < chunks;
+       e += splits * THREADS) {
+    const int row = e / (NB / 4), cc = (e % (NB / 4)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < splits; ++q) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(&red[row * NB + cc], q));
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
     }
+    if (n0 + cc < a.n)
+      *reinterpret_cast<float4*>(a.out + (size_t)row * a.n + n0 + cc) = s;
   }
-
-  if (live) {
-    float* dst = a.dst + (size_t)blockIdx.y * a.m * a.n;
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-      if (mi < a.m) dst[(size_t)mi * a.n + col] = facc[mi];
-  }
+  cluster.sync();               // no block leaves while others read its tile
 }
 
-// out[i] = sum over splits of part[s, i], in split order
-__global__ void reduce_splits(const float* __restrict__ part,
-                              float* __restrict__ out, int splits,
-                              size_t count) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * count + i];
-  out[i] = s;
+// the largest two-stage ring of an m-tile: the activation rows, then two
+// meta rows each of scale and zero
+constexpr int max_ring(int mt) {
+  return 2 * (mt * XSTR * 2 + 2 * 2 * NB * 4);
+}
+
+template <int BP0, int BP1, int MT>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t st) {
+  const int bytes = 2 * a.stage_bytes;
+  static bool opted_in = false;          // once per instantiation
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        partials_kernel<BP0, BP1, MT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, max_ring(MT));
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  if (bytes > max_ring(MT)) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = grid.y;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, partials_kernel<BP0, BP1, MT>, a);
 }
 
 template <int BP0, int BP1>
-void launch_mt(const Args& a, dim3 grid, cudaStream_t st) {
-  if (a.m <= 1)       partials_kernel<BP0, BP1, 1><<<grid, COLS, 0, st>>>(a);
-  else if (a.m <= 4)  partials_kernel<BP0, BP1, 4><<<grid, COLS, 0, st>>>(a);
-  else if (a.m <= 8)  partials_kernel<BP0, BP1, 8><<<grid, COLS, 0, st>>>(a);
-  else if (a.m <= 16) partials_kernel<BP0, BP1, 16><<<grid, COLS, 0, st>>>(a);
-  else                partials_kernel<BP0, BP1, 32><<<grid, COLS, 0, st>>>(a);
+cudaError_t launch_mt(const Args& a, dim3 grid, cudaStream_t st) {
+  if (a.m < 8) return launch<BP0, BP1, 8>(a, grid, st);
+  if (a.m <= 16) return launch<BP0, BP1, 16>(a, grid, st);
+  return launch<BP0, BP1, 32>(a, grid, st);
 }
 
 }  // namespace
@@ -228,56 +421,56 @@ const char* error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// x [m, k_pad] bf16; scratch xsum [m, k_pad / group_rows] f32; planes
-// int32/uint32 [k_pad*bp/32, n]; scale f32 and zero int32 [groups, n];
-// part [splits, m, n] f32 (ignored when splits == 1); out [m, n]. A split
-// holds whole groups. Returns the cudaError_t of the launches.
-int qmm_partials_segment(const void* x, int m, int k_pad, void* xsum,
+// x [m, k_pad] bf16; planes int32/uint32 [k_pad*bp/32, n]; scale f32 and
+// zero int32 [k_pad / group_rows, n]; out [m, n] f32. Groups of 128 rows or
+// a multiple of 256; splits <= 8 blocks of one cluster share a column block,
+// each sb_per_split sub-blocks of K, a whole number of groups. n % 4 == 0,
+// buffers 16-byte aligned. Returns the cudaError_t of the launch.
+int qmm_partials_segment(const void* x, int m, int k_pad,
                          const void* plane0, const void* plane1, int bp0,
                          int bp1, int n, int group_rows, const void* scale,
-                         const void* zero, void* part, void* out, int splits,
+                         const void* zero, void* out, int splits,
                          int sb_per_split, void* stream) {
-  if (m < 1 || m > 32 || k_pad % SB || group_rows % 16 || splits < 1 ||
-      k_pad % group_rows || (SB % group_rows && group_rows % SB) ||
-      (group_rows > SB && splits > 1 && sb_per_split % (group_rows / SB)))
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const int unit = group_rows > SB ? group_rows / SB : 1;
+  if (m < 1 || m > 32 || k_pad % SB || n % 4 || k_pad % group_rows ||
+      (group_rows != 128 && group_rows % SB) || splits < 1 ||
+      splits > MAX_SPLITS || sb_per_split < 1 || sb_per_split % unit ||
+      (k_pad / SB + sb_per_split - 1) / sb_per_split != splits)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int groups = k_pad / group_rows;
-  group_sum_kernel<<<dim3((groups + 3) / 4, m), 128, 0, st>>>(
-      (const __nv_bfloat16*)x, k_pad, group_rows, groups, (float*)xsum);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (!aligned(x) || !aligned(plane0) || (bp1 && !aligned(plane1)) ||
+      !aligned(scale) || !aligned(zero) || !aligned(out))
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.x = (const __nv_bfloat16*)x;
-  a.xsum = (const float*)xsum;
   a.m = m;
   a.k_pad = k_pad;
-  a.groups = groups;
   a.p0 = (const uint32_t*)plane0;
   a.p1 = (const uint32_t*)plane1;
   a.n = n;
   a.group_rows = group_rows;
   a.scale = (const float*)scale;
   a.zero = (const int*)zero;
-  a.dst = (float*)(splits == 1 ? out : part);
+  a.out = (float*)out;
   a.sb_per_split = sb_per_split;
   a.nsb = k_pad / SB;
-  dim3 grid((n + COLS - 1) / COLS, splits);
-  const int key = bp0 * 10 + bp1;
-  switch (key) {
-    case 20: launch_mt<2, 0>(a, grid, st); break;
-    case 40: launch_mt<4, 0>(a, grid, st); break;
-    case 80: launch_mt<8, 0>(a, grid, st); break;
-    case 21: launch_mt<2, 1>(a, grid, st); break;
-    case 41: launch_mt<4, 1>(a, grid, st); break;
-    case 42: launch_mt<4, 2>(a, grid, st); break;
+  const int mt = m < 8 ? 8 : m <= 16 ? 16 : 32;
+  a.nme = group_rows == 128 ? 2 : 1;
+  a.off_meta = mt * XSTR * 2;
+  a.stage_bytes = a.off_meta + 2 * a.nme * NB * 4;
+  const dim3 grid((n + NB - 1) / NB, splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  switch (bp0 * 10 + bp1) {
+    case 20: e = launch_mt<2, 0>(a, grid, st); break;
+    case 21: e = launch_mt<2, 1>(a, grid, st); break;
+    case 40: e = launch_mt<4, 0>(a, grid, st); break;
+    case 80: e = launch_mt<8, 0>(a, grid, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const size_t count = (size_t)m * n;
-  reduce_splits<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
-      (const float*)part, (float*)out, splits, count);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

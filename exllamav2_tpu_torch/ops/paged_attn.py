@@ -4,8 +4,10 @@ Counterpart of exllamav2_tpu/ops/paged_attn.py.
 
 * ``paged_decode_attention`` (t = 1) is the wrapper of csrc/paged_attn.cu,
   the flash-decode kernel over the block table with in-kernel dequant of the
-  bf16 / fp8 / q8 / q4 kinds. On a card tensor it launches the kernel; on a
-  CPU tensor it runs ``paged_decode_attention_plain``, the same page
+  bf16 / fp8 / q8 / q4 kinds, split over the sequence into the blocks of a
+  thread-block cluster (``split_count`` picks the split from the block
+  table's width and the SM count). On a card tensor it launches the kernel;
+  on a CPU tensor it runs ``paged_decode_attention_plain``, the unsplit page
   recurrence in torch.
 * ``paged_attention`` is the attention of the paged forward: the t = 1
   branch folds the Hadamard rotation of the q4 / q8 kinds around the kernel
@@ -20,10 +22,12 @@ import ctypes
 import torch
 
 from exllamav2_tpu_torch.cache_paged import _kinds, _raw
+from exllamav2_tpu_torch.device import sm_count
 from exllamav2_tpu_torch.ops.kvquant import hadamard32
 
 __all__ = ["paged_attention", "paged_decode_attention",
-           "paged_decode_attention_plain", "LAUNCHES", "KIND_LAUNCHES"]
+           "paged_decode_attention_plain", "split_count", "LAUNCHES",
+           "KIND_LAUNCHES"]
 
 # launches of csrc/paged_attn.cu, counted by its wrapper; KIND_LAUNCHES
 # splits the same count by (k kind, v kind) template
@@ -38,10 +42,42 @@ _PAIRS = {("bf16", "bf16"), ("fp8", "fp8"), ("q8", "q8"), ("q4", "q4"),
           ("q8", "q4")}
 
 # q, k, v, ks, vs, block_table, valid_lens, layer, batch, hkv, g, d, rows,
-# page, pw, scale, softcap, window, kk, vk, out, stream (csrc/paged_attn.cu)
+# page, pw, scale, softcap, window, kk, vk, splits, positions per split,
+# out, stream (csrc/paged_attn.cu)
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 2)
+
+_BLOCKS_PER_SM = 2      # the split fills the card with about this many
+SPLIT_WORK = 512        # positions x query heads a split takes at most ...
+SPLIT_ROWS = 256        # ... but never fewer positions than this
+MAX_SPLITS = 16         # blocks of a cluster (MAX_SPLITS in the source)
+SCORE_FLOATS = 8192     # scores a block keeps, G x rows (SC_FLOATS)
+
+
+def split_count(batch: int, hkv: int, pw: int, page: int, sms: int,
+                g: int = 1) -> tuple[int, int]:
+    """(splits, positions per split) of the kernel's grid (batch * hkv,
+    splits): split r takes positions [r*per, (r+1)*per) of the block
+    table's pw * page, per a multiple of 16. About _BLOCKS_PER_SM blocks per
+    SM, more splits where a split would pass max(SPLIT_ROWS, SPLIT_WORK / g)
+    positions (one block walks its range in series, and a row costs more
+    with more query heads) or its scores would outgrow the block's
+    SCORE_FLOATS, at most MAX_SPLITS (one cluster). A function of
+    the page bucket, never of valid_lens, so the grid is fixed for a
+    bucket. Where batch * hkv pairs alone fill the card (the serving step's
+    16 x 32 over two pages) one split is taken: the generator's buckets are
+    padded past the live rows, and a second, empty split still cost more
+    than it saved."""
+    positions = pw * page
+    keep = max(page, SCORE_FLOATS // g // 16 * 16)
+    longest = max(SPLIT_ROWS, SPLIT_WORK // g)
+    want = max(-(-_BLOCKS_PER_SM * sms // (batch * hkv)),
+               -(-positions // longest), -(-positions // keep))
+    want = max(1, min(want, MAX_SPLITS, -(-positions // 16)))
+    per = -(-positions // want)
+    per = -(-per // 16) * 16
+    return -(-positions // per), per
 
 
 def _dq_page(data: torch.Tensor, scales: torch.Tensor | None,
@@ -152,14 +188,16 @@ def _kernel(q, k_data, v_data, layer, block_table, valid_lens, k_scales,
         raise ValueError(f"pool {tuple(k_data.shape)} / "
                          f"{tuple(v_data.shape)}, block table "
                          f"{tuple(block_table.shape)}, layer {layer}")
+    pw = block_table.shape[1]
+    splits, per = split_count(b, hkv, pw, page_size, sm_count(dev), g)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     fn = _build.function("paged_attn", "paged_decode_attention", _ARGTYPES)
     ks = k_scales.data_ptr() if kk in ("q4", "q8") else None
     vs = v_scales.data_ptr() if vk in ("q4", "q8") else None
     rc = fn(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), ks, vs,
             block_table.data_ptr(), valid_lens.data_ptr(), layer, b, hkv, g,
-            d, rows, page_size, block_table.shape[1], float(scale),
-            float(softcap), int(window), _KIND_CODE[kk], _KIND_CODE[vk],
+            d, rows, page_size, pw, float(scale), float(softcap),
+            int(window), _KIND_CODE[kk], _KIND_CODE[vk], splits, per,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("paged_attn", rc, "paged_decode_attention")
     LAUNCHES["paged_decode_attn"] += 1

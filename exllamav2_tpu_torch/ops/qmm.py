@@ -16,7 +16,9 @@ Counterpart of exllamav2_tpu/ops/qmm.py. Two paths:
     rows up, with dp4a below 8 rows or for 16-row groups (w4a8_template);
     GPTQ segments with groups of >= 128 rows go
     through csrc/qmm_partials.cu when QMM_PARTIALS=1 is set, the exact
-    scales-on-partials form y = sum_g s_g (x_g @ v_g - z_g sum(x_g));
+    scales-on-partials form y = sum_g s_g (x_g @ v_g - z_g sum(x_g)), on
+    the same bf16 tiles as csrc/qmm.cu (the B fragments the exact
+    integers, the group sums an mma against ones, one launch);
   * prefill (more rows): dequantize to bf16, then one matrix product
     (exact; ``act8`` is ignored there).
 
@@ -84,10 +86,10 @@ _ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
 # per split, mma template, stream
 _ARGTYPES_W4A8 = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _P, _P, _P, _P, _I, _I, _I, _P]
-# x bf16, m, k_pad, xsum, plane0, plane1, bp0, bp1, n, group_rows, scale,
-# zero, partials, out, splits, sub-blocks per split, stream
-_ARGTYPES_PARTIALS = [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                      _P, _I, _I, _P]
+# x bf16, m, k_pad, plane0, plane1, bp0, bp1, n, group_rows, scale, zero,
+# out, splits, sub-blocks per split, stream
+_ARGTYPES_PARTIALS = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
+                      _I, _P]
 
 
 def dot_dtype(t: torch.Tensor) -> torch.dtype:
@@ -183,13 +185,17 @@ def qmm_template(m: int) -> str:
     return "gemv" if m < 8 else "mma"
 
 
-def qmm_split(n: int, nsb: int, target: int) -> tuple[int, int]:
-    """(splits, sub-blocks per split) of csrc/qmm.cu's grid (column blocks,
-    splits): about `target` blocks, at most _QMM_MAX_SPLITS splits (the
-    blocks of one cluster), every split non-empty."""
+def qmm_split(n: int, nsb: int, target: int, unit: int = 1
+              ) -> tuple[int, int]:
+    """(splits, sub-blocks per split) of the grid (column blocks, splits) of
+    csrc/qmm.cu and csrc/qmm_partials.cu: about `target` blocks, at most
+    _QMM_MAX_SPLITS splits (the blocks of one cluster), every split
+    non-empty and a multiple of `unit` sub-blocks (a whole number of
+    groups, where a group spans several sub-blocks; nsb % unit == 0)."""
     nblk = -(-n // _COLS)
-    want = max(1, min(nsb, _QMM_MAX_SPLITS, -(-target // nblk)))
-    per = -(-nsb // want)
+    units = nsb // unit
+    want = max(1, min(units, _QMM_MAX_SPLITS, -(-target // nblk)))
+    per = -(-units // want) * unit
     return -(-nsb // per), per
 
 
@@ -410,27 +416,34 @@ def qmm_partials_plain(x: torch.Tensor, seg) -> torch.Tensor:
 
 
 def _kernel_partials_matmul(x: torch.Tensor, seg) -> torch.Tensor:
-    """Launch csrc/qmm_partials.cu on one segment (CUDA tensors only): the
-    group sums of x, then the partials kernel."""
+    """Launch csrc/qmm_partials.cu on one segment (CUDA tensors only): one
+    device kernel, the group sums of x taken inside it."""
     from exllamav2_tpu_torch import _build
     gr = seg.group_rows
-    if SUB_BLOCK % gr and gr % SUB_BLOCK:
+    if gr != 128 and gr % SUB_BLOCK:
         raise NotImplementedError(
-            f"group size {gr}: want a divisor or multiple of {SUB_BLOCK}")
+            f"group size {gr}: want 128 or a multiple of {SUB_BLOCK}")
+    if seg.plane_bits not in ((2,), (2, 1), (4,), (8,)):
+        raise NotImplementedError(f"GPTQ planes {seg.plane_bits}")
     m, k_pad, n, bp = _check_launch(
         x, seg, torch.bfloat16,
         [*((p, torch.int32) for p in seg.planes),
          (seg.scale, torch.float32), (seg.zero, torch.int32)])
-    xsum = torch.empty((m, k_pad // gr), dtype=torch.float32,
-                       device=x.device)
-    out, part, splits, per = _out_and_partials(
-        x, m, n, k_pad, unit=max(1, gr // SUB_BLOCK))
+    if n % 4:
+        raise NotImplementedError(f"{n} columns: the kernel reads 4-column "
+                                  "chunks")
+    if x.data_ptr() % 16:
+        x = x.clone()                     # a view at an odd offset
+    splits, per = qmm_split(
+        n, k_pad // SUB_BLOCK,
+        _target_blocks(x.device, _QMM_BLOCKS_PER_SM[qmm_template(m)]),
+        unit=max(1, gr // SUB_BLOCK))
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("qmm_partials", "qmm_partials_segment",
                          _ARGTYPES_PARTIALS)
-    rc = fn(x.data_ptr(), m, k_pad, xsum.data_ptr(), *_plane_args(seg, bp),
-            n, gr, seg.scale.data_ptr(), seg.zero.data_ptr(),
-            part.data_ptr(), out.data_ptr(), splits, per,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    rc = fn(x.data_ptr(), m, k_pad, *_plane_args(seg, bp), n, gr,
+            seg.scale.data_ptr(), seg.zero.data_ptr(), out.data_ptr(),
+            splits, per, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("qmm_partials", rc, "qmm_partials_segment")
     LAUNCHES["qmm_partials"] += 1
     return out

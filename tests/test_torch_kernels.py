@@ -429,3 +429,175 @@ def test_prefill_attention_products_are_bf16(dev):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert not any("f32f32" in n or "sgemm" in n.lower() for n in names), \
         names
+
+
+def _paged_pool(dev, kind, hkv, d, npages, page, gen):
+    """A pool of `npages` pages whose every row holds random K/V stored by
+    the cache's own codec, and its (k kind, v kind)."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache, _kinds, _raw
+    from exllamav2_tpu_torch.ops.kvquant import kv_quant
+    cache = PagedKVCache.alloc(2, npages, hkv, d, kind, page_size=page,
+                               device=dev)
+    kinds = _kinds(kind)
+    for data, scales, k in ((cache.k_data, cache.k_scales, kinds[0]),
+                            (cache.v_data, cache.v_scales, kinds[1])):
+        x = torch.randn((hkv, data.shape[2], d), generator=gen, device=dev)
+        qd, qs = kv_quant(x, k)
+        _raw(data)[1] = _raw(qd)
+        if scales is not None:
+            scales[1] = qs
+    return cache, kinds
+
+
+def _paged_args(cache, kinds, q, bt, vl, page, cap=0.0, win=0):
+    d = q.shape[-1]
+    # the scale paged_attention passes: q4 / q8 keys carry the Hadamard
+    # gain of 32 in the kernel's domain
+    scale = d ** -0.5 / (32 if kinds[0] in ("q4", "q8") else 1)
+    return (q, cache.k_data, cache.v_data, 1, bt, vl, cache.k_scales,
+            cache.v_scales, scale, page, q.shape[1], kinds, cap, win)
+
+
+def _paged_vmax(cache, kinds):
+    from exllamav2_tpu_torch.cache_paged import _raw
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    vdata = _raw(cache.v_data)[1].view(cache.v_data.dtype)
+    return P._dq_page(vdata, None if cache.v_scales is None
+                      else cache.v_scales[1], kinds[1]).abs().max()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
+@pytest.mark.parametrize("g,batch,pw,page", [
+    (1, 1, 8, 256), (4, 1, 8, 256), (16, 1, 8, 256), (1, 16, 2, 256),
+    (4, 3, 24, 64), (16, 2, 40, 256), (1, 1, 64, 16)])
+def test_paged_kernel_splits_match_plain(dev, kind, g, batch, pw, page):
+    """Every kind and G bucket over the split counts of their buckets: one
+    split row of 16-256 positions, splits crossing page edges, several
+    splits in one page, 16 splits (a non-portable cluster), and a bucket
+    whose scores outgrow the block at G = 16 (10,240 positions: the P.V
+    pass scores its rows again). Rows end at 1, 17, a page edge and the
+    bucket's end; the last row is a pad row on the null page."""
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(g * 100 + pw)
+    hkv = 2
+    cache, kinds = _paged_pool(dev, kind, hkv, 128, pw + 1, page, gen)
+    table = torch.randperm(pw, generator=gen, device=dev).to(torch.int32) + 1
+    ends = [pw * page, 17, page, 1, pw * page - 5, 1 + pw * page // 2]
+    lens = [ends[i % len(ends)] for i in range(batch - 1)] + [1]
+    bt = table[None].repeat(batch, 1)
+    if batch > 1:
+        bt[-1] = 0                                   # pad row
+    else:
+        lens = [pw * page - 3]
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((batch, hkv * g, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits, per = P.split_count(batch, hkv, pw, page, sms, g)
+    assert 1 <= splits <= P.MAX_SPLITS
+    args = _paged_args(cache, kinds, q, bt, vl, page)
+    before = P.LAUNCHES["paged_decode_attn"]
+    got = P.paged_decode_attention(*args)
+    assert P.LAUNCHES["paged_decode_attn"] == before + 1
+    ref = P.paged_decode_attention_plain(*args)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * _paged_vmax(cache, kinds)
+    # no global state: a second launch gives the same bits
+    assert torch.equal(got, P.paged_decode_attention(*args))
+
+
+def test_paged_kernel_graph_replay_with_new_lengths(dev):
+    """A CUDA graph of one serving decode step's kernel 3 launches (16 rows,
+    bucket of 2 pages, 4 layers) replayed after valid_lens changes in place
+    within the bucket: the grid depends on the bucket only, so every replay
+    equals the plain version on the new lengths."""
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    hkv, g, page, pw, b = 8, 4, 256, 2, 16
+    cache, kinds = _paged_pool(dev, "bf16", hkv, 128, 2 * b + 1, page, gen)
+    bt = (torch.arange(2 * b, device=dev, dtype=torch.int32) + 1).reshape(
+        b, pw)
+    vl = torch.full((b,), 130, dtype=torch.int32, device=dev)
+    qs = [torch.randn((b, hkv * g, 128), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4)]
+
+    def step():
+        return [P.paged_decode_attention(
+            *_paged_args(cache, kinds, q, bt, vl, page)) for q in qs]
+
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        step()                                        # warm-up
+    torch.cuda.current_stream(dev).wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for lens in ([130] * b, [1, 17, 255, 256, 257, 511, 512, 300] * 2,
+                 [512] * b):
+        vl.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        for q, got in zip(qs, outs):
+            ref = P.paged_decode_attention_plain(
+                *_paged_args(cache, kinds, q, bt, vl, page))
+            assert (got - ref).abs().max() <= 1e-4 * _paged_vmax(cache,
+                                                                 kinds)
+
+
+def test_paged_kernel_two_streams(dev):
+    """Launches with different inputs in flight on two streams (the kernel
+    holds no global scratch): both match their plain versions."""
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    hkv, g, page, pw = 8, 4, 256, 8
+    cache, kinds = _paged_pool(dev, "q6", hkv, 128, pw + 1, page, gen)
+    bt = (torch.randperm(pw, generator=gen, device=dev).to(torch.int32)
+          + 1)[None]
+    cases = []
+    for n in (1900, 1300):
+        q = torch.randn((1, hkv * g, 128), generator=gen, device=dev).to(
+            torch.bfloat16)
+        vl = torch.tensor([n], dtype=torch.int32, device=dev)
+        cases.append(_paged_args(cache, kinds, q, bt, vl, page))
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[] for _ in cases]
+    for _ in range(20):              # interleaved launches on both streams
+        for args, st, o in zip(cases, streams, outs):
+            with torch.cuda.stream(st):
+                o.append(P.paged_decode_attention(*args))
+    torch.cuda.synchronize(dev)
+    for args, o in zip(cases, outs):
+        ref = P.paged_decode_attention_plain(*args)
+        for got in o:
+            assert (got - ref).abs().max() <= 1e-4 * _paged_vmax(cache,
+                                                                 kinds)
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 7, 8, 9, 16, 17, 32])
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("gs,n", [(128, 384), (256, 200), (128, 72),
+                                  (256, 4100)])
+def test_partials_kernel_rows_bits_ragged(dev, bits, gs, n, m, monkeypatch):
+    """The scales-on-partials kernel on its bf16 tile: every m template (8,
+    16 and 32 rows), GPTQ 2/3/4/8 bits, groups of 128 and 256, and n % 128
+    != 0 (a partial column block, a partial warp); one launch a call."""
+    monkeypatch.setenv("QMM_PARTIALS", "1")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(m * 10 + bits + n)
+    seg = random_gptq_linear(gen, 2048, n, bits=bits, group_rows=gs,
+                             device=dev).segments[0]
+    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev).to(
+        torch.bfloat16)
+    before = dict(Q.LAUNCHES)
+    got = Q.fused_segment_matmul(x, seg)
+    assert Q.LAUNCHES == dict(before,
+                              qmm_partials=before["qmm_partials"] + 1)
+    ref = Q.qmm_partials_plain(x, seg)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()

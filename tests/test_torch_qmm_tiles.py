@@ -14,6 +14,14 @@ These tests emulate that map and arithmetic bit for bit in numpy / torch
 and hold them against the port's dequant (ops/dequant.dequant_segment), the
 fused kernel's plain version, and the JAX reference's fused kernel in
 interpret mode, for every plane pair; and the kernel's split picker.
+
+csrc/qmm_partials.cu (GPTQ scales-on-partials) runs on the same tile: its B
+fragments are the exact integers q (bf16 128 + q less 128 below 8 bits, an
+f32 path at 8 bits), one more mma against ones sums the activations of the
+group, and where a group ends on a slot boundary the epilogue adds
+(pg - xs*z)*s into a running f32 tile; K splits (whole groups) are summed
+in rank order. The tests below emulate that and hold it against
+qmm_partials_plain and the reference's partials kernel.
 """
 
 import numpy as np
@@ -88,10 +96,10 @@ def fast_path(seg) -> bool:
             and seg.bits <= 7)
 
 
-def b_register(seg, sb, s, t, i, cols):
-    """The B register (bf16 bits of two rows, low half first) of word pair
-    (i, i + 1) of lane t at slot s of sub-block sb, for columns cols: the
-    kernel's deq()."""
+def q_halves(seg, sb, s, t, i, cols):
+    """The values q (uint64 arrays) of the two rows of word pair (i, i + 1)
+    of lane t at slot s of sub-block sb, for columns cols, low half first:
+    qmm_tile.cuh's pair_bits (OR constant 0)."""
     bp = seg.plane_bits
     bp0, bp1 = bp[0], bp[1] if len(bp) > 1 else 0
     r, q0 = 2 * bp0, 8 * bp0
@@ -109,7 +117,16 @@ def b_register(seg, sb, s, t, i, cols):
                    0x7632 if sh1 >= 16 else 0x5410)
         rot1 = ((sh1 & 15) - bp0) & 31
         q |= _rotr(p1, rot1) & ((((1 << bp1) - 1) << bp0) * 0x10001)
-    halves = [q & 0xFFFF, q >> 16]
+    return [q & 0xFFFF, q >> 16]
+
+
+def b_register(seg, sb, s, t, i, cols):
+    """The B register (bf16 bits of two rows, low half first) of word pair
+    (i, i + 1) of lane t at slot s of sub-block sb, for columns cols: the
+    kernel's deq()."""
+    halves = q_halves(seg, sb, s, t, i, cols)
+    bp0 = seg.plane_bits[0]
+    r, q0 = 2 * bp0, 8 * bp0
     grp = (sb * SUB_BLOCK + q0 * s + r * t) // seg.group_rows
     sc, z = _meta(seg, grp, cols)
     out = []
@@ -336,3 +353,138 @@ def test_qmm_launch_refuses_ragged_columns():
     x = torch.zeros((1, 256), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         Q._kernel_segment_matmul(x, seg)
+
+
+GPTQ_PAIRS = {2: (2,), 3: (2, 1), 4: (4,), 8: (8,)}
+
+
+def partials_fires(bp0, gr, sb, s):
+    """csrc/qmm_partials.cu's epilogue rule: does a group end with slot s of
+    sub-block sb, and the index of its meta row in the stage."""
+    q0 = 8 * bp0
+    if gr == 128:
+        return (q0 * (s + 1)) % 128 == 0, (q0 * (s + 1) - 1) // 128
+    last = s + 1 == 32 // bp0
+    return last and ((sb + 1) * SUB_BLOCK) % gr == 0, 0
+
+
+@pytest.mark.parametrize("gr", [128, 256, 512])
+@pytest.mark.parametrize("bits", sorted(GPTQ_PAIRS))
+def test_partials_slots_lie_in_one_group(bits, gr):
+    """Every GPTQ plane pair: a slot's Qsb = 8*bp0 rows lie in one group, so
+    a group ends on a slot boundary, and the kernel's epilogue fires at
+    exactly the slots that end a group, reading the ending group's meta."""
+    bp0 = GPTQ_PAIRS[bits][0]
+    q0 = 8 * bp0
+    nsb = 2 * max(1, gr // SUB_BLOCK) + 1
+    for sb in range(nsb):
+        for s in range(32 // bp0):
+            first = sb * SUB_BLOCK + q0 * s
+            rows = np.arange(first, first + q0)
+            assert len(set(rows // gr)) == 1
+            ends = (first + q0) % gr == 0
+            fires, mi = partials_fires(bp0, gr, sb, s)
+            assert fires == ends
+            if fires:
+                # the stage holds the meta of group (sb*256)/gr + mi
+                assert (sb * SUB_BLOCK) // gr + mi == rows[0] // gr
+
+
+def test_partials_integer_fragments_are_exact():
+    """The B values of the partials tile: 0x4300 | q is bf16 128 + q and less
+    bf16 128 gives q for every q < 128; 8-bit q through f32 (2^23 + q less
+    2^23) rounds to bf16 without loss (q <= 255 has 8 significant bits)."""
+    qv = np.arange(128, dtype=np.uint32)
+    v = _bf16_bits_to_f32((qv | 0x4300).astype(np.uint16))
+    np.testing.assert_array_equal(v - np.float32(128.0), qv)
+    q8 = np.arange(256, dtype=np.uint32)
+    f = (q8 | 0x4B000000).view(np.float32) - np.float32(8388608.0)
+    np.testing.assert_array_equal(_bf16_bits_to_f32(_round_bf16(f)), q8)
+
+
+def emulate_partials(x, seg, sms=132):
+    """csrc/qmm_partials.cu's arithmetic in its order: per split (whole
+    groups, qmm_split), per k-step the f32 group partials pg and activation
+    sums xs (each k-step's 16 products summed exactly, then added in f32),
+    the epilogue (pg - xs*z)*s in f32 where a group ends, the splits summed
+    in rank order: x bf16 [m, rows_pad] -> f32 [m, N]."""
+    n = seg.planes[0].shape[1]
+    cols = np.arange(n)
+    bp0 = seg.plane_bits[0]
+    gr = seg.group_rows
+    nsb = seg.rows_pad // SUB_BLOCK
+    m = x.shape[0]
+    target = Q._QMM_BLOCKS_PER_SM[Q.qmm_template(m)] * sms
+    splits, per = Q.qmm_split(n, nsb, target, unit=max(1, gr // SUB_BLOCK))
+    assert per % max(1, gr // SUB_BLOCK) == 0
+    xf = x.float().numpy().astype(np.float64)
+    scale = seg.scale.numpy()
+    zero = seg.zero.numpy().astype(np.float32)
+    out = np.zeros((m, n), np.float32)
+    for r in range(splits):
+        pg = np.zeros((m, n), np.float32)
+        xs = np.zeros((m, 1), np.float32)
+        acc = np.zeros((m, n), np.float32)
+        for sb in range(r * per, min((r + 1) * per, nsb)):
+            for s in range(32 // bp0):
+                for h in range(bp0 // 2):
+                    tile = np.zeros((16, n))
+                    rows = np.zeros(16, np.int64)
+                    for t in range(4):
+                        lr = lane_rows(bp0, s, h, t)
+                        pairs = (q_halves(seg, sb, s, t, 4 * h, cols)
+                                 + q_halves(seg, sb, s, t, 4 * h + 2, cols))
+                        for kk, v in zip((2 * t, 2 * t + 1, 2 * t + 8,
+                                          2 * t + 9), pairs):
+                            tile[kk] = v
+                            rows[kk] = lr[kk]
+                    a = xf[:, sb * SUB_BLOCK + rows]
+                    pg = (pg + (a @ tile).astype(np.float32)).astype(
+                        np.float32)
+                    xs = (xs + a.sum(1, keepdims=True).astype(np.float32)
+                          ).astype(np.float32)
+                fires, _ = partials_fires(bp0, gr, sb, s)
+                if fires:
+                    grp = (sb * SUB_BLOCK + 8 * bp0 * (s + 1)) // gr - 1
+                    term = (pg - xs * zero[grp]) * scale[grp]
+                    acc = (acc + term).astype(np.float32)
+                    pg[:] = 0
+                    xs[:] = 0
+        out = (out + acc).astype(np.float32)
+    return torch.from_numpy(out), splits
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("bits,gr", [(4, 128), (2, 256), (3, 512), (8, 128)])
+def test_emulated_partials_matches_plain_and_reference(bits, gr, m,
+                                                       monkeypatch):
+    """The emulated partials tile (B the exact integers, xs by the ones
+    tile, the epilogue per group, the rank-order split merge) against
+    qmm_partials_plain and the reference's _partials_gptq_matmul (interpret
+    mode, through qmm under QMM_PARTIALS=1): f32 sums in another order,
+    1e-5 of max |ref|."""
+    from exllamav2_tpu.quant import formats as F
+    from exllamav2_tpu.quant import qtensor as RQ
+    rng = np.random.default_rng(bits * 100 + gr + m)
+    k, n = 1024, 136
+    g = k // gr
+    qv = rng.integers(0, 2 ** bits, size=(k, n)).astype(np.uint16)
+    zeros = rng.integers(1, 2 ** bits, size=(g, n)).astype(np.uint16)
+    scales = rng.random((g, n)).astype(np.float32) * 0.02 + 0.001
+    ql = RQ.from_gptq(F.gptq_pack(qv, zeros, scales, bits=bits))
+    tl = linear_from_reference(jax.tree_util.tree_map(np.asarray, ql),
+                               "cpu")
+    seg = tl.segments[0]
+    assert seg.plane_bits == GPTQ_PAIRS[bits] and seg.group_rows == gr
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got, splits = emulate_partials(xb, seg)
+    assert splits > 1
+    plain = Q.qmm_partials_plain(xb, seg)
+    monkeypatch.setenv("QMM_PARTIALS", "1")
+    assert M._use_partials(ql.segments[0])
+    ref = np.asarray(M.qmm(jnp.asarray(xb.float().numpy()), ql,
+                           fused=True))
+    scale = np.abs(ref).max()
+    assert (got - plain).abs().max().item() <= 1e-5 * scale
+    assert np.abs(got.numpy()[:, :ref.shape[1]] - ref).max() <= 1e-5 * scale
