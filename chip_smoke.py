@@ -76,7 +76,12 @@ Phases (any failure raises and the script exits non-zero):
               4 bits, groups of 32 and 128 (int32 partials exact; f32 sums
               over groups in another order, 1e-4 of max |plain|; every K
               tile of the ceiling within 1e-5); timed with
-              utils/timing.device_time; every variant and probe through the
+              utils/timing.device_time; each nibble tiling logs its split
+              (the cluster) and column block; the device kernels of 16
+              nibble_i8 calls and 16 bf16 dot probe calls under the
+              profiler (one kernel a call, nothing else: no
+              reduce_splits); every variant
+              and probe through the
               functions the entry points call, launch counts asserted; then
               `python -m exllamav2_tpu_torch.tools.perf_qmm w4a8_kernel` and
               `... probe_features int8_dot_batched` as a user starts them;
@@ -895,6 +900,28 @@ def check_round(name, jobs, new, dt):
     return new / dt, ttfts[len(ttfts) // 2], ttfts
 
 
+def call_kernels(call, calls: int = 16, tries: int = 3) -> dict:
+    """Device kernels of `calls` calls of `call` under torch.profiler, after
+    a warm-up call: {name: (ms, count)}. A session that records no device
+    event at all says nothing about the calls (the profiler once returned
+    none for a one-call session late in a full run), so up to `tries`
+    sessions are taken until one records some."""
+    call()
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        return None, None, time.perf_counter() - t0
+    for _ in range(tries):
+        kern = profile_round(run)[0]
+        if kern:
+            break
+    return kern
+
+
 def profile_round(run):
     """Device time by kernel name over one call of `run` (a serving round)
     under torch.profiler: ({name: (ms, count)}, busy ms, wall seconds of
@@ -1442,8 +1469,10 @@ def phase_tools(dev, rate):
     from exllamav2_tpu_torch.ops import dequant as D
     from exllamav2_tpu_torch.tools import perf_qmm as T
     from exllamav2_tpu_torch.tools import probe_features as PF
+    from exllamav2_tpu_torch.device import sm_count
     from exllamav2_tpu_torch.utils.timing import device_time
     card = card_line()
+    sms = sm_count(dev)
 
     def us(call, like):
         return device_time(lambda _: call(), like, iters=64) * 1e3
@@ -1557,6 +1586,10 @@ def phase_tools(dev, rate):
                 got = T.nibble_i8(xq, x1, plane, qs, smax, gr=gr, **hints)
                 torch.cuda.synchronize()
                 r, err = rel(got, ref)
+                kt, nt = T.nibble_tiles(k, n, sms, **hints)
+                log(f"[tools] nibble_i8{tag} {k}x{n} gr={gr}: {-(-k // kt)} "
+                    f"splits of {kt} rows (the cluster), {nt} columns a "
+                    f"block")
                 if r > QMM_TOL:
                     raise AssertionError(
                         f"nibble_i8{tag} {k}x{n} gr={gr}: rel err {r:.3g}")
@@ -1568,6 +1601,8 @@ def phase_tools(dev, rate):
                     (lambda w: torch.matmul(xb, w), denses), planes,
                     plane.numel() * 4 + meta + xq.numel() + x1.numel() * 4,
                     2 * T.M * k * n, "int8")
+                rows[-1]["tiles"] = {"splits": -(-k // kt), "cluster":
+                                     -(-k // kt), "kt": kt, "nt": nt}
             del denses, dense
         del planes
         torch.cuda.empty_cache()
@@ -1581,6 +1616,30 @@ def phase_tools(dev, rate):
                 f"{f' (group {gr})' if gr else ''}",
                 [(r["plane_bytes"], r["ms"] * 1e-3) for r in sel]))
             log(f"[tools] {lines[-1]} | {card}")
+
+    # --- calls of each kernel redesigned as one launch, under the
+    # profiler: one device kernel a call and nothing else, no reduce_splits
+    plane, qs, smax, x = T.mk_inputs(HIDDEN, HIDDEN, dev, gr=32)
+    xq = T.quantize_x(x)
+    x1 = T.group_sums(xq, 32)
+    ab = PF.probe_tensors("bf16_dot_bf16_acc_f32", dev)
+    one_call, calls = {}, 16
+    for name, kernel, call in (
+            ("perf_qmm_nibble_i8", "nibble_kernel",
+             lambda: T.nibble_i8(xq, x1, plane, qs, smax, gr=32)),
+            ("bf16_dot_bf16_acc_f32", "bf16_dot_kernel",
+             lambda: PF._bf16_dot_kernel(*ab))):
+        kern = call_kernels(call, calls)
+        for kname, (ms_k, cnt) in kern.items():
+            log(f"[tools] {calls} {name} calls: {ms_k * 1e3:6.1f} us "
+                f"{cnt}x {kname[:90]}")
+        one_call[name] = {kname[:90]: cnt for kname, (_, cnt) in kern.items()}
+        counts = list(kern.values())
+        if (len(kern) != 1 or kernel not in next(iter(kern))
+                or not 0 < counts[0][1] <= calls):
+            raise AssertionError(f"{calls} {name} calls: device kernels "
+                                 f"{kern}")
+    del plane, qs, smax, x, xq, x1, ab
 
     # --- the variants that time kernels 1 and 4: what each of their calls
     # returns against the plain version, on random activations at the
@@ -1668,7 +1727,7 @@ def phase_tools(dev, rate):
     log(f"[tools] entry points ran in {time.perf_counter() - t0:.1f} s")
     return {"probes": probes, "rows": rows, "lines": lines, "launches": got,
             "calls_per_timing": calls[0], "variant_err": variant_err,
-            "entry_points": entry}
+            "one_call_kernels": one_call, "entry_points": entry}
 
 
 # --------------------------------------------------------------- phase 11
@@ -1878,6 +1937,13 @@ def tools_entries(tools, rate) -> list:
             "library_ms": sum(r["library_ms"] for r in sel),
             "plane_gb_per_s": sum(r["plane_bytes"] for r in sel)
             / sum(r["ms"] for r in sel) / 1e6})
+        if name == "perf_qmm_nibble_i8":
+            out[-1]["design"] = {
+                "kernel": "int8 mma.sync.m16n8k32 on fragments from the "
+                          "masked words, K split over a thread-block "
+                          "cluster summed through distributed shared "
+                          "memory: one launch",
+                "tiles": {f"{r['k']}x{r['n']}": r["tiles"] for r in sel}}
     probes = tools["probes"]
     out.append({
         "name": "probe_features", "route": "cuda",
@@ -1896,6 +1962,10 @@ def tools_entries(tools, rate) -> list:
         "by_probe": {n: {k: p[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
                      for n, p in probes.items()}})
+    out[-1]["by_probe"]["bf16_dot_bf16_acc_f32"]["design"] = (
+        "K split over the 8 warps of a block, A and B staged by cp.async, "
+        "fragments by ldmatrix (.trans for B), warp tiles summed in shared "
+        "memory in warp order: one launch")
     return out
 
 

@@ -12,14 +12,22 @@
 // far below a microsecond of the card, so a launch is latency. What counts
 // is that the instruction exists and gives the plain version's values.
 //
-// Design: one warp per output tile for the dots, one thread per 32-bit
-// register for the rest.
+// Design: one warp per output tile for the int8 dots, a block of warps
+// splitting K for the bf16 dot, one thread per 32-bit register for the
+// rest.
 //   * int8 dots: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. A is
 //     row-major [M, K]; B is row-major [K, N], so the four k-consecutive
 //     bytes of a B register are gathered one by one. The batched probe is
 //     the W4A8 kernel's group-of-32 partial: 8 activation rows padded to the
 //     16 of the tile (the upper A registers are zero), one mma per group.
-//   * bf16 dot: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//   * bf16 dot: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. A
+//     block of 8 warps takes 16 columns; the K walk is spread over its warps
+//     (a few k-steps each). Every load of the block is issued before the
+//     first mma: A and B go to shared memory by 16-byte cp.async, and the
+//     fragments come out with ldmatrix (.trans for the row-major B). The
+//     warps' f32 partial tiles are summed in shared memory in warp order:
+//     one launch, one memory round trip (K past 512 rows takes another
+//     pass), no global scratch.
 //   * int4: there is no 4-bit storage type here. The input is packed two
 //     signed nibbles a byte, low nibble first (element 2c of a row is the low
 //     nibble of byte c); the kernel sign-extends with a shift pair.
@@ -109,33 +117,97 @@ __global__ void int8_dot_kernel(const int8_t* __restrict__ a,
   }
 }
 
-// c [16, n] f32 = a [16, k] bf16 @ b [k, n] bf16: one warp per 8 columns
-__global__ void bf16_dot_kernel(const __nv_bfloat16* __restrict__ a,
-                                const __nv_bfloat16* __restrict__ b,
-                                float* __restrict__ c, int kdim, int ncols) {
-  const int lane = threadIdx.x, gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * 8;
-  const uint16_t* bu = reinterpret_cast<const uint16_t*>(b);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < kdim; k0 += 16) {
-    uint32_t ra[4], rb[2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = gid + (i & 1) * 8;
-      const int col = k0 + tig * 2 + (i >> 1) * 8;
-      ra[i] = *reinterpret_cast<const uint32_t*>(a + (size_t)row * kdim + col);
+constexpr int BF_WARPS = 8;
+constexpr int BF_NB = 16;                    // columns a block
+constexpr int BF_STEPS = 4;                  // k-steps of 16 a warp, a pass
+constexpr int BF_CHUNK = BF_WARPS * BF_STEPS * 16;   // K rows a pass
+constexpr int BF_ASTR = BF_CHUNK + 8;        // A row stride (bf16), padded
+
+// 16 bytes global -> shared; src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p,
+                                            bool trans) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// c [16, n] f32 = a [16, k] bf16 @ b [k, n] bf16: a block of 8 warps per 16
+// columns, warp w takes k-steps 4w .. 4w+3 of each 512-row pass
+__global__ void __launch_bounds__(32 * BF_WARPS)
+bf16_dot_kernel(const __nv_bfloat16* __restrict__ a,
+                const __nv_bfloat16* __restrict__ b, float* __restrict__ c,
+                int kdim, int ncols) {
+  __shared__ __align__(16) __nv_bfloat16 as[16][BF_ASTR];
+  __shared__ __align__(16) __nv_bfloat16 bs[BF_CHUNK][BF_NB];
+  __shared__ float red[BF_WARPS][16][BF_NB];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * BF_NB;
+  float acc[2][4] = {};
+  for (int kc = 0; kc < kdim; kc += BF_CHUNK) {
+    const int rows = min(BF_CHUNK, kdim - kc);
+    if (kc) __syncthreads();                 // the last pass's reads done
+    // A: 16 rows x `rows` columns, B: `rows` rows x 16 columns, 8 bf16 a
+    // piece; B's columns past ncols read as zeros
+    for (int i = threadIdx.x; i < 16 * (BF_CHUNK / 8); i += 32 * BF_WARPS) {
+      const int r = i / (BF_CHUNK / 8), q = (i % (BF_CHUNK / 8)) * 8;
+      if (q < rows)
+        cp_async16(&as[r][q], a + (size_t)r * kdim + kc + q, 16);
     }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = k0 + i * 8 + tig * 2;
-      rb[i] = (uint32_t)bu[(size_t)k * ncols + n0 + gid] |
-              ((uint32_t)bu[(size_t)(k + 1) * ncols + n0 + gid] << 16);
+    for (int i = threadIdx.x; i < rows * 2; i += 32 * BF_WARPS) {
+      const int r = i >> 1, q = (i & 1) * 8;
+      const bool ok = n0 + q < ncols;
+      cp_async16(&bs[r][q], ok ? b + (size_t)(kc + r) * ncols + n0 + q : b,
+                 ok ? 16 : 0);
     }
-    mma_bf16(acc, ra, rb);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < BF_STEPS; ++i) {
+      const int kk = (warp * BF_STEPS + i) * 16;
+      if (kk >= rows) break;
+      // lane l addresses row l % 8 of matrix l / 8: A's (rows 0-7 | 8-15) x
+      // (k 0-7 | 8-15) give a0-a3; B's (k 0-7 | 8-15) x (n 0-7 | 8-15),
+      // transposed, give b0, b1 of the two n8 tiles
+      const int mi = lane >> 3, ri = lane & 7;
+      uint32_t ra[4], rb[4];
+      ldmatrix_x4(ra, &as[ri + 8 * (mi & 1)][kk + 8 * (mi >> 1)], false);
+      ldmatrix_x4(rb, &bs[kk + ri + 8 * (mi & 1)][8 * (mi >> 1)], true);
+      const uint32_t tile0[2] = {rb[0], rb[1]}, tile1[2] = {rb[2], rb[3]};
+      mma_bf16(acc[0], ra, tile0);
+      mma_bf16(acc[1], ra, tile1);
+    }
   }
+  // lane register r of n-tile j: row gid + 8 (r >> 1), column 8j + 2 tig +
+  // (r & 1)
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    c[(size_t)(gid + (i >> 1) * 8) * ncols + n0 + tig * 2 + (i & 1)] = acc[i];
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      red[warp][gid + 8 * (r >> 1)][8 * j + 2 * tig + (r & 1)] = acc[j][r];
+  __syncthreads();
+  const int row = threadIdx.x / BF_NB, col = threadIdx.x % BF_NB;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < BF_WARPS; ++w) s += red[w][row][col];
+  if (n0 + col < ncols) c[(size_t)row * ncols + n0 + col] = s;
 }
 
 // out int8[i] = in u32[i] & 15: four words in, one packed register out
@@ -221,11 +293,15 @@ int probe_int8_dot(const void* a, const void* b, void* c, int g, int m, int k,
   return (int)cudaGetLastError();
 }
 
-// a bf16 [16, k], b bf16 [k, n] -> c f32 [16, n]; k % 16 == 0, n % 8 == 0
+// a bf16 [16, k], b bf16 [k, n] -> c f32 [16, n]; k % 16 == 0, n % 8 == 0,
+// a and b 16-byte aligned
 int probe_bf16_dot(const void* a, const void* b, void* c, int k, int n,
                    void* stream) {
-  if (k % 16 || n % 8) return (int)cudaErrorInvalidValue;
-  bf16_dot_kernel<<<n / 8, 32, 0, (cudaStream_t)stream>>>(
+  if (k < 16 || k % 16 || n < 8 || n % 8 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15)
+    return (int)cudaErrorInvalidValue;
+  bf16_dot_kernel<<<(n + BF_NB - 1) / BF_NB, 32 * BF_WARPS, 0,
+                    (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)a, (const __nv_bfloat16*)b, (float*)c, k, n);
   return (int)cudaGetLastError();
 }

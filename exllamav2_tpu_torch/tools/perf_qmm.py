@@ -79,8 +79,13 @@ _ARGS_DMA = [_P, _I, _I, _P, _P]
 # x, plane, qs, smax, k, n, bits, gr, int8 mode, partials, out, splits,
 # sub-blocks per split, stream
 _ARGS_GP = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P]
-# xq, x1, plane, qs, smax, k, n, gr, kt, nt, partials, out, stream
-_ARGS_NIBBLE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P]
+# xq, x1, plane, qs, smax, k, n, gr, kt, nt, out, stream
+_ARGS_NIBBLE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
+# the nibble kernel's K splits are the blocks of one thread-block cluster
+# (NIB_MAX_SPLITS in the source, a non-portable size) and its blocks hold
+# 8 warps (NIB_WARPS)
+NIBBLE_MAX_SPLITS = 16
+_NIBBLE_WARPS = 8
 
 
 def report_line(name, per_shape) -> str:
@@ -307,23 +312,38 @@ def nibble_i8_plain(xq: torch.Tensor, x1: torch.Tensor, plane: torch.Tensor,
     return (p * s[:, None, :]).sum(dim=0) - 8.0 * torch.matmul(x1, s)
 
 
-def nibble_tiles(k: int, n: int, kt0: int = 1024, nt0: int = 2048
-                 ) -> tuple[int, int]:
-    """(K rows, columns) a thread block takes, from the tile hints of the
-    reference's grid: the largest multiple of 256 up to kt0 that divides K
-    (else all of K), and nt0 / 16 columns, one per thread (2048 -> 128,
-    4096 -> 256). They change how K is split, not the function."""
-    kt = max((d for d in range(SUB_BLOCK, kt0 + 1, SUB_BLOCK) if k % d == 0),
-             default=k)
-    nt = min(256, max(32, nt0 // 16 // 32 * 32))
-    return kt, nt
+def nibble_tiles(k: int, n: int, sms: int, kt0: int = 1024,
+                 nt0: int = 2048) -> tuple[int, int]:
+    """(K rows a split takes, columns a block takes) of the nibble kernel's
+    grid (column blocks, splits), from the shape, the card's SM count and
+    the tile hints of the reference's grid.
+
+    A block takes nt0 / 64 columns, a power of two in [32, 256] (2048 ->
+    32, 4096 -> 64): nt / 32 warps across the columns, the rest of its 8
+    warps across K. K is split into about 1.5 blocks an SM, but into no
+    more splits than leave every K warp a 256-row unit, than
+    NIBBLE_MAX_SPLITS (one cluster) or than K / kt0 (kt0 is the fewest rows
+    a split takes). Splits are multiples of 256 rows (whole groups of every
+    size the tool takes) and none is empty. They change how K is split,
+    not the function."""
+    nt = 32
+    while nt < 256 and 2 * nt <= nt0 // 64:
+        nt *= 2
+    units = k // SUB_BLOCK
+    blocks = -(-n // nt)
+    splits = min((3 * sms + blocks) // (2 * blocks),
+                 units // (_NIBBLE_WARPS * 32 // nt), NIBBLE_MAX_SPLITS,
+                 k // max(kt0, SUB_BLOCK))
+    per = -(-units // max(1, splits))
+    return per * SUB_BLOCK, nt
 
 
 def nibble_i8(xq: torch.Tensor, x1: torch.Tensor, plane: torch.Tensor,
               qs: torch.Tensor, smax: torch.Tensor, gr: int | None = None,
               kt0: int = 1024, nt0: int = 2048) -> torch.Tensor:
     """The nibble split on a 4-bit plane: xq int8 [8, K], x1 f32 [8, K/gr]
-    -> f32 [8, N]. Launches the CUDA kernel on a card tensor; on a CPU
+    -> f32 [8, N]. Launches the CUDA kernel (one launch, K split over a
+    thread-block cluster as `nibble_tiles` says) on a card tensor; on a CPU
     tensor runs the plain version."""
     gr = GR if gr is None else gr
     m, k = xq.shape
@@ -342,15 +362,12 @@ def nibble_i8(xq: torch.Tensor, x1: torch.Tensor, plane: torch.Tensor,
             or smax.numel() != k // gr or x1.shape != (M, k // gr):
         raise ValueError(f"plane {tuple(plane.shape)}, qs {tuple(qs.shape)},"
                          f" x1 {tuple(x1.shape)} vs K = {k}, gr = {gr}")
-    kt, nt = nibble_tiles(k, n, kt0, nt0)
-    splits = -(-k // kt)
+    from exllamav2_tpu_torch.device import sm_count
+    kt, nt = nibble_tiles(k, n, sm_count(xq.device), kt0, nt0)
     out = torch.empty((M, n), dtype=torch.float32, device=xq.device)
-    part = out if splits == 1 else torch.empty(
-        (splits, M, n), dtype=torch.float32, device=xq.device)
     fn = _build.function("perf_qmm", "perf_nibble", _ARGS_NIBBLE)
     rc = fn(xq.data_ptr(), x1.data_ptr(), plane.data_ptr(), qs.data_ptr(),
-            smax.data_ptr(), k, n, gr, kt, nt, part.data_ptr(),
-            out.data_ptr(), _stream(xq))
+            smax.data_ptr(), k, n, gr, kt, nt, out.data_ptr(), _stream(xq))
     _build.check("perf_qmm", rc, "perf_nibble")
     LAUNCHES["perf_qmm_nibble_i8"] += 1
     return out

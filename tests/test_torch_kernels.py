@@ -310,6 +310,117 @@ def test_perf_nibble_kernel_matches_plain(dev, hints, gr):
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
+@pytest.mark.parametrize("gr", [32, 128])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096)])
+def test_perf_nibble_kernel_7b_shapes(dev, k, n, gr):
+    """The three 7B shapes under the three tilings of the tool's variants:
+    one launch a call, K split over a cluster of up to 16 blocks."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    plane, qs, smax, x = T.mk_inputs(k, n, dev, seed=k + n, bits=4, gr=gr)
+    xq = T.quantize_x(x)
+    x1 = T.group_sums(xq, gr)
+    ref = T.nibble_i8_plain(xq, x1, plane, qs, smax, gr)
+    for hints in ({}, {"kt0": 2048}, {"nt0": 4096}):
+        before = T.LAUNCHES["perf_qmm_nibble_i8"]
+        got = T.nibble_i8(xq, x1, plane, qs, smax, gr=gr, **hints)
+        assert T.LAUNCHES["perf_qmm_nibble_i8"] == before + 1
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("gr", [16, 128])
+def test_perf_nibble_kernel_columns_not_a_multiple_of_four(dev, gr):
+    """n % 4 != 0: the rows of the plane are not 16-byte aligned, so the
+    kernel takes its word-by-word loads; one launch, the plain values."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    k, n = 2048, 390
+    plane, qs, smax, x = T.mk_inputs(k, n, dev, seed=gr + 1, bits=4, gr=gr)
+    xq = T.quantize_x(x)
+    x1 = T.group_sums(xq, gr)
+    before = T.LAUNCHES["perf_qmm_nibble_i8"]
+    got = T.nibble_i8(xq, x1, plane, qs, smax, gr=gr)
+    assert T.LAUNCHES["perf_qmm_nibble_i8"] == before + 1
+    ref = T.nibble_i8_plain(xq, x1, plane, qs, smax, gr)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def _nibble_case(dev, k, n, gr, seed):
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    plane, qs, smax, x = T.mk_inputs(k, n, dev, seed=seed, bits=4, gr=gr)
+    xq = T.quantize_x(x)
+    return [xq, T.group_sums(xq, gr), plane, qs, smax]
+
+
+def test_perf_nibble_kernel_graph_replay_with_new_activations(dev):
+    """A CUDA graph of nibble_i8 calls replayed after xq and x1 change in
+    place: the kernel holds no global scratch, so every replay equals the
+    plain version on the new activations."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    k, n, gr = 11008, 4096, 32
+    args = _nibble_case(dev, k, n, gr, seed=7)
+
+    def step():
+        return [T.nibble_i8(*args, gr=gr, **hints)
+                for hints in ({}, {"kt0": 2048}, {"nt0": 4096})]
+
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        step()                                        # warm-up
+    torch.cuda.current_stream(dev).wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    gen = torch.Generator(device=dev)
+    for seed in (1, 2, 3):
+        gen.manual_seed(seed)
+        x = torch.randn((T.M, k), generator=gen, device=dev)
+        args[0].copy_(T.quantize_x(x))
+        args[1].copy_(T.group_sums(args[0], gr))
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        ref = T.nibble_i8_plain(*args, gr)
+        for got in outs:
+            assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def test_perf_nibble_kernel_two_streams(dev):
+    """Launches with different inputs in flight on two streams: both match
+    their plain versions."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    cases = [(_nibble_case(dev, 11008, 4096, 32, seed=11), 32),
+             (_nibble_case(dev, 4096, 4096, 128, seed=12), 128)]
+    streams = [torch.cuda.Stream(dev) for _ in cases]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream(dev))
+    outs = [[] for _ in cases]
+    for _ in range(20):              # interleaved launches on both streams
+        for (args, gr), st, o in zip(cases, streams, outs):
+            with torch.cuda.stream(st):
+                o.append(T.nibble_i8(*args, gr=gr))
+    torch.cuda.synchronize(dev)
+    for (args, gr), o in zip(cases, outs):
+        ref = T.nibble_i8_plain(*args, gr)
+        for got in o:
+            assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("k,n", [(256, 256), (1024, 256), (1040, 24)])
+def test_bf16_dot_probe_kernel_depths(dev, k, n):
+    """The bf16 dot probe's kernel at the probe's depth, at two 512-row
+    passes and at a short last pass with a ragged column block."""
+    import numpy as np
+    from exllamav2_tpu_torch.tools import probe_features as PF
+    rng = np.random.default_rng(k)
+    a = PF._bf16(rng.standard_normal((16, k))).to(dev)
+    b = PF._bf16(rng.standard_normal((k, n))).to(dev)
+    before = PF.LAUNCHES["probe_features"]
+    got = PF._bf16_dot_kernel(a, b)
+    assert PF.LAUNCHES["probe_features"] == before + 1
+    torch.cuda.synchronize(dev)
+    assert PF._bf16_dot_verdict((a, b), got) == "ok"
+
+
 @pytest.mark.parametrize("name", [
     "int8_dot", "int8_dot_batched", "u32_to_int8_cast", "bitcast_u32_u16",
     "u16_shift_and", "u8_shift_and", "int4_array", "int4_dot",

@@ -143,10 +143,10 @@ def test_dma_only_reads_the_ragged_tile_and_returns_the_last_full_one():
 
 
 def test_nibble_tiles_follow_the_hints():
-    assert T.nibble_tiles(4096, 4096) == (1024, 128)
-    assert T.nibble_tiles(11008, 4096) == (256, 128)
-    assert T.nibble_tiles(4096, 4096, kt0=2048) == (2048, 128)
-    assert T.nibble_tiles(4096, 4096, nt0=4096) == (1024, 256)
+    assert T.nibble_tiles(4096, 4096, 132) == (2048, 32)
+    assert T.nibble_tiles(11008, 4096, 132) == (5632, 32)
+    assert T.nibble_tiles(4096, 256, 132, kt0=4096) == (4096, 32)
+    assert T.nibble_tiles(4096, 4096, 132, nt0=4096) == (1536, 64)
 
 
 def test_unsupported_widths_raise():
