@@ -64,10 +64,13 @@ Phases (any failure raises and the script exits non-zero):
               pass printed beside them); the
               prefill's matrix products by kernel name, as in phase 7; a
               generate_greedy call under QMM_PARTIALS=1 on the unmerged GPTQ
-              weights (the scales-on-partials kernel's path), the device
-              kernels of one of its tokens printed (one kernel a linear:
-              no group-sum or split-reduce kernels); a merged-only EXL2
-              round whose greedy tokens must equal phase 7's.
+              weights (the scales-on-partials kernel's path), then one
+              profiled generate_greedy session whose partials_kernel events
+              must equal the wrapper's calls in it (one kernel a linear;
+              a group-sum or split-reduce kernel or more events fail at
+              once, fewer mean lost records: up to 3 sessions); a
+              merged-only EXL2 round whose greedy tokens must equal phase
+              7's.
  10. tools    the ten feature probes (csrc/probe_features.cu) and the three
               roofline kernels of the perf_qmm tool (csrc/perf_qmm.cu: the
               streaming ceiling, group partials with bf16 and int8
@@ -76,13 +79,15 @@ Phases (any failure raises and the script exits non-zero):
               4 bits, groups of 32 and 128 (int32 partials exact; f32 sums
               over groups in another order, 1e-4 of max |plain|; every K
               tile of the ceiling within 1e-5); timed with
-              utils/timing.device_time; each nibble tiling logs its split
-              (the cluster) and column block; the device kernels of 16
-              nibble_i8 calls and 16 bf16 dot probe calls under the
-              profiler (one kernel a call, nothing else: no
-              reduce_splits); every variant
-              and probe through the
-              functions the entry points call, launch counts asserted; then
+              utils/timing.device_time beside the launch floor (add_ on a
+              one-element tensor); each nibble and gp tiling logs its split
+              (the cluster) and column block; gp at 1, 2 and 8 bits, both
+              modes, gr 32 and 128, at 4096x4096, checked; the device
+              kernels of 16 calls each of nibble_i8, gp (bf16, int8) and the
+              bf16, int8 and int4 dot probes under the profiler (one kernel
+              a call, nothing else: no reduce_splits); every variant and
+              probe through the functions the entry points call, launch
+              counts asserted; then
               `python -m exllamav2_tpu_torch.tools.perf_qmm w4a8_kernel` and
               `... probe_features int8_dot_batched` as a user starts them;
  11. constrained  the serving path at 7B width under constraints: a free
@@ -681,6 +686,38 @@ def profile_decode(model, prompt, n: int = 8) -> dict:
             "device_launches_per_token": sum(c for _, c in per.values()),
             "top": [(k[:70], t) for k, (t, _) in ranked[:6]],
             "kernels": [(k[:90], t, c) for k, (t, c) in ranked if c > 0]}
+
+
+def profile_partials(model, prompt, n: int, tries: int = 3) -> dict:
+    """The device kernels of one generate_greedy(prompt, 1 + n) session under
+    torch.profiler, and the qmm_partials wrapper's count of the same session
+    (zeroed just before it). The check is exactly one partials_kernel event
+    a wrapper call and no group_sum or reduce_splits kernel. More events than
+    calls, or a stray kernel, fails at once; fewer means the profiler lost
+    records (it drops some, it never invents any), so the session is taken
+    again, up to `tries` times, and fails if none gives equality."""
+    model.generate_greedy(prompt, 1 + n)                 # warm-up
+    for session in range(1, tries + 1):
+        torch.cuda.synchronize()
+        zero_counts()
+        kern = profile_round(lambda: (model.generate_greedy(prompt, 1 + n),
+                                      torch.cuda.synchronize(), 0.0))[0]
+        calls = launch_counts()["qmm_partials"]
+        events = sum(c for name, (_, c) in kern.items()
+                     if "partials_kernel" in name)
+        stray = [name for name in kern
+                 if "group_sum" in name or "reduce_splits" in name]
+        if events > calls or stray:
+            raise AssertionError(f"QMM_PARTIALS=1 session: {events} "
+                                 f"partials_kernel events for {calls} calls, "
+                                 f"stray {stray}")
+        if events == calls:
+            return {"kernels": kern, "events": events, "calls": calls,
+                    "forwards": 1 + n, "sessions": session}
+        log(f"[merged] QMM_PARTIALS=1 session {session}: {events} events "
+            f"for {calls} calls (records lost); taking it again")
+    raise AssertionError(f"QMM_PARTIALS=1: no session of {tries} recorded one "
+                         f"partials_kernel event a call")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -1344,22 +1381,19 @@ def phase_merged(dev, rate, base):
         seq = exact.generate_greedy(prompt1, n_new)
         gotp = launch_counts()
         part_logits = prefill_logits()
-        prof_p = profile_decode(exact, prompt1, 4)
+        sess = profile_partials(exact, prompt1, 4)
     finally:
         del os.environ["QMM_PARTIALS"]
-    # the device kernels of one QMM_PARTIALS=1 decode token: the
+    # the device kernels of one QMM_PARTIALS=1 generate_greedy session: the
     # scales-on-partials kernel is one device kernel a linear (no separate
-    # group-sum or split-reduce kernels)
-    for name, ms_k, cnt in prof_p["kernels"]:
-        log(f"[merged] QMM_PARTIALS=1 token: {ms_k:7.3f} ms {cnt:6.1f}x  "
-            f"{name}")
-    part_k = [(ms_k, cnt) for name, ms_k, cnt in prof_p["kernels"]
-              if "partials_kernel" in name]
-    stray = [name for name, _, _ in prof_p["kernels"]
-             if "group_sum" in name or "reduce_splits" in name]
-    if stray or sum(c for _, c in part_k) != 7 * LAYERS + 1:
-        raise AssertionError(f"QMM_PARTIALS=1 token kernels: {part_k}, "
-                             f"stray {stray}")
+    # group-sum or split-reduce kernels), counted against the wrapper's own
+    # count of the same session (profile_partials checks it)
+    for name, (ms_k, cnt) in sess["kernels"].items():
+        log(f"[merged] QMM_PARTIALS=1 session of {sess['forwards']} "
+            f"forwards: {ms_k:7.3f} ms {cnt:6d}x  {name[:90]}")
+    log(f"[merged] QMM_PARTIALS=1: {sess['events']} partials_kernel events "
+        f"for {sess['calls']} wrapper calls ({7 * LAYERS + 1} a forward) in "
+        f"session {sess['sessions']} of at most 3")
     wantp = {"qmm": 0, "qmm_w4a8": 0,
              "qmm_partials": (7 * LAYERS + 1) * n_new,
              "decode_attn": LAYERS * (n_new - 1), "paged_decode_attn": 0}
@@ -1444,8 +1478,7 @@ def phase_merged(dev, rate, base):
             "w4a8_paged_vs_linear_rel_err": rel_paged,
             "w4a8_logits_mean_rel_dev": dev8, "w4a8_argmax_agreement": agree,
             "partials_launches": gotp, "partials_logits_rel_err": relp,
-            "partials_token_kernels": prof_p["kernels"],
-            "partials_token_device_ms": prof_p["device_ms_per_token"],
+            "partials_session": sess,
             "src_cols_launches": src_launches,
             "merged_launches": gotm, "merged_tokens_per_s": tps_m,
             "merged_p50_ttft_ms": p50_m, "merged_jobs_same_tokens": sum(same),
@@ -1508,6 +1541,14 @@ def phase_tools(dev, rate):
             f"{r['ms'] * 1e3:.1f}us, plain {r['plain_ms'] * 1e3:.1f}us, "
             f"bound {r['bound_ms'] * 1e3:.2f}us by {r['bound_by']})")
 
+    # --- the launch floor: a PyTorch kernel on a one-element tensor, timed
+    # as the probes are (a yardstick for the register probes, not a kernel)
+    one = torch.zeros(1, device=dev)
+    floor_ms = us(lambda: one.add_(1), one)
+    log(f"[probe] launch floor: {floor_ms * 1e3:.4f} us (the device_time "
+        f"slope of add_ on a one-element tensor) | {card}")
+    del one
+
     # --- the perf_qmm kernels at the 7B shapes, M = 8, 4 bits
     def rel(got, ref):
         assert torch.isfinite(got).all()
@@ -1561,11 +1602,15 @@ def phase_tools(dev, rate):
             dense = T.dense_weight(D.unpack_plane(plane, 4), qs, smax, gr)
             denses = [dense] + [dense.clone() for _ in
                                 range(T.n_copies(dense.numel() * 2) - 1)]
+            kt, nt = T.nibble_tiles(k, n, sms)
             for mode, xa in (("bf16", xb), ("int8", xq)):
                 got = T.gp(xa, plane, qs, smax, bits=4, gr=gr)
                 ref = T.gp_plain(xa, plane, qs, smax, 4, gr)
                 torch.cuda.synchronize()
                 r, err = rel(got, ref)
+                log(f"[tools] gp_{mode} {k}x{n} gr={gr}: {-(-k // kt)} "
+                    f"splits of {kt} rows (the cluster), {nt} columns a "
+                    f"block")
                 if r > QMM_TOL:
                     raise AssertionError(
                         f"gp_{mode} {k}x{n} gr={gr}: rel err {r:.3g}")
@@ -1576,6 +1621,8 @@ def phase_tools(dev, rate):
                     (lambda w: torch.matmul(xb, w), denses), planes,
                     plane.numel() * 4 + meta + xa.numel() * xa.element_size(),
                     2 * T.M * k * n, mode)
+                rows[-1]["tiles"] = {"splits": -(-k // kt), "cluster":
+                                     -(-k // kt), "kt": kt, "nt": nt}
             ref = T.nibble_i8_plain(xq, x1, plane, qs, smax, gr)
             del denses, dense
             dense = T.dense_weight(T.nibble_values(plane, gr), qs, smax, gr)
@@ -1606,6 +1653,26 @@ def phase_tools(dev, rate):
             del denses, dense
         del planes
         torch.cuda.empty_cache()
+    # --- gp at the other plane widths, both modes: checked, not timed
+    gp_widths = {}
+    for bits in (1, 2, 8):
+        for gr in TOOLS_GROUPS:
+            plane, qs, smax, x = T.mk_inputs(HIDDEN, HIDDEN, dev, seed=bits,
+                                             bits=bits, gr=gr)
+            for mode, xa in (("bf16", x.to(torch.bfloat16)),
+                             ("int8", T.quantize_x(x))):
+                r, err = rel(T.gp(xa, plane, qs, smax, bits=bits, gr=gr),
+                             T.gp_plain(xa, plane, qs, smax, bits, gr))
+                gp_widths[f"{mode} bits={bits} gr={gr}"] = r
+                if r > QMM_TOL:
+                    raise AssertionError(f"gp_{mode} bits={bits} gr={gr} "
+                                         f"{HIDDEN}x{HIDDEN}: rel err {r:.3g}")
+    log(f"[tools] gp at {HIDDEN}x{HIDDEN}, bits 1/2/8, against gp_plain: max "
+        f"rel err {max(gp_widths.values()):.2e} over {len(gp_widths)} cases "
+        f"(limit {QMM_TOL})")
+    del plane, qs, smax, x
+    torch.cuda.empty_cache()
+
     lines = []
     for kernel in dict.fromkeys(r["kernel"] for r in rows):
         for gr in dict.fromkeys(r["gr"] for r in rows
@@ -1622,13 +1689,24 @@ def phase_tools(dev, rate):
     plane, qs, smax, x = T.mk_inputs(HIDDEN, HIDDEN, dev, gr=32)
     xq = T.quantize_x(x)
     x1 = T.group_sums(xq, 32)
+    xb = x.to(torch.bfloat16)
     ab = PF.probe_tensors("bf16_dot_bf16_acc_f32", dev)
+    a8 = PF.probe_tensors("int8_dot", dev)
+    a4 = PF.probe_tensors("int4_dot", dev)
     one_call, calls = {}, 16
     for name, kernel, call in (
             ("perf_qmm_nibble_i8", "nibble_kernel",
              lambda: T.nibble_i8(xq, x1, plane, qs, smax, gr=32)),
+            ("perf_qmm_gp_bf16", "gp_kernel",
+             lambda: T.gp(xb, plane, qs, smax, bits=4, gr=32)),
+            ("perf_qmm_gp_int8", "gp_kernel",
+             lambda: T.gp(xq, plane, qs, smax, bits=4, gr=32)),
             ("bf16_dot_bf16_acc_f32", "bf16_dot_kernel",
-             lambda: PF._bf16_dot_kernel(*ab))):
+             lambda: PF._bf16_dot_kernel(*ab)),
+            ("int8_dot", "int8_dot_kernel",
+             lambda: PF._int8_dot_kernel(*a8)),
+            ("int4_dot", "int8_dot_kernel",
+             lambda: PF._int8_dot_kernel(*a4, int4=True))):
         kern = call_kernels(call, calls)
         for kname, (ms_k, cnt) in kern.items():
             log(f"[tools] {calls} {name} calls: {ms_k * 1e3:6.1f} us "
@@ -1639,7 +1717,7 @@ def phase_tools(dev, rate):
                 or not 0 < counts[0][1] <= calls):
             raise AssertionError(f"{calls} {name} calls: device kernels "
                                  f"{kern}")
-    del plane, qs, smax, x, xq, x1, ab
+    del plane, qs, smax, x, xq, xb, x1, ab, a8, a4
 
     # --- the variants that time kernels 1 and 4: what each of their calls
     # returns against the plain version, on random activations at the
@@ -1727,7 +1805,8 @@ def phase_tools(dev, rate):
     log(f"[tools] entry points ran in {time.perf_counter() - t0:.1f} s")
     return {"probes": probes, "rows": rows, "lines": lines, "launches": got,
             "calls_per_timing": calls[0], "variant_err": variant_err,
-            "one_call_kernels": one_call, "entry_points": entry}
+            "one_call_kernels": one_call, "entry_points": entry,
+            "launch_floor_ms": floor_ms, "gp_widths": gp_widths}
 
 
 # --------------------------------------------------------------- phase 11
@@ -1937,12 +2016,22 @@ def tools_entries(tools, rate) -> list:
             "library_ms": sum(r["library_ms"] for r in sel),
             "plane_gb_per_s": sum(r["plane_bytes"] for r in sel)
             / sum(r["ms"] for r in sel) / 1e6})
-        if name == "perf_qmm_nibble_i8":
+        kernel = {
+            "perf_qmm_nibble_i8": "int8 mma.sync.m16n8k32 on fragments from "
+                                  "the masked words",
+            "perf_qmm_gp_bf16": "bf16 mma.sync.m16n8k16 on fragments from "
+                                "the strided words (a byte transpose of four "
+                                "words a slot, 0x43 above each value less "
+                                "136 in bf16x2)",
+            "perf_qmm_gp_int8": "int8 mma.sync.m16n8k32 on fragments from "
+                                "the strided words (a byte transpose of four "
+                                "words a slot), the group sums of xq by an "
+                                "mma against ones"}.get(name)
+        if kernel:
             out[-1]["design"] = {
-                "kernel": "int8 mma.sync.m16n8k32 on fragments from the "
-                          "masked words, K split over a thread-block "
-                          "cluster summed through distributed shared "
-                          "memory: one launch",
+                "kernel": kernel + ", K split over a thread-block cluster "
+                          "summed through distributed shared memory: one "
+                          "launch",
                 "tiles": {f"{r['k']}x{r['n']}": r["tiles"] for r in sel}}
     probes = tools["probes"]
     out.append({
@@ -1962,10 +2051,26 @@ def tools_entries(tools, rate) -> list:
         "by_probe": {n: {k: p[k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")}
                      for n, p in probes.items()}})
+    out[-1]["launch_floor_ms"] = tools["launch_floor_ms"]
     out[-1]["by_probe"]["bf16_dot_bf16_acc_f32"]["design"] = (
         "K split over the 8 warps of a block, A and B staged by cp.async, "
         "fragments by ldmatrix (.trans for B), warp tiles summed in shared "
         "memory in warp order: one launch")
+    from exllamav2_tpu_torch.tools import probe_features as PF
+    for name in ("int8_dot", "int4_dot", "int8_dot_batched"):
+        a, b = PF.probe_tensors(name, "cpu")
+        g = a.shape[0] if a.dim() == 3 else 1
+        (m, k), n = a.shape[-2:], b.shape[-1] * (2 if name == "int4_dot"
+                                                  else 1)
+        nibbles = " (nibbles as 16 v, the sum shifted back)" \
+            if name == "int4_dot" else ""
+        out[-1]["by_probe"][name]["design"] = (
+            f"int8 mma.sync.m16n8k32, a 16x32 output tile a block: "
+            f"{-(-n // 32)}x{-(-m // 16)}x{g} blocks of "
+            f"{PF.int8_dot_warps(k)} warps, two 32-row k-steps a warp, "
+            f"the loads straight into the fragments, B by a byte transpose"
+            f"{nibbles}, warp tiles summed in shared memory four columns "
+            f"a thread (one warp: its registers stored): one launch")
     return out
 
 

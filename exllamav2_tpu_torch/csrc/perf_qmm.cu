@@ -31,16 +31,39 @@
 //            xq int8, the dot in int32 (exact).
 //    Bound: memory (plane + qs + smax + x + y over the rate): 16 operations
 //    per weight value at M = 8 are far below the ridge.
-//    Design: one template, the mode a parameter. One thread per output
-//    column, 128 columns a block, K split over blockIdx.y with a fixed-order
-//    second pass. A thread holds the Qsb words of its column for a sub-block
-//    in registers and walks the bit slots, so rows arrive in natural order
-//    four at a time; the sub-block's activations sit in shared memory (int8
-//    packed four to a word and met with dp4a, or f32), with the per-group
-//    sums of xq and the decoded group scales beside them. Each group's
-//    partial is fixed up where its last rows end. The f32 steps use the
-//    non-contracting intrinsics, so every term is bitwise the plain
-//    version's and only the order of the f32 sum over groups differs.
+//    Design: the nibble kernel's (3. below) carried to the strided layout,
+//    one template gp_kernel<BP, INT8, GR, VEC> for both modes, every width
+//    and group size, and aligned (VEC) or word-by-word loads.
+//    The weights are A of mma.sync (16 output columns), the 8 activation
+//    rows B: int8 m16n8k32 (int32 tile) or bf16 m16n8k16 (f32 tile).
+//    THE K MAP: k-step s of a unit covers rows 32s .. 32s+31 and lane (g, t)
+//    feeds k = 4t..4t+3 from rows 32s+4t+i and k = 16+4t.. from rows
+//    32s+16+4t+i (i = 0..3), the natural order, so B is xq or x as it lies
+//    in memory and a k-step (a k16 step for bf16) never leaves its group
+//    for gr >= 32 (gr >= 16). Rows 4q..4q+3 are one slot of four
+//    consecutive words, word 4 (q mod 2 bits) + i at slot q div (2 bits):
+//    a lane loads runs of four words of its four columns, one uint4 a
+//    word (bits 4: words 4t.. and 16+4t..; 8: four runs 16r+4t..; 2: one
+//    run 4t..; 1: words 4(t&1).. shifted right by t>>1, two lanes a run),
+//    takes the byte that holds a slot from each of the four words with three
+//    prmt (a 4x4 byte transpose of the raw words, shared by the four bytes)
+//    and the slot from that register with one shift and one mask (shared
+//    by the 8 / bits slots of a byte): one register of four k-consecutive
+//    values of one group. int8 mode uses it as is (an 8-bit value wraps, as
+//    the cast does); bf16 mode ORs 0x43 above each value with one prmt per two
+//    (bf16 128 + q) and subtracts 136 in bf16x2, exact below 8 bits; 8-bit
+//    values go through f32 (2^23 + q less 2^23 + 8) and one cvt. The group
+//    sums of xq in int8 mode are an mma of the same B against ones. Groups
+//    of 16 in int8 mode take one mma a group with the other group's B
+//    zeroed. Per group the epilogue adds (f32(p) - 8 x1) * s (int8) or
+//    p * s (bf16) to an f32 sum in group order with the non-contracting
+//    intrinsics, so only the order of the f32 sums differs from the plain
+//    version. GR and VEC are template parameters, so where a group starts
+//    and ends and how the words load are fixed in the unrolled unit (the
+//    same code with a runtime group size measured 1.4-1.6x slower on the
+//    H100). Blocks, the split picker (tools/perf_qmm.nibble_tiles), the loads
+//    of a unit issued together and the cluster sum are the nibble kernel's:
+//    one launch, no global scratch.
 //
 // 3. nibble (4-bit planes only): the cheap split lo = w & 0x0F0F0F0F,
 //    hi = (w >> 4) & 0x0F0F0F0F; each word reinterpreted as four int8 rows.
@@ -78,7 +101,8 @@
 //    distributed shared memory, every rank's value loaded before the first
 //    add: one launch, no global scratch.
 //
-// Later work for dma_only and gp: cp.async / TMA pipelining, mma.sync tiles.
+// Later work: the plane through TMA bulk copies into a shared-memory ring
+// (what lifted csrc/paged_attn.cu), for all three.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -92,9 +116,7 @@ namespace cg = cooperative_groups;
 
 constexpr int MROWS = 8;
 constexpr int SB = 256;
-constexpr int COLS = 128;
 constexpr int MIN_GROUP = 16;
-constexpr int MAX_GROUPS_SB = SB / MIN_GROUP;
 
 constexpr int DMA_TILE = 512;     // word rows per K tile
 constexpr int DMA_CX = 8;         // column threads of a block, 4 columns each
@@ -141,142 +163,6 @@ dma_only_kernel(const uint32_t* __restrict__ plane, int kq, int n,
 // fp16(q^2 * smax) as f32: the EXL2 group scale
 __device__ __forceinline__ float exl2_scale(int q, float smax) {
   return __half2float(__float2half_rn(__fmul_rn((float)(q * q), smax)));
-}
-
-__device__ __forceinline__ float group_scale(const uint8_t* qs,
-                                             const float* smax, int g, int n,
-                                             int col) {
-  return exl2_scale(qs[(size_t)g * n + col], smax[g]);
-}
-
-struct GpArgs {
-  const void* x;            // [8, k] bf16 or int8
-  const uint32_t* plane;    // [k * bits / 32, n]
-  const uint8_t* qs;        // [k / gr, n]
-  const float* smax;        // [k / gr]
-  int k, n, gr;
-  float* dst;               // [splits, 8, n] partials, or out when splits == 1
-  int sb_per_split, nsb;
-};
-
-template <int BP, bool INT8>
-__global__ void __launch_bounds__(COLS) gp_kernel(const GpArgs a) {
-  constexpr int QSB = SB * BP / 32;         // words per sub-block and column
-  constexpr int PER = 32 / BP;              // bit slots per word
-  constexpr uint32_t MASK = (1u << BP) - 1u;
-  static_assert(QSB % 4 == 0, "a slot holds whole chunks of four rows");
-
-  // the sub-block's activations in natural row order
-  __shared__ __align__(16) int xi[INT8 ? MROWS : 1][INT8 ? SB / 4 : 1];
-  __shared__ __align__(16) float xf[INT8 ? 1 : MROWS][INT8 ? 1 : SB];
-  __shared__ float x1s[INT8 ? MROWS : 1][INT8 ? MAX_GROUPS_SB : 1];
-  __shared__ float cs[MAX_GROUPS_SB][COLS];     // group scales, own column
-
-  const int col = blockIdx.x * COLS + threadIdx.x;
-  const bool live = col < a.n;
-  const int gr = a.gr;
-  const int ngs = SB / gr;                  // groups per sub-block
-  const int sb0 = blockIdx.y * a.sb_per_split;
-  const int sb1 = min(sb0 + a.sb_per_split, a.nsb);
-
-  int iacc[MROWS];
-  float pacc[MROWS], facc[MROWS];
-#pragma unroll
-  for (int m = 0; m < MROWS; ++m) {
-    iacc[m] = 0;
-    pacc[m] = 0.f;
-    facc[m] = 0.f;
-  }
-
-  for (int sb = sb0; sb < sb1; ++sb) {
-    __syncthreads();                        // previous sub-block's reads done
-    if constexpr (INT8) {
-      const int8_t* x = static_cast<const int8_t*>(a.x);
-      for (int i = threadIdx.x; i < MROWS * (SB / 4); i += COLS) {
-        const int m = i / (SB / 4), w = i % (SB / 4);
-        xi[m][w] = reinterpret_cast<const int*>(
-            x + (size_t)m * a.k + (size_t)sb * SB)[w];
-      }
-      for (int i = threadIdx.x; i < MROWS * ngs; i += COLS) {
-        const int m = i / ngs, g = i % ngs;
-        const int* xw = reinterpret_cast<const int*>(
-            x + (size_t)m * a.k + (size_t)sb * SB + (size_t)g * gr);
-        int s = 0;
-        for (int w = 0; w < gr / 4; ++w) s = __dp4a(xw[w], 0x01010101, s);
-        x1s[m][g] = (float)s;
-      }
-    } else {
-      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-      for (int i = threadIdx.x; i < MROWS * SB; i += COLS) {
-        const int m = i / SB, r = i % SB;
-        xf[m][r] = __bfloat162float(x[(size_t)m * a.k + (size_t)sb * SB + r]);
-      }
-    }
-    if (live)
-      for (int g = 0; g < ngs; ++g)
-        cs[g][threadIdx.x] = group_scale(a.qs, a.smax, sb * ngs + g, a.n, col);
-    __syncthreads();
-    if (!live) continue;
-
-    uint32_t w[QSB];
-#pragma unroll
-    for (int i = 0; i < QSB; ++i)
-      w[i] = a.plane[((size_t)sb * QSB + i) * a.n + col];
-
-#pragma unroll 1
-    for (int j = 0; j < PER; ++j) {
-#pragma unroll
-      for (int i = 0; i < QSB; i += 4) {
-        const int row = j * QSB + i;        // rows row .. row + 3
-        const uint32_t v0 = (w[i + 0] >> (j * BP)) & MASK;
-        const uint32_t v1 = (w[i + 1] >> (j * BP)) & MASK;
-        const uint32_t v2 = (w[i + 2] >> (j * BP)) & MASK;
-        const uint32_t v3 = (w[i + 3] >> (j * BP)) & MASK;
-        if constexpr (INT8) {
-          // the values as int8 (an 8-bit value wraps, as the cast does)
-          const int pk = (int)(v0 | (v1 << 8) | (v2 << 16) | (v3 << 24));
-#pragma unroll
-          for (int m = 0; m < MROWS; ++m)
-            iacc[m] = __dp4a(xi[m][row >> 2], pk, iacc[m]);
-        } else {
-          const float f0 = (float)((int)v0 - 8), f1 = (float)((int)v1 - 8);
-          const float f2 = (float)((int)v2 - 8), f3 = (float)((int)v3 - 8);
-#pragma unroll
-          for (int m = 0; m < MROWS; ++m) {
-            const float4 xv = *reinterpret_cast<const float4*>(&xf[m][row]);
-            float p = pacc[m];
-            p = __fmaf_rn(xv.x, f0, p);
-            p = __fmaf_rn(xv.y, f1, p);
-            p = __fmaf_rn(xv.z, f2, p);
-            p = __fmaf_rn(xv.w, f3, p);
-            pacc[m] = p;
-          }
-        }
-        if (((row + 4) & (gr - 1)) == 0) {  // the chunk ends its group
-          const int g = row / gr;
-          const float s = cs[g][threadIdx.x];
-#pragma unroll
-          for (int m = 0; m < MROWS; ++m) {
-            float pc;
-            if constexpr (INT8) {
-              pc = __fsub_rn((float)iacc[m], __fmul_rn(8.f, x1s[m][g]));
-              iacc[m] = 0;
-            } else {
-              pc = pacc[m];
-              pacc[m] = 0.f;
-            }
-            facc[m] = __fadd_rn(facc[m], __fmul_rn(pc, s));
-          }
-        }
-      }
-    }
-  }
-
-  if (live) {
-    float* dst = a.dst + (size_t)blockIdx.y * MROWS * a.n;
-#pragma unroll
-    for (int m = 0; m < MROWS; ++m) dst[(size_t)m * a.n + col] = facc[m];
-  }
 }
 
 constexpr int NIB_WARPS = 8;                  // warps of a block
@@ -381,6 +267,49 @@ __device__ __forceinline__ void nib_epilogue(float (&acc)[4][2],
   }
 }
 
+// The block's f32 sums into out [8, n]. Lane (g, t) of warp (wn, wk) holds
+// acc[cc][mm], column n0 + 32 wn + 4g + cc, activation row 2t + mm. The
+// partial tiles red[wk][m][nt] of the K warps are summed in order into
+// blk[m][nt], then the blocks' blk in rank order, every rank's value of an
+// element loaded before the first add (one round trip of distributed
+// shared memory, not a chain of them).
+__device__ __forceinline__ void cluster_sum_store(
+    const float (&acc)[4][2], float* red, float* blk, int wk, int wn,
+    int warps_k, int nt, int n0, int n, float* out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc)
+#pragma unroll
+    for (int mm = 0; mm < 2; ++mm)
+      red[(wk * MROWS + 2 * t + mm) * nt + wn * 32 + 4 * g + cc] =
+          acc[cc][mm];
+  __syncthreads();
+  for (int e = threadIdx.x; e < MROWS * nt; e += NIB_THREADS) {
+    float s = 0.f;
+    for (int k = 0; k < warps_k; ++k) s += red[k * MROWS * nt + e];
+    blk[e] = s;
+  }
+  const int splits = (int)gridDim.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1) cluster.sync();
+  else __syncthreads();
+  const int rank = splits > 1 ? (int)cluster.block_rank() : 0;
+  for (int e = rank * NIB_THREADS + threadIdx.x; e < MROWS * nt;
+       e += splits * NIB_THREADS) {
+    float v[NIB_MAX_SPLITS];
+#pragma unroll
+    for (int r = 0; r < NIB_MAX_SPLITS; ++r)
+      v[r] = r < splits ? *cluster.map_shared_rank(blk + e, r) : 0.f;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < NIB_MAX_SPLITS; ++r)
+      if (r < splits) s += v[r];
+    const int m = e / nt, cc = e - m * nt;
+    if (n0 + cc < n) out[(size_t)m * n + n0 + cc] = s;
+  }
+  if (splits > 1) cluster.sync();   // no block leaves while others read it
+}
+
 template <int GR, bool VEC>
 __global__ void __launch_bounds__(NIB_THREADS, 2)
 nibble_kernel(const NibArgs a) {
@@ -459,50 +388,269 @@ nibble_kernel(const NibArgs a) {
     }
   }
 
-  // the partial tiles red[wk][m][nt]: the K warps summed in order into
-  // blk[m][nt], then the blocks' blk in rank order, every rank's value of an
-  // element loaded before the first add (one round trip of distributed
-  // shared memory, not a chain of them)
-#pragma unroll
-  for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-    for (int mm = 0; mm < 2; ++mm)
-      red[(wk * MROWS + 2 * t + mm) * nt + wn * 32 + 4 * g + cc] =
-          acc[cc][mm];
-  __syncthreads();
-  for (int e = threadIdx.x; e < MROWS * nt; e += NIB_THREADS) {
-    float s = 0.f;
-    for (int k = 0; k < warps_k; ++k) s += red[k * MROWS * nt + e];
-    blk[e] = s;
-  }
-  const int splits = (int)gridDim.y;
-  cg::cluster_group cluster = cg::this_cluster();
-  if (splits > 1) cluster.sync();
-  else __syncthreads();
-  const int rank = splits > 1 ? (int)cluster.block_rank() : 0;
-  for (int e = rank * NIB_THREADS + threadIdx.x; e < MROWS * nt;
-       e += splits * NIB_THREADS) {
-    float v[NIB_MAX_SPLITS];
-#pragma unroll
-    for (int r = 0; r < NIB_MAX_SPLITS; ++r)
-      v[r] = r < splits ? *cluster.map_shared_rank(blk + e, r) : 0.f;
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < NIB_MAX_SPLITS; ++r)
-      if (r < splits) s += v[r];
-    const int m = e / nt, cc = e - m * nt;
-    if (n0 + cc < a.n) a.out[(size_t)m * a.n + n0 + cc] = s;
-  }
-  if (splits > 1) cluster.sync();   // no block leaves while others read it
+  cluster_sum_store(acc, red, blk, wk, wn, warps_k, nt, n0, a.n, a.out);
 }
 
-template <int GR, bool VEC>
-cudaError_t launch_nibble(const NibArgs& a, dim3 grid, cudaStream_t st) {
+// ---- gp: group partials on tensor-core fragments (design: 2. above)
+
+struct GpArgs {
+  const void* x;            // [8, k] bf16 or int8, 16-byte aligned
+  const uint32_t* plane;    // [k * bits / 32, n]
+  const uint8_t* qs;        // [k / gr, n]
+  const float* smax;        // [k / gr]
+  int k, n, gr;
+  int units;                // 256-row units a split takes
+  int warps_n;              // warps across the block's 32 * warps_n columns
+  float* out;               // [8, n]
+};
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t col_of(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 bits_bf2(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+
+// byte b of each of four words, word i in byte i: a 4x4 byte transpose
+// whose first two prmt serve two values of b (b, like every index of the
+// maps below, is a constant once the k-step loop is unrolled)
+__device__ __forceinline__ uint32_t byte_of4(uint32_t m0, uint32_t m1,
+                                             uint32_t m2, uint32_t m3,
+                                             int b) {
+  const uint32_t pair = b < 2 ? 0x5140u : 0x7362u;
+  const uint32_t x01 = __byte_perm(m0, m1, pair);
+  const uint32_t x23 = __byte_perm(m2, m3, pair);
+  return __byte_perm(x01, x23, (b & 1) ? 0x7632u : 0x5410u);
+}
+
+template <int BP>
+struct GpMap {
+  static constexpr int QSB = 8 * BP;                  // words a sub-block
+  static constexpr int RUNS = BP >= 2 ? BP / 2 : 1;   // four-word runs a lane
+  static constexpr uint32_t FIELD =
+      BP == 8 ? 0xFFFFFFFFu : ((1u << BP) - 1u) * 0x01010101u;
+};
+
+// the values of rows 32s + 16h + 4t + i (i = 0..3) of column c as the bytes
+// of one register: slot j of the lane's run r (THE K MAP). The raw bytes
+// that hold the slot are transposed first, so one shift and one mask on the
+// register take the slot (the 8 / bits slots of a byte share a transpose).
+template <int BP>
+__device__ __forceinline__ uint32_t slot_values(
+    const uint4 (&w)[GpMap<BP>::RUNS][4], int s, int h, int c) {
+  const int r = BP == 1 ? 0 : ((8 * s + 4 * h) % (2 * BP)) / 4;
+  const int j = BP == 1 ? 4 * s + 2 * h : (8 * s + 4 * h) / (2 * BP);
+  const uint32_t raw = byte_of4(col_of(w[r][0], c), col_of(w[r][1], c),
+                                col_of(w[r][2], c), col_of(w[r][3], c),
+                                (BP * j) / 8);
+  return (raw >> ((BP * j) % 8)) & GpMap<BP>::FIELD;
+}
+
+// bytes 2p, 2p+1 of v (values q) as bf16x2 q - 8, exact
+template <int BP>
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t v, int p) {
+  if constexpr (BP == 8) {
+    // 2^23 + q as f32 less 2^23 + 8: a q above 127 has no room in bf16's 7
+    // mantissa bits above 128, but q - 8 (-8 .. 247) is exact in bf16
+    const float f0 = __fsub_rn(
+        __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440u + 2 * p)),
+        8388616.f);
+    const float f1 = __fsub_rn(
+        __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7441u + 2 * p)),
+        8388616.f);
+    return bf2_bits(__floats2bfloat162_rn(f0, f1));
+  } else {
+    // 0x43 above each value: bf16 128 + q, less bf16x2 136
+    const uint32_t h = __byte_perm(v, 0x43u, p == 0 ? 0x4140u : 0x4342u);
+    return bf2_bits(__hsub2(bits_bf2(h), bits_bf2(0x43084308u)));
+  }
+}
+
+// one group's f32 tile into the f32 sums (bf16 mode): C register 2e + mm of
+// column pair p is column 4g + 2p + e, activation row 2t + mm
+__device__ __forceinline__ void gp_epilogue(float (&acc)[4][2],
+                                            const float (&c)[2][4],
+                                            uint32_t q4, float sm) {
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) {
+    const float s = exl2_scale((q4 >> (8 * cc)) & 0xFF, sm);
+    const float* v = &c[cc >> 1][2 * (cc & 1)];
+    acc[cc][0] = __fadd_rn(acc[cc][0], __fmul_rn(v[0], s));
+    acc[cc][1] = __fadd_rn(acc[cc][1], __fmul_rn(v[1], s));
+  }
+}
+
+// one group's int32 tile and its ones-tile (the group sums of xq for rows
+// 2t, 2t+1) into the f32 sums (int8 mode)
+__device__ __forceinline__ void gp_epilogue(float (&acc)[4][2],
+                                            const int (&c)[2][4],
+                                            const int (&cx)[4], uint32_t q4,
+                                            float sm) {
+  nib_epilogue(acc, c, q4, sm, __fmul_rn(8.f, (float)cx[0]),
+               __fmul_rn(8.f, (float)cx[1]));
+}
+
+// a unit's plane words of the lane: run r is words 16r + 4t .. +3 (bits 1:
+// words 4(t&1) .. +3, shifted right by t>>1) of columns col .. col+3
+template <int BP, bool VEC>
+__device__ __forceinline__ void gp_words(uint4 (&w)[GpMap<BP>::RUNS][4],
+                                         const uint32_t* plane, int u,
+                                         int t, int col, int n) {
+  const int w0 = BP == 1 ? 4 * (t & 1) : 4 * t;
+#pragma unroll
+  for (int r = 0; r < GpMap<BP>::RUNS; ++r)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[r][i] = words4<VEC>(
+          plane + ((size_t)u * GpMap<BP>::QSB + 16 * r + w0 + i) * n, col,
+          n);
+  if constexpr (BP == 1) {
+    const int sh = t >> 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[0][i].x >>= sh;
+      w[0][i].y >>= sh;
+      w[0][i].z >>= sh;
+      w[0][i].w >>= sh;
+    }
+  }
+}
+
+template <int BP, bool INT8, int GR, bool VEC>
+__global__ void __launch_bounds__(NIB_THREADS, BP == 8 ? 1 : 2)
+gp_kernel(const GpArgs a) {
+  constexpr int RUNS = GpMap<BP>::RUNS;
+  constexpr int NG = SB / GR;                 // groups a unit
+  constexpr int SPG = GR >= 32 ? GR / 32 : 1;  // k-steps a group
+  constexpr uint32_t ONES = 0x01010101u;
+  __shared__ float red[NIB_WARPS * 32 * MROWS];     // [K warp][8][nt]
+  __shared__ float blk[MROWS * 32 * NIB_WARPS];      // [8][nt], nt <= 256
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wn = warp % a.warps_n, wk = warp / a.warps_n;
+  const int warps_k = NIB_WARPS / a.warps_n;
+  const int nt = 32 * a.warps_n;
+  const int n0 = blockIdx.x * nt;
+  const int col = n0 + wn * 32 + 4 * g;       // the lane's four columns
+  const int u1 = min((int)(blockIdx.y + 1) * a.units, a.k / SB);
+  // B column g: row g of x, from the lane's first row 4t of a k-step
+  const char* xrow = static_cast<const char*>(a.x) +
+                     ((size_t)g * a.k + 4 * t) * (INT8 ? 1 : 2);
+
+  float acc[4][2];
+#pragma unroll
+  for (int cc = 0; cc < 4; ++cc) acc[cc][0] = acc[cc][1] = 0.f;
+
+  for (int u = blockIdx.y * a.units + wk; u < u1; u += warps_k) {
+    // every load of the unit first: the plane words, B of each k-step, the
+    // scales of each group
+    uint4 w[RUNS][4];
+    gp_words<BP, VEC>(w, a.plane, u, t, col, a.n);
+    const char* xu = xrow + (size_t)u * SB * (INT8 ? 1 : 2);
+    uint32_t b[NIB_STEPS][2][INT8 ? 1 : 2];   // [step][half][register]
+#pragma unroll
+    for (int s = 0; s < NIB_STEPS; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (INT8) {
+          b[s][h][0] = __ldg(reinterpret_cast<const uint32_t*>(
+              xu + 32 * s + 16 * h));
+        } else {
+          const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+              xu + 2 * (32 * s + 16 * h)));
+          b[s][h][0] = v.x;
+          b[s][h][1] = v.y;
+        }
+      }
+    uint32_t q[NG];
+    float sm[NG];
+#pragma unroll
+    for (int i = 0; i < NG; ++i) {
+      const int grp = u * NG + i;
+      q[i] = bytes4<VEC>(a.qs + (size_t)grp * a.n, col, a.n);
+      sm[i] = __ldg(a.smax + grp);
+    }
+
+    if constexpr (INT8) {
+      // a group's int32 tile and its ones-tile (the group sums of xq)
+      int ci[2][4], cx[4];
+#pragma unroll
+      for (int s = 0; s < NIB_STEPS; ++s)
+#pragma unroll
+        for (int hh = 0; hh < (GR == 16 ? 2 : 1); ++hh) {
+          // the whole k-step, or (groups of 16) one half with the other
+          // half's B zeroed
+          const uint32_t b0 = GR == 16 && hh == 1 ? 0u : b[s][0][0];
+          const uint32_t b1 = GR == 16 && hh == 0 ? 0u : b[s][1][0];
+          if (GR == 16 || s % SPG == 0) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) ci[0][i] = ci[1][i] = cx[i] = 0;
+          }
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+            mma_s8(ci[p], slot_values<BP>(w, s, 0, 2 * p),
+                   slot_values<BP>(w, s, 0, 2 * p + 1),
+                   slot_values<BP>(w, s, 1, 2 * p),
+                   slot_values<BP>(w, s, 1, 2 * p + 1), b0, b1);
+          mma_s8(cx, ONES, ONES, ONES, ONES, b0, b1);
+          if (GR == 16)
+            gp_epilogue(acc, ci, cx, q[2 * s + hh], sm[2 * s + hh]);
+          else if ((s + 1) % SPG == 0)
+            gp_epilogue(acc, ci, cx, q[s / SPG], sm[s / SPG]);
+        }
+    } else {
+      float cf[2][4];                         // a group's f32 tile
+#pragma unroll
+      for (int s = 0; s < NIB_STEPS; ++s)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (GR == 16 || (h == 0 && s % SPG == 0)) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) cf[0][i] = cf[1][i] = 0.f;
+          }
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const uint32_t v0 = slot_values<BP>(w, s, h, 2 * p);
+            const uint32_t v1 = slot_values<BP>(w, s, h, 2 * p + 1);
+            // k 2t, 2t+1 are rows 4t, 4t+1 of the half; k 2t+8, 2t+9 rows
+            // 4t+2, 4t+3
+            mma_bf16(cf[p], bf16_pair<BP>(v0, 0), bf16_pair<BP>(v1, 0),
+                     bf16_pair<BP>(v0, 1), bf16_pair<BP>(v1, 1), b[s][h][0],
+                     b[s][h][1]);
+          }
+          if (GR == 16) gp_epilogue(acc, cf, q[2 * s + h], sm[2 * s + h]);
+          else if (h == 1 && (s + 1) % SPG == 0)
+            gp_epilogue(acc, cf, q[s / SPG], sm[s / SPG]);
+        }
+    }
+  }
+  cluster_sum_store(acc, red, blk, wk, wn, warps_k, nt, n0, a.n, a.out);
+}
+
+// one launch of KERNEL over grid (column blocks, splits), the splits of a
+// column block one thread-block cluster (up to 16: a non-portable size)
+template <auto KERNEL, typename ARGS>
+cudaError_t launch_split(const ARGS& a, dim3 grid, cudaStream_t st) {
   static bool configured = false;             // opt in once
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nibble_kernel<GR, VEC>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
+        KERNEL, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -517,7 +665,34 @@ cudaError_t launch_nibble(const NibArgs& a, dim3 grid, cudaStream_t st) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, nibble_kernel<GR, VEC>, a);
+  return cudaLaunchKernelEx(&cfg, KERNEL, a);
+}
+
+template <int GR, bool VEC>
+cudaError_t launch_nibble(const NibArgs& a, dim3 grid, cudaStream_t st) {
+  return launch_split<nibble_kernel<GR, VEC>>(a, grid, st);
+}
+
+template <int BP, bool INT8, bool VEC>
+cudaError_t launch_gp(const GpArgs& a, dim3 grid, cudaStream_t st) {
+  switch (a.gr) {
+    case 16: return launch_split<gp_kernel<BP, INT8, 16, VEC>>(a, grid, st);
+    case 32: return launch_split<gp_kernel<BP, INT8, 32, VEC>>(a, grid, st);
+    case 64: return launch_split<gp_kernel<BP, INT8, 64, VEC>>(a, grid, st);
+    case 128: return launch_split<gp_kernel<BP, INT8, 128, VEC>>(a, grid, st);
+    case 256: return launch_split<gp_kernel<BP, INT8, 256, VEC>>(a, grid, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int BP>
+cudaError_t launch_gp_mode(const GpArgs& a, bool int8, bool vec, dim3 grid,
+                           cudaStream_t st) {
+  if (vec)
+    return int8 ? launch_gp<BP, true, true>(a, grid, st)
+                : launch_gp<BP, false, true>(a, grid, st);
+  return int8 ? launch_gp<BP, true, false>(a, grid, st)
+              : launch_gp<BP, false, false>(a, grid, st);
 }
 
 template <bool VEC>
@@ -533,35 +708,8 @@ cudaError_t launch_nibble_gr(const NibArgs& a, int gr, dim3 grid,
   }
 }
 
-// out[i] = sum over splits of part[s, i], in split order
-__global__ void reduce_splits(const float* __restrict__ part,
-                              float* __restrict__ out, int splits,
-                              size_t count) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(size_t)k * count + i];
-  out[i] = s;
-}
-
-cudaError_t reduce(const void* part, void* out, int splits, int n,
-                   cudaStream_t st) {
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return e;
-  const size_t count = (size_t)MROWS * n;
-  reduce_splits<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
-      (const float*)part, (float*)out, splits, count);
-  return cudaGetLastError();
-}
-
 bool group_ok(int gr) {
   return gr >= MIN_GROUP && gr <= SB && (gr & (gr - 1)) == 0;
-}
-
-template <int BP>
-void launch_gp(const GpArgs& a, bool int8, dim3 grid, cudaStream_t st) {
-  if (int8) gp_kernel<BP, true><<<grid, COLS, 0, st>>>(a);
-  else      gp_kernel<BP, false><<<grid, COLS, 0, st>>>(a);
 }
 
 }  // namespace
@@ -583,16 +731,22 @@ int perf_dma_only(const void* plane, int kq, int n, void* tiles,
   return (int)cudaGetLastError();
 }
 
-// x [8, k] bf16 (int8_mode 0) or int8 (1); plane [k*bits/32, n]; qs uint8
-// [k/gr, n]; smax f32 [k/gr]; part f32 [splits, 8, n] (ignored when splits
-// == 1); out f32 [8, n]. k % 256 == 0, gr a power of two in [16, 256].
+// x [8, k] bf16 (int8_mode 0) or int8 (1), 16-byte aligned; plane
+// [k*bits/32, n]; qs uint8 [k/gr, n]; smax f32 [k/gr]; out f32 [8, n].
+// k % 256 == 0, gr a power of two in [16, 256]. A split takes kt rows of K
+// (a multiple of 256; at most 16 splits, the blocks of one cluster), a
+// block nt columns (32, 64, 128 or 256).
 int perf_gp(const void* x, const void* plane, const void* qs,
             const void* smax, int k, int n, int bits, int gr, int int8_mode,
-            void* part, void* out, int splits, int sb_per_split,
-            void* stream) {
-  if (k < SB || k % SB || !group_ok(gr) || splits < 1 || sb_per_split < 1)
+            int kt, int nt, void* out, void* stream) {
+  const int splits = kt > 0 ? (k + kt - 1) / kt : 0;
+  if (k < SB || k % SB || !group_ok(gr) || kt < SB || kt % SB || n < 1 ||
+      splits > NIB_MAX_SPLITS || nt < 32 || nt > 32 * NIB_WARPS ||
+      (nt & (nt - 1)) || (reinterpret_cast<uintptr_t>(x) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
+  const auto aligned = [](const void* p, uintptr_t b) {
+    return (reinterpret_cast<uintptr_t>(p) & (b - 1)) == 0;
+  };
   GpArgs a;
   a.x = x;
   a.plane = (const uint32_t*)plane;
@@ -601,18 +755,22 @@ int perf_gp(const void* x, const void* plane, const void* qs,
   a.k = k;
   a.n = n;
   a.gr = gr;
-  a.dst = (float*)(splits == 1 ? out : part);
-  a.sb_per_split = sb_per_split;
-  a.nsb = k / SB;
-  dim3 grid((n + COLS - 1) / COLS, splits);
+  a.units = kt / SB;
+  a.warps_n = nt / 32;
+  a.out = (float*)out;
+  const dim3 grid((n + nt - 1) / nt, splits);
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool int8 = int8_mode != 0;
+  const bool vec = n % 4 == 0 && aligned(plane, 16) && aligned(qs, 4);
+  cudaError_t e;
   switch (bits) {
-    case 1: launch_gp<1>(a, int8_mode != 0, grid, st); break;
-    case 2: launch_gp<2>(a, int8_mode != 0, grid, st); break;
-    case 4: launch_gp<4>(a, int8_mode != 0, grid, st); break;
-    case 8: launch_gp<8>(a, int8_mode != 0, grid, st); break;
+    case 1: e = launch_gp_mode<1>(a, int8, vec, grid, st); break;
+    case 2: e = launch_gp_mode<2>(a, int8, vec, grid, st); break;
+    case 4: e = launch_gp_mode<4>(a, int8, vec, grid, st); break;
+    case 8: e = launch_gp_mode<8>(a, int8, vec, grid, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)reduce(part, out, splits, n, st);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // xq int8 [8, k]; x1 f32 [8, k/gr]; plane [k/8, n] (4-bit); qs, smax as

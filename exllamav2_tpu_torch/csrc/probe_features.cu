@@ -12,14 +12,27 @@
 // far below a microsecond of the card, so a launch is latency. What counts
 // is that the instruction exists and gives the plain version's values.
 //
-// Design: one warp per output tile for the int8 dots, a block of warps
-// splitting K for the bf16 dot, one thread per 32-bit register for the
-// rest.
-//   * int8 dots: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32. A is
-//     row-major [M, K]; B is row-major [K, N], so the four k-consecutive
-//     bytes of a B register are gathered one by one. The batched probe is
-//     the W4A8 kernel's group-of-32 partial: 8 activation rows padded to the
-//     16 of the tile (the upper A registers are zero), one mma per group.
+// Design: a block of warps per output tile for the dots, K spread over its
+// warps; one thread per 32-bit register for the rest.
+//   * int8 dots: mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 on a
+//     16-row, 32-column tile a block (one warp for each 64 rows of K, 1 to
+//     8, k-steps round the warps, two a pass). Every load of a pass is
+//     issued before its first mma, straight into the fragment registers,
+//     the loads alone and predicated, the arithmetic on them after (4- or
+//     2-byte loads: each byte is read by one lane). Staging A and B in
+//     shared memory by cp.async first, as the bf16 dot does, measured
+//     0.4-0.6 us slower a call (tools/int8_dot_sweep.py times both). A is
+//     row-major [M, K]; B is row-major [K, N]: lane (g, t) loads one word
+//     of columns 4g..4g+3 from each of its eight rows and a byte transpose
+//     (prmt) of four rows gives four k-consecutive values of one column,
+//     the B register of n-tile j for column 4g + j (the n-tiles' columns
+//     interleaved, so no value is gathered twice). The warps' int32 tiles
+//     are summed in shared memory in warp order, four columns a thread and
+//     16 bytes a shared-memory access (a lane's four n-tiles of one
+//     register are four consecutive columns): one launch. The batched probe
+//     is the W4A8 kernel's group-of-32 partial: 8 activation rows padded to
+//     the 16 of the tile (the upper A registers are zero), one warp a
+//     block, which stores its registers.
 //   * bf16 dot: mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32. A
 //     block of 8 warps takes 16 columns; the K walk is spread over its warps
 //     (a few k-steps each). Every load of the block is issued before the
@@ -30,7 +43,9 @@
 //     pass), no global scratch.
 //   * int4: there is no 4-bit storage type here. The input is packed two
 //     signed nibbles a byte, low nibble first (element 2c of a row is the low
-//     nibble of byte c); the kernel sign-extends with a shift pair.
+//     nibble of byte c); the dot kernel places each nibble in the high half
+//     of a byte (16 v, exact in int8) in the same pass as the transpose and
+//     shifts the int32 sum back by 4: a shift pair that sign-extends.
 //   * casts and shifts work on whole registers: four masked values packed
 //     into one register with prmt (__byte_perm); (v >> 4) & 15 on two 16-bit
 //     or four 8-bit sub-words with one shift and one mask.
@@ -62,58 +77,143 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// element (k, n) of B as a byte: int8 storage, or two signed nibbles a byte
+constexpr int ID_WARPS = 8;                  // warps of a block, at most
+constexpr int ID_NB = 32;                    // columns a block
+constexpr int ID_STEPS = 2;                  // k-steps of 32 a warp, a pass
+constexpr int ID_RSTR = ID_NB + 4;          // tile sum row stride (ints)
+
+// byte b of each of four words, word i in byte i: a 4x4 byte transpose
+// whose first two prmt serve two values of b
+__device__ __forceinline__ uint32_t byte_of4(uint32_t m0, uint32_t m1,
+                                             uint32_t m2, uint32_t m3,
+                                             int b) {
+  const uint32_t pair = b < 2 ? 0x5140u : 0x7362u;
+  const uint32_t x01 = __byte_perm(m0, m1, pair);
+  const uint32_t x23 = __byte_perm(m2, m3, pair);
+  return __byte_perm(x01, x23, (b & 1) ? 0x7632u : 0x5410u);
+}
+
+// columns col .. col+3 of one row of B: a word of int8, or the 16 bits of
+// two signed nibbles a byte
 template <bool INT4>
-__device__ __forceinline__ uint32_t b_byte(const uint8_t* b, int k, int n,
-                                           int ncols) {
+__device__ __forceinline__ uint32_t b_load(const uint8_t* row, int col) {
+  if constexpr (INT4)
+    return *reinterpret_cast<const uint16_t*>(row + col / 2);
+  else
+    return *reinterpret_cast<const uint32_t*>(row + col);
+}
+
+// b_load's value as four bytes: int4 places each nibble in the high half of
+// its byte (16 v, exact in int8; the product's sum is shifted back by 4 at
+// the end, so the pair of shifts sign-extends)
+template <bool INT4>
+__device__ __forceinline__ uint32_t b_bytes(uint32_t v) {
   if constexpr (INT4) {
-    const uint8_t packed = b[(size_t)k * (ncols / 2) + n / 2];
-    const int8_t v = (n & 1) ? (int8_t)packed >> 4
-                             : (int8_t)(packed << 4) >> 4;
-    return (uint8_t)v;
+    const uint32_t x = __byte_perm(v, 0u, 0x1100u);   // b0 b0 b1 b1
+    return (x & 0xF000F000u) | ((x << 4) & 0x00F000F0u);
   } else {
-    return b[(size_t)k * ncols + n];
+    return v;
   }
 }
 
-// c[g, :mrows, :] = a[g, :mrows, :] @ b[g]: one warp per (16-row tile, 8-column
-// tile, g); rows past mrows are fed as zeros and not written
+// c[g, :mrows, :] = a[g, :mrows, :] @ b[g] on int8 m16n8k32 tiles. A block of
+// nw warps takes a 16-row, 32-column output tile; warp w takes k-steps w,
+// w + nw, ... (ID_STEPS a pass, every load of a pass issued before its
+// first mma, straight into the registers of the fragments). Lane (g, t)
+// loads rows 4t..4t+3 and 16+4t..16+4t+3 of B at columns 4g..4g+3, one word
+// a row, and transposes them by bytes: register j is column 4g + j, four
+// k-consecutive values, the B of n-tile j, whose mma column g is output
+// column 4g + j. The warps' int32 tiles are summed in shared memory in warp
+// order, four columns a thread (rows padded by 4 ints, so the 16-byte
+// stores of a quarter warp hit 32 banks); a block of one warp stores its
+// registers. Rows past mrows are fed as zeros and not written.
 template <bool INT4>
-__global__ void int8_dot_kernel(const int8_t* __restrict__ a,
-                                const uint8_t* __restrict__ b,
-                                int* __restrict__ c, int mrows, int kdim,
-                                int ncols) {
-  const int lane = threadIdx.x, gid = lane >> 2, tig = lane & 3;
-  const int n0 = blockIdx.x * 8, m0 = blockIdx.y * 16, g = blockIdx.z;
+__global__ void __launch_bounds__(32 * ID_WARPS)
+int8_dot_kernel(const int8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                int* __restrict__ c, int mrows, int kdim, int ncols) {
+  __shared__ __align__(16) int red[ID_WARPS][16][ID_RSTR];
+  const int nw = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n0 = blockIdx.x * ID_NB, m0 = blockIdx.y * 16, g = blockIdx.z;
+  const size_t brow = INT4 ? ncols / 2 : ncols;      // bytes a row of B
   a += (size_t)g * mrows * kdim;
-  b += (size_t)g * kdim * (INT4 ? ncols / 2 : ncols);
-  c += (size_t)g * mrows * ncols;
-  int acc[4] = {0, 0, 0, 0};
-  for (int k0 = 0; k0 < kdim; k0 += 32) {
-    uint32_t ra[4], rb[2];
+  b += (size_t)g * kdim * brow;
+  const int col = n0 + 4 * gid;
+  const int8_t* ar0 = a + (size_t)(m0 + gid) * kdim + 4 * tig;
+  const int8_t* ar1 = ar0 + (size_t)8 * kdim;
+  const bool live0 = m0 + gid < mrows, live1 = m0 + gid + 8 < mrows;
+  int acc[4][4] = {};
+  for (int k0 = warp * 32; k0 < kdim; k0 += nw * 32 * ID_STEPS) {
+    // the loads alone first, predicated, then the arithmetic on them
+    uint32_t ra[ID_STEPS][4], bw[ID_STEPS][8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + gid + (i & 1) * 8;
-      const int col = k0 + tig * 4 + (i >> 1) * 16;
-      ra[i] = row < mrows ? *reinterpret_cast<const uint32_t*>(
-                                a + (size_t)row * kdim + col)
-                          : 0u;
+    for (int s = 0; s < ID_STEPS; ++s) {
+      const int kk = k0 + s * nw * 32;
+      const bool on = kk < kdim, bon = on && col < ncols;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        ra[s][2 * h] = on && live0 ? *reinterpret_cast<const uint32_t*>(
+                                         ar0 + kk + 16 * h) : 0u;
+        ra[s][2 * h + 1] = on && live1 ? *reinterpret_cast<const uint32_t*>(
+                                             ar1 + kk + 16 * h) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = kk + 16 * (i >> 2) + 4 * tig + (i & 3);
+        bw[s][i] = bon ? b_load<INT4>(b + row * brow, col) : 0u;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      uint32_t r = 0;
+    for (int s = 0; s < ID_STEPS; ++s)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r |= b_byte<INT4>(b, k0 + i * 16 + tig * 4 + j, n0 + gid, ncols)
-             << (8 * j);
-      rb[i] = r;
-    }
-    mma_s8(acc, ra, rb);
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t rb[2] = {
+            byte_of4(b_bytes<INT4>(bw[s][0]), b_bytes<INT4>(bw[s][1]),
+                     b_bytes<INT4>(bw[s][2]), b_bytes<INT4>(bw[s][3]), j),
+            byte_of4(b_bytes<INT4>(bw[s][4]), b_bytes<INT4>(bw[s][5]),
+                     b_bytes<INT4>(bw[s][6]), b_bytes<INT4>(bw[s][7]), j)};
+        mma_s8(acc[j], ra[s], rb);
+      }
   }
+  // lane register r of n-tile j: row gid + 8 (r >> 1), mma column
+  // 2 tig + (r & 1), output column 4 (2 tig + (r & 1)) + j
+  c += (size_t)g * mrows * ncols;
+  if (nw == 1) {                              // one warp: no sum to take
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + gid + (i >> 1) * 8;
-    if (row < mrows) c[(size_t)row * ncols + n0 + tig * 2 + (i & 1)] = acc[i];
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = m0 + gid + 8 * (r >> 1);
+        const int cc = n0 + 4 * (2 * tig + (r & 1)) + j;
+        if (row < mrows && cc < ncols)
+          c[(size_t)row * ncols + cc] = INT4 ? acc[j][r] >> 4 : acc[j][r];
+      }
+    return;
+  }
+  // the four n-tiles of one r are four consecutive columns: one 16-byte
+  // store each; thread e then sums columns 4 (e % 8) .. +3 of row e / 8
+  // over the warps in warp order
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    *reinterpret_cast<int4*>(
+        &red[warp][gid + 8 * (r >> 1)][4 * (2 * tig + (r & 1))]) =
+        make_int4(acc[0][r], acc[1][r], acc[2][r], acc[3][r]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < 16 * ID_NB / 4; e += blockDim.x) {
+    const int row = e >> 3, q = 4 * (e & 7);
+    int4 s = *reinterpret_cast<const int4*>(&red[0][row][q]);
+    for (int w = 1; w < nw; ++w) {
+      const int4 v = *reinterpret_cast<const int4*>(&red[w][row][q]);
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    if (m0 + row < mrows && n0 + q < ncols) {     // n % 8 == 0: all four
+      int* o = c + (size_t)(m0 + row) * ncols + n0 + q;
+      o[0] = INT4 ? s.x >> 4 : s.x;
+      o[1] = INT4 ? s.y >> 4 : s.y;
+      o[2] = INT4 ? s.z >> 4 : s.z;
+      o[3] = INT4 ? s.w >> 4 : s.w;
+    }
   }
 }
 
@@ -278,17 +378,22 @@ const char* error_string(int e) {
 }
 
 // a int8 [g, m, k], b int8 [g, k, n] (int4 != 0: packed [g, k, n/2]) ->
-// c int32 [g, m, n]; k % 32 == 0, n % 8 == 0
+// c int32 [g, m, n]; k % 32 == 0, n % 8 == 0, a and b 4-byte aligned. A
+// block has one warp for each 64 rows of K (two k-steps a warp), 1 to 8.
 int probe_int8_dot(const void* a, const void* b, void* c, int g, int m, int k,
                    int n, int int4, void* stream) {
-  if (g < 1 || m < 1 || k % 32 || n % 8) return (int)cudaErrorInvalidValue;
-  dim3 grid(n / 8, (m + 15) / 16, g);
+  if (g < 1 || m < 1 || k < 32 || k % 32 || n < 8 || n % 8 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 3)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + ID_NB - 1) / ID_NB, (m + 15) / 16, g);
+  const int warps = k / 64 < 1 ? 1 : k / 64 < ID_WARPS ? k / 64 : ID_WARPS;
+  const int threads = 32 * warps;
   cudaStream_t st = (cudaStream_t)stream;
   if (int4)
-    int8_dot_kernel<true><<<grid, 32, 0, st>>>(
+    int8_dot_kernel<true><<<grid, threads, 0, st>>>(
         (const int8_t*)a, (const uint8_t*)b, (int*)c, m, k, n);
   else
-    int8_dot_kernel<false><<<grid, 32, 0, st>>>(
+    int8_dot_kernel<false><<<grid, threads, 0, st>>>(
         (const int8_t*)a, (const uint8_t*)b, (int*)c, m, k, n);
   return (int)cudaGetLastError();
 }

@@ -19,8 +19,10 @@ the variant `current` (the fused kernel's template follows m).
 
 The three kernels of csrc/perf_qmm.cu have their wrappers and plain versions
 here: `dma_only` (the streaming ceiling), `gp` (group partials, bf16 or int8
-activations) and `nibble_i8` (the 4-bit nibble split). On a CPU tensor a
-wrapper runs the plain version; on a card tensor it launches the kernel.
+activations) and `nibble_i8` (the 4-bit nibble split); `gp` and `nibble_i8`
+split K over a thread-block cluster as `nibble_tiles` picks.
+On a CPU tensor a wrapper runs the plain version; on a card tensor it
+launches the kernel.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["VARIANTS", "SHAPES", "M", "LAUNCHES", "dma_only",
            "dma_only_tiles", "dma_only_tiles_plain", "gp", "gp_plain",
-           "nibble_i8", "nibble_i8_plain", "nibble_tiles", "nibble_values",
-           "dense_weight", "mk_inputs",
+           "nibble_i8", "nibble_i8_plain", "nibble_tiles",
+           "nibble_values", "dense_weight", "mk_inputs",
            "report_line", "time_cycled", "variant_linear",
            "quantize_x", "group_sums", "main"]
 
@@ -76,14 +78,13 @@ LAUNCHES = {"perf_qmm_dma_only": 0, "perf_qmm_gp_bf16": 0,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS_DMA = [_P, _I, _I, _P, _P]
-# x, plane, qs, smax, k, n, bits, gr, int8 mode, partials, out, splits,
-# sub-blocks per split, stream
-_ARGS_GP = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P]
+# x, plane, qs, smax, k, n, bits, gr, int8 mode, kt, nt, out, stream
+_ARGS_GP = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]
 # xq, x1, plane, qs, smax, k, n, gr, kt, nt, out, stream
 _ARGS_NIBBLE = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]
-# the nibble kernel's K splits are the blocks of one thread-block cluster
-# (NIB_MAX_SPLITS in the source, a non-portable size) and its blocks hold
-# 8 warps (NIB_WARPS)
+# the K splits of the nibble and gp kernels are the blocks of one
+# thread-block cluster (NIB_MAX_SPLITS in the source, a non-portable size)
+# and their blocks hold 8 warps (NIB_WARPS)
 NIBBLE_MAX_SPLITS = 16
 _NIBBLE_WARPS = 8
 
@@ -232,8 +233,9 @@ def gp(x: torch.Tensor, plane: torch.Tensor, qs: torch.Tensor,
        smax: torch.Tensor, bits: int | None = None,
        gr: int | None = None) -> torch.Tensor:
     """Group partials: x [8, K] (bf16, or int8 from `quantize_x`) against
-    the packed plane -> f32 [8, N]. Launches the CUDA kernel on a card
-    tensor; on a CPU tensor runs the plain version."""
+    the packed plane -> f32 [8, N]. Launches the CUDA kernel (one launch, K
+    split over a thread-block cluster as `nibble_tiles` says) on a card tensor;
+    on a CPU tensor runs the plain version."""
     bits = BITS if bits is None else bits
     gr = GR if gr is None else gr
     _check_bits(bits)
@@ -245,7 +247,7 @@ def gp(x: torch.Tensor, plane: torch.Tensor, qs: torch.Tensor,
     if not x.is_cuda:
         return gp_plain(x, plane, qs, smax, bits, gr)
     from exllamav2_tpu_torch import _build
-    from exllamav2_tpu_torch.ops.qmm import _split_k, _target_blocks
+    from exllamav2_tpu_torch.device import sm_count
     _check_buffers((x, x.dtype), (plane, torch.int32), (qs, torch.uint8),
                    (smax, torch.float32))
     n = plane.shape[1]
@@ -253,15 +255,14 @@ def gp(x: torch.Tensor, plane: torch.Tensor, qs: torch.Tensor,
             or smax.numel() != k // gr:
         raise ValueError(f"plane {tuple(plane.shape)}, qs {tuple(qs.shape)},"
                          f" smax {tuple(smax.shape)} vs K = {k}, gr = {gr}")
+    if x.data_ptr() % 16:
+        x = x.clone()              # the kernel reads x in aligned pieces
     int8 = x.dtype == torch.int8
-    splits, per = _split_k(n, k // SUB_BLOCK, _target_blocks(x.device))
+    kt, nt = nibble_tiles(k, n, sm_count(x.device))
     out = torch.empty((M, n), dtype=torch.float32, device=x.device)
-    part = out if splits == 1 else torch.empty(
-        (splits, M, n), dtype=torch.float32, device=x.device)
     fn = _build.function("perf_qmm", "perf_gp", _ARGS_GP)
     rc = fn(x.data_ptr(), plane.data_ptr(), qs.data_ptr(), smax.data_ptr(),
-            k, n, bits, gr, int(int8), part.data_ptr(), out.data_ptr(),
-            splits, per, _stream(x))
+            k, n, bits, gr, int(int8), kt, nt, out.data_ptr(), _stream(x))
     _build.check("perf_qmm", rc, "perf_gp")
     LAUNCHES["perf_qmm_gp_int8" if int8 else "perf_qmm_gp_bf16"] += 1
     return out
@@ -314,9 +315,10 @@ def nibble_i8_plain(xq: torch.Tensor, x1: torch.Tensor, plane: torch.Tensor,
 
 def nibble_tiles(k: int, n: int, sms: int, kt0: int = 1024,
                  nt0: int = 2048) -> tuple[int, int]:
-    """(K rows a split takes, columns a block takes) of the nibble kernel's
-    grid (column blocks, splits), from the shape, the card's SM count and
-    the tile hints of the reference's grid.
+    """(K rows a split takes, columns a block takes) of the grid (column
+    blocks, splits) of the nibble and gp kernels, which share their blocks
+    and cluster, from the shape, the card's SM count and the tile hints of
+    the reference's grid (gp takes the defaults).
 
     A block takes nt0 / 64 columns, a power of two in [32, 256] (2048 ->
     32, 4096 -> 64): nt / 32 warps across the columns, the rest of its 8

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 __all__ = ["PROBES", "LAUNCHES", "Probe", "run_probe", "probe_tensors",
-           "pack_int4", "unpack_int4", "main"]
+           "pack_int4", "unpack_int4", "int8_dot_warps", "main"]
 
 # launches of the kernels of csrc/probe_features.cu, counted by the wrappers
 LAUNCHES = {"probe_features": 0}
@@ -112,6 +112,13 @@ def _exact(plain):
 def _int8_dot_plain(a, b):
     """The f32 product of small integers is exact (|sum| < 2^24)."""
     return torch.matmul(a.float(), b.float()).to(torch.int32)
+
+
+def int8_dot_warps(k: int) -> int:
+    """Warps a block of the int8 dot kernel holds at depth k: one for each
+    64 rows of K (two 32-row k-steps a warp), 1 to 8 (probe_int8_dot in
+    csrc/probe_features.cu)."""
+    return max(1, min(8, k // 64))
 
 
 def _int8_dot_kernel(a, b, int4: bool = False):

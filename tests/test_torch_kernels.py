@@ -294,6 +294,88 @@ def test_perf_gp_kernel_matches_plain(dev, mode, bits, gr):
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
 
 
+@pytest.mark.parametrize("gr", [16, 64])
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_perf_gp_kernel_columns_not_a_multiple_of_four(dev, mode, bits, gr):
+    """n % 4 != 0: the plane's rows are not 16-byte aligned, so the kernel
+    takes its word-by-word template; one launch, the plain values."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    k, n = 2048, 390
+    plane, qs, smax, x = T.mk_inputs(k, n, dev, seed=gr, bits=bits, gr=gr)
+    xa = T.quantize_x(x) if mode == "int8" else x.to(torch.bfloat16)
+    key = "perf_qmm_gp_" + mode
+    before = T.LAUNCHES[key]
+    got = T.gp(xa, plane, qs, smax, bits=bits, gr=gr)
+    assert T.LAUNCHES[key] == before + 1
+    ref = T.gp_plain(xa, plane, qs, smax, bits, gr)
+    assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+def _device_kernels(call, calls=8):
+    """{kernel name: count} of the device kernels of `calls` calls of
+    `call` under torch.profiler, after a warm-up call."""
+    from torch.profiler import profile, ProfilerActivity
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_perf_gp_kernel_is_one_launch(dev, mode):
+    """A gp call is one LAUNCHES step and one device kernel, gp_kernel alone:
+    the K splits meet inside the launch (no reduce_splits, no partials
+    buffer)."""
+    from exllamav2_tpu_torch.tools import perf_qmm as T
+    plane, qs, smax, x = T.mk_inputs(4096, 4096, dev, seed=3, bits=4, gr=32)
+    xa = T.quantize_x(x) if mode == "int8" else x.to(torch.bfloat16)
+    key = "perf_qmm_gp_" + mode
+    before = T.LAUNCHES[key]
+    T.gp(xa, plane, qs, smax, bits=4, gr=32)
+    assert T.LAUNCHES[key] == before + 1
+    kern = _device_kernels(lambda: T.gp(xa, plane, qs, smax, bits=4, gr=32))
+    assert len(kern) == 1, kern
+    ((name, count),) = kern.items()
+    assert "gp_kernel" in name and 0 < count <= 8
+
+
+@pytest.mark.parametrize("name", ["int8_dot", "int4_dot",
+                                  "int8_dot_batched"])
+def test_int8_dot_probe_is_one_launch(dev, name):
+    from exllamav2_tpu_torch.tools import probe_features as PF
+    tensors = PF.probe_tensors(name, dev)
+    kern = _device_kernels(lambda: PF.PROBES[name].kernel(*tensors))
+    assert len(kern) == 1, kern
+    ((kname, count),) = kern.items()
+    assert "int8_dot_kernel" in kname and 0 < count <= 8
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("g,m,k,n", [(1, 5, 1024, 40), (3, 17, 96, 264),
+                                     (2, 16, 4096, 8), (1, 32, 64, 256)])
+def test_int8_dot_probe_kernel_shapes(dev, g, m, k, n, int4):
+    """The int8 dot kernel's contract beyond the probes' shapes: any g and
+    m, k % 32 == 0, n % 8 == 0 (ragged rows and columns, one warp, several
+    passes); exact against the plain version."""
+    import numpy as np
+    from exllamav2_tpu_torch.tools import probe_features as PF
+    rng = np.random.default_rng(k + n)
+    a = rng.integers(-8, 8, (g, m, k)).astype(np.int8)
+    bv = rng.integers(-8, 8, (g, k, n)).astype(np.int8)
+    b = np.stack([PF.pack_int4(x) for x in bv]) if int4 else bv
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    got = PF._int8_dot_kernel(at.to(dev), bt.to(dev), int4=int4).cpu()
+    plain = PF._int4_dot_plain if int4 else PF._int8_dot_plain
+    want = torch.stack([plain(at[i], bt[i]) for i in range(g)])
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("gr", [16, 32, 128, 256])
 @pytest.mark.parametrize("hints", [{}, {"kt0": 2048}, {"nt0": 4096},
                                    {"kt0": 256, "nt0": 512}])

@@ -15,8 +15,15 @@ csrc/probe_features.cu `bf16_dot_kernel` spreads the K walk of a
 [16, k] @ [k, n] bf16 product over the 8 warps of a block (k-steps of 16,
 four a warp in each 512-row pass), takes the fragments with ldmatrix
 (.trans for the row-major B) and sums the warps' f32 tiles in warp order.
+Its `int8_dot_kernel<INT4>` takes a 16-row, 32-column tile a block of one
+warp for each 64 rows of K (1 to 8; k-steps of 32 round the warps, two a
+pass): lane (g, t) loads a word of columns 4g..4g+3 (int4: their 16 packed
+bits, each nibble put in the high half of a byte) from each of its eight
+rows of B and a byte transpose gives the B register of n-tile j for column
+4g + j; the warps' int32 tiles are summed in warp order, four columns a
+thread (int4: shifted back by 4).
 
-These tests emulate both maps in numpy, as the PTX fragment layouts define
+These tests emulate the maps in numpy, as the PTX fragment layouts define
 them, and hold them against the port's plain versions and the JAX
 reference's Pallas kernels in interpret mode; and the nibble kernel's split
 picker.
@@ -32,6 +39,7 @@ from exllamav2_tpu_torch.tools import perf_qmm as T
 from exllamav2_tpu_torch.tools import probe_features as PF
 
 from test_torch_tools import _load, _plane, _ref_perf, recorded  # noqa: F401
+from torch_prmt import U32, byte_of4, byte_perm
 
 WARPS = 8                      # warps of a block, both kernels
 
@@ -355,3 +363,150 @@ def test_bf16_dot_partition_matches_pallas(recorded):
     assert np.abs(got - want).max() <= PF.BF16_DOT_TOL * np.abs(want).max()
     tensors = PF.PROBES["bf16_dot_bf16_acc_f32"].to_torch(a, b)
     assert PF._bf16_dot_verdict(tensors, torch.from_numpy(got)) == "ok"
+
+
+# ---------------------------------------------------------------------------
+# int8 / int4 dots: m16n8k32 fragments, B by a byte transpose
+# ---------------------------------------------------------------------------
+
+def _words(rows):
+    """[..., 4] uint8 -> little-endian uint32 words."""
+    b = rows.astype(np.uint32)
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
+
+
+def _b_bytes(v, int4):
+    """b_bytes of the source: int4's 16 bits as four bytes of 16 v."""
+    if not int4:
+        return v
+    x = byte_perm(v, 0, 0x1100)
+    return ((x & U32(0xF000F000)) | ((x << U32(4)) & U32(0x00F000F0))).astype(
+        U32)
+
+
+def emulate_int8_dot(a, b, int4):
+    """int8_dot_kernel on numpy arrays: a int8 [g, m, k], b int8 [g, k, n]
+    (int4: packed uint8 [g, k, n/2]) -> int32 [g, m, n]."""
+    gs, m, k = a.shape
+    n = b.shape[-1] * (2 if int4 else 1)
+    nw = PF.int8_dot_warps(k)
+    out = np.zeros((gs, m, n), np.int64)
+    au = a.view(np.uint8)
+    g_ix, t_ix = np.arange(8)[:, None], np.arange(4)[None, :]
+    for gi in range(gs):
+        for m0 in range(0, m, 16):
+            arows = np.zeros((16, k), np.uint8)
+            arows[:min(16, m - m0)] = au[gi, m0:m0 + 16]
+            for n0 in range(0, n, 32):
+                col = n0 + 4 * g_ix                              # [8, 1]
+                red = np.zeros((nw, 16, 32), np.int64)
+                for w in range(nw):
+                    acc = [np.zeros((4, 8, 4), np.int64) for _ in range(4)]
+                    for k0 in range(w * 32, k, nw * 32 * 2):
+                        for s in range(2):
+                            kk = k0 + s * nw * 32
+                            if kk >= k:
+                                continue
+                            # a_r: row g + 8 (r & 1), k 16 (r >> 1) + 4t + i
+                            ra = np.stack([_words(np.stack(
+                                [arows[g_ix + 8 * (r & 1),
+                                       kk + 16 * (r >> 1) + 4 * t_ix + i]
+                                 for i in range(4)], axis=-1))
+                                for r in range(4)])              # [4, 8, 4]
+                            bw = []
+                            for i in range(8):
+                                row = kk + 16 * (i >> 2) + 4 * t_ix + (i & 3)
+                                live = np.broadcast_to(col < n, (8, 4))
+                                if int4:
+                                    c2 = np.minimum(col, n - 4) // 2
+                                    raw = b[gi][row, c2].astype(U32) | (
+                                        b[gi][row, c2 + 1].astype(U32)
+                                        << U32(8))
+                                else:
+                                    raw = _words(np.stack(
+                                        [b[gi].view(np.uint8)[
+                                            row, np.minimum(col + j, n - 1)]
+                                         for j in range(4)], axis=-1))
+                                bw.append(np.where(live, _b_bytes(raw, int4),
+                                                   U32(0)))
+                            for j in range(4):
+                                rb = np.stack([byte_of4(*bw[4 * r:4 * r + 4],
+                                                         j) for r in range(2)])
+                                acc[j] = _mma_s8(acc[j], ra, rb)
+                    # register r of n-tile j: row g + 8 (r >> 1), mma
+                    # column 2t + (r & 1) -> output column 4 (2t + (r & 1)) + j;
+                    # the four n-tiles of one r are four consecutive columns,
+                    # the kernel's one 16-byte store into the tile sum
+                    for j in range(4):
+                        for r in range(4):
+                            red[w, g_ix + 8 * (r >> 1),
+                                4 * (2 * t_ix + (r & 1)) + j] = acc[j][r]
+                tile = red.sum(axis=0)           # integers: order is moot
+                if int4:
+                    assert (tile % 16 == 0).all()
+                    tile = tile >> 4
+                rows = min(16, m - m0)
+                cols = min(32, n - n0)
+                out[gi, m0:m0 + rows, n0:n0 + cols] = tile[:rows, :cols]
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("g,m,k,n", [(1, 32, 256, 256), (8, 8, 32, 256),
+                                     (1, 5, 1024, 40), (3, 17, 96, 264),
+                                     (2, 16, 576, 8)])
+def test_int8_dot_partition_matches_plain(g, m, k, n, int4):
+    """Exact against the plain version: one warp, idle warps, several
+    passes, ragged rows and columns."""
+    rng = np.random.default_rng(g * 1000 + k + n)
+    a = rng.integers(-8, 8, (g, m, k)).astype(np.int8)
+    bv = rng.integers(-8, 8, (g, k, n)).astype(np.int8)
+    b = np.stack([PF.pack_int4(x) for x in bv]) if int4 else bv
+    got = emulate_int8_dot(a, b, int4)
+    plain = PF._int4_dot_plain if int4 else PF._int8_dot_plain
+    want = np.stack([plain(torch.from_numpy(a[i]),
+                           torch.from_numpy(b[i])).numpy() for i in range(g)])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["int8_dot", "int8_dot_batched",
+                                  "int4_dot"])
+def test_int8_dot_partition_matches_pallas(recorded, name):
+    ref = _load("probe_features")
+    np.random.seed(11)
+    assert ref.PROBES[name]() == "exact"
+    (a, b), want = recorded[-1]
+    int4 = name == "int4_dot"
+    if int4:
+        b = PF.pack_int4(np.asarray(b).astype(np.int8))
+    a, b = np.asarray(a), np.asarray(b)
+    batched = a.ndim == 3
+    got = emulate_int8_dot(a if batched else a[None],
+                           b if batched else b[None], int4)
+    np.testing.assert_array_equal(got if batched else got[0], want)
+
+
+@pytest.mark.parametrize("r", range(4))
+def test_int8_dot_tile_sum_store(r):
+    """The epilogue's store of register r: the four n-tiles are four
+    consecutive, 16-byte aligned columns of one row of the tile sum (rows of
+    32 + 4 ints), every output column of the tile is written once over the
+    four registers, and each quarter warp's eight 16-byte stores hit 32
+    distinct banks."""
+    stride = 32 + 4
+    g, t = np.meshgrid(np.arange(8), np.arange(4), indexing="ij")
+    row = g + 8 * (r >> 1)
+    cols = np.stack([4 * (2 * t + (r & 1)) + j for j in range(4)], -1)
+    assert (np.diff(cols, axis=-1) == 1).all() and (cols[..., 0] % 4 == 0).all()
+    word = row * stride + cols[..., 0]                   # [8 (g), 4 (t)]
+    assert (word % 4 == 0).all()
+    lanes = word.reshape(-1)                             # lane 4g + t
+    for q in range(4):
+        banks = (lanes[8 * q:8 * q + 8, None] + np.arange(4)) % 32
+        assert len(set(banks.reshape(-1).tolist())) == 32
+    written = np.zeros((16, 32), int)
+    for rr in range(4):
+        rows = np.broadcast_to(g + 8 * (rr >> 1), (8, 4))
+        for j in range(4):
+            np.add.at(written, (rows, 4 * (2 * t + (rr & 1)) + j), 1)
+    assert (written == 1).all()
