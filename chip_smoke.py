@@ -2,7 +2,12 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero). The model paths
+of phases 5, 7, 9 and 11 run their decode steps as CUDA graphs
+(utils/graphs.py, the default on the card), and each also runs once with
+the eager step and must give bitwise the same tokens; a line per path prints
+the captures and their ms, the replays, host ms a token or a dispatch
+(graphed and eager, one run), the device busy time and the idle share.
   1. build    compile csrc/*.cu with nvcc (one process per source, in
               parallel) and print the build time and ptxas report;
   2. qmm      the fused dequant-matmul kernel against its plain version at the
@@ -198,6 +203,26 @@ def eager_ms(fn, iters: int = 5) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / iters
+
+
+def graph_counts(runner, since=None) -> dict:
+    """Captures, their ms (warm-up and capture) and replays of a StepGraphs
+    runner, less those of `since` (an earlier result of this function)."""
+    out = {"captures": sum(runner.captures.values()) if runner else 0,
+           "capture_ms": sum(runner.capture_ms.values()) if runner else 0.0,
+           "replays": sum(runner.replays.values()) if runner else 0}
+    if since:
+        out = {k: v - since[k] for k, v in out.items()}
+    return out
+
+
+def eager(model, fn):
+    """fn() with the model's one-token steps eager (model.graphs off)."""
+    model.graphs = False
+    try:
+        return fn()
+    finally:
+        model.graphs = True
 
 
 # ---------------------------------------------------------------- phase 1
@@ -593,19 +618,31 @@ def phase_7b(dev):
         "generate_greedy_b4": (prompt4, {"qmm": 1 + 225 * steps,
                                          "decode_attn": LAYERS * steps}),
     }
-    launches, seqs = {}, {}
+    launches, seqs, graphs = {}, {}, {}
     for name, (prompt, want) in paths.items():
         Q.LAUNCHES["qmm"] = 0
         A.LAUNCHES["decode_attn"] = 0
+        g0 = graph_counts(model.step_graphs)
         seq = model.generate_greedy(prompt, new)
         got = {"qmm": Q.LAUNCHES["qmm"],
                "decode_attn": A.LAUNCHES["decode_attn"]}
-        log(f"[7b] {name}: launches {got} (expected {want})")
+        graphs[name] = graph_counts(model.step_graphs, g0)
+        log(f"[7b] {name}: launches {got} (expected {want}); step graphs "
+            f"{graphs[name]}")
         if got != want:
             raise AssertionError(f"{name} launch counts {got} != {want}")
         b = prompt.shape[0]
         if seq.shape != (b, 16 + new) or seq.min() < 0 or seq.max() >= VOCAB:
             raise AssertionError(f"{name}: bad generation {seq.shape}")
+        if graphs[name]["replays"] != steps:
+            raise AssertionError(f"{name}: {graphs[name]} for {steps} steps")
+        # the same path eager: bitwise the same tokens
+        seq_e = eager(model, lambda: model.generate_greedy(prompt, new))
+        log(f"[7b] {name}: graphed tokens equal the eager path's: "
+            f"{np.array_equal(seq, seq_e)}")
+        if not np.array_equal(seq, seq_e):
+            raise AssertionError(f"{name}: graphed {seq.tolist()} != eager "
+                                 f"{seq_e.tolist()}")
         launches[name], seqs[name] = got, seq
     seq1 = seqs["generate_greedy_b1"]
     log(f"[7b] batch 1 tokens {seq1[0, 16:].tolist()}")
@@ -627,15 +664,27 @@ def phase_7b(dev):
     log(f"[7b] decode batch 1: {tps:.2f} tokens/s ({ms_tok:.3f} ms/token "
         f"over {n_dec} tokens of generate_greedy; prefill-only call "
         f"{t_pre * 1e3:.1f} ms)")
+    # the eager step in the same run, on half the tokens
+    t_pre_e = eager(model, lambda: min(wall(1) for _ in range(2)))
+    t_all_e = eager(model, lambda: wall(1 + n_dec // 2))
+    ms_tok_e = (t_all_e - t_pre_e) / (n_dec // 2) * 1e3
 
     # --- where a decode token's device time goes (kernels only)
     prof = profile_decode(model, prompt1)
-    busy = prof["device_ms_per_token"]
+    prof_e = eager(model, lambda: profile_decode(model, prompt1))
+    busy, busy_e = prof["device_ms_per_token"], prof_e["device_ms_per_token"]
     log(f"[7b] profile: {prof['device_launches_per_token']:.0f} device "
         f"launches/token, device busy {busy:.3f} ms of {ms_tok:.3f} "
         f"ms/token (idle share {1 - busy / ms_tok:.1%})")
     for name, ms_k in prof["top"]:
         log(f"[7b] profile:   {ms_k:6.3f} ms/token  {name}")
+    gs = graph_counts(model.step_graphs)
+    log(f"[7b] step graphs: {gs['captures']} captures in "
+        f"{gs['capture_ms']:.1f} ms, {gs['replays']} replays; batch-1 host "
+        f"{ms_tok:.3f} ms a token graphed against {ms_tok_e:.3f} eager "
+        f"(same run); device busy {busy:.3f} ms graphed, {busy_e:.3f} eager; "
+        f"idle share {1 - busy / ms_tok:.1%} graphed, "
+        f"{1 - busy_e / ms_tok_e:.1%} eager")
 
     # --- decode vs prefill (batch 1)
     full, _ = model.forward(prompt1, model.new_cache(1, 32), 0)
@@ -650,6 +699,8 @@ def phase_7b(dev):
     if not (torch.isfinite(full).all() and rel < 0.02):
         raise AssertionError(f"decode vs prefill rel err {rel}")
     return {"weights_gb": gbytes, "launches": launches, "profile": prof,
+            "profile_eager": prof_e, "step_graphs": graphs,
+            "step_graphs_all": gs, "decode_ms_per_token_b1_eager": ms_tok_e,
             "decode_tokens_per_s_b1": tps, "decode_ms_per_token_b1": ms_tok,
             "decode_vs_prefill_rel_err": rel, "tokens_b1": seq1.tolist()}
 
@@ -1001,15 +1052,57 @@ def prefill_products(per, tag) -> dict:
 
 def teacher_forced_logits(model, prompt, toks) -> list:
     """Logits of the linear-cache forward on a job's tokens: after the
-    prompt, then after each generated token but the last."""
-    lc = model.new_cache(1, 256)
-    lg, lc = model.forward(prompt[None], lc, 0, last_token_only=True)
-    ref = [lg[0, -1].cpu()]
-    for i, t in enumerate(toks[:-1]):
-        lg, lc = model.forward(np.asarray([[t]], np.int32), lc,
-                               len(prompt) + i)
-        ref.append(lg[0, -1].cpu())
-    return ref
+    prompt, then after each generated token but the last. The steps run
+    eagerly: this is the reference side of a comparison (and phase 9 swaps
+    kernels under it)."""
+    def run():
+        lc = model.new_cache(1, 256)
+        lg, lc = model.forward(prompt[None], lc, 0, last_token_only=True)
+        ref = [lg[0, -1].cpu()]
+        for i, t in enumerate(toks[:-1]):
+            lg, lc = model.forward(np.asarray([[t]], np.int32), lc,
+                                   len(prompt) + i)
+            ref.append(lg[0, -1].cpu())
+        return ref
+    return eager(model, run)
+
+
+def same_tokens(tag, graphed_jobs, eager_jobs):
+    """The jobs of a graphed round against the same jobs run eagerly:
+    bitwise the same tokens, or the phase fails."""
+    a = [j.sequence.tolist() for j in graphed_jobs]
+    b = [j.sequence.tolist() for j in eager_jobs]
+    same = sum(x == y for x, y in zip(a, b))
+    log(f"[{tag}] graphed tokens equal the eager round's in {same} of "
+        f"{len(a)} jobs")
+    if a != b:
+        raise AssertionError(f"{tag}: graphed and eager tokens differ")
+
+
+def graph_line(tag, runner, g, dt, dt_e, busy=None, busy_e=None):
+    """One line per serving path: captures (their ms: warm-up, capture and
+    instantiation), replays, host ms a decode dispatch graphed and eager,
+    device busy and idle share. `g` is graph_counts over the measured round
+    of `runner` (whose totals are printed too), dt / dt_e the seconds of
+    the graphed and eager rounds (a dispatch's share holds the prefill)."""
+    n = max(1, g["replays"])
+    tot = graph_counts(runner)
+    line = (f"[{tag}] step graphs: {tot['captures']} keys captured in "
+            f"{tot['capture_ms']:.1f} ms in all; the measured round "
+            f"{g['captures']} captures ({g['capture_ms']:.1f} ms), "
+            f"{g['replays']} replays; host {dt * 1e3 / n:.2f} ms a dispatch "
+            f"graphed against {dt_e * 1e3 / n:.2f} eager (prefill included)")
+    if busy is not None:
+        line += (f"; device busy {busy:.1f} ms, idle share "
+                 f"{1 - busy / (dt * 1e3):.1%}")
+    if busy_e is not None:
+        line += (f" (eager: busy {busy_e:.1f} ms, idle share "
+                 f"{1 - busy_e / (dt_e * 1e3):.1%})")
+    log(line)
+    return dict(g, host_ms_per_dispatch=dt * 1e3 / n,
+                host_ms_per_dispatch_eager=dt_e * 1e3 / n,
+                all_captures=tot["captures"],
+                all_capture_ms=tot["capture_ms"])
 
 
 def job_logits(gen, prompt, new_tokens: int):
@@ -1053,8 +1146,10 @@ def phase_serving(dev, rate):
     t_warm = time.perf_counter() - t_warm
     zero_counts()
     round_prompts = serve_prompts(rng)
+    g0 = graph_counts(gen.step_graphs)
     jobs, new, dt = serve_round(gen, round_prompts)      # measured round
     got = launch_counts()
+    g_round = graph_counts(gen.step_graphs, g0)
     # 48 decode steps, each 225 fused linears (32 x 7 + the head) at m = 16
     # and one paged-attention launch per layer; the batched 16 x 128-row
     # prefill takes the dequant + matmul path and skips the head
@@ -1097,35 +1192,58 @@ def phase_serving(dev, rate):
         f"rel err {rel:.2e}")
     if len(paged) != 8 or not rel < 0.02:
         raise AssertionError(f"paged vs linear logits rel err {rel}")
-    del gen, cache
+
+    # the measured round's prompts through an eager generator on the same
+    # (now idle) cache: the same tokens; its time and, in one more round,
+    # its device busy, against the graphed round's
+    gen_e = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
+                             max_chunk_size=512, decode_burst=16,
+                             graphs=False)
+    jobs_e, new_e, dt_e = serve_round(gen_e, round_prompts)
+    same_tokens("serve", jobs, jobs_e)
+    tps_e = new_e / dt_e
+    _, busy_e, _ = profile_round(
+        lambda: serve_round(gen_e, serve_prompts(rng)))
+    graphs = graph_line("serve", gen.step_graphs, g_round, dt, dt_e, busy,
+                        busy_e)
+    log(f"[serve] serving16 eager in the same run: {tps_e:.1f} tokens/s "
+        f"against {tps:.1f} graphed")
+    del gen, gen_e, cache
     torch.cuda.empty_cache()
 
     # q4 cache: three jobs reuse the first job's hashed prompt page
     cache4 = PagedKVCache.alloc(LAYERS, 8, HEADS, HIDDEN // HEADS, "q4",
                                 device=dev)
-    gen4 = DynamicGenerator(model, cache4, tok, max_batch_size=4,
-                            decode_burst=8)
     prefix = rng.integers(3, 250, 300).astype(np.int32)
     prompts = [np.concatenate([prefix, rng.integers(3, 250, 20)
                                .astype(np.int32)]) for _ in range(4)]
+
+    def q4_round(graphed):
+        gen4 = DynamicGenerator(model, cache4, tok, max_batch_size=4,
+                                decode_burst=8, graphs=graphed)
+        first = gen4.enqueue(DynamicJob(prompts[0], max_new_tokens=8,
+                                        settings=Settings.greedy()))
+        while first.status != "done":
+            gen4.iterate()
+        rest = [gen4.enqueue(DynamicJob(p, max_new_tokens=8,
+                                        settings=Settings.greedy(),
+                                        return_logits=i == 0))
+                for i, p in enumerate(prompts[1:])]
+        finals, logits4 = {}, []
+        while any(j.status != "done" for j in rest):
+            for r in gen4.iterate():
+                if r.get("logits") is not None:
+                    logits4.append(r["logits"])
+                if r.get("eos"):
+                    finals[r["serial"]] = r
+        return first, rest, finals, logits4
+
     P.KIND_LAUNCHES.clear()
-    first = gen4.enqueue(DynamicJob(prompts[0], max_new_tokens=8,
-                                    settings=Settings.greedy()))
-    while first.status != "done":
-        gen4.iterate()
-    rest = [gen4.enqueue(DynamicJob(p, max_new_tokens=8,
-                                    settings=Settings.greedy(),
-                                    return_logits=i == 0))
-            for i, p in enumerate(prompts[1:])]
-    finals, logits4 = {}, []
-    while any(j.status != "done" for j in rest):
-        for r in gen4.iterate():
-            if r.get("logits") is not None:
-                logits4.append(r["logits"])
-            if r.get("eos"):
-                finals[r["serial"]] = r
-    cached = [finals[id(j)]["cached_tokens"] for j in rest]
+    first, rest, finals, logits4 = q4_round(True)
     q4_launches = P.KIND_LAUNCHES.get("q4/q4", 0)
+    first_e, rest_e, _, _ = q4_round(False)
+    same_tokens("serve q4", [first] + rest, [first_e] + rest_e)
+    cached = [finals[id(j)]["cached_tokens"] for j in rest]
     log(f"[serve] q4 round: cached_tokens {cached}, q4 kernel launches "
         f"{q4_launches}, tokens {[j.sequence[320:].tolist() for j in rest]}")
     if (cached != [256] * 3 or q4_launches != 2 * 8 * LAYERS
@@ -1134,9 +1252,11 @@ def phase_serving(dev, rate):
             or any(j.new_tokens != 8 for j in [first] + rest)):
         raise AssertionError(f"q4 round: cached {cached}, launches "
                              f"{q4_launches}")
-    del gen4, cache4, model, w
+    del cache4, model, w
     torch.cuda.empty_cache()
     return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
+            "tokens_per_s_eager": tps_e, "device_busy_ms_eager": busy_e,
+            "step_graphs": graphs,
             "p50_ttft_ms": p50, "ttft_ms": ttfts,
             "prompts": [p.tolist() for p in round_prompts],
             "tokens": [j.sequence[SERVE_PROMPT:].tolist() for j in jobs],
@@ -1226,6 +1346,16 @@ def phase_merged(dev, rate, base):
                                 max_batch_size=SERVE_JOBS,
                                 max_chunk_size=512, decode_burst=16, **kw)
 
+    def eager_round(gen, tag, jobs, dt, g_round, busy=None):
+        """The measured round's prompts through an eager generator over the
+        graphed one's (already merged / W4A8) weights, on a fresh cache:
+        the same tokens. Returns (tokens/s eager, the graph line's dict)."""
+        gen_e = new_gen(gen.model, prescale=False, graphs=False)
+        jobs_e, new_e, dt_e = serve_round(gen_e, prompts)
+        same_tokens(tag, jobs, jobs_e)
+        return new_e / dt_e, graph_line(tag, gen.step_graphs, g_round, dt,
+                                        dt_e, busy)
+
     # --- (a) GPTQ 4-bit gs128, merged + W4A8. The generator builds new
     # modules (GPTQ needs no prescale), so `exact` stays the unmerged model.
     w, st = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
@@ -1244,8 +1374,10 @@ def phase_merged(dev, rate, base):
     serve_round(gen, serve_prompts(rng))                 # warm round
     t_warm = time.perf_counter() - t_warm
     zero_counts()
+    g0 = graph_counts(gen.step_graphs)
     jobs, new, dt = serve_round(gen, prompts)            # measured round
     got = launch_counts()
+    g_round = graph_counts(gen.step_graphs, g0)
     # 48 decode steps at m = 16: per layer q|k|v, o, gate|up and down on the
     # W4A8 kernel, the exact head on the fused kernel, one paged-attention
     # launch per layer; the prefill dequantizes and skips the head
@@ -1272,6 +1404,9 @@ def phase_merged(dev, rate, base):
     for name, (t, c) in top:
         log(f"[merged] profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
     prefill = prefill_products(per, "merged")
+    tps_e, graphs = eager_round(gen, "merged+w4a8", jobs, dt, g_round, busy)
+    log(f"[merged] serving16 merged+w4a8 eager in the same run: "
+        f"{tps_e:.1f} tokens/s against {tps:.1f} graphed")
 
     # W4A8 logits of one job, then teacher-forced on its tokens through the
     # linear-cache forward: the same weights on the kernel and on the
@@ -1378,12 +1513,21 @@ def phase_merged(dev, rate, base):
     try:
         exact.generate_greedy(prompt1[:, :4], 2)             # warm-up
         zero_counts()
+        g0 = graph_counts(exact.step_graphs)
         seq = exact.generate_greedy(prompt1, n_new)
         gotp = launch_counts()
+        gp = graph_counts(exact.step_graphs, g0)
+        seq_e = eager(exact, lambda: exact.generate_greedy(prompt1, n_new))
         part_logits = prefill_logits()
         sess = profile_partials(exact, prompt1, 4)
     finally:
         del os.environ["QMM_PARTIALS"]
+    log(f"[merged] QMM_PARTIALS=1 generate_greedy: step graphs {gp}; "
+        f"graphed tokens equal the eager path's: "
+        f"{np.array_equal(seq, seq_e)}")
+    if not np.array_equal(seq, seq_e) or gp["replays"] != n_new - 1:
+        raise AssertionError(f"QMM_PARTIALS=1: graphed {seq.tolist()}, "
+                             f"eager {seq_e.tolist()}, {gp}")
     # the device kernels of one QMM_PARTIALS=1 generate_greedy session: the
     # scales-on-partials kernel is one device kernel a linear (no separate
     # group-sum or split-reduce kernels), counted against the wrapper's own
@@ -1437,8 +1581,10 @@ def phase_merged(dev, rate, base):
     if gen.model.weights.layers[0].attn.qkv.segments[0].scale_f is None:
         raise AssertionError("merged prescaled sources lost scale_f")
     zero_counts()
+    g0 = graph_counts(gen.step_graphs)
     jobs_m, new_m, dt_m = serve_round(gen, prompts)
     gotm = launch_counts()
+    gm = graph_counts(gen.step_graphs, g0)
     wantm = dict(want, qmm=(4 * LAYERS + 1) * SERVE_NEW, qmm_w4a8=0)
     tps_m, p50_m, _ = check_round("merged", jobs_m, new_m, dt_m)
     same = [j.sequence[SERVE_PROMPT:].tolist() == t
@@ -1465,9 +1611,15 @@ def phase_merged(dev, rate, base):
             f"(limit {MERGED_LOGITS_TOL})")
         if not rel_m < MERGED_LOGITS_TOL:
             raise AssertionError(f"merged vs unmerged logits rel {rel_m}")
+    tps_me, graphs_m = eager_round(gen, "merged", jobs_m, dt_m, gm)
+    log(f"[merged] merged-only eager in the same run: {tps_me:.1f} tokens/s "
+        f"against {tps_m:.1f} graphed")
     del gen, model, w
     torch.cuda.empty_cache()
     return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
+            "tokens_per_s_eager": tps_e, "step_graphs": graphs,
+            "merged_tokens_per_s_eager": tps_me,
+            "merged_step_graphs": graphs_m, "partials_step_graphs": gp,
             "p50_ttft_ms": p50, "ttft_ms": ttfts, "device_busy_ms": busy,
             "idle_share": idle, "profiled_round_ms": dt_prof * 1e3,
             "prefill_products": prefill,
@@ -1883,27 +2035,34 @@ def phase_constrained(dev):
         raise AssertionError(f"free round texts {texts}")
     log(f"[cons] free round: {texts[8]!r} ...")
 
-    seen = {14: [], 15: []}
     banned = {i: texts[i][4:7] for i in range(8, 12)}
-    jobs = []
-    for i, p in enumerate(prompts):
-        kw = {}
-        if i < 4:
-            kw["filters"] = [SelectFilter(tok, SELECT_OPTIONS)]
-        elif i < 8:
-            kw["filters"] = [PrefixFilter(tok, PREFIX)]
-        elif i < 12:
-            kw["banned_strings"] = [banned[i]]
-        elif i < 14:
-            kw["token_healing"] = True
-        else:
-            kw["post_sampling_hooks"] = [seen[i].append]
-            kw["return_top_tokens"] = 4
-        jobs.append(DynamicJob(p, max_new_tokens=CONS_NEW,
-                               settings=text_only(), **kw))
+
+    def constrained_jobs(seen):
+        jobs = []
+        for i, p in enumerate(prompts):
+            kw = {}
+            if i < 4:
+                kw["filters"] = [SelectFilter(tok, SELECT_OPTIONS)]
+            elif i < 8:
+                kw["filters"] = [PrefixFilter(tok, PREFIX)]
+            elif i < 12:
+                kw["banned_strings"] = [banned[i]]
+            elif i < 14:
+                kw["token_healing"] = True
+            else:
+                kw["post_sampling_hooks"] = [seen[i].append]
+                kw["return_top_tokens"] = 4
+            jobs.append(DynamicJob(p, max_new_tokens=CONS_NEW,
+                                   settings=text_only(), **kw))
+        return jobs
+
+    seen = {14: [], 15: []}
+    jobs = constrained_jobs(seen)
     zero_counts()
+    g0 = graph_counts(gen.step_graphs)
     steps, rewinds, dt = run_round(jobs)
     got = launch_counts()
+    g_round = graph_counts(gen.step_graphs, g0)
     want = {"qmm": (7 * LAYERS + 1) * steps, "qmm_w4a8": 0,
             "qmm_partials": 0, "decode_attn": 0,
             "paged_decode_attn": LAYERS * steps}
@@ -1981,11 +2140,25 @@ def phase_constrained(dev):
     if any(len(t) != 12 or not t.startswith("ok ") for t in atexts):
         raise AssertionError(f"async jobs: {atexts}")
     log(f"[cons] stream {streamed!r}; async {atexts}")
+
+    # the constrained round once more through an eager generator on the
+    # same (now idle) cache: the same tokens
+    runner = gen.step_graphs
+    gen = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
+                           max_chunk_size=512, decode_burst=16, graphs=False)
+    jobs_e = constrained_jobs({14: [], 15: []})
+    steps_e, _, dt_e = run_round(jobs_e)
+    same_tokens("cons", jobs, jobs_e)
+    graphs = graph_line("cons", runner, g_round, dt, dt_e)
+    log(f"[cons] constrained round eager in the same run: "
+        f"{sum(j.new_tokens for j in jobs_e) / dt_e:.1f} tokens/s in "
+        f"{steps_e} steps, against {new / dt:.1f} graphed")
     del gen, cache, model, w
     torch.cuda.empty_cache()
     return {"launches": got, "steps": steps, "rewinds": rewinds,
             "tokens": new, "round_ms": dt * 1e3, "tokens_per_s": new / dt,
-            "host_ms_per_step": dt / steps * 1e3,
+            "host_ms_per_step": dt / steps * 1e3, "step_graphs": graphs,
+            "tokens_per_s_eager": sum(j.new_tokens for j in jobs_e) / dt_e,
             "texts": [j.emitted_text for j in jobs], "free_texts": texts,
             "stream": streamed, "async": atexts}
 

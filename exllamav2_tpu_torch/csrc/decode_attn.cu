@@ -8,6 +8,9 @@
 //   s[pos] = (sum_d f32(q[d]) * f32(k[pos, d])) * scale
 //   s      = tanh(s * (1/softcap)) * softcap            when softcap > 0
 //   attend pos <= past_len, and pos > past_len - window when window > 0
+// past_len is read from device memory (past_len[b * past_len_stride]: one
+// position per batch row, or one shared with stride 0), so a captured CUDA
+// graph of a decode step replays at every later position of its bucket.
 //   out    = sum_pos softmax(s)[pos] * f32(v[pos, :])   (f32 [B, Hq, D])
 // The softmax is taken online in f32, which rounds differently from the
 // plain version's exp / sum (ops/decode_attn.py).
@@ -65,7 +68,8 @@ struct Args {
   const __nv_bfloat16* k;           // cache base, strides below
   const __nv_bfloat16* v;
   long long sl, sb, sh, ss;         // element strides of L, B, Hkv, S
-  int layer, batch, hkv, g, d, past_len, limit, window, splits, per;
+  const int* past_len;              // [B] or [1], stride past_len_stride
+  int layer, batch, hkv, g, d, past_len_stride, limit, window, splits, per;
   float scale, softcap, inv_softcap;
   float* out;                       // [B, Hq, D]
   float* pacc;                      // [splits, B, Hq, D]   (splits > 1)
@@ -106,8 +110,12 @@ __global__ void __launch_bounds__(THREADS, GMAX <= 2 ? 4 : 1)
   const int hq = a.hkv * G;
   const size_t head0 = (size_t)b * hq + (size_t)h * G;   // first query head
 
-  const int hi = min(a.limit, a.past_len + 1);
-  const int lo = a.window > 0 ? max(0, a.past_len - a.window + 1) : 0;
+  // the caller checks 0 <= past_len < limit on the host; the clamp only
+  // keeps every access inside the bucket
+  const int past_len =
+      min(max(__ldg(a.past_len + b * a.past_len_stride), 0), a.limit - 1);
+  const int hi = min(a.limit, past_len + 1);
+  const int lo = a.window > 0 ? max(0, past_len - a.window + 1) : 0;
   const int r_lo = max(lo, split * a.per);
   const int r_hi = min(hi, (split + 1) * a.per);
 
@@ -403,19 +411,24 @@ const char* error_string(int e) {
 // (sl, sb, sh, ss) and unit stride along D; out [B, Hq, D] f32. With
 // splits > 1: pacc [splits, B, Hq, D] and pml [splits, B, Hq, 2] f32
 // scratch, count int32 [B * Hkv] all 0 (left at 0); split i takes rows
-// [i * per, (i + 1) * per), and splits * per >= limit.
-// Requires 0 <= past_len < limit, D % 32 == 0, D <= 256, G <= 16,
+// [i * per, (i + 1) * per), and splits * per >= limit. past_len int32 in
+// device memory, row b's at past_len[b * past_len_stride] (stride 0: one
+// for every row), each in [0, limit) (checked by the caller: the kernel
+// clamps it into that range).
+// Requires D % 32 == 0, D <= 256, G <= 16,
 // G*D <= 2048, splits <= 64, 16-byte aligned K/V rows (ss and the bases
 // multiples of 8 elements) and q.
 // Returns the cudaError_t of the launch (0 on success).
 int decode_attention(const void* q, const void* k, const void* v,
                      long long sl, long long sb, long long sh, long long ss,
                      int layer, int batch, int hkv, int g, int d,
-                     int past_len, int limit, float scale, float softcap,
+                     const void* past_len, int past_len_stride, int limit,
+                     float scale, float softcap,
                      int window, int splits, int per, void* out, void* pacc,
                      void* pml, void* count, void* stream) {
   if (d % 32 || d > 256 || g < 1 || g > MAX_G || g * d > MAX_GD ||
-      past_len < 0 || past_len >= limit || batch < 1 || hkv < 1 ||
+      !past_len || past_len_stride < 0 || past_len_stride > 1 ||
+      limit < 1 || batch < 1 || hkv < 1 ||
       splits < 1 || splits > MAX_SPLITS || per < 1 ||
       (long long)splits * per < limit ||
       (splits > 1 && (!pacc || !pml || !count)) ||
@@ -429,7 +442,9 @@ int decode_attention(const void* q, const void* k, const void* v,
   a.v = (const __nv_bfloat16*)v;
   a.sl = sl; a.sb = sb; a.sh = sh; a.ss = ss;
   a.layer = layer; a.batch = batch; a.hkv = hkv; a.g = g; a.d = d;
-  a.past_len = past_len; a.limit = limit; a.window = window;
+  a.past_len = (const int*)past_len;
+  a.past_len_stride = past_len_stride;
+  a.limit = limit; a.window = window;
   a.splits = splits; a.per = per;
   a.scale = scale;
   a.softcap = softcap;

@@ -5,18 +5,27 @@ is the reference's: a page pool with a blake2b hash chain for prompt dedup,
 LRU eviction by access serial, chunked page-aligned prefill, stop tokens and
 stop strings with held UTF-8 text. The device side:
 
-  * a decode step is one eager call: paged forward -> token bias ->
-    penalties -> DRY -> sampling, and the sampled ids go back to the host in
-    one readback (the only per-step host sync);
-  * a burst of k steps is a loop that feeds each sampled token back through
-    the token history on the device and reads [k, B] tokens back once;
+  * a decode step is paged forward -> token bias -> penalties -> DRY ->
+    sampling, and the sampled ids go back to the host in one readback (the
+    only per-step host sync); its host inputs (block tables, seqlens, slots,
+    sampler rows, packed allow-masks) go up in one int32 buffer;
+  * a burst of k steps feeds each sampled token back through the token
+    history on the device and reads [k, B] tokens back once;
+  * on the card both replay CUDA graphs (utils/graphs.py), the counterparts
+    of the reference's jitted steps, keyed as the reference keys them:
+    ("decode", b_bucket, p_bucket, masked, use_dry, biased, topk,
+    ret_logits, use_pen) and ("decode_burst", b_bucket, p_bucket, k,
+    use_dry, biased, use_pen), at most MAX_GRAPHS, the sampler's generator
+    registered with each; ``graphs=False`` runs them eagerly (the default on
+    the CPU). Which kernel serves a linear (QMM_PARTIALS) is read when a key
+    is captured, as the reference reads it when it traces. The prefill
+    stays eager;
   * the token history ``hist`` [slots + 1, max_seq_len + 2] int32 lives on
     the device, so penalties and the decode input gather never re-upload a
     sequence;
   * batch and block-table widths are bucketed to powers of two, with pad
     rows pointing at a dummy history slot and the null page 0. They change
-    no result; they are the shapes a CUDA graph of the step would be keyed
-    on.
+    no result; they are the shapes the step graphs are keyed on.
 
 ``merged_weights=True`` serves from merged q|k|v and gate|up linears (exact;
 ops/dequant.merge_serving_weights), ``w4a8=True`` decodes through the W4A8
@@ -40,9 +49,11 @@ counters.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
 import time
+import weakref
 from collections import OrderedDict, deque
 
 import numpy as np
@@ -51,7 +62,8 @@ import torch
 from exllamav2_tpu_torch.cache_paged import PagedKVCache
 from exllamav2_tpu_torch.generator.filters.base import piece_table
 from exllamav2_tpu_torch.generator.hooks import PostSamplingResult
-from exllamav2_tpu_torch.generator.sampler import Settings, stack_settings
+from exllamav2_tpu_torch.generator.sampler import (
+    ROWS, Settings, params_from_rows, settings_rows)
 from exllamav2_tpu_torch.models.forward import model_forward_paged
 from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
 from exllamav2_tpu_torch.ops.sampling import (
@@ -60,6 +72,10 @@ from exllamav2_tpu_torch.ops.sampling import (
 __all__ = ["DynamicGenerator", "DynamicJob"]
 
 _HASH = lambda b: hashlib.blake2b(b, digest_size=16).digest()  # noqa: E731
+
+
+# step graphs a generator keeps (the least recently used goes first)
+MAX_GRAPHS = 32
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -202,7 +218,7 @@ class DynamicGenerator:
                  w4a8: bool = False,
                  decode_burst: int | None = None,
                  ttft_slo_ms: float | None = None,
-                 device=None):
+                 device=None, graphs: bool | None = None):
         """model: a models.model.Model; cache: a PagedKVCache on the same
         device. `device` defaults to the model's. decode_burst: up to this
         many tokens per dispatch when no job needs per-step host work
@@ -211,7 +227,9 @@ class DynamicGenerator:
         token breaches this target. merged_weights: serve from merged
         q|k|v and gate|up linears (exact). w4a8: opt-in approximate decode
         with int8 activations (decode steps only; the prefill and the head
-        stay exact). Neither changes the caller's model."""
+        stay exact). Neither changes the caller's model. graphs: replay
+        the decode step and burst as CUDA graphs (default: on a card
+        device); False runs them eagerly."""
         for name, val in (("draft_model", draft_model),
                           ("draft_cache", draft_cache),
                           ("use_ngram_draft", use_ngram_draft),
@@ -273,6 +291,13 @@ class DynamicGenerator:
         self._rng = torch.Generator(device=self.device)
         self._rng.manual_seed(0)
         self._bias_pool = None         # [slots + 1, vocab] f32, lazy
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.step_graphs = None
+        if graphs:
+            from exllamav2_tpu_torch.utils.graphs import StepGraphs
+            self.step_graphs = StepGraphs(self.device, MAX_GRAPHS,
+                                          generators=[self._rng])
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -827,47 +852,122 @@ class DynamicGenerator:
         self.hist[slots, pos + 1] = toks
         return raw, lg, toks, probs, mu
 
+    def _step_inputs(self, jobs: list[DynamicJob], b: int, p: int,
+                     masks) -> torch.Tensor:
+        """A step's host inputs in one int32 buffer, uploaded at once (into
+        the key's static buffer when the step is a graph): block tables
+        [b, p], seqlens [b], slots [b], the sampler rows (f32 as their
+        bits, bools as 0 / 1) and, when `masks` is given, the allow-masks
+        packed eight tokens a byte. Pad rows point at the dummy history slot
+        and the null page, and sample greedily."""
+        bts = np.zeros((b, p), np.int32)
+        seqlens = np.zeros((b,), np.int32)
+        slots = np.full((b,), self.num_slots, np.int32)         # dummy slot
+        sett, mus = [], []
+        for i, job in enumerate(jobs):
+            bts[i] = self._job_block_table(job, p)
+            seqlens[i] = job.kv_pos
+            slots[i] = job.slot
+            sett.append(job.settings)
+            mus.append(job.mirostat_mu)
+        sett += [Settings.greedy()] * (b - len(jobs))
+        mus += [0.0] * (b - len(jobs))
+        f, i32, bl = settings_rows(sett, mus)
+        parts = [bts.ravel(), seqlens, slots, f.view(np.int32).ravel(),
+                 i32.ravel(), bl.astype(np.int32).ravel()]
+        if masks is not None:
+            vocab = self.model.static.vocab_size
+            allow = np.ones((b, vocab), bool)
+            for i, m in enumerate(masks):
+                if m is not None:
+                    allow[i] = m
+            packed = np.packbits(allow, axis=1, bitorder="little")
+            packed = np.pad(packed, ((0, 0), (0, -packed.shape[1] % 4)))
+            parts.append(packed.view(np.int32).ravel())
+        return torch.from_numpy(np.concatenate(parts))
+
+    def _step_views(self, buf: torch.Tensor, b: int, p: int, masked: bool):
+        """The device views of a _step_inputs buffer: (block tables,
+        seqlens, slots, SamplingParams, allow-mask or None)."""
+        sizes = [b * p, b, b, ROWS[0] * b, ROWS[1] * b, ROWS[2] * b]
+        if masked:
+            sizes.append(buf.numel() - sum(sizes))
+        parts = buf.split(sizes)
+        params = params_from_rows(
+            parts[3].view(torch.float32).view(ROWS[0], b),
+            parts[4].view(ROWS[1], b), parts[5].view(ROWS[2], b) != 0)
+        lf = None
+        if masked:
+            packed = parts[6].view(b, -1).view(torch.uint8)
+            lf = unpack_mask(packed, self.model.static.vocab_size)
+        return parts[0].view(b, p), parts[1], parts[2].long(), params, lf
+
+    def _decode_fn(self, b, p, masked, use_dry, biased, topk, ret_logits,
+                   use_pen, buf):
+        """The decode step of key ("decode", b, p, masked, use_dry, biased,
+        topk, ret_logits, use_pen) on the inputs `buf` -> [tokens, probs,
+        mu] f32 [3, b] (+ top-k ids and probs [b, topk], + raw logits)."""
+        bts, seqlens, slots, params, lf = self._step_views(buf, b, p, masked)
+        raw, lg, toks, probs, mu = self._step(bts, seqlens, slots, params,
+                                              use_pen, use_dry, biased, lf)
+        outs = [torch.stack([toks.float(), probs, mu])]
+        if topk:
+            dist = torch.softmax(
+                lg.masked_fill(~lf, -torch.inf) if lf is not None else lg,
+                dim=-1)
+            tp, tt = torch.sort(dist, dim=-1, descending=True, stable=True)
+            outs += [tt[:, :topk], tp[:, :topk]]
+        if ret_logits:
+            outs.append(raw.float())
+        return outs
+
+    def _burst_fn(self, b, p, k, use_dry, biased, use_pen, buf):
+        """k decode steps of key ("decode_burst", b, p, k, use_dry, biased,
+        use_pen): each sampled token feeds the next step through the device
+        history, mirostat's mu is carried from step to step -> [tokens [k],
+        probs [k], mu] f32 [2k + 1, b]."""
+        bts, seqlens, slots, params, _ = self._step_views(buf, b, p, False)
+        toks_k, probs_k = [], []
+        for i in range(k):
+            _, _, toks, probs, mu = self._step(
+                bts, seqlens + i, slots, params, use_pen, use_dry, biased)
+            params = dataclasses.replace(params, mirostat_mu=mu)
+            toks_k.append(toks.float())
+            probs_k.append(probs)
+        return torch.cat([torch.stack(toks_k), torch.stack(probs_k),
+                          mu[None]])
+
+    def _run(self, key: tuple, method, buf: torch.Tensor):
+        """method(self, *key[1:], buf) on the host inputs `buf`: the key's
+        step graph replayed, or with graphs off the step run eagerly on an
+        upload of `buf`. The runner keeps the step function for the life of
+        its graph, so the function holds this generator weakly: a strong
+        reference would be a cycle that only the cyclic collector frees,
+        and a CUDA graph destroyed while any capture is under way voids that
+        capture."""
+        if self.step_graphs is not None:
+            fn = functools.partial(method, weakref.proxy(self), *key[1:])
+            return self.step_graphs(key, fn, buf)
+        return method(self, *key[1:], buf.to(self.device))
+
     def _decode(self, jobs: list[DynamicJob], results: list[dict]):
         b = len(jobs)
         b_bucket = _bucket(b, 1)
         p_bucket = _bucket(max(len(j.pages) for j in jobs), 2)
 
-        bts = np.zeros((b_bucket, p_bucket), np.int32)
-        seqlens = np.zeros((b_bucket,), np.int32)
-        slots = np.full((b_bucket,), self.num_slots, np.int64)  # dummy slot
-        sett, mus = [], []
-        for i, job in enumerate(jobs):
-            bts[i] = self._job_block_table(job, p_bucket)
-            seqlens[i] = job.kv_pos
-            slots[i] = job.slot
-            sett.append(job.settings)
-            mus.append(job.mirostat_mu)
-        for i in range(b, b_bucket):
-            sett.append(Settings.greedy())
-            mus.append(0.0)
-
         # per-job logit masks (filters, healing, EOS floor, banned tokens)
         vocab = self.model.static.vocab_size
         masks = [self._job_mask(j, vocab) for j in jobs]
         any_masked = any(m is not None for m in masks)
-        lf = None
-        if any_masked:
-            allow = np.ones((b_bucket, vocab), bool)
-            for i, m in enumerate(masks):
-                if m is not None:
-                    allow[i] = m
-            packed = np.packbits(allow, axis=1, bitorder="little")
-            lf = unpack_mask(self._dev(packed), vocab)
-
         use_dry = any(j.settings.dry_multiplier > 0 for j in jobs)
         use_pen = self._needs_penalties(jobs)
-        params = stack_settings(sett, mus, device=self.device)
         biased = self._bias_pool is not None and any(
             j.settings.token_bias is not None for j in jobs)
         topk = max((j.return_top_tokens for j in jobs), default=0)
         topk = _bucket(topk, 4) if topk else 0
         ret_logits = any(j.return_logits for j in jobs)
-        bts_t, sl_t, slots_t = (self._dev(x) for x in (bts, seqlens, slots))
+        buf = self._step_inputs(jobs, b_bucket, p_bucket,
+                                masks if any_masked else None)
 
         # ---- burst: k tokens per readback, when no job needs per-step host
         # work (masks, top-k, logits, banned-string rewinds) and every job
@@ -892,16 +992,10 @@ class DynamicGenerator:
                 k *= 2
             if k > 1:
                 t_disp = time.perf_counter()
-                toks_k, probs_k = [], []
-                for i in range(k):
-                    _, _, toks, probs, mu = self._step(
-                        bts_t, sl_t + i, slots_t, params, use_pen, use_dry,
-                        biased)
-                    params = dataclasses.replace(params, mirostat_mu=mu)
-                    toks_k.append(toks.float())
-                    probs_k.append(probs)
-                host = torch.cat([torch.stack(toks_k), torch.stack(probs_k),
-                                  mu[None]]).cpu().numpy()   # one readback
+                key = ("decode_burst", b_bucket, p_bucket, k, use_dry,
+                       biased, use_pen)
+                host = self._run(key, DynamicGenerator._burst_fn,
+                                 buf).cpu().numpy()
                 toks_h, probs_h, mu_h = host[:k], host[k:2 * k], host[2 * k]
                 now = time.perf_counter()
                 for i, job in enumerate(jobs):
@@ -918,20 +1012,15 @@ class DynamicGenerator:
                                      results)
                 return
 
-        raw, lg, toks, probs, mu = self._step(bts_t, sl_t, slots_t, params,
-                                              use_pen, use_dry, biased, lf)
-        host = torch.stack([toks.float(), probs, mu]).cpu().numpy()
-        toks_h, probs_h, mu_h = host
+        key = ("decode", b_bucket, p_bucket, any_masked, use_dry, biased,
+               topk, ret_logits, use_pen)
+        outs = self._run(key, DynamicGenerator._decode_fn, buf)
+        toks_h, probs_h, mu_h = outs[0].cpu().numpy()
         tt_h = tp_h = lg_h = None
         if topk:
-            dist = torch.softmax(
-                lg.masked_fill(~lf, -torch.inf) if lf is not None else lg,
-                dim=-1)
-            tp, tt = torch.sort(dist, dim=-1, descending=True, stable=True)
-            tt_h, tp_h = tt[:, :topk].cpu().numpy(), \
-                tp[:, :topk].cpu().numpy()
+            tt_h, tp_h = outs[1].cpu().numpy(), outs[2].cpu().numpy()
         if ret_logits:
-            lg_h = raw.float().cpu().numpy()
+            lg_h = outs[-1].cpu().numpy()
         now = time.perf_counter()
         for i, job in enumerate(jobs):
             job.mirostat_mu = float(mu_h[i])

@@ -4,6 +4,9 @@ exllamav2_tpu/generator/sampler.py).
 `Settings` keeps the reference-compatible field names; `stack_settings`
 lowers a batch of them into the [B] tensors of ops/sampling.SamplingParams
 on one device, with one host-to-device copy per element type.
+`settings_rows` and `params_from_rows` are its two halves, for a caller that
+uploads the rows itself (the serving step packs them with its other inputs
+into one buffer).
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 from exllamav2_tpu_torch.device import resolve_device
 from exllamav2_tpu_torch.ops.sampling import SamplingParams
 
-__all__ = ["Settings", "stack_settings"]
+__all__ = ["Settings", "stack_settings", "settings_rows",
+           "params_from_rows"]
 
 
 @dataclasses.dataclass
@@ -84,12 +88,15 @@ _I32 = {"top_k": "top_k", "rep_range": "token_repetition_range",
 _BOOL = {"temperature_last": "temperature_last", "mirostat": "mirostat"}
 
 
-def stack_settings(settings: list[Settings],
-                   mu_state: list[float] | None = None,
-                   device=None) -> SamplingParams:
-    """Stack per-job Settings into [B] tensors on `device` (the card by
-    default); mu_state overrides the mirostat mu of each row."""
-    device = resolve_device(device)
+# rows of settings_rows: f32 fields and the mirostat mu, int32 fields and the
+# eight DRY breaker columns, bool fields
+ROWS = (len(_F32) + 1, len(_I32) + 8, len(_BOOL))
+
+
+def settings_rows(settings: list[Settings],
+                  mu_state: list[float] | None = None):
+    """Per-job Settings as host rows (f32 [ROWS[0], B], int32 [ROWS[1], B],
+    bool [ROWS[2], B]); mu_state overrides the mirostat mu of each row."""
     mu = mu_state if mu_state is not None else [
         (s.mirostat_mu or 0.0) for s in settings]
     f = np.array([[getattr(s, a) for s in settings] for a in _F32.values()]
@@ -100,7 +107,23 @@ def stack_settings(settings: list[Settings],
                         _stack_breakers(settings).T])
     b = np.array([[getattr(s, a) for s in settings] for a in _BOOL.values()],
                  np.bool_)
-    ft, it, bt = (torch.from_numpy(x).to(device) for x in (f, i, b))
+    return f, i, b
+
+
+def stack_settings(settings: list[Settings],
+                   mu_state: list[float] | None = None,
+                   device=None) -> SamplingParams:
+    """Stack per-job Settings into [B] tensors on `device` (the card by
+    default); mu_state overrides the mirostat mu of each row."""
+    device = resolve_device(device)
+    return params_from_rows(*(torch.from_numpy(x).to(device)
+                              for x in settings_rows(settings, mu_state)))
+
+
+def params_from_rows(ft: torch.Tensor, it: torch.Tensor,
+                     bt: torch.Tensor) -> SamplingParams:
+    """SamplingParams over the rows of settings_rows, on the device they lie
+    on (each field a view of one row)."""
     fields = dict(zip(_F32, ft))
     fields["mirostat_mu"] = ft[len(_F32)]
     fields.update(zip(_I32, it))

@@ -7,6 +7,11 @@ causal masking against the linear KV cache. A single-token step
 (t = 1) goes through the decode-attention kernel (ops/decode_attn.py); longer
 inputs use two matrix products and a masked softmax.
 
+``past_len`` of the linear forward is a host int (prefill, the CPU) or an
+int32 tensor on the device (0-d: one position for every row; [B]: one per
+row): the decode step that utils/graphs.py captures reads its position from
+device memory, so one graph serves every position of a limit bucket.
+
 ``model_forward_paged`` is the serving forward over the paged KV cache
 (cache_paged.PagedKVCache, per-sequence block tables and positions): its t = 1
 attention goes through the paged flash-decode kernel (ops/paged_attn.py).
@@ -84,13 +89,25 @@ def _attn_qkv(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     return q, k, v.to(torch.bfloat16)
 
 
+def _positions(past_len, t: int, device) -> torch.Tensor:
+    """Positions [past_len, past_len + t): [T] for a host int or a 0-d /
+    [1] tensor, [B, T] for a [B] tensor."""
+    ar = torch.arange(t, device=device)
+    if not isinstance(past_len, torch.Tensor):
+        return past_len + ar
+    if past_len.numel() == 1:
+        return past_len.long().reshape(()) + ar
+    return past_len.long().reshape(-1, 1) + ar
+
+
 def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
                  layer: int, sin: torch.Tensor, cos: torch.Tensor,
-                 cache: KVCache, past_len: int,
+                 cache: KVCache, past_len,
                  attn_limit: int | None = None
                  ) -> tuple[torch.Tensor, KVCache]:
     """x [B, T, d] -> (attn output [B, T, d] f32, cache updated in place).
 
+    past_len: a host int or a device tensor (0-d or [B]).
     sin/cos are already gathered for positions [past_len, past_len+T).
     attn_limit bounds how much of the allocated cache is read (the caller
     buckets past_len+T up so reads track the live sequence length).
@@ -124,11 +141,13 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
         cap = st.attn_logit_softcap
         scores = torch.tanh(scores / cap) * cap
 
-    pos_q = past_len + torch.arange(t, device=x.device)
+    pos_q = _positions(past_len, t, x.device)               # [T] or [B, T]
     pos_k = torch.arange(s, device=x.device)
-    mask = pos_k[None, :] <= pos_q[:, None]                  # causal
+    mask = pos_k <= pos_q[..., None]                         # causal
     if window > 0:
-        mask &= pos_k[None, :] > pos_q[:, None] - window
+        mask &= pos_k > pos_q[..., None] - window
+    if mask.dim() == 3:                             # per-row positions
+        mask = mask[:, None, None]
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
 
     out = gqa_values(torch.softmax(scores, dim=-1), cv)
@@ -193,18 +212,20 @@ def _embed(w: ModelWeights, st: StaticModel, ids: torch.Tensor):
 
 
 def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
-                  cache: KVCache, past_len: int,
+                  cache: KVCache, past_len,
                   last_token_only: bool = False,
                   attn_limit: int | None = None
                   ) -> tuple[torch.Tensor, KVCache]:
     """ids [B, T] -> (logits [B, T or 1, vocab] f32, cache).
 
-    Chunking across max_input_len happens in the caller (Model.forward).
+    past_len: a host int, or an int32 device tensor (0-d or [B]) whose
+    range the caller has checked. Chunking across max_input_len happens in
+    the caller (Model.forward).
     """
     b, t = ids.shape
     x = _embed(w, st, ids)
-    pos = past_len + torch.arange(t, device=ids.device)
-    sin = w.sin[pos]                                         # [T, rot/2]
+    pos = _positions(past_len, t, ids.device)                # [T] or [B, T]
+    sin = w.sin[pos]                                 # [(B,) T, rot/2]
     cos = w.cos[pos]
 
     for layer in range(st.num_layers):

@@ -1,12 +1,19 @@
 """High-level model container (PyTorch port of exllamav2_tpu/models/model.py).
 
-A model is its weight modules, its StaticModel and its config; forward runs
-eagerly, updating the KV cache in place.
+A model is its weight modules, its StaticModel and its config; forward
+updates the KV cache in place. The prefill runs eagerly. A one-token step on
+the card replays a CUDA graph (utils/graphs.py), the counterpart of the
+reference's jitted ``_decode_step``: one graph per (batch, attention-limit
+bucket, the cache's K/V storage, QMM_PARTIALS), at most MAX_GRAPHS of them.
+``Model(..., graphs=False)`` (or ``model.graphs = False``) asks for the
+eager step; on the CPU the step is eager unless graphs=True, which runs the
+graph's step function on its static buffers (the tests do).
 """
 
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -21,6 +28,12 @@ from exllamav2_tpu_torch.models.modules import ModelWeights, StaticModel
 __all__ = ["Model"]
 
 
+# step graphs a model keeps (each holds its cache alive), and the caches
+# generate_greedy keeps for reuse, one per (batch, max_seq)
+MAX_GRAPHS = 16
+MAX_GREEDY_CACHES = 2
+
+
 def _limit_bucket(n: int, cap: int, step: int = 256) -> int:
     """Bucket the attention span up to a multiple of `step` (bounds cache
     reads to the live sequence)."""
@@ -28,13 +41,21 @@ def _limit_bucket(n: int, cap: int, step: int = 256) -> int:
 
 
 class Model:
-    """Loaded model: weights on one device + forward/generation."""
+    """Loaded model: weights on one device + forward/generation.
+
+    graphs: replay a CUDA graph for each one-token step (default: on a card
+    device); False runs every step eagerly."""
 
     def __init__(self, weights: ModelWeights, static: StaticModel,
-                 config: ModelConfig | None = None):
+                 config: ModelConfig | None = None,
+                 graphs: bool | None = None):
         self.weights = weights
         self.static = static
         self.config = config
+        self.graphs = self.device.type == "cuda" if graphs is None \
+            else bool(graphs)
+        self.step_graphs = None             # a StepGraphs, made at first use
+        self._greedy_caches: OrderedDict = OrderedDict()
 
     @property
     def device(self) -> torch.device:
@@ -42,7 +63,8 @@ class Model:
 
     @classmethod
     def from_dir(cls, model_dir: str, prescale: bool | None = None, *,
-                 device=None, **cfg_overrides) -> "Model":
+                 device=None, graphs: bool | None = None,
+                 **cfg_overrides) -> "Model":
         """Load a checkpoint directory onto `device` (the card by default).
 
         EXL2 group scales are decoded once at load into bf16 rows the fused
@@ -58,7 +80,7 @@ class Model:
         if prescale:
             from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
             w = precompute_model_scales(w)
-        m = cls(w, st, cfg)
+        m = cls(w, st, cfg, graphs=graphs)
         m._prescale = prescale      # the generator's prescale default
         return m
 
@@ -105,21 +127,72 @@ class Model:
         return self._forward_one(ids, cache, past_len, last_token_only)
 
     def _forward_one(self, ids, cache: KVCache, past_len: int,
-                     last_token_only: bool):
-        limit = _limit_bucket(int(past_len) + ids.shape[1], cache.max_seq)
+                     last_token_only: bool, copy: bool = True):
+        past_len, t = int(past_len), ids.shape[1]
+        if past_len < 0 or past_len + t > cache.max_seq:
+            raise ValueError(f"positions [{past_len}, {past_len + t}) "
+                             f"outside max_seq {cache.max_seq}")
+        limit = _limit_bucket(past_len + t, cache.max_seq)
         with torch.inference_mode():
+            if t == 1 and (ids.is_cuda or self.graphs):
+                logits = self._decode_step(ids, cache, past_len, limit)
+                return (logits.clone() if copy else logits), cache
             return model_forward(self.weights, self.static, ids, cache,
-                                 int(past_len), last_token_only=last_token_only,
+                                 past_len, last_token_only=last_token_only,
                                  attn_limit=limit)
+
+    def _decode_step(self, ids, cache: KVCache, past_len: int, limit: int):
+        """One token [B, 1] at past_len (checked) -> logits [B, 1, vocab]:
+        the step graph of (batch, limit, the cache's storage, QMM_PARTIALS)
+        replayed, or with graphs off the same step eagerly, its position a
+        device tensor either way. A replay's logits are the graph's static
+        output (the next replay overwrites them)."""
+        st, w = self.static, self.weights
+
+        def step(ids, pos):
+            return model_forward(w, st, ids, cache, pos, attn_limit=limit)[0]
+
+        if not self.graphs:
+            return step(ids, torch.full((), past_len, dtype=torch.int32,
+                                        device=ids.device))
+        if self.step_graphs is None:
+            from exllamav2_tpu_torch.utils.graphs import StepGraphs
+            self.step_graphs = StepGraphs(self.device, MAX_GRAPHS)
+        key = (ids.shape[0], limit, cache.k.data_ptr(), cache.v.data_ptr(),
+               os.environ.get("QMM_PARTIALS") == "1")
+        return self.step_graphs(key, step, ids.to(torch.int32), past_len)
+
+    def _greedy_cache(self, batch: int, max_seq: int) -> KVCache:
+        """generate_greedy's cache of (batch, max_seq), kept for the next
+        call (rows past the position are never read); the least recently
+        used of MAX_GREEDY_CACHES goes, with its step graphs."""
+        key = (batch, max_seq)
+        cache = self._greedy_caches.get(key)
+        if cache is None:
+            while len(self._greedy_caches) >= MAX_GREEDY_CACHES:
+                _, old = self._greedy_caches.popitem(last=False)
+                if self.step_graphs is not None:
+                    ptr = old.k.data_ptr()
+                    self.step_graphs.drop(lambda k: k[2] == ptr)
+            cache = self.new_cache(batch=batch, max_seq=max_seq)
+            self._greedy_caches[key] = cache
+        self._greedy_caches.move_to_end(key)
+        return cache
 
     def generate_greedy(self, prompt_ids: np.ndarray, max_new_tokens: int,
                         max_seq: int | None = None,
                         stop_token: int | None = None) -> np.ndarray:
-        """Greedy loop: prompt_ids [B, T0] -> [B, T0 + max_new] (numpy)."""
-        prompt_ids = np.atleast_2d(np.asarray(prompt_ids, np.int32))
+        """Greedy loop: prompt_ids [B, T0] -> [B, T0 + max_new] (numpy).
+
+        The cache is kept on the model for the next call of the same batch
+        and max_seq (by default T0 + max_new rounded up to a multiple of
+        256, the attention-limit step), so the step graphs are reused. One
+        host readback a token."""
+        prompt_ids = np.ascontiguousarray(np.atleast_2d(
+            np.asarray(prompt_ids, np.int32)))
         b, t0 = prompt_ids.shape
         total = t0 + max_new_tokens
-        cache = self.new_cache(batch=b, max_seq=max_seq or total)
+        cache = self._greedy_cache(b, max_seq or -(-total // 256) * 256)
         logits, cache = self.forward(prompt_ids, cache, 0,
                                      last_token_only=True)
         out = [prompt_ids]
@@ -130,7 +203,8 @@ class Model:
             out.append(tok_np[:, None])
             if stop_token is not None and bool((tok_np == stop_token).all()):
                 return np.concatenate(out, axis=1)
-            logits, cache = self.forward(tok[:, None], cache, pos)
+            logits, cache = self._forward_one(tok[:, None], cache, pos,
+                                              False, copy=False)
             tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
             pos += 1
         out.append(tok.cpu().numpy()[:, None])

@@ -15,6 +15,13 @@ from torch.empty; and one int32 counter per (batch, KV head), kept per
 
 Cache layout is [L, B, H_kv, S, D]; only rows below `limit` are read (the
 caller buckets past_len). GQA maps G query heads onto each KV head.
+
+past_len is a host int or an int32 device tensor (0-d or [1]: one position
+for every row; [B]: one per row). The kernel reads it from device memory,
+so a captured CUDA graph of a decode step (utils/graphs.py) replays at any
+later position of its bucket; a host int is checked here and written to a
+one-element tensor, a tensor is checked by its caller, which knows the
+position on the host.
 """
 
 from __future__ import annotations
@@ -33,12 +40,14 @@ LAUNCHES = {"decode_attn": 0}
 
 _NEG = -1e30
 
-# q, k, v, the four cache strides, layer, batch, hkv, g, d, past_len, limit,
-# scale, softcap, window, splits, rows per split, out, the two scratch
-# buffers, the counters, stream (csrc/decode_attn.cu)
+# q, k, v, the four cache strides, layer, batch, hkv, g, d, past_len (a
+# device pointer), its stride, limit, scale, softcap, window, splits, rows
+# per split, out, the two scratch buffers, the counters, stream
+# (csrc/decode_attn.cu)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
-             + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-             + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+             + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
+             + [ctypes.c_void_p] * 5)
 
 _BLOCKS_PER_SM = 3      # the split fills the card with about this many
 _SPLIT_ROWS = 32        # fewest cache rows a split takes
@@ -59,11 +68,12 @@ def split_count(batch: int, hkv: int, limit: int, sms: int
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, layer: int, past_len: int,
+                           v: torch.Tensor, layer: int, past_len,
                            limit: int, scale: float, softcap: float = 0.0,
                            window: int = 0) -> torch.Tensor:
     """Plain version: q [B, Hq, D], k/v FULL cache [L, B, Hkv, S, D]
-    -> out [B, Hq, D] f32, softmax in f32."""
+    -> out [B, Hq, D] f32, softmax in f32. past_len: an int, or a 0-d /
+    [1] / [B] integer tensor."""
     b, hq, d = q.shape
     hkv, s_max = k.shape[2], k.shape[3]
     g = hq // hkv
@@ -75,6 +85,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     if softcap > 0.0:
         sc = torch.tanh(sc * (1.0 / softcap)) * softcap
     pos = torch.arange(limit, device=q.device)
+    if isinstance(past_len, torch.Tensor):                 # [B or 1, 1, 1, 1]
+        past_len = past_len.to(q.device).long().reshape(-1, 1, 1, 1)
     valid = pos <= past_len
     if window > 0:
         valid = valid & (pos > past_len - window)
@@ -107,9 +119,22 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
             or v.data_ptr() % 16):
         raise ValueError("K/V rows must be 16-byte aligned")
     limit = min(limit, s_max)
-    if not 0 <= past_len < limit or not 0 <= layer < nl:
-        raise ValueError(f"past_len {past_len}, limit {limit}, layer {layer}")
+    if not 0 <= layer < nl:
+        raise ValueError(f"layer {layer} of {nl}")
     dev = q.device
+    if isinstance(past_len, torch.Tensor):
+        if (past_len.dtype != torch.int32 or past_len.device != dev
+                or past_len.numel() not in (1, b)
+                or not past_len.is_contiguous()):
+            raise ValueError(f"past_len {past_len.dtype} "
+                             f"{tuple(past_len.shape)} on {past_len.device}: "
+                             f"want contiguous int32, 1 or {b} values, on "
+                             f"{dev}")
+        pl = past_len
+    else:
+        if not 0 <= past_len < limit:
+            raise ValueError(f"past_len {past_len}, limit {limit}")
+        pl = torch.full((1,), past_len, dtype=torch.int32, device=dev)
     splits, per = split_count(b, hkv, limit, sm_count(dev))
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     scratch = ()
@@ -122,7 +147,8 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
     fn = _build.function("decode_attn", "decode_attention", _ARGTYPES)
     sl, sb, sh, ss, _ = k.stride()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sl, sb, sh, ss,
-            layer, b, hkv, g, d, int(past_len), limit, float(scale),
+            layer, b, hkv, g, d, pl.data_ptr(), int(pl.numel() > 1),
+            limit, float(scale),
             float(softcap), int(window), splits, per, out.data_ptr(),
             *([t.data_ptr() for t in scratch] or [None] * 3),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -132,14 +158,16 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     layer: int, past_len: int, limit: int, scale: float,
+                     layer: int, past_len, limit: int, scale: float,
                      softcap: float = 0.0, window: int = 0) -> torch.Tensor:
     """q [B, Hq, D] (t=1), k/v FULL cache [L, B, Hkv, S, D] -> [B, Hq, D] f32.
 
     Attends to positions 0..past_len (inclusive: the current token's K/V must
-    already be written); `limit` bounds the S rows read. softcap > 0 applies
-    tanh capping; window > 0 limits attention to the trailing window. The
-    layer's slice is read in place: the cache is never copied.
+    already be written); `limit` bounds the S rows read. past_len is a host
+    int (checked against limit here) or an int32 tensor on q's device, 0-d,
+    [1] or [B] (each value in [0, limit): the caller checks). softcap > 0
+    applies tanh capping; window > 0 limits attention to the trailing
+    window. The layer's slice is read in place: the cache is never copied.
     """
     if q.is_cuda:
         return _kernel(q, k, v, layer, past_len, limit, scale, softcap,

@@ -222,6 +222,65 @@ def test_decode_attention_kernel_splits_match_plain(dev, hkv, g, limit, past,
     assert torch.equal(got, again)
 
 
+def test_decode_attention_graph_replay_at_new_positions(dev):
+    """A CUDA graph of kernel 2 over 4 layers (batch 2, 32/8 heads, limit
+    1024: more than one split) captured with past_len in device memory,
+    replayed after the position changes in place within the bucket, shared
+    and per row: every replay equals the plain version at the new
+    positions within 1e-4 of max |v|."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    b, hkv, g, limit = 2, 8, 4, 1024
+    shape = (4, b, hkv, 2048, 128)
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    qs = [torch.randn((b, hkv * g, 128), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4)]
+    shared = torch.zeros((), dtype=torch.int32, device=dev)
+    rows = torch.zeros((b,), dtype=torch.int32, device=dev)
+
+    def step():
+        return ([A.decode_attention(q, k, v, l, shared, limit, 0.09)
+                 for l, q in enumerate(qs)]
+                + [A.decode_attention(qs[0], k, v, 2, rows, limit, 0.09,
+                                      0.0, 300)])
+
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(s):
+        step()                                        # warm-up
+    torch.cuda.current_stream(dev).wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    before = A.LAUNCHES["decode_attn"]
+    for pos, per_row in ((0, (5, 700)), (513, (1023, 0)), (1023, (300, 301))):
+        shared.fill_(pos)
+        rows.copy_(torch.tensor(per_row, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        refs = [A.decode_attention_plain(q, k, v, l, pos, limit, 0.09)
+                for l, q in enumerate(qs)]
+        refs.append(torch.cat([A.decode_attention_plain(
+            qs[0][i:i + 1], k[:, i:i + 1], v[:, i:i + 1], 2, p, limit, 0.09,
+            0.0, 300) for i, p in enumerate(per_row)]))
+        for got, ref in zip(outs, refs):
+            assert (got - ref).abs().max() <= 1e-4 * v.float().abs().max()
+    assert A.LAUNCHES["decode_attn"] == before      # a replay counts nothing
+
+
+def test_decode_attention_past_len_tensor_checks(dev):
+    q = torch.zeros((2, 8, 128), dtype=torch.bfloat16, device=dev)
+    k = torch.zeros((1, 2, 2, 256, 128), dtype=torch.bfloat16, device=dev)
+    for bad in (torch.zeros((3,), dtype=torch.int32, device=dev),
+                torch.zeros((2,), dtype=torch.int64, device=dev),
+                torch.zeros((2,), dtype=torch.int32)):
+        with pytest.raises(ValueError, match="past_len"):
+            A.decode_attention(q, k, k, 0, bad, 256, 0.1)
+    with pytest.raises(ValueError, match="past_len"):
+        A.decode_attention(q, k, k, 0, 256, 256, 0.1)
+
+
 @pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
 @pytest.mark.parametrize("hq,hkv,d,cap,win", [
     (8, 8, 128, 0.0, 0), (8, 2, 128, 0.0, 0), (8, 2, 128, 20.0, 0),
