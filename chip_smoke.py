@@ -100,7 +100,27 @@ the captures and their ms, the replays, host ms a token or a dispatch
               PrefixFilter, banned strings from their own free text (with
               rewinds), token healing and post-sampling hooks, one token a
               dispatch with the launch counts asserted from the step count;
-              a StreamingGenerator stream and four jobs under asyncio.
+              a StreamingGenerator stream and four jobs under asyncio;
+ 12. spec     speculative decoding, CFG and LoRA on the serving path at 7B
+              width and full depth (phase 7's weights), every round graphed
+              and once eager with bitwise the same tokens: (1) the n-gram
+              drafter at batch 1 (a 16-token pattern 8 times, 64 new tokens,
+              4 drafts a round); (2) a draft model at batch 1 and 4 (32 new
+              tokens): the 7B model itself with its own draft cache, and a
+              2-layer random draft of another seed; each speculative round's
+              tokens equal the plain round's up to a near-tie (at the first
+              difference the plain round's teacher-forced top-2 gap is under
+              0.02 of max |logit|), its launches of kernels 1 and 3 asserted
+              from its rounds; tokens/s against the plain round, accepted
+              drafts and host ms a round; (3) CFG: 4 jobs with 64-token
+              negative prompts at scales 1.5 and 1.0 (1.0 gives the plain
+              tokens up to a near-tie); (4) a rank-16 LoRA on q/k/v/o and
+              gate/up/down, drawn on the card and loaded from a PEFT
+              directory, attached to and detached from a live serving16
+              generator, unmerged and merged (detached: the base tokens
+              bitwise), adapted logits of a 2-layer cut against an f32
+              plain forward on the CPU, and a weight swap under
+              generate_greedy's step graphs against eager.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -111,7 +131,7 @@ paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 1 and 8 (the W4A8, scales-on-partials and merged-meta kernels),
 `python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
-constrained` phases 1 and 11.
+constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12.
 """
 
 from __future__ import annotations
@@ -2163,6 +2183,394 @@ def phase_constrained(dev):
             "stream": streamed, "async": atexts}
 
 
+# --------------------------------------------------------------- phase 12
+
+SPEC_D = 4              # drafts a speculative round
+SPEC_NEW = 64           # new tokens of the n-gram leg
+DRAFT_NEW = 32          # of the draft-model legs and the CFG leg
+# two exact paths may part at a near-tie: at the first token where a
+# speculative (or CFG 1.0) round parts from the plain round, the plain
+# round's teacher-forced logits must have a top-2 gap under this share of
+# max |logit| (the decode-vs-prefill gate of the logits)
+TIE_GAP = 0.02
+LORA_RANK = 16
+LORA_TOL = 0.02         # 2-layer cut: each adapted linear vs its f32
+                        # product, and the logits vs the f32-bypass forward
+
+
+def spec_round(gen, prompts, new, **job_kw):
+    """Enqueue one greedy job a prompt, iterate to the end: -> (jobs,
+    seconds, rounds). A round is an iterate() that emitted tokens (every
+    job decodes in one group)."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jobs = []
+    for i, p in enumerate(prompts):
+        kw = {k: v[i] for k, v in job_kw.items()}
+        s = Settings.greedy()
+        if "negative_prompt_ids" in kw:
+            s.cfg_scale = kw.pop("cfg_scale")
+        jobs.append(gen.enqueue(DynamicJob(p, max_new_tokens=new,
+                                           settings=s, **kw)))
+    rounds = 0
+    while any(j.status != "done" for j in jobs):
+        rounds += any(r["stage"] == "streaming" for r in gen.iterate())
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for j in jobs:
+        toks = j.sequence[j.prompt_len:]
+        if (j.new_tokens != new or j.eos_reason != "max_new_tokens"
+                or toks.min() < 0 or toks.max() >= VOCAB):
+            raise AssertionError(f"job: {j.new_tokens} tokens, "
+                                 f"{j.eos_reason}")
+    return jobs, dt, rounds
+
+
+def decode_rate(jobs, rounds: int):
+    """The decode part of a round, from the first token to the last (the
+    prefill and the first step or round before it): -> (tokens/s, ms a
+    step or round)."""
+    t0 = min(j.time_first_token for j in jobs)
+    t1 = max(j.time_last_token for j in jobs)
+    n = sum(j.new_tokens - 1 for j in jobs)
+    return n / (t1 - t0), (t1 - t0) / max(1, rounds - 1) * 1e3
+
+
+def near_tie(tag, model, plain_jobs, jobs) -> list:
+    """Each job's tokens against the plain round's same job: equal, or the
+    first differing token falls on a near-tie of the plain round's
+    teacher-forced logits (top-2 gap under TIE_GAP of max |logit|), else
+    the phase fails. -> the first differing position of each job (None
+    where equal) and its gap."""
+    out = []
+    for a, b in zip(plain_jobs, jobs):
+        pa, pb = a.sequence[a.prompt_len:], b.sequence[b.prompt_len:]
+        diff = np.nonzero(pa != pb)[0]
+        if not diff.size:
+            out.append(None)
+            continue
+        i = int(diff[0])
+        lg = teacher_forced_logits(model, a.prompt_ids, pa[:i + 1])[i]
+        top = torch.topk(lg.float(), 2).values
+        gap = ((top[0] - top[1]) / lg.abs().max()).item()
+        log(f"[spec] {tag}: parts from the plain round at new token {i} "
+            f"({int(pa[i])} plain, {int(pb[i])} here): top-2 gap "
+            f"{gap:.2e} of max |logit| (limit {TIE_GAP})")
+        if not gap < TIE_GAP:
+            raise AssertionError(f"{tag}: token {i} differs off a near-tie")
+        out.append((i, gap))
+    return out
+
+
+def phase_spec(dev):
+    """Speculative decoding (n-gram and draft model), CFG and LoRA on the
+    serving path at 7B width and full depth, each graphed against eager."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
+    from exllamav2_tpu_torch.lora import Lora, apply_lora
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.models.modules import ModelWeights
+    from exllamav2_tpu_torch.ops.dequant import (
+        dequant_linear, precompute_model_scales)
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.testing import (
+        random_model_weights, write_random_lora)
+    w, st = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                 max_seq=2048, bits=4, seed=0, device=dev)
+    w = precompute_model_scales(w)
+    model = Model(w, st)                           # phases 5 and 7's model
+    tok = ByteTokenizer(256)        # no EOS id: every job runs all its tokens
+    per_step = 7 * LAYERS + 1       # fused linears of a t = 1 step
+
+    def new_cache(layers=LAYERS):
+        return PagedKVCache.alloc(layers, SERVE_PAGES, HEADS, HIDDEN // HEADS,
+                                  "bf16", device=dev)
+
+    cache = new_cache()
+
+    def new_gen(graphs=True, **kw):
+        return DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
+                                max_chunk_size=512, decode_burst=16,
+                                graphs=graphs, **kw)
+
+    def counted(gen, prompts, new, **kw):
+        """A warm round, then a measured round with its launch counts and
+        verify replays. -> (jobs, seconds, rounds, counts, replays)."""
+        spec_round(gen, prompts, new, **kw)
+        zero_counts()
+        before = dict(gen.step_graphs.replays)
+        jobs, dt, rounds = spec_round(gen, prompts, new, **kw)
+        got = launch_counts()
+        replays = {k[0]: 0 for k in gen.step_graphs.replays}
+        for k, n in gen.step_graphs.replays.items():
+            replays[k[0]] += n - before.get(k, 0)
+        return jobs, dt, rounds, got, replays
+
+    def check_counts(tag, got, want):
+        want = dict({"qmm_w4a8": 0, "qmm_partials": 0, "decode_attn": 0},
+                    **want)
+        got = {k: got[k] for k in want}
+        log(f"[spec] {tag}: launches {got} (expected {want})")
+        if got != want:
+            raise AssertionError(f"{tag} launch counts {got} != {want}")
+
+    rng = np.random.default_rng(12)
+    out, launches = {}, {}
+
+    # --- leg 1: n-gram speculative, batch 1: a 16-token pattern 8 times
+    prompt1 = [np.tile(rng.integers(3, 250, 16).astype(np.int32), 8)]
+    plain_gen = new_gen()
+    plain_jobs, dt_plain, _ = spec_round(plain_gen, prompt1, SPEC_NEW)
+    plain_jobs, dt_plain, _ = spec_round(plain_gen, prompt1, SPEC_NEW)
+    gen = new_gen(use_ngram_draft=True, num_draft_tokens=SPEC_D)
+    jobs, dt, rounds, got, replays = counted(gen, prompt1, SPEC_NEW)
+    check_counts("n-gram b1", got, {"qmm": per_step * rounds,
+                                    "paged_decode_attn": 0})
+    if replays.get("verify") != rounds:
+        raise AssertionError(f"n-gram: {replays} for {rounds} rounds")
+    launches["spec_ngram_b1"] = got
+    jobs_e, _, _ = spec_round(new_gen(False, use_ngram_draft=True,
+                                      num_draft_tokens=SPEC_D),
+                              prompt1, SPEC_NEW)
+    same_tokens("spec n-gram", jobs, jobs_e)
+    ties = near_tie("n-gram b1", model, plain_jobs, jobs)
+    acc = jobs[0].draft_accepted
+    tps, ms_round = decode_rate(jobs, rounds)
+    tps_plain, ms_step = decode_rate(plain_jobs, SPEC_NEW)
+    log(f"[spec] n-gram b1: decode {tps:.1f} tokens/s against "
+        f"{tps_plain:.1f} plain (decode_burst 16, same run; first token to "
+        f"last); {rounds} rounds, {acc / rounds:.2f} accepted drafts a "
+        f"round, {ms_round:.2f} ms of host clock a round ({ms_step:.2f} a "
+        f"plain step); whole rounds with the prefill {SPEC_NEW / dt:.1f} "
+        f"against {SPEC_NEW / dt_plain:.1f} tokens/s")
+    if acc <= 0:
+        raise AssertionError("n-gram: no draft accepted")
+    out["ngram_b1"] = {"tokens_per_s": tps, "plain_tokens_per_s": tps_plain,
+                       "round_tokens_per_s": SPEC_NEW / dt,
+                       "plain_round_tokens_per_s": SPEC_NEW / dt_plain,
+                       "rounds": rounds, "accepted": acc,
+                       "ms_per_round": ms_round, "ms_per_plain_step": ms_step,
+                       "ties": ties}
+    del gen, plain_gen
+
+    # --- leg 2: draft-model speculative at batch 1 and 4: (a) the model as
+    # its own draft, (b) a 2-layer random draft of another seed
+    dw, dst = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=2,
+                                   heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                   max_seq=2048, bits=4, seed=1, device=dev)
+    drafts = {"self": (model, LAYERS),
+              "2layer": (Model(precompute_model_scales(dw), dst), 2)}
+    prompts4 = [rng.integers(3, 250, SERVE_PROMPT).astype(np.int32)
+                for _ in range(4)]
+    plain_b = {}
+    for b, prompts in ((1, prompts4[:1]), (4, prompts4)):
+        pg = new_gen()
+        spec_round(pg, prompts, DRAFT_NEW)
+        plain_jobs, dt_plain, _ = spec_round(pg, prompts, DRAFT_NEW)
+        plain_b[b] = plain_jobs
+        del pg
+        for name, (dm, dl) in drafts.items():
+            tag = f"draft {name} b{b}"
+            dcache = new_cache(dl)
+            gen = new_gen(draft_model=dm, draft_cache=dcache,
+                          num_draft_tokens=SPEC_D)
+            jobs, dt, rounds, got, replays = counted(gen, prompts, DRAFT_NEW)
+            step = per_step if dl == LAYERS else 7 * dl + 1
+            check_counts(tag, got, {
+                "qmm": rounds * (per_step + SPEC_D * step),
+                "paged_decode_attn": rounds * SPEC_D * dl})
+            if replays.get("verify") != rounds or \
+                    replays.get("draft") != rounds:
+                raise AssertionError(f"{tag}: {replays} for {rounds} "
+                                     "rounds")
+            launches[f"spec_draft_{name}_b{b}"] = got
+            del gen
+            gen_e = new_gen(False, draft_model=dm, draft_cache=dcache,
+                            num_draft_tokens=SPEC_D)
+            jobs_e, dt_e, _ = spec_round(gen_e, prompts, DRAFT_NEW)
+            del gen_e, dcache
+            same_tokens(f"spec {tag}", jobs, jobs_e)
+            ties = near_tie(tag, model, plain_jobs, jobs)
+            acc = sum(j.draft_accepted for j in jobs)
+            tps, ms_round = decode_rate(jobs, rounds)
+            tps_plain, ms_step = decode_rate(plain_jobs, DRAFT_NEW)
+            tps_e, _ = decode_rate(jobs_e, rounds)
+            log(f"[spec] {tag}: decode {tps:.1f} tokens/s against "
+                f"{tps_plain:.1f} plain (eager {tps_e:.1f}); {rounds} "
+                f"rounds, {acc / rounds:.2f} accepted drafts a round "
+                f"({acc / (rounds * b * SPEC_D):.1%} of the drafts), "
+                f"{ms_round:.2f} ms of host clock a round ({ms_step:.2f} a "
+                f"plain step)")
+            out[f"draft_{name}_b{b}"] = {
+                "tokens_per_s": tps, "plain_tokens_per_s": tps_plain,
+                "eager_tokens_per_s": tps_e, "rounds": rounds,
+                "accepted": acc, "ms_per_round": ms_round,
+                "ms_per_plain_step": ms_step, "ties": ties}
+    del drafts, dw
+    torch.cuda.empty_cache()
+
+    # --- leg 3: CFG, 4 jobs with 64-token negative prompts
+    negs = [rng.integers(3, 250, 64).astype(np.int32) for _ in range(4)]
+    cfg_jobs = {}
+    for scale in (1.5, 1.0):
+        kw = {"negative_prompt_ids": negs, "cfg_scale": [scale] * 4}
+        gen = new_gen()
+        jobs, dt, rounds, got, _ = counted(gen, prompts4, DRAFT_NEW, **kw)
+        check_counts(f"CFG {scale}", got, {
+            "qmm": per_step * DRAFT_NEW,
+            "paged_decode_attn": LAYERS * DRAFT_NEW})
+        launches[f"cfg_{scale}"] = got
+        del gen
+        jobs_e, dt_e, _ = spec_round(new_gen(False), prompts4, DRAFT_NEW,
+                                     **kw)
+        same_tokens(f"cfg {scale}", jobs, jobs_e)
+        if any(j.kv_pos2 != 64 + DRAFT_NEW - 1 for j in jobs):
+            raise AssertionError("CFG: second-stream positions")
+        cfg_jobs[scale] = jobs
+        tps, ms_step = decode_rate(jobs, rounds)
+        tps_e, ms_e = decode_rate(jobs_e, rounds)
+        log(f"[spec] CFG {scale}: decode {tps:.1f} tokens/s, {ms_step:.2f} "
+            f"ms a paired step of 8 rows (eager {tps_e:.1f}, {ms_e:.2f} "
+            f"ms); {rounds} steps; with the 8 single-stream prefills "
+            f"{4 * DRAFT_NEW / dt:.1f} tokens/s")
+        out[f"cfg_{scale}"] = {"tokens_per_s": tps, "ms_per_step": ms_step,
+                               "eager_tokens_per_s": tps_e,
+                               "round_tokens_per_s": 4 * DRAFT_NEW / dt}
+    # at scale 1 the mix is the conditional log-probabilities
+    out["cfg_1.0"]["ties"] = near_tie("CFG 1.0", model, plain_b[4],
+                                      cfg_jobs[1.0])
+
+    # --- leg 4: LoRA, rank 16 on q/k/v/o and gate/up/down
+    lora_dir = write_random_lora(os.path.join(OUT_DIR, "lora_7b"), w,
+                                 rank=LORA_RANK, alpha=2.0 * LORA_RANK,
+                                 scale=0.02, seed=3)
+    lora = Lora(lora_dir)
+    served = serve_prompts(rng)
+    for merged in (False, True):
+        tag = "LoRA merged" if merged else "LoRA"
+        gen = new_gen(merged_weights=merged)
+        base, new, dt_base = serve_round(gen, served)
+        if not merged:                   # warm: the first round captures
+            base, new, dt_base = serve_round(gen, served)
+        gen.set_loras([lora])
+        if not merged:
+            serve_round(gen, served)
+        zero_counts()
+        adapted, _, dt = serve_round(gen, served)
+        got = launch_counts()
+        check_counts(tag, got, {"qmm": per_step * SERVE_NEW,
+                                "paged_decode_attn": LAYERS * SERVE_NEW})
+        launches["serving16_lora_merged" if merged
+                 else "serving16_lora"] = got
+        gen.set_loras(None)
+        restored, _, _ = serve_round(gen, served)
+        del gen
+        same_tokens(f"{tag} detached", restored, base)
+        moved = sum(a.sequence.tolist() != b.sequence.tolist()
+                    for a, b in zip(adapted, base))
+        log(f"[spec] {tag}: the adapter moves {moved} of {SERVE_JOBS} jobs")
+        if not moved:
+            raise AssertionError(f"{tag}: the adapter changed no token")
+        if merged:
+            same_tokens("LoRA merged vs unmerged", adapted, adapted_unmerged)
+            continue
+        adapted_unmerged = adapted
+        gen_e = new_gen(False)
+        gen_e.set_loras([lora])
+        adapted_e, _, dt_e = serve_round(gen_e, served)
+        del gen_e
+        same_tokens("LoRA", adapted, adapted_e)
+        log(f"[spec] LoRA rank {LORA_RANK}: serving16 {new / dt:.1f} "
+            f"tokens/s adapted against {new / dt_base:.1f} unadapted (warm "
+            f"rounds, same run; eager adapted {new / dt_e:.1f})")
+        out["lora"] = {"tokens_per_s": new / dt,
+                       "base_tokens_per_s": new / dt_base,
+                       "eager_tokens_per_s": new / dt_e, "moved": moved}
+    del cache
+    torch.cuda.empty_cache()
+
+    # a 2-layer cut: the adapted logits of graphed t = 1 steps against the
+    # same forward with every bypass in f32 (plain torch), and every adapted
+    # linear of that pass against the f32 product x @ W + s * (x @ A) @ B on
+    # the same input
+    cut = ModelWeights(w.embed, list(w.layers[:2]), w.final_norm, w.head,
+                       w.sin, w.cos)
+    st2 = dataclasses.replace(st, num_layers=2, layers=st.layers[:2])
+    m2 = Model(apply_lora(cut, lora), st2)
+    seq = rng.integers(3, 250, 24).astype(np.int32)
+    lc = m2.new_cache(1, 256)
+    lg, lc = m2.forward(seq[None, :8], lc, 0, last_token_only=True)
+    got = [lg[0, -1].float().cpu()]
+    for i in range(8, len(seq) - 1):
+        lg, lc = m2.forward(seq[None, i:i + 1], lc, i)
+        got.append(lg[0, -1].float().cpu())
+    linear_apply = F.linear_apply
+    dense, calls = {}, []
+
+    def f32_bypass(x, lin, **kw):
+        if not hasattr(lin, "base"):
+            return linear_apply(x, lin, **kw)
+        return linear_apply(x, lin.base, **kw) + lin.scaling * (
+            (x.float() @ lin.a.float()) @ lin.b.float())
+
+    def held(x, lin, **kw):
+        y = linear_apply(x, lin, **kw)
+        if hasattr(lin, "base"):
+            if id(lin) not in dense:
+                dense[id(lin)] = dequant_linear(lin.base, torch.float32)
+            xf = x.float()
+            ref = xf @ dense[id(lin)] + lin.scaling * (
+                (xf @ lin.a.float()) @ lin.b.float())
+            calls.append(((y - ref).abs().max() / ref.abs().max()).item())
+        return y
+
+    try:
+        F.linear_apply = f32_bypass
+        ref = teacher_forced_logits(m2, seq[:8], seq[8:])
+        F.linear_apply = held
+        teacher_forced_logits(m2, seq[:8], seq[8:])
+    finally:
+        F.linear_apply = linear_apply
+    logits_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                     for a, b in zip(got, ref))
+    lora_rel = max(calls)
+    log(f"[spec] LoRA 2-layer cut: {len(calls)} adapted linears against "
+        f"the f32 product on the same input: max rel err {lora_rel:.2e} "
+        f"(limit {LORA_TOL}); logits of {len(got)} graphed steps against "
+        f"the forward with the bypass in f32: rel err {logits_rel:.2e}")
+    if not (lora_rel < LORA_TOL and logits_rel < LORA_TOL):
+        raise AssertionError(f"LoRA linears rel err {lora_rel}, logits "
+                             f"{logits_rel}")
+    out["lora"].update(cut_linear_rel_err=lora_rel,
+                       cut_logits_rel_err=logits_rel)
+    del m2, lc, dense
+
+    # a weight swap on a model with step graphs (to another seed's
+    # weights): graphed against eager
+    prompt = prompts4[0][None, :16]
+    first = model.generate_greedy(prompt, 16)
+    w2, _ = random_model_weights(vocab=VOCAB, hidden=HIDDEN, layers=LAYERS,
+                                 heads=HEADS, kv_heads=HEADS, inter=INTER,
+                                 max_seq=2048, bits=4, seed=2, device=dev)
+    model.weights = precompute_model_scales(w2)
+    swapped = model.generate_greedy(prompt, 16)
+    swapped_e = eager(model, lambda: model.generate_greedy(prompt, 16))
+    moved = int((swapped != first).sum())
+    log(f"[spec] weight swap: graphed tokens equal the eager path's: "
+        f"{np.array_equal(swapped, swapped_e)}; the swap moved {moved} of "
+        f"16 tokens")
+    if not np.array_equal(swapped, swapped_e) or not moved:
+        raise AssertionError("weight swap: graphed != eager, or no token "
+                             "moved")
+    del model, w, w2
+    torch.cuda.empty_cache()
+    return {"legs": out, "launches": launches}
+
+
 def tools_entries(tools, rate) -> list:
     """The kernels-line entries of the tools path: each perf_qmm kernel
     summed over the three 7B shapes at M = 8, 4 bits, groups of 32 (the
@@ -2379,6 +2787,14 @@ def main() -> int:
         log(f"[done] build and the constrained phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["spec"]:
+        detail["spec"] = phase_spec(dev)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_spec.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the spec phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -2405,6 +2821,7 @@ def main() -> int:
                              detail["serving"])
     detail["tools"] = timed("tools", phase_tools, dev, rate)
     detail["constrained"] = timed("constrained", phase_constrained, dev)
+    detail["spec"] = timed("spec", phase_spec, dev)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -2414,6 +2831,7 @@ def main() -> int:
         detail["merged"]["partials_launches"]
     launches["serving16_constrained"] = detail["constrained"]["launches"]
     launches["tools"] = detail["tools"]["launches"]
+    launches.update(detail["spec"]["launches"])
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
                         detail["paged"], perr, partials, launches, rate)
     kernels += tools_entries(detail["tools"], rate)
@@ -2421,7 +2839,7 @@ def main() -> int:
     detail["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(detail, f, indent=1)
+        json.dump(detail, f, indent=1, default=str)
     log(f"[done] all phases passed in {detail['seconds']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -11,15 +11,18 @@ stop strings with held UTF-8 text. The device side:
     sampler rows, packed allow-masks) go up in one int32 buffer;
   * a burst of k steps feeds each sampled token back through the token
     history on the device and reads [k, B] tokens back once;
-  * on the card both replay CUDA graphs (utils/graphs.py), the counterparts
-    of the reference's jitted steps, keyed as the reference keys them:
-    ("decode", b_bucket, p_bucket, masked, use_dry, biased, topk,
-    ret_logits, use_pen) and ("decode_burst", b_bucket, p_bucket, k,
-    use_dry, biased, use_pen), at most MAX_GRAPHS, the sampler's generator
-    registered with each; ``graphs=False`` runs them eagerly (the default on
-    the CPU). Which kernel serves a linear (QMM_PARTIALS) is read when a key
-    is captured, as the reference reads it when it traces. The prefill
-    stays eager;
+  * on the card every decode step replays a CUDA graph (utils/graphs.py),
+    the counterpart of the reference's jitted steps, keyed as the reference
+    keys them: ("decode", b_bucket, p_bucket, masked, use_dry, biased,
+    topk, ret_logits, use_pen), ("decode_burst", b_bucket, p_bucket, k,
+    use_dry, biased, use_pen), ("decode_cfg", rows_bucket, p_bucket),
+    ("draft", b_bucket, p_bucket, k) and ("verify", b_bucket, p_bucket, d),
+    at most MAX_GRAPHS, the sampler's generator registered with each;
+    ``graphs=False`` runs them eagerly (the default on the CPU). Which
+    kernel serves a linear (QMM_PARTIALS) is read when a key is captured, as
+    the reference reads it when it traces. A graph reads the weights it was
+    captured with: new weights (set_loras, or ``generator.model`` replaced)
+    drop every graph. The prefill stays eager;
   * the token history ``hist`` [slots + 1, max_seq_len + 2] int32 lives on
     the device, so penalties and the decode input gather never re-upload a
     sequence;
@@ -40,10 +43,20 @@ hooks see every sampled token. The device history needs no repair after a
 rewind: row `slot` holds the job's sequence up to the rewound length, the
 next step reads hist[slot, kv_pos] and overwrites what lies behind it.
 
-Not ported yet (each raises NotImplementedError when asked for):
-speculative decoding (draft_model, use_ngram_draft), mesh, CFG
-(negative_prompt_ids), embeddings / MRoPE, set_loras and the MoE drop
-counters.
+CFG (``DynamicJob(negative_prompt_ids=)`` with ``settings.cfg_scale``)
+runs a second, unconditional stream with its own pages and history slot;
+the paired decode step mixes the two streams' log-probabilities.
+Speculative decoding (``use_ngram_draft=True``, or ``draft_model=`` with a
+``draft_cache=`` over the same page count) drafts d = num_draft_tokens
+tokens (host n-gram tables, generator/speculative.py, or d greedy steps of
+the draft model in one graph) and verifies them in one t = d + 1 forward
+that samples every position; the matching prefix and one more token are
+accepted. Rejected drafts leave KV rows past the accepted length, which
+the next step overwrites before any query reads them. ``set_loras``
+attaches PEFT adapters (lora.py) to the served weights.
+
+Not ported yet (each raises NotImplementedError when asked for): mesh,
+embeddings / MRoPE and the MoE drop counters.
 """
 
 from __future__ import annotations
@@ -64,6 +77,7 @@ from exllamav2_tpu_torch.generator.filters.base import piece_table
 from exllamav2_tpu_torch.generator.hooks import PostSamplingResult
 from exllamav2_tpu_torch.generator.sampler import (
     ROWS, Settings, params_from_rows, settings_rows)
+from exllamav2_tpu_torch.generator.speculative import NgramDrafter
 from exllamav2_tpu_torch.models.forward import model_forward_paged
 from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
 from exllamav2_tpu_torch.ops.sampling import (
@@ -134,10 +148,8 @@ class DynamicJob:
                  min_new_tokens: int = 0,
                  max_skips: int | None = 4,
                  return_logits: bool = False):
-        for name, val in (("negative_prompt_ids", negative_prompt_ids),
-                          ("embeddings", embeddings)):
-            if _given(val):
-                _unported(f"DynamicJob({name}=...)")
+        if _given(embeddings):
+            _unported("DynamicJob(embeddings=...)")
         ids = np.asarray(input_ids, np.int32).reshape(-1)
         self.prompt_ids = ids
         self.min_new_tokens = min_new_tokens   # suppress EOS below this
@@ -163,6 +175,18 @@ class DynamicJob:
         self.blocked_tokens: set[int] = set()   # one-shot (rewind/healing)
         self.checkpoint = None                  # banned-string rewind state
         self.rewind_deferred = False            # awaiting a page for rewind
+        self.draft_accepted = 0
+
+        # CFG: the second (negative, unconditional) stream, when the
+        # settings carry a cfg_scale
+        self.negative_ids = None
+        if negative_prompt_ids is not None and \
+                (settings and settings.cfg_scale is not None):
+            self.negative_ids = np.asarray(
+                negative_prompt_ids, np.int32).reshape(-1)
+        self.pages2: list[CachePage] = []
+        self.slot2 = -1
+        self.kv_pos2 = 0
 
         self.stop_tokens: set[int] = set()
         self.stop_strings: list[str] = []
@@ -192,12 +216,24 @@ class DynamicJob:
         self.time_last_token = 0.0
 
     @property
+    def is_cfg(self) -> bool:
+        return self.negative_ids is not None
+
+    @property
     def prompt_len(self) -> int:
         return len(self.prompt_ids)
 
-    def pages_needed(self, page_size: int) -> int:
-        """Pages for prompt + generation."""
-        total = self.prompt_len + self.max_new_tokens
+    def pages_needed(self, page_size: int, margin: int = 0) -> int:
+        """Pages for prompt + generation; `margin` holds the verify step's
+        KV rows past the accepted length (speculative decoding)."""
+        total = self.prompt_len + self.max_new_tokens + margin
+        return -(-total // page_size)
+
+    def pages2_needed(self, page_size: int, margin: int = 0) -> int:
+        """Pages of the CFG stream (0 without one)."""
+        if not self.is_cfg:
+            return 0
+        total = len(self.negative_ids) + self.max_new_tokens + margin
         return -(-total // page_size)
 
 
@@ -228,19 +264,18 @@ class DynamicGenerator:
         q|k|v and gate|up linears (exact). w4a8: opt-in approximate decode
         with int8 activations (decode steps only; the prefill and the head
         stay exact). Neither changes the caller's model. graphs: replay
-        the decode step and burst as CUDA graphs (default: on a card
-        device); False runs them eagerly."""
-        for name, val in (("draft_model", draft_model),
-                          ("draft_cache", draft_cache),
-                          ("use_ngram_draft", use_ngram_draft),
-                          ("mesh", mesh)):
-            if _given(val):
-                _unported(f"DynamicGenerator({name}=...)")
+        the decode steps as CUDA graphs (default: on a card device); False
+        runs them eagerly. use_ngram_draft, or draft_model with a
+        draft_cache over the same number of pages: speculative decoding
+        with num_draft_tokens drafts a round."""
+        if _given(mesh):
+            _unported("DynamicGenerator(mesh=...)")
         from exllamav2_tpu_torch.models.model import Model
         from exllamav2_tpu_torch.ops import dequant as D
         if decode_burst is None:
             decode_burst = int(os.environ.get("DECODE_BURST", 8))
         self.decode_burst = int(decode_burst)
+        self._merged_weights = bool(merged_weights)
         self.ttft_slo_ms = ttft_slo_ms
         self._ttft_recent = deque(maxlen=32)
         if prescale is None:
@@ -252,8 +287,7 @@ class DynamicGenerator:
             model = Model(D.merge_serving_weights(model.weights),
                           model.static, model.config)
         if prescale:
-            # decode EXL2 group scales once into bf16 rows (idempotent;
-            # updates the model's weight modules in place)
+            # decode EXL2 group scales once into bf16 rows (idempotent)
             model = Model(D.precompute_model_scales(model.weights),
                           model.static, model.config)
         if w4a8:
@@ -272,6 +306,20 @@ class DynamicGenerator:
         self.max_chunk_size = max_chunk_size
         self.max_seq_len = max_seq_len or cache.num_pages * self.page_size
 
+        # speculative decoding
+        self.draft_model = draft_model
+        self.draft_cache = draft_cache
+        self.num_draft_tokens = num_draft_tokens
+        self.use_ngram_draft = use_ngram_draft
+        self.ngram = NgramDrafter(max_ngram) if use_ngram_draft else None
+        if draft_model is not None and (
+                draft_cache is None or draft_cache.num_pages != cache.num_pages
+                or draft_cache.device != self.device
+                or draft_model.device != self.device):
+            raise ValueError("draft_model needs a draft_cache on the "
+                             "generator's device over the main cache's "
+                             f"{cache.num_pages} pages")
+
         # page pool; page 0 reserved as the null page for padded batch rows
         self.pages = [CachePage(i) for i in range(cache.num_pages)]
         self.free_pages: list[CachePage] = self.pages[1:][::-1]
@@ -280,10 +328,12 @@ class DynamicGenerator:
         self.access_serial = 0
 
         # device-side token history; the extra row is the dummy slot of pad
-        # rows, the two extra columns hold the token sampled at the end
+        # rows, the extra columns hold the tokens sampled at the end (a
+        # verify step writes num_draft_tokens + 1 of them)
         self.num_slots = max_batch_size
-        self.hist = torch.zeros((self.num_slots + 1, self.max_seq_len + 2),
-                                dtype=torch.int32, device=self.device)
+        self.hist = torch.zeros(
+            (self.num_slots + 1, self.max_seq_len + num_draft_tokens + 2),
+            dtype=torch.int32, device=self.device)
         self.free_slots = list(range(self.num_slots))[::-1]
 
         self.pending: list[DynamicJob] = []
@@ -294,6 +344,8 @@ class DynamicGenerator:
         if graphs is None:
             graphs = self.device.type == "cuda"
         self.step_graphs = None
+        self._graphed_weights = ()     # weak refs to what the graphs read
+        self._active_loras = ()
         if graphs:
             from exllamav2_tpu_torch.utils.graphs import StepGraphs
             self.step_graphs = StepGraphs(self.device, MAX_GRAPHS,
@@ -350,6 +402,8 @@ class DynamicGenerator:
             return
         if not self.free_pages:
             return                      # need one scratch page for cycles
+        if self.draft_cache is not None:
+            return                      # keep the draft's pages in step
         by_prev: dict[bytes | None, list[CachePage]] = {}
         for p in self.unreferenced.values():
             by_prev.setdefault(p.prev_hash, []).append(p)
@@ -448,7 +502,35 @@ class DynamicGenerator:
         self.reset_page_table()
 
     def set_loras(self, loras):
-        _unported("DynamicGenerator.set_loras")
+        """Attach PEFT adapters (lora.Lora) to the served weights, or detach
+        them all with None / []. Rebuilds the weights with LoraLinear
+        wraps (merged q|k|v and gate|up streams are stripped while adapters
+        are attached, and merged again on detach when the generator serves
+        merged weights) and drops every step graph: the next steps capture
+        with the new weights. A no-op when the same adapter objects are
+        attached already; they are held by strong reference, so no id of a
+        collected adapter can stand for another."""
+        from exllamav2_tpu_torch.lora import apply_lora, remove_lora
+        from exllamav2_tpu_torch.ops import dequant as D
+        requested = tuple(loras or [])
+        active = self._active_loras
+        if len(requested) == len(active) and all(
+                a is b for a, b in zip(requested, active)):
+            return
+        w = remove_lora(self.model.weights)
+        if requested:
+            # the forward prefers a merged stream, which would bypass the
+            # wrapped q/k/v and gate/up
+            w = D.strip_merged_weights(w)
+        elif self._merged_weights:
+            w = D.merge_serving_weights(w)
+        for lora in requested:
+            w = apply_lora(w, lora)
+        self.model = type(self.model)(w, self.model.static,
+                                      self.model.config)
+        if self.step_graphs is not None:
+            self.step_graphs.drop(lambda k: True)
+        self._active_loras = requested
 
     def encode_with_embeddings(self, *args, **kwargs):
         _unported("DynamicGenerator.encode_with_embeddings")
@@ -487,7 +569,7 @@ class DynamicGenerator:
             "page sets overlap"
         counts: dict[int, int] = {}
         for job in self.active:
-            for p in job.pages:
+            for p in job.pages + job.pages2:
                 counts[id(p)] = counts.get(id(p), 0) + 1
         for p in self.pages:
             if p.index == 0:
@@ -506,6 +588,14 @@ class DynamicGenerator:
             assert p.phash == h, "unreferenced hash key mismatch"
 
     def _release_job_pages(self, job: DynamicJob):
+        for page in job.pages2:
+            page.ref_count -= 1
+            if page.ref_count == 0:
+                self.free_pages.append(page)
+        job.pages2 = []
+        if job.slot2 >= 0:
+            self.free_slots.append(job.slot2)
+            job.slot2 = -1
         for page in job.pages:
             page.ref_count -= 1
             if page.ref_count == 0:
@@ -532,13 +622,17 @@ class DynamicGenerator:
         # a job referencing more distinct pages than the pool holds can
         # never be admitted (page 0 is the reserved null page): fail here
         # instead of stalling every later admission
-        demand = job.pages_needed(self.page_size)
+        margin = self._draft_margin()
+        demand = job.pages_needed(self.page_size, margin) \
+            + job.pages2_needed(self.page_size, margin)
         usable = len(self.pages) - 1
         if demand > usable:
             raise ValueError(
                 f"job needs {demand} cache pages (prompt {job.prompt_len} "
-                f"+ max_new_tokens {job.max_new_tokens}) but the cache only "
-                f"has {usable} usable pages")
+                f"+ max_new_tokens {job.max_new_tokens} + draft margin "
+                f"{margin}) but the cache only has {usable} usable pages")
+        if job.is_cfg and self.num_slots < 2:
+            raise ValueError("CFG jobs need max_batch_size >= 2")
         # token healing: re-predict the last prompt token constrained to
         # pieces extending it
         if job.token_healing and job.prompt_len >= 2:
@@ -560,9 +654,16 @@ class DynamicGenerator:
         self.pending.append(job)
         return job
 
+    def _draft_margin(self) -> int:
+        """KV rows a verify step may write past a job's accepted length."""
+        spec = self.draft_model is not None or self.use_ngram_draft
+        return self.num_draft_tokens if spec else 0
+
     def _try_start(self, job: DynamicJob) -> bool:
-        needed = job.pages_needed(self.page_size)
-        if not self.free_slots:
+        margin = self._draft_margin()
+        needed = job.pages_needed(self.page_size, margin)
+        needed2 = job.pages2_needed(self.page_size, margin)
+        if len(self.free_slots) < (2 if job.is_cfg else 1):
             return False
 
         # hash-chain prompt reuse: only pages that end strictly before the
@@ -582,7 +683,7 @@ class DynamicGenerator:
             reusable.append(page)
 
         fresh_needed = needed - len(reusable)
-        if self._free_capacity() < fresh_needed:
+        if self._free_capacity() < fresh_needed + needed2:
             # roll back unreferenced -> referenced moves made above
             for page in reusable:
                 if page.ref_count == 0 and page.phash in self.referenced:
@@ -627,12 +728,25 @@ class DynamicGenerator:
                 if m > best_m:
                     best, best_m = page, m
             if best is not None and best_m > 0:
-                self.cache.copy_pages([best.index], [pages[j].index])
+                self._copy_pages([best.index], [pages[j].index])
                 self._touch(best)
                 job.kv_pos += best_m
                 job.reused_tokens += best_m
 
         job.slot = self.free_slots.pop()
+        if job.is_cfg:
+            for _ in range(needed2):
+                page = self._take_free_page()
+                page.ref_count = 1
+                page.kv_position = 0
+                self._touch(page)
+                job.pages2.append(page)
+            job.slot2 = self.free_slots.pop()
+            job.kv_pos2 = 0
+            n2 = min(_bucket(len(job.negative_ids), 16), self.max_seq_len)
+            padded2 = np.zeros((n2,), np.int32)
+            padded2[:len(job.negative_ids)] = job.negative_ids
+            self._write_hist(job.slot2, 0, padded2)
         job.status = "prefill"
         self.active.append(job)
 
@@ -644,6 +758,12 @@ class DynamicGenerator:
         self._write_hist(job.slot, 0, padded)
         self._sync_bias_row(job)
         return True
+
+    def _copy_pages(self, src: list[int], dst: list[int]):
+        """Copy pages of the cache, and of the draft cache with it."""
+        self.cache.copy_pages(src, dst)
+        if self.draft_cache is not None:
+            self.draft_cache.copy_pages(src, dst)
 
     def _write_hist(self, slot: int, start: int, ids: np.ndarray):
         """hist[slot, start:start + len(ids)] = ids, on the device."""
@@ -689,23 +809,34 @@ class DynamicGenerator:
                    for j in jobs)
 
     def _prefill_forward(self, ids: np.ndarray, bt: np.ndarray,
-                         pos: np.ndarray):
-        """One prefill forward that fills the cache; its logits are never
-        used, so the head is skipped."""
-        model_forward_paged(self.model.weights, self.model.static,
-                            self._dev(ids), self.cache, self._dev(bt),
-                            self._dev(pos), last_token_only=True,
+                         pos: np.ndarray, draft: bool = True):
+        """One prefill forward that fills the cache (and the draft model's
+        cache, unless draft=False); its logits are never used, so the head
+        is skipped."""
+        ids, bt, pos = self._dev(ids), self._dev(bt), self._dev(pos)
+        model_forward_paged(self.model.weights, self.model.static, ids,
+                            self.cache, bt, pos, last_token_only=True,
                             with_logits=False)
+        if draft and self.draft_model is not None:
+            model_forward_paged(self.draft_model.weights,
+                                self.draft_model.static, ids,
+                                self.draft_cache, bt, pos,
+                                last_token_only=True, with_logits=False)
 
-    def _job_block_table(self, job: DynamicJob, width: int) -> np.ndarray:
+    @staticmethod
+    def _block_table(pages: list[CachePage], width: int) -> np.ndarray:
         bt = np.zeros((width,), np.int32)     # null page padding
-        for i, p in enumerate(job.pages):
+        for i, p in enumerate(pages):
             bt[i] = p.index
         return bt
 
-    def _next_chunk_span(self, job: DynamicJob):
-        """(pos, end) of the job's next page-aligned prefill chunk."""
-        pos, plen = job.kv_pos, job.prompt_len
+    def _next_chunk_span(self, job: DynamicJob, stream2: bool = False):
+        """(pos, end) of the job's next page-aligned prefill chunk (of its
+        CFG stream with stream2)."""
+        if stream2:
+            pos, plen = job.kv_pos2, len(job.negative_ids)
+        else:
+            pos, plen = job.kv_pos, job.prompt_len
         end = min(pos + self.max_chunk_size, plen - 1)
         if end < plen - 1:
             end = (end // self.page_size) * self.page_size
@@ -741,26 +872,34 @@ class DynamicGenerator:
         pos_a = np.zeros((b_bucket,), np.int32)
         for i, (job, pos, end) in enumerate(chunks):
             ids[i, :end - pos] = job.prompt_ids[pos:end]
-            bt[i] = self._job_block_table(job, p_bucket)
+            bt[i] = self._block_table(job.pages, p_bucket)
             pos_a[i] = pos
         self._prefill_forward(ids, bt, pos_a)
         for job, pos, end in chunks:
             job.kv_pos = end
             self._update_page_fill(job)
 
-    def _prefill_chunk(self, job: DynamicJob):
-        pos, end = self._next_chunk_span(job)
+    def _prefill_chunk(self, job: DynamicJob, stream2: bool = False):
+        """The job's next prefill chunk, of its CFG stream with stream2
+        (which the draft model does not see)."""
+        pos, end = self._next_chunk_span(job, stream2)
         t = end - pos
         if t <= 0:
             return
+        ids, pages = ((job.negative_ids, job.pages2) if stream2
+                      else (job.prompt_ids, job.pages))
         t_bucket = _bucket(t, 16)
-        p_bucket = _bucket(len(job.pages), 2)
+        p_bucket = _bucket(len(pages), 2)
         chunk = np.zeros((1, t_bucket), np.int32)
-        chunk[0, :t] = job.prompt_ids[pos:end]
-        bt = self._job_block_table(job, p_bucket)[None]
-        self._prefill_forward(chunk, bt, np.asarray([pos], np.int32))
-        job.kv_pos = end
-        self._update_page_fill(job)
+        chunk[0, :t] = ids[pos:end]
+        bt = self._block_table(pages, p_bucket)[None]
+        self._prefill_forward(chunk, bt, np.asarray([pos], np.int32),
+                              draft=not stream2)
+        if stream2:
+            job.kv_pos2 = end
+        else:
+            job.kv_pos = end
+            self._update_page_fill(job)
 
     def _update_page_fill(self, job: DynamicJob):
         """Track per-page fill; hash pages as they fill."""
@@ -810,7 +949,7 @@ class DynamicGenerator:
                         # job sits out decode until a page frees up
                         ok = False
                         continue
-                    self.cache.copy_pages([page.index], [fresh.index])
+                    self._copy_pages([page.index], [fresh.index])
                     page.ref_count -= 1
                     fresh.ref_count = 1
                     fresh.kv_position = fill
@@ -863,18 +1002,11 @@ class DynamicGenerator:
         bts = np.zeros((b, p), np.int32)
         seqlens = np.zeros((b,), np.int32)
         slots = np.full((b,), self.num_slots, np.int32)         # dummy slot
-        sett, mus = [], []
         for i, job in enumerate(jobs):
-            bts[i] = self._job_block_table(job, p)
+            bts[i] = self._block_table(job.pages, p)
             seqlens[i] = job.kv_pos
             slots[i] = job.slot
-            sett.append(job.settings)
-            mus.append(job.mirostat_mu)
-        sett += [Settings.greedy()] * (b - len(jobs))
-        mus += [0.0] * (b - len(jobs))
-        f, i32, bl = settings_rows(sett, mus)
-        parts = [bts.ravel(), seqlens, slots, f.view(np.int32).ravel(),
-                 i32.ravel(), bl.astype(np.int32).ravel()]
+        extra = []
         if masks is not None:
             vocab = self.model.static.vocab_size
             allow = np.ones((b, vocab), bool)
@@ -883,24 +1015,47 @@ class DynamicGenerator:
                     allow[i] = m
             packed = np.packbits(allow, axis=1, bitorder="little")
             packed = np.pad(packed, ((0, 0), (0, -packed.shape[1] % 4)))
-            parts.append(packed.view(np.int32).ravel())
-        return torch.from_numpy(np.concatenate(parts))
+            extra.append(packed.view(np.int32).ravel())
+        return self._pack_inputs(bts, seqlens, slots, jobs, b, *extra)
+
+    @staticmethod
+    def _pack_inputs(bts, seqlens, slots, jobs, n: int, *extra
+                     ) -> torch.Tensor:
+        """Block tables, seqlens, slots, the sampler rows of `jobs` padded
+        to n greedy rows (f32 as their bits, bools as 0 / 1) and `extra`
+        int32 arrays, as one int32 host buffer."""
+        sett = [j.settings for j in jobs] + \
+            [Settings.greedy()] * (n - len(jobs))
+        mus = [j.mirostat_mu for j in jobs] + [0.0] * (n - len(jobs))
+        f, i32, bl = settings_rows(sett, mus)
+        return torch.from_numpy(np.concatenate(
+            [bts.ravel(), seqlens, slots, f.view(np.int32).ravel(),
+             i32.ravel(), bl.astype(np.int32).ravel(), *extra]))
+
+    @staticmethod
+    def _views(buf: torch.Tensor, b: int, p: int, n: int | None = None):
+        """The device views of a _pack_inputs buffer of b rows and n sampler
+        rows (default b): (block tables, seqlens, slots, SamplingParams,
+        the extra int32 words)."""
+        n = b if n is None else n
+        sizes = [b * p, b, b, ROWS[0] * n, ROWS[1] * n, ROWS[2] * n]
+        sizes.append(buf.numel() - sum(sizes))
+        parts = buf.split(sizes)
+        params = params_from_rows(
+            parts[3].view(torch.float32).view(ROWS[0], n),
+            parts[4].view(ROWS[1], n), parts[5].view(ROWS[2], n) != 0)
+        return parts[0].view(b, p), parts[1], parts[2].long(), params, \
+            parts[6]
 
     def _step_views(self, buf: torch.Tensor, b: int, p: int, masked: bool):
         """The device views of a _step_inputs buffer: (block tables,
         seqlens, slots, SamplingParams, allow-mask or None)."""
-        sizes = [b * p, b, b, ROWS[0] * b, ROWS[1] * b, ROWS[2] * b]
-        if masked:
-            sizes.append(buf.numel() - sum(sizes))
-        parts = buf.split(sizes)
-        params = params_from_rows(
-            parts[3].view(torch.float32).view(ROWS[0], b),
-            parts[4].view(ROWS[1], b), parts[5].view(ROWS[2], b) != 0)
+        bts, seqlens, slots, params, rest = self._views(buf, b, p)
         lf = None
         if masked:
-            packed = parts[6].view(b, -1).view(torch.uint8)
+            packed = rest.view(b, -1).view(torch.uint8)
             lf = unpack_mask(packed, self.model.static.vocab_size)
-        return parts[0].view(b, p), parts[1], parts[2].long(), params, lf
+        return bts, seqlens, slots, params, lf
 
     def _decode_fn(self, b, p, masked, use_dry, biased, topk, ret_logits,
                    use_pen, buf):
@@ -937,18 +1092,27 @@ class DynamicGenerator:
         return torch.cat([torch.stack(toks_k), torch.stack(probs_k),
                           mu[None]])
 
-    def _run(self, key: tuple, method, buf: torch.Tensor):
-        """method(self, *key[1:], buf) on the host inputs `buf`: the key's
-        step graph replayed, or with graphs off the step run eagerly on an
-        upload of `buf`. The runner keeps the step function for the life of
-        its graph, so the function holds this generator weakly: a strong
-        reference would be a cycle that only the cyclic collector frees,
-        and a CUDA graph destroyed while any capture is under way voids that
-        capture."""
+    def _run(self, key: tuple, method, *args: torch.Tensor):
+        """method(self, *key[1:], *args) on the inputs `args` (host or
+        device tensors): the key's step graph replayed, or with graphs off
+        the step run eagerly on the inputs moved to the device. The runner
+        keeps the step function for the life of its graph, so the function
+        holds this generator weakly: a strong reference would be a cycle
+        that only the cyclic collector frees, and a CUDA graph destroyed
+        while any capture is under way voids that capture. A graph reads
+        the weights of its capture, so new weights drop every graph."""
         if self.step_graphs is not None:
+            served = (self.model.weights, self.draft_model.weights
+                      if self.draft_model is not None else None)
+            if tuple(r() if r else None for r in self._graphed_weights) \
+                    != served:
+                self.step_graphs.drop(lambda k: True)
+                self._graphed_weights = tuple(
+                    weakref.ref(w) if w is not None else None
+                    for w in served)
             fn = functools.partial(method, weakref.proxy(self), *key[1:])
-            return self.step_graphs(key, fn, buf)
-        return method(self, *key[1:], buf.to(self.device))
+            return self.step_graphs(key, fn, *args)
+        return method(self, *key[1:], *(a.to(self.device) for a in args))
 
     def _decode(self, jobs: list[DynamicJob], results: list[dict]):
         b = len(jobs)
@@ -1046,6 +1210,148 @@ class DynamicGenerator:
         self._emit(job, tok, results)
 
     # ------------------------------------------------------------------
+    # CFG
+    # ------------------------------------------------------------------
+
+    def _cfg_fn(self, rows, p, buf):
+        """The paired decode step of key ("decode_cfg", rows, p): rows
+        2i / 2i + 1 are job i's conditional and unconditional streams; the
+        mix s * cond + (1 - s) * uncond of their log-probabilities, with
+        the penalties over the conditional history, is sampled once a job
+        and written to both streams' history -> [tokens, probs, mu] f32
+        [3, rows / 2]. The scales are the buffer's last rows / 2 words."""
+        n = rows // 2
+        bts, seqlens, slots, params, scale = self._views(buf, rows, p, n)
+        scale = scale.view(torch.float32)[:, None]
+        pos = seqlens.long()
+        ids = self.hist[slots, pos][:, None]
+        logits, _ = model_forward_paged(
+            self.model.weights, self.model.static, ids, self.cache, bts,
+            seqlens, last_token_only=True)
+        lsm = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
+        mixed = scale * lsm[0::2] + (1.0 - scale) * lsm[1::2]
+        mixed = apply_penalties(mixed, self.hist[slots[0::2]],
+                                seqlens[0::2] + 1, params)
+        toks, probs, mu = sample(mixed, params, generator=self._rng)
+        self.hist[slots, pos + 1] = toks.repeat_interleave(2)
+        return torch.stack([toks.float(), probs, mu])
+
+    def _decode_cfg(self, jobs: list[DynamicJob], results: list[dict]):
+        n = len(jobs)
+        n_bucket = _bucket(n, 1)
+        rows = 2 * n_bucket
+        p_bucket = _bucket(max(max(len(j.pages), len(j.pages2))
+                               for j in jobs), 2)
+        bts = np.zeros((rows, p_bucket), np.int32)
+        seqlens = np.zeros((rows,), np.int32)
+        slots = np.full((rows,), self.num_slots, np.int32)
+        scales = np.ones((n_bucket,), np.float32)
+        for i, job in enumerate(jobs):
+            bts[2 * i] = self._block_table(job.pages, p_bucket)
+            bts[2 * i + 1] = self._block_table(job.pages2, p_bucket)
+            seqlens[2 * i], seqlens[2 * i + 1] = job.kv_pos, job.kv_pos2
+            slots[2 * i], slots[2 * i + 1] = job.slot, job.slot2
+            scales[i] = job.settings.cfg_scale
+        buf = self._pack_inputs(bts, seqlens, slots, jobs, n_bucket,
+                                scales.view(np.int32))
+        out = self._run(("decode_cfg", rows, p_bucket),
+                        DynamicGenerator._cfg_fn, buf)
+        toks_h, probs_h, mu_h = out.cpu().numpy()
+        now = time.perf_counter()
+        for i, job in enumerate(jobs):
+            job.mirostat_mu = float(mu_h[i])
+            job.last_prob = float(probs_h[i])
+            job.kv_pos2 += 1
+            self._accept(job, int(toks_h[i]), now, results)
+
+    # ------------------------------------------------------------------
+    # speculative decoding
+    # ------------------------------------------------------------------
+
+    def _draft_fn(self, b, p, k, buf):
+        """k greedy t = 1 steps of the draft model, key ("draft", b, p, k):
+        the first input is hist[slot, seqlen] of each row, each step's
+        argmax the next -> drafts int32 [b, k]. Writes the draft cache's
+        rows seqlen .. seqlen + k - 1."""
+        bts, seqlens, slots, _, _ = self._views(buf, b, p)
+        dm = self.draft_model
+        ids = self.hist[slots, seqlens.long()][:, None]
+        drafts = []
+        for i in range(k):
+            logits, _ = model_forward_paged(
+                dm.weights, dm.static, ids, self.draft_cache, bts,
+                seqlens + i, last_token_only=True)
+            ids = torch.argmax(logits[:, -1, :], dim=-1).to(
+                torch.int32)[:, None]
+            drafts.append(ids)
+        return torch.cat(drafts, dim=1)
+
+    def _verify_fn(self, b, p, d, buf, drafts):
+        """The verify step of key ("verify", b, p, d): one t = d + 1
+        forward of hist[slot, seqlen] and the d drafts (-1 = no draft, fed
+        as 0, never matched), the penalties of the pre-draft context at
+        every position, a sample at every position; draft j is accepted
+        when it and every draft before it equal the samples. The d + 1
+        samples go to hist[slot, seqlen + 1 ..] -> int32 [b, d + 2]: the
+        samples, then the accepted count."""
+        bts, seqlens, slots, params, _ = self._views(buf, b, p)
+        pos = seqlens.long()
+        t0 = self.hist[slots, pos][:, None]
+        ids = torch.cat([t0, drafts.clamp(min=0)], dim=1)
+        logits, _ = model_forward_paged(
+            self.model.weights, self.model.static, ids, self.cache, bts,
+            seqlens)
+        lg = logits.reshape(b * (d + 1), -1)
+        rep = functools.partial(torch.repeat_interleave, repeats=d + 1,
+                                dim=0)
+        params_r = type(params)(**{f.name: rep(getattr(params, f.name))
+                                   for f in dataclasses.fields(params)})
+        lg = apply_penalties(lg, rep(self.hist[slots]), rep(seqlens + 1),
+                             params_r)
+        toks, _, _ = sample(lg, params_r, generator=self._rng)
+        toks = toks.reshape(b, d + 1)
+        match = (toks[:, :d] == drafts).to(torch.int32)
+        accepts = torch.cumprod(match, dim=1).sum(dim=1, dtype=torch.int32)
+        off = torch.arange(d + 1, device=pos.device)
+        self.hist[slots[:, None], pos[:, None] + 1 + off] = toks
+        return torch.cat([toks, accepts[:, None]], dim=1)
+
+    def _decode_spec(self, jobs: list[DynamicJob], results: list[dict]):
+        """One speculative round: d drafts a job (the n-gram tables on the
+        host, or the draft step), verified in one forward."""
+        d = self.num_draft_tokens
+        b_bucket = _bucket(len(jobs), 1)
+        p_bucket = _bucket(max(len(j.pages) for j in jobs), 2)
+        buf = self._step_inputs(jobs, b_bucket, p_bucket, None)
+        if self.use_ngram_draft:
+            drafts = np.full((b_bucket, d), -1, np.int32)
+            for i, job in enumerate(jobs):
+                self.ngram.update(id(job), job.sequence)
+                dr = self.ngram.draft(id(job), job.sequence, d)
+                drafts[i, :len(dr)] = dr
+            drafts = torch.from_numpy(drafts)
+        else:
+            drafts = self._run(("draft", b_bucket, p_bucket, d),
+                               DynamicGenerator._draft_fn, buf)
+        out = self._run(("verify", b_bucket, p_bucket, d),
+                        DynamicGenerator._verify_fn, buf, drafts)
+        out = out.cpu().numpy()
+        now = time.perf_counter()
+        for i, job in enumerate(jobs):
+            n_new = min(int(out[i, d + 1]) + 1,
+                        job.max_new_tokens - job.new_tokens)
+            job.draft_accepted += n_new - 1
+            for j in range(n_new):
+                self._accept(job, int(out[i, j]), now, results)
+                if job.status == "done":
+                    break
+            if self.ngram is not None:
+                if job.status == "done":
+                    self.ngram.reset(id(job))
+                else:
+                    self.ngram.update(id(job), job.sequence)
+
+    # ------------------------------------------------------------------
     # iterate
     # ------------------------------------------------------------------
 
@@ -1069,17 +1375,24 @@ class DynamicGenerator:
                 stalled = True
         self.pending = still
 
-        # prefill round: jobs batch into one forward per group of
-        # max_batch_size (a lone job takes the single-job path)
+        # prefill round: plain jobs batch into one forward per group of
+        # max_batch_size (a lone job takes the single-job path); CFG jobs
+        # take the single-job path for each stream
         prefilling = [j for j in self.active if j.status == "prefill"]
-        if len(prefilling) >= 2:
-            for i in range(0, len(prefilling), self.max_batch_size):
-                self._prefill_chunk_batch(
-                    prefilling[i:i + self.max_batch_size])
-        elif prefilling:
-            self._prefill_chunk(prefilling[0])
+        plain = [j for j in prefilling if not j.is_cfg]
+        batched = set()
+        if len(plain) >= 2:
+            batched = set(map(id, plain))
+            for i in range(0, len(plain), self.max_batch_size):
+                self._prefill_chunk_batch(plain[i:i + self.max_batch_size])
         for job in prefilling:
-            if job.kv_pos >= job.prompt_len - 1:
+            if id(job) not in batched:
+                self._prefill_chunk(job)
+                if job.is_cfg and job.kv_pos2 < len(job.negative_ids) - 1:
+                    self._prefill_chunk(job, stream2=True)
+            if job.kv_pos >= job.prompt_len - 1 and (
+                    not job.is_cfg
+                    or job.kv_pos2 >= len(job.negative_ids) - 1):
                 job.status = "generating"
             else:
                 results.append({
@@ -1114,11 +1427,29 @@ class DynamicGenerator:
             r.update(self._final_stats(victim))
             results.append(r)
 
-        # batched decode (split into max_batch_size groups; no starvation)
-        gen_jobs = [j for j in self.active
-                    if j.status == "generating" and not j.rewind_deferred]
+        # CFG jobs decode as paired rows in their own batches
+        cfg_jobs = [j for j in self.active if j.status == "generating"
+                    and j.is_cfg and not j.rewind_deferred]
+        n_cfg = max(self.max_batch_size // 2, 1)
+        for i in range(0, len(cfg_jobs), n_cfg):
+            self._decode_cfg(cfg_jobs[i:i + n_cfg], results)
+
+        # batched decode (split into max_batch_size groups; no starvation);
+        # speculative rounds for groups that need no per-step masks
+        gen_jobs = [j for j in self.active if j.status == "generating"
+                    and not j.is_cfg and not j.rewind_deferred]
+        spec = self.use_ngram_draft or self.draft_model is not None
         for i in range(0, len(gen_jobs), self.max_batch_size):
-            self._decode(gen_jobs[i:i + self.max_batch_size], results)
+            grp = gen_jobs[i:i + self.max_batch_size]
+            constrained = any(
+                j.filters or j.banned_strings or j.blocked_tokens
+                or j.new_tokens < j.min_new_tokens or j.settings.banned_tokens
+                or (j.healing_token is not None and j.new_tokens == 0)
+                for j in grp)
+            if spec and not constrained:
+                self._decode_spec(grp, results)
+            else:
+                self._decode(grp, results)
 
         # reap finished jobs
         for job in [j for j in self.active if j.status == "done"]:
@@ -1251,6 +1582,8 @@ class DynamicGenerator:
                 self._rewind_pages(job)
                 if first_tok is not None:
                     job.blocked_tokens.add(first_tok)
+                if self.ngram is not None:
+                    self.ngram.reset(id(job))
                 results.append({
                     "job": job, "stage": "streaming", "eos": False,
                     "text": "", "token_ids": np.asarray([], np.int32),
@@ -1347,9 +1680,12 @@ class DynamicGenerator:
                  settings: Settings | None = None, seed: int = 0,
                  stop_conditions=None, add_bos: bool | None = None,
                  completion_only: bool = True, embeddings: list | None = None,
-                 encode_special_tokens: bool = False):
+                 encode_special_tokens: bool = False,
+                 negative_prompt_ids=None):
         """Generate for one prompt (str or ids) or a list of them, all
-        enqueued at once -> completion text(s)."""
+        enqueued at once -> completion text(s). negative_prompt_ids (ids,
+        or a list of them, one a prompt) makes CFG jobs when the settings
+        carry a cfg_scale; the speculative options are the generator's."""
         if embeddings:
             _unported("DynamicGenerator.generate(embeddings=...)")
         if add_bos is None:
@@ -1358,6 +1694,10 @@ class DynamicGenerator:
             add_bos = bool(cfg is not None
                            and getattr(cfg.arch, "requires_bos", False))
         prompts = prompt if isinstance(prompt, list) else [prompt]
+        negs = negative_prompt_ids if isinstance(prompt, list) \
+            else [negative_prompt_ids]
+        if negs is None:
+            negs = [None] * len(prompts)
         jobs = []
         for i, p in enumerate(prompts):
             if isinstance(p, str):
@@ -1369,7 +1709,7 @@ class DynamicGenerator:
             jobs.append(self.enqueue(DynamicJob(
                 ids, max_new_tokens=max_new_tokens, settings=settings,
                 seed=seed + i, stop_conditions=stop_conditions,
-                identifier=i)))
+                identifier=i, negative_prompt_ids=negs[i])))
         completions = {id(j): "" for j in jobs}
         pending = {id(j) for j in jobs}
         guard = 0

@@ -48,11 +48,14 @@ def to_tensor(a, device=None) -> torch.Tensor | None:
 
 
 def linear_from_reference(lin, device=None):
-    """A reference QuantLinear / DenseLinear with numpy leaves -> this
-    package's linear on `device` (the card by default)."""
+    """A reference QuantLinear / DenseLinear / LoraLinear with numpy leaves
+    -> this package's linear on `device` (the card by default)."""
     device = resolve_device(device)
     if hasattr(lin, "base"):
-        raise NotImplementedError("LoRA linears are not ported yet")
+        from exllamav2_tpu_torch.lora import LoraLinear
+        return LoraLinear(linear_from_reference(lin.base, device),
+                          to_tensor(lin.a, device), to_tensor(lin.b, device),
+                          lin.scaling)
     if hasattr(lin, "weight"):
         return DenseLinear(to_tensor(lin.weight, device),
                            to_tensor(lin.bias, device))

@@ -5,6 +5,9 @@ updates the KV cache in place. The prefill runs eagerly. A one-token step on
 the card replays a CUDA graph (utils/graphs.py), the counterpart of the
 reference's jitted ``_decode_step``: one graph per (batch, attention-limit
 bucket, the cache's K/V storage, QMM_PARTIALS), at most MAX_GRAPHS of them.
+A graph reads the weights and the cache it was captured with, so setting
+``model.weights`` drops every graph of the model, and a cache that is
+collected takes its graphs with it (a graph holds its cache weakly).
 ``Model(..., graphs=False)`` (or ``model.graphs = False``) asks for the
 eager step; on the CPU the step is eager unless graphs=True, which runs the
 graph's step function on its static buffers (the tests do).
@@ -13,6 +16,7 @@ graph's step function on its static buffers (the tests do).
 from __future__ import annotations
 
 import os
+import weakref
 from collections import OrderedDict
 
 import numpy as np
@@ -21,6 +25,7 @@ import torch
 from exllamav2_tpu_torch.cache import KVCache
 from exllamav2_tpu_torch.config import ModelConfig
 from exllamav2_tpu_torch.device import resolve_device
+from exllamav2_tpu_torch.models import forward as F
 from exllamav2_tpu_torch.models.forward import model_forward
 from exllamav2_tpu_torch.models.loader import load_model
 from exllamav2_tpu_torch.models.modules import ModelWeights, StaticModel
@@ -28,8 +33,8 @@ from exllamav2_tpu_torch.models.modules import ModelWeights, StaticModel
 __all__ = ["Model"]
 
 
-# step graphs a model keeps (each holds its cache alive), and the caches
-# generate_greedy keeps for reuse, one per (batch, max_seq)
+# step graphs a model keeps, and the caches generate_greedy keeps for reuse,
+# one per (batch, max_seq)
 MAX_GRAPHS = 16
 MAX_GREEDY_CACHES = 2
 
@@ -38,6 +43,13 @@ def _limit_bucket(n: int, cap: int, step: int = 256) -> int:
     """Bucket the attention span up to a multiple of `step` (bounds cache
     reads to the live sequence)."""
     return min(-(-n // step) * step, cap)
+
+
+def _drop_cache_graphs(runner_ref, kptr: int) -> None:
+    """Finalizer of a cache: forget the step graphs that wrote into it."""
+    runner = runner_ref()
+    if runner is not None:
+        runner.drop(lambda k: k[2] == kptr)
 
 
 class Model:
@@ -49,13 +61,25 @@ class Model:
     def __init__(self, weights: ModelWeights, static: StaticModel,
                  config: ModelConfig | None = None,
                  graphs: bool | None = None):
+        self.step_graphs = None             # a StepGraphs, made at first use
         self.weights = weights
         self.static = static
         self.config = config
         self.graphs = self.device.type == "cuda" if graphs is None \
             else bool(graphs)
-        self.step_graphs = None             # a StepGraphs, made at first use
         self._greedy_caches: OrderedDict = OrderedDict()
+
+    @property
+    def weights(self) -> ModelWeights:
+        return self._weights
+
+    @weights.setter
+    def weights(self, w: ModelWeights) -> None:
+        """New weights (an adapter applied, a swap): every step graph read
+        the old ones, so all of them go; the next step captures anew."""
+        self._weights = w
+        if self.step_graphs is not None:
+            self.step_graphs.drop(lambda k: True)
 
     @property
     def device(self) -> torch.device:
@@ -148,19 +172,56 @@ class Model:
         device tensor either way. A replay's logits are the graph's static
         output (the next replay overwrites them)."""
         st, w = self.static, self.weights
-
-        def step(ids, pos):
-            return model_forward(w, st, ids, cache, pos, attn_limit=limit)[0]
-
         if not self.graphs:
-            return step(ids, torch.full((), past_len, dtype=torch.int32,
-                                        device=ids.device))
+            return model_forward(w, st, ids, cache, torch.full(
+                (), past_len, dtype=torch.int32, device=ids.device),
+                attn_limit=limit)[0]
         if self.step_graphs is None:
             from exllamav2_tpu_torch.utils.graphs import StepGraphs
             self.step_graphs = StepGraphs(self.device, MAX_GRAPHS)
-        key = (ids.shape[0], limit, cache.k.data_ptr(), cache.v.data_ptr(),
+        runner = self.step_graphs
+        kptr = cache.k.data_ptr()
+        key = (ids.shape[0], limit, kptr, cache.v.data_ptr(),
                os.environ.get("QMM_PARTIALS") == "1")
-        return self.step_graphs(key, step, ids.to(torch.int32), past_len)
+        if key not in runner:
+            # the graph holds its cache weakly (a replay runs while the
+            # caller holds it) and goes when the cache is collected
+            weakref.finalize(cache, _drop_cache_graphs, weakref.ref(runner),
+                             kptr).atexit = False
+            cref = weakref.ref(cache)
+
+            def step(ids, pos):
+                return model_forward(w, st, ids, cref(), pos,
+                                     attn_limit=limit)[0]
+        else:
+            step = None
+        return runner(key, step, ids.to(torch.int32), past_len)
+
+    def forward_with_hooks(self, ids, cache: KVCache, past_len: int,
+                           pre_hooks: dict | None = None,
+                           post_hooks: dict | None = None):
+        """Layer-stepped eager forward with intervention hooks: ids [B, T]
+        -> (logits [B, T, vocab] f32, cache). pre_hooks / post_hooks map a
+        layer index to fn(hidden [B, T, d]) -> hidden, applied before /
+        after that decoder block. Never graphed: a hook is any Python."""
+        if not isinstance(ids, torch.Tensor):
+            ids = torch.from_numpy(np.asarray(ids, np.int32))
+        ids = ids.to(self.device)
+        pre_hooks, post_hooks = pre_hooks or {}, post_hooks or {}
+        w, st = self.weights, self.static
+        past_len = int(past_len)
+        with torch.inference_mode():
+            x = F._embed(w, st, ids)
+            pos = F._positions(past_len, ids.shape[1], ids.device)
+            sin, cos = w.sin[pos], w.cos[pos]
+            for layer in range(st.num_layers):
+                if layer in pre_hooks:
+                    x = pre_hooks[layer](x)
+                x, cache = F._block_forward(x, w.layers[layer], st, layer,
+                                            sin, cos, cache, past_len)
+                if layer in post_hooks:
+                    x = post_hooks[layer](x)
+            return F._head(w, st, x, False), cache
 
     def _greedy_cache(self, batch: int, max_seq: int) -> KVCache:
         """generate_greedy's cache of (batch, max_seq), kept for the next

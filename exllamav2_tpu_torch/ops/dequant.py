@@ -130,15 +130,10 @@ def precompute_scales_linear(lin):
 
 
 def precompute_model_scales(module):
-    """Apply precompute_scales_linear to every QuantLinear in a module tree
-    (a ModelWeights or any container of linears), in place."""
-    if isinstance(module, QuantLinear):
-        return precompute_scales_linear(module)
-    for name, child in list(module.named_children()):
-        new = precompute_model_scales(child)
-        if new is not child:
-            setattr(module, name, new)
-    return module
+    """Copy of a module tree (a ModelWeights or any container of linears)
+    with precompute_scales_linear applied to every QuantLinear; the tree
+    given is not touched (_map_linears)."""
+    return _map_linears(module, precompute_scales_linear)
 
 
 def _map_linears(module, f):

@@ -515,9 +515,16 @@ def qmm(x: torch.Tensor, lin: QuantLinear, *,
 
 def linear_apply(x: torch.Tensor, lin, *,
                  fused: bool | None = None) -> torch.Tensor:
-    """Apply a (quantized or dense) linear, returning the logical width."""
+    """Apply a (quantized or dense) linear, returning the logical width.
+
+    A LoRA linear (lora.LoraLinear) adds scaling * (x @ a) @ b to its base
+    linear's output, with the reference's rounding points: bf16 x and a, an
+    f32 product rounded to bf16, times b to f32 (operands in dot_dtype, as
+    every plain product)."""
     if hasattr(lin, "base") and hasattr(lin, "a"):
-        raise NotImplementedError("LoRA linears are not ported yet")
+        y = linear_apply(x, lin.base, fused=fused)
+        xa = _dot(x.to(torch.bfloat16), lin.a)
+        return y + lin.scaling * _dot(xa.to(torch.bfloat16), lin.b)
     if isinstance(lin, DenseLinear):
         y = _dot(x, lin.weight)
         if lin.bias is not None:

@@ -130,9 +130,14 @@ class StepGraphs:
         return key in self.entries
 
     def drop(self, pred: Callable[[tuple], bool]) -> None:
-        """Forget every graph whose key satisfies `pred`."""
+        """Forget every graph whose key satisfies `pred`. With no graph
+        left, later captures go to a new pool: the allocator keeps a pool
+        whose graphs are all gone while a static output of theirs lives,
+        and takes no capture into it (torch 2.11)."""
         for key in [k for k in self.entries if pred(k)]:
             del self.entries[key]
+        if not self.entries and self._pool is not None:
+            self._pool = torch.cuda.graph_pool_handle()
 
     def __call__(self, key: tuple, fn: Callable, *args):
         """fn(*static inputs) for `key`, with `args` (tensors, copied; ints,

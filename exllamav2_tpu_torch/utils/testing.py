@@ -9,6 +9,10 @@ and costs nothing but the draw. Every draw comes from the explicit
 
 from __future__ import annotations
 
+import json
+import os
+
+import numpy as np
 import torch
 
 from exllamav2_tpu_torch.device import resolve_device
@@ -20,7 +24,7 @@ from exllamav2_tpu_torch.quant.qtensor import (
 from exllamav2_tpu_torch.ops.rope import build_sincos
 
 __all__ = ["random_quant_linear", "random_gptq_linear",
-           "random_model_weights"]
+           "random_model_weights", "write_random_lora"]
 
 
 def _words(gen, shape, device):
@@ -123,3 +127,48 @@ def random_model_weights(*, vocab=32000, hidden=4096, layers=32, heads=32,
         head_dim=head_dim, hidden_size=hidden, vocab_size=vocab,
         norm_eps=1e-5, layers=tuple(LayerStatic() for _ in range(layers)))
     return w, st
+
+
+_LORA_TARGETS = {"q_proj": ("attn", "q"), "k_proj": ("attn", "k"),
+                 "v_proj": ("attn", "v"), "o_proj": ("attn", "o"),
+                 "gate_proj": ("mlp", "gate"), "up_proj": ("mlp", "up"),
+                 "down_proj": ("mlp", "down")}
+
+
+def write_random_lora(directory: str, weights: ModelWeights, *,
+                      rank: int = 16, alpha: float = 32.0,
+                      scale: float = 0.05, seed: int = 0,
+                      targets=tuple(_LORA_TARGETS)) -> str:
+    """Write a PEFT adapter directory (adapter_config.json and BF16
+    adapter_model.safetensors) for every layer's `targets` of `weights`:
+    A and B drawn from N(0, scale^2) on the weights' device in bf16, from a
+    generator seeded with `seed`. Returns `directory` (lora.Lora reads
+    it)."""
+    from exllamav2_tpu_torch.stloader import write_safetensors
+    device = weights.embed.device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(shape):
+        t = (torch.randn(shape, generator=gen, device=device)
+             * scale).to(torch.bfloat16)
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+
+    tensors = {}
+    for l, lw in enumerate(weights.layers):
+        for t in targets:
+            part, name = _LORA_TARGETS[t]
+            lin = getattr(getattr(lw, part), name)
+            k, n = (lin.k, lin.n_orig) if hasattr(lin, "k") \
+                else tuple(lin.weight.shape)
+            sub = "self_attn" if part == "attn" else "mlp"
+            p = f"base_model.model.model.layers.{l}.{sub}.{t}"
+            tensors[f"{p}.lora_A.weight"] = draw((rank, k))
+            tensors[f"{p}.lora_B.weight"] = draw((n, rank))
+    os.makedirs(directory, exist_ok=True)
+    write_safetensors(os.path.join(directory, "adapter_model.safetensors"),
+                      tensors, dtypes={k: "BF16" for k in tensors})
+    with open(os.path.join(directory, "adapter_config.json"), "w") as f:
+        json.dump({"r": rank, "lora_alpha": alpha,
+                   "target_modules": list(targets)}, f)
+    return directory

@@ -327,12 +327,18 @@ def test_base_generator(model):
     "filters", "token_healing", "banned_strings", "negative_prompt_ids",
     "embeddings", "post_sampling_hooks"])
 def test_unported_job_arguments_raise(arg):
-    """CFG and embeddings still raise; the constrained-generation arguments
-    are ported and land on the job."""
+    """Embeddings still raise; the constrained-generation arguments land on
+    the job, and negative_prompt_ids makes a CFG job when the settings
+    carry a cfg_scale (and none without)."""
     val = {"token_healing": True, "negative_prompt_ids": np.array([1, 2])}
-    if arg in ("negative_prompt_ids", "embeddings"):
+    if arg == "embeddings":
         with pytest.raises(NotImplementedError, match=arg):
-            DynamicJob([1, 2, 3], **{arg: val.get(arg, ["x"])})
+            DynamicJob([1, 2, 3], **{arg: ["x"]})
+    elif arg == "negative_prompt_ids":
+        assert not DynamicJob([1, 2, 3], **{arg: val[arg]}).is_cfg
+        job = DynamicJob([1, 2, 3], settings=Settings(cfg_scale=1.5),
+                         **{arg: val[arg]})
+        assert job.is_cfg and job.negative_ids.tolist() == [1, 2]
     else:
         job = DynamicJob([1, 2, 3], **{arg: val.get(arg, ["x"])})
         assert getattr(job, arg) == val.get(arg, ["x"])
@@ -341,8 +347,23 @@ def test_unported_job_arguments_raise(arg):
 @pytest.mark.parametrize("arg", [
     "draft_model", "draft_cache", "use_ngram_draft", "mesh"])
 def test_unported_generator_arguments_raise(model, arg):
-    with pytest.raises(NotImplementedError, match=arg):
-        _gen(model, **{arg: True})
+    """mesh= still raises; the speculative options are ported: a draft
+    model needs a draft cache over the main cache's pages, the n-gram
+    drafter needs nothing."""
+    if arg == "mesh":
+        with pytest.raises(NotImplementedError, match=arg):
+            _gen(model, mesh=True)
+    elif arg == "draft_model":
+        with pytest.raises(ValueError, match="draft_cache"):
+            _gen(model, draft_model=model)
+        st = model.static
+        small = PagedKVCache.alloc(st.num_layers, 8, st.num_kv_heads,
+                                   st.head_dim, device="cpu")
+        with pytest.raises(ValueError, match="draft_cache"):
+            _gen(model, draft_model=model, draft_cache=small)
+    else:
+        gen = _gen(model, **{arg: True})
+        assert (gen.ngram is not None) == (arg == "use_ngram_draft")
 
 
 @pytest.mark.parametrize("arg", ["merged_weights", "w4a8"])
@@ -362,9 +383,12 @@ def test_ported_generator_arguments_work(model, arg):
 
 
 def test_unported_generator_methods_raise(model):
+    """Embeddings and the MoE counters still raise; set_loras is ported (a
+    detach with nothing attached leaves the weights as they are)."""
     gen = _gen(model)
-    with pytest.raises(NotImplementedError, match="set_loras"):
-        gen.set_loras([object()])
+    w = gen.model.weights
+    gen.set_loras(None)
+    assert gen.model.weights is w
     with pytest.raises(NotImplementedError, match="embeddings"):
         gen.generate("x", embeddings=[object()])
     with pytest.raises(NotImplementedError, match="MoE"):
@@ -381,3 +405,19 @@ def test_generator_device_follows_model(model, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DynamicGenerator(model, PagedKVCache.alloc(
             st.num_layers, 4, st.num_kv_heads, st.head_dim), TOK)
+
+
+def test_prescale_leaves_the_callers_model_alone(dirs):
+    """DynamicGenerator(prescale=True) serves from a prescaled copy: none
+    of the caller's segments gains scale_f (all did, in place)."""
+    model = Model.from_dir(dirs["exl2"], device="cpu", prescale=False)
+
+    def segs(w):
+        return [s for lw in w.layers for lin in (
+            lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o, lw.mlp.gate,
+            lw.mlp.up, lw.mlp.down) for s in lin.segments]
+    assert not any(s.scale_f is not None for s in segs(model.weights))
+    gen = _gen(model, prescale=True)
+    assert not any(s.scale_f is not None for s in segs(model.weights))
+    assert all(s.scale_f is not None for s in segs(gen.model.weights))
+    assert gen.model.weights is not model.weights

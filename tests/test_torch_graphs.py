@@ -343,6 +343,169 @@ def test_serving_graph_keys_equal_reference(tiny_dir):
 
 
 # ---------------------------------------------------------------------------
+# what a graph reads: the weights and the cache of its capture
+# ---------------------------------------------------------------------------
+
+def _small_weights(seed, device="cpu"):
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    return random_model_weights(vocab=512, hidden=256, layers=2, heads=4,
+                                kv_heads=4, inter=512, max_seq=64, bits=4,
+                                seed=seed, device=device)
+
+
+def test_weight_swap_drops_the_step_graphs():
+    """generate_greedy, then model.weights set to another seed's weights:
+    the graphed tokens equal a fresh model's eager tokens on those weights
+    (a graph that kept its capture's weights parted at the second new
+    token)."""
+    w0, st = _small_weights(0)
+    w1, _ = _small_weights(1)
+    prompt = np.array([[1, 50, 99, 7]], np.int32)
+    model = Model(w0, st, graphs=True)
+    first = model.generate_greedy(prompt, 8)
+    np.testing.assert_array_equal(
+        first, Model(w0, st, graphs=False).generate_greedy(prompt, 8))
+    model.weights = w1
+    got = model.generate_greedy(prompt, 8)
+    want = Model(w1, st, graphs=False).generate_greedy(prompt, 8)
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, first)
+    model.weights = w0
+    assert not model.step_graphs.entries
+
+
+def test_dropped_cache_frees_its_graphs():
+    """20 caches, each used for one graphed step and dropped: every one is
+    collected, and its graphs go with it (the runner held 16 before)."""
+    w, st = _small_weights(0)
+    model = Model(w, st, graphs=True)
+    refs = []
+    for i in range(20):
+        cache = model.new_cache(1, 64)
+        model.forward(np.array([[3 + i]], np.int32), cache, 0)
+        refs.append(weakref.ref(cache))
+        del cache
+    gc.collect()
+    assert [r() for r in refs] == [None] * 20
+    assert not model.step_graphs.entries
+    assert sum(model.step_graphs.captures.values()) == 20
+
+
+def _cfg_jobs():
+    """Three CFG jobs (greedy, sampled with penalties, mirostat) and one
+    plain job, negative prompts of 1-3 pages of 16 rows."""
+    rng = np.random.default_rng(6)
+    sets = [Settings.greedy(), Settings(temperature=0.9, top_k=20,
+                                        token_repetition_penalty=1.2),
+            Settings(temperature=0.7, mirostat=True), Settings.greedy()]
+    out = []
+    for i, (plen, nlen, new) in enumerate(((30, 20, 9), (12, 40, 6),
+                                           (50, 5, 11), (20, 0, 7))):
+        s = sets[i]
+        if nlen:
+            s.cfg_scale = 1.5 + 0.5 * i
+        out.append(DynamicJob(
+            rng.integers(3, 250, plen).astype(np.int32), max_new_tokens=new,
+            settings=s, negative_prompt_ids=rng.integers(
+                3, 250, nlen).astype(np.int32) if nlen else None))
+    return out
+
+
+def test_cfg_graph_step_equals_eager(tiny_dir):
+    model = Model.from_dir(tiny_dir, device="cpu")
+    g, gj = _round(model, _cfg_jobs, True, decode_burst=1)
+    e, ej = _round(model, _cfg_jobs, False, decode_burst=1)
+    for a, b in zip(gj, ej):
+        np.testing.assert_array_equal(a.sequence, b.sequence)
+        assert (a.kv_pos2, a.mirostat_mu) == (b.kv_pos2, b.mirostat_mu)
+    keys = set(g.step_graphs.captures)
+    cfg = {k for k in keys if k[0] == "decode_cfg"}
+    assert len({k[1] for k in cfg}) >= 2 and all(len(k) == 3 for k in cfg)
+    assert any(k[0] == "decode" for k in keys)          # the plain job
+    assert [j.kv_pos2 for j in gj[:3]] == [
+        len(j.negative_ids) + j.max_new_tokens - 1 for j in gj[:3]]
+
+
+def _spec_jobs():
+    """Four jobs for speculative rounds: a repeating prompt (drafts get
+    accepted), greedy and sampled settings with penalties."""
+    rng = np.random.default_rng(8)
+    pat = rng.integers(3, 250, 6).astype(np.int32)
+    sets = [Settings.greedy(), Settings(temperature=0.8, top_k=30),
+            Settings.greedy(token_repetition_penalty=1.3),
+            Settings(temperature=1.0, top_p=0.9)]
+    prompts = [np.tile(pat, 5), rng.integers(3, 250, 20).astype(np.int32),
+               np.tile(pat[:3], 9), rng.integers(3, 250, 40).astype(np.int32)]
+    return [DynamicJob(p, max_new_tokens=n, settings=s)
+            for p, n, s in zip(prompts, (17, 9, 13, 6), sets)]
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "draft_model"])
+def test_spec_graph_steps_equal_eager(tiny_dir, drafter):
+    """The draft and verify steps graphed against eager: the same tokens,
+    accepted counts and keys ("draft", b, p, k) / ("verify", b, p, d)."""
+    model = Model.from_dir(tiny_dir, device="cpu")
+    st = model.static
+
+    def kw():
+        if drafter == "ngram":
+            return {"use_ngram_draft": True}
+        return {"draft_model": model, "draft_cache": PagedKVCache.alloc(
+            st.num_layers, 48, st.num_kv_heads, st.head_dim, page_size=16,
+            device="cpu")}
+
+    g, gj = _round(model, _spec_jobs, True, decode_burst=4, **kw())
+    e, ej = _round(model, _spec_jobs, False, decode_burst=4, **kw())
+    for a, b in zip(gj, ej):
+        np.testing.assert_array_equal(a.sequence, b.sequence)
+        assert a.draft_accepted == b.draft_accepted
+    assert sum(j.draft_accepted for j in gj) > 0
+    keys = set(g.step_graphs.captures)
+    assert {k[0] for k in keys} == ({"verify"} if drafter == "ngram"
+                                    else {"draft", "verify"})
+    assert all(len(k) == 4 and k[3] == 4 for k in keys)
+    assert len({k[1] for k in keys}) >= 2
+
+
+def test_set_loras_drops_the_graphs(tiny_dir, tmp_path):
+    """A graphed generator: base tokens, then an adapter attached (every
+    graph dropped, other tokens), then detached (the base tokens again);
+    attaching the same adapter objects twice drops nothing."""
+    from exllamav2_tpu_torch.lora import Lora
+    from exllamav2_tpu_torch.utils.testing import write_random_lora
+    model = Model.from_dir(tiny_dir, device="cpu")
+    lora = Lora(write_random_lora(str(tmp_path / "lora"), model.weights,
+                                  rank=4, scale=0.3, seed=2))
+    st = model.static
+    gen = DynamicGenerator(model, PagedKVCache.alloc(
+        st.num_layers, 16, st.num_kv_heads, st.head_dim, device="cpu"),
+        ByteTokenizer(384), graphs=True, decode_burst=1)
+
+    def run():
+        return gen.generate("set loras", max_new_tokens=8,
+                            settings=Settings.greedy())
+
+    base = run()
+    assert gen.step_graphs.entries
+    gen.set_loras([lora])
+    assert not gen.step_graphs.entries
+    adapted = run()
+    kept = dict(gen.step_graphs.entries)
+    gen.set_loras([lora])                         # the same objects
+    assert gen.step_graphs.entries == kept
+    assert run() == adapted
+    gen.set_loras(None)
+    assert not gen.step_graphs.entries
+    assert run() == base and adapted != base
+    eager = DynamicGenerator(model, PagedKVCache.alloc(
+        st.num_layers, 16, st.num_kv_heads, st.head_dim, device="cpu"),
+        ByteTokenizer(384), graphs=False, decode_burst=1)
+    eager.set_loras([lora])
+    assert eager.generate("set loras", max_new_tokens=8,
+                          settings=Settings.greedy()) == adapted
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -446,3 +609,85 @@ def test_card_failed_capture_raises(dev):
     torch.cuda.synchronize()
     assert torch.equal(out, torch.full((8,), 3.0, device=dev))
     assert runner.replays == {("good",): 1}
+
+
+@pytest.mark.cuda
+def test_card_weight_swap_and_dropped_caches(dev):
+    """On the card: a weight swap recaptures (graphed tokens equal a fresh
+    eager model's), and dropped caches are collected with their graphs."""
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    w0, st = _card_model(dev, layers=2)
+    w1, _ = random_model_weights(vocab=1024, hidden=512, layers=2, heads=4,
+                                 kv_heads=4, inter=1024, max_seq=512, bits=4,
+                                 seed=2, device=dev)
+    prompt = np.array([[1, 50, 99, 7]], np.int32)
+    model = Model(w0, st, graphs=True)
+    model.generate_greedy(prompt, 8)
+    model.weights = w1
+    np.testing.assert_array_equal(
+        model.generate_greedy(prompt, 8),
+        Model(w1, st, graphs=False).generate_greedy(prompt, 8))
+    kept = set(model.step_graphs.entries)
+    refs = []
+    for i in range(20):
+        cache = model.new_cache(1, 256)
+        model.forward(np.array([[3 + i]], np.int32), cache, 0)
+        refs.append(weakref.ref(cache))
+        del cache
+    gc.collect()
+    torch.cuda.synchronize()
+    assert [r() for r in refs] == [None] * 20
+    assert set(model.step_graphs.entries) <= kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cfg", "ngram", "draft_model", "lora"])
+def test_card_feature_steps_graphed_equal_eager(dev, path, tmp_path):
+    """CFG, n-gram and draft-model speculative rounds and an adapted round
+    on the card: graphed tokens equal eager, bitwise."""
+    from exllamav2_tpu_torch.lora import Lora
+    from exllamav2_tpu_torch.utils.testing import write_random_lora
+    w, st = _card_model(dev, layers=2)
+    tok = ByteTokenizer(256)
+    lora = Lora(write_random_lora(str(tmp_path / "lora"), w, rank=8,
+                                  scale=0.1)) if path == "lora" else None
+
+    def cache():
+        return PagedKVCache.alloc(st.num_layers, 24, st.num_kv_heads,
+                                  st.head_dim, device=dev)
+
+    def jobs():
+        rng = np.random.default_rng(5)
+        pat = rng.integers(3, 250, 8).astype(np.int32)
+        out = []
+        for i, s in enumerate((Settings.greedy(),
+                               Settings(temperature=0.9, top_k=20))):
+            neg = None
+            if path == "cfg":
+                s.cfg_scale = 1.5
+                neg = rng.integers(3, 250, 40 + 30 * i).astype(np.int32)
+            out.append(DynamicJob(np.tile(pat, 10 + 10 * i),
+                                  max_new_tokens=17 + 4 * i, settings=s,
+                                  negative_prompt_ids=neg))
+        return out
+
+    out = {}
+    for graphs in (False, True):
+        kw = {}
+        if path == "ngram":
+            kw = {"use_ngram_draft": True}
+        elif path == "draft_model":
+            kw = {"draft_model": Model(w, st), "draft_cache": cache()}
+        gen = DynamicGenerator(Model(w, st), cache(), tok, max_batch_size=4,
+                               decode_burst=4, graphs=graphs, **kw)
+        if lora is not None:
+            gen.set_loras([lora])
+        js = jobs()
+        for j in js:
+            gen.enqueue(j)
+        while any(j.status != "done" for j in js):
+            gen.iterate()
+        torch.cuda.synchronize()
+        out[graphs] = [(j.sequence.tolist(), j.draft_accepted, j.kv_pos2)
+                       for j in js]
+    assert out[True] == out[False]

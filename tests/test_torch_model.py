@@ -165,3 +165,27 @@ def test_chunked_forward_matches_single_shot(fixtures):
                             last_token_only=True)
     assert last.shape == (1, 1, ref.shape[-1])
     assert _rel(last[:, 0], ref[:, -1]) < 0.02
+
+
+def test_forward_with_hooks_intervention(tmp_path):
+    """The reference's intervention test on both packages
+    (tests/test_model.py): identity hooks leave the logits within 1e-2 of
+    the plain forward, a zeroing pre-hook on layer 0 moves them; each
+    package's hooked logits against the other's within 1e-2 relative."""
+    d = make_tiny_llama(str(tmp_path / "hooks"), quant=None, seed=31)
+    ids = np.array([[3, 17, 99, 9]], np.int32)
+    ref = RefModel.from_dir(d)
+    m = Model.from_dir(d, device="cpu")
+    base, _ = m.forward(ids, m.new_cache(batch=1, max_seq=16), 0)
+    same, _ = m.forward_with_hooks(ids, m.new_cache(batch=1, max_seq=16), 0,
+                                   post_hooks={0: lambda x: x})
+    assert _rel(same, base) < 2e-2
+    zero = {0: lambda x: x * 0.0}
+    diff, _ = m.forward_with_hooks(ids, m.new_cache(batch=1, max_seq=16), 0,
+                                   pre_hooks=zero)
+    assert np.abs(np.asarray(diff) - np.asarray(base)).max() > 1e-3
+    for hooks, got in (({"post_hooks": {0: lambda x: x}}, same),
+                       ({"pre_hooks": zero}, diff)):
+        want, _ = ref.forward_with_hooks(
+            ids, ref.new_cache(batch=1, max_seq=16), 0, **hooks)
+        assert _rel(got, want) < 1e-2
