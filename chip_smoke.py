@@ -121,6 +121,25 @@ the captures and their ms, the replays, host ms a token or a dispatch
               bitwise), adapted logits of a 2-layer cut against an f32
               plain forward on the CPU, and a weight swap under
               generate_greedy's step graphs against eager.
+ 13. archs    the architectures beyond Llama, each model path graphed and
+              once eager (bitwise the same tokens) with its launch counts
+              asserted: kernel 1's gated entry against its plain version at
+              Mixtral's expert shapes (m 1, 4, 16; the flag on within 1e-4
+              of max |plain|, off exact zeros); (a) Mixtral-8x7B at full
+              width and depth (EXL2 4.0 bpw, prescaled, 8 experts, top 2):
+              generate_greedy at batch 1 and 4, the experts switched on per
+              layer and step, decode-vs-prefill, batch-1 tokens/s graphed
+              and eager, device busy, kernel 1's ms a token against the
+              routed-bytes floor, the gated decode's logits against the
+              forced-dense formulation (< 0.02, argmax parts at near-ties
+              only), a serving16 round (its prefill takes the capacity
+              dispatch) with the dropped-route count; (b) Gemma-3-12B's
+              text model at full width and depth (post-norms, QK-norm, the
+              sliding layers' rope table, a tied bf16 head): batch-1
+              greedy, decode-vs-prefill, tokens/s, a serving16 round; (c)
+              Command R7B (4 layers: parallel blocks, a NoPE layer) and
+              GPT-2 (2 layers: learned positions) at published width:
+              batch-1 greedy and decode-vs-prefill.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -131,7 +150,8 @@ paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 1 and 8 (the W4A8, scales-on-partials and merged-meta kernels),
 `python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
-constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12.
+constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12,
+`python3 chip_smoke.py archs` phases 1 and 13.
 """
 
 from __future__ import annotations
@@ -965,7 +985,7 @@ def zero_counts() -> None:
     from exllamav2_tpu_torch.ops import decode_attn as A
     from exllamav2_tpu_torch.ops import paged_attn as P
     from exllamav2_tpu_torch.ops import qmm as Q
-    for counts in (Q.LAUNCHES, A.LAUNCHES, P.LAUNCHES):
+    for counts in (Q.LAUNCHES, A.LAUNCHES, P.LAUNCHES, Q.GATED_LAUNCHES):
         for key in counts:
             counts[key] = 0
     P.KIND_LAUNCHES.clear()
@@ -995,13 +1015,13 @@ def serve_round(gen, prompts):
     return jobs, sum(j.new_tokens for j in jobs), dt
 
 
-def check_round(name, jobs, new, dt):
+def check_round(name, jobs, new, dt, vocab=VOCAB):
     """Every job ran all its tokens; returns (tokens/s, p50 TTFT ms, TTFTs
     ms)."""
     for j in jobs:
         gen_ids = j.sequence[SERVE_PROMPT:]
         if (j.new_tokens != SERVE_NEW or j.eos_reason != "max_new_tokens"
-                or gen_ids.min() < 0 or gen_ids.max() >= VOCAB):
+                or gen_ids.min() < 0 or gen_ids.max() >= vocab):
             raise AssertionError(f"{name} job: {j.new_tokens} tokens, "
                                  f"{j.eos_reason}")
     ttfts = sorted((j.time_first_token - j.time_enqueue) * 1e3 for j in jobs)
@@ -2571,6 +2591,550 @@ def phase_spec(dev):
     return {"legs": out, "launches": launches}
 
 
+# --------------------------------------------------------------- phase 13
+
+# Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1 config.json), full width and depth
+MIXTRAL = dict(vocab=32000, hidden=4096, layers=32, heads=32, kv_heads=8,
+               inter=14336, moe=8, moe_topk=2, rope_theta=1e6)
+# Gemma-3-12B's text model (google/gemma-3-12b-it text_config): SWA 1024,
+# every sixth layer global; local theta 10000 (the architecture's), global 1e6
+GEMMA3 = dict(vocab=262208, hidden=3840, layers=48, heads=16, kv_heads=8,
+              head_dim=256, inter=15360, arch="Gemma3ForCausalLM",
+              sliding_window=1024, rope_theta=1e6)
+# Command R7B (CohereForAI/c4ai-command-r7b-12-2024) at published width, 4 of
+# its 32 layers: SWA 4096 with pattern 4, so layer 3 is a global NoPE layer
+COHERE2 = dict(vocab=256000, hidden=4096, layers=4, heads=32, kv_heads=8,
+               inter=14336, arch="Cohere2ForCausalLM", sliding_window=4096,
+               rope_theta=50000.0)
+# GPT-2 (gpt2) at published width, 2 of its 12 layers: learned positions
+# (1024 rows), LayerNorm, GELU, an ungated MLP
+GPT2 = dict(vocab=50257, hidden=768, layers=2, heads=12, kv_heads=12,
+            inter=3072, arch="GPT2LMHeadModel")
+MOE_SHAPES = [(4096, 14336), (14336, 4096)]    # Mixtral's w1/w3 and w2
+MOE_ROWS = (1, 4, 16)
+# the gated decode's logits against the forced-dense formulation's, max
+# |diff| / max |dense| (unrouted experts add exact zeros either way; the
+# limit is decode-vs-prefill's)
+MOE_TOL = 0.02
+ARCH_PROMPT, ARCH_NEW = 16, 32
+
+
+def arch_model(cfg: dict, dev, seed: int = 0, max_seq: int = 2048):
+    """Random 4-bit EXL2 weights of `cfg` drawn on the card, prescaled."""
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    t0 = time.perf_counter()
+    w, st = random_model_weights(max_seq=max_seq, bits=4, seed=seed,
+                                 device=dev, **cfg)
+    model = Model(precompute_model_scales(w), st)
+    torch.cuda.synchronize()
+    gbytes = sum(b.numel() * b.element_size()
+                 for b in model.weights.buffers()) / 1e9
+    return model, gbytes, time.perf_counter() - t0
+
+
+def step_launches(model, rows: int) -> dict:
+    """Kernel-1 launches of one forward of `rows` rows on the card (all and
+    gated), as the forward dispatches them: a linear launches where it runs
+    on <= 32 rows; an MoE layer up to 32 rows launches every expert's three
+    linears gated, from max(64, 2E) rows its capacity dispatch launches them
+    ungated where the capacity is <= 32 rows; a dense head takes no kernel."""
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.models.modules import MoEWeights
+    from exllamav2_tpu_torch.ops.qmm import FUSED_MAX_ROWS
+    from exllamav2_tpu_torch.quant.qtensor import QuantLinear
+    st, w = model.static, model.weights
+    fused = rows <= FUSED_MAX_ROWS
+    n = gated = 0
+    for lw in w.layers:
+        a = lw.attn
+        n += fused * sum(isinstance(x, QuantLinear)
+                         for x in (a.q, a.k, a.v, a.o))
+        m = lw.mlp
+        if isinstance(m, MoEWeights):
+            e3 = 3 * st.num_experts
+            if fused:
+                n += e3
+                gated += e3
+            elif rows >= max(F._MOE_DISPATCH_MIN_TOKENS[0],
+                             2 * st.num_experts):
+                cap = int(np.ceil(rows * st.num_experts_per_tok
+                                  * F._MOE_CAPACITY_FACTOR[0]
+                                  / st.num_experts))
+                cap = min(-(-cap // 8) * 8, rows)
+                n += e3 * (cap <= FUSED_MAX_ROWS)
+        else:
+            n += fused * sum(isinstance(x, QuantLinear)
+                             for x in (m.gate, m.up, m.down))
+    return {"qmm": n, "qmm_gated": gated}
+
+
+def head_launches(model) -> int:
+    from exllamav2_tpu_torch.quant.qtensor import QuantLinear
+    return int(isinstance(model.weights.head, QuantLinear))
+
+
+def greedy_want(model, b: int, t0: int, new: int) -> dict:
+    """The launches of generate_greedy(b x t0 prompt, new): the prefill's
+    (with the head on its last token) and new - 1 one-token steps."""
+    pre = step_launches(model, b * t0)
+    dec = step_launches(model, b)
+    hd = head_launches(model)
+    steps = new - 1
+    return {"qmm": pre["qmm"] + hd + (dec["qmm"] + hd) * steps,
+            "qmm_gated": pre["qmm_gated"] + dec["qmm_gated"] * steps,
+            "decode_attn": model.static.num_layers * steps}
+
+
+def arch_counts() -> dict:
+    from exllamav2_tpu_torch.ops import qmm as Q
+    c = launch_counts()
+    return {"qmm": c["qmm"], "qmm_gated": Q.GATED_LAUNCHES["qmm_gated"],
+            "decode_attn": c["decode_attn"],
+            "paged_decode_attn": c["paged_decode_attn"]}
+
+
+def arch_greedy(tag, model, prompt, new, vocab) -> dict:
+    """generate_greedy graphed with its launch counts (zeroed just before,
+    read just after) against greedy_want, then the same call eager: bitwise
+    the same tokens."""
+    b, t0 = prompt.shape
+    want = dict(greedy_want(model, b, t0, new), paged_decode_attn=0)
+    model.generate_greedy(prompt[:, :4], 2)             # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    g0 = graph_counts(model.step_graphs)
+    t = time.perf_counter()
+    seq = model.generate_greedy(prompt, new)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    got = arch_counts()
+    graphs = graph_counts(model.step_graphs, g0)
+    log(f"[{tag}] generate_greedy b{b}: launches {got} (expected {want}); "
+        f"step graphs {graphs}")
+    if got != want:
+        raise AssertionError(f"{tag} b{b} launch counts {got} != {want}")
+    if (seq.shape != (b, t0 + new) or seq.min() < 0 or seq.max() >= vocab
+            or graphs["replays"] != new - 1):
+        raise AssertionError(f"{tag} b{b}: bad generation {seq.shape}, "
+                             f"{graphs}")
+    t = time.perf_counter()
+    seq_e = eager(model, lambda: model.generate_greedy(prompt, new))
+    dt_e = time.perf_counter() - t
+    same = np.array_equal(seq, seq_e)
+    log(f"[{tag}] b{b}: graphed tokens equal the eager path's: {same} "
+        f"({dt:.2f} s graphed, {dt_e:.2f} s eager, prefill included)")
+    if not same:
+        raise AssertionError(f"{tag} b{b}: graphed {seq.tolist()} != eager "
+                             f"{seq_e.tolist()}")
+    return {"launches": got, "tokens": seq[:, t0:].tolist(),
+            "step_graphs": graphs, "seconds": dt, "seconds_eager": dt_e}
+
+
+def decode_vs_prefill(tag, model, prompt, production_gate=True) -> dict:
+    """One-token steps against the prefill of the same prompt, max |diff| /
+    max |prefill|, twice: as served, and with the prefill's attention
+    probabilities kept in f32 (its t > 1 product rounds them to bf16, the
+    reference's rounding point; the one-token kernel keeps them in f32).
+    The f32 one isolates the cache, the positions and the masks, and must
+    be < 0.02; so must the served one where production_gate (Gemma-3's 48
+    random layers amplify the rounding past it: PERF.md, PR 12)."""
+    from exllamav2_tpu_torch.models import forward as F
+
+    def rel_err():
+        full, _ = model.forward(prompt, model.new_cache(1, 64), 0)
+        cache = model.new_cache(1, 64)
+        step = []
+        for i in range(prompt.shape[1]):
+            lg, cache = model.forward(prompt[:, i:i + 1], cache, i)
+            step.append(lg[:, 0])
+        step = torch.stack(step, 1)
+        if not torch.isfinite(full).all():
+            raise AssertionError(f"{tag}: non-finite prefill logits")
+        return ((step - full).abs().max() / full.abs().max()).item()
+
+    rel = rel_err()
+    served = F.gqa_values
+    F.gqa_values = lambda p, v: torch.einsum("bkgts,bksd->btkgd",
+                                             p.float(), v.float())
+    try:
+        rel_f32 = rel_err()
+    finally:
+        F.gqa_values = served
+    log(f"[{tag}] decode vs prefill logits rel err {rel:.2e} as served, "
+        f"{rel_f32:.2e} with the prefill's probabilities in f32")
+    if not (rel_f32 < 0.02 and (rel < 0.02 or not production_gate)):
+        raise AssertionError(f"{tag}: decode vs prefill rel err {rel}, "
+                             f"{rel_f32} with f32 probabilities")
+    return {"served": rel, "f32_probabilities": rel_f32}
+
+
+def decode_rate_b1(model, prompt, n: int) -> tuple[float, float]:
+    """ms a batch-1 token of generate_greedy, graphed and eager: a call
+    for 1 + n new tokens less a call for 1 (prefill only), over n (the
+    eager one on n // 4 tokens)."""
+    def wall(n_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.generate_greedy(prompt, n_new)
+        return time.perf_counter() - t
+
+    ms = (min(wall(1 + n) for _ in range(2)) - min(wall(1) for _ in
+                                                  range(3))) / n * 1e3
+    ne = max(4, n // 4)
+    ms_e = eager(model, lambda: (wall(1 + ne) - min(wall(1) for _ in
+                                                    range(2))) / ne * 1e3)
+    return ms, ms_e
+
+
+def arch_serving(tag, model, dev, vocab, drops=False) -> dict:
+    """PERF.md's serving16 round: a warm round, a measured round with its
+    launch counts asserted, one profiled round, the measured prompts again
+    through an eager generator: the same tokens."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    st = model.static
+    tok = ByteTokenizer(256)        # no EOS id: every job runs all its tokens
+    cache = PagedKVCache.alloc(st.num_layers, SERVE_PAGES, st.num_kv_heads,
+                               st.head_dim, "bf16", device=dev)
+
+    def new_gen(graphs):
+        return DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
+                                max_chunk_size=512, decode_burst=16,
+                                graphs=graphs)
+
+    gen = new_gen(True)
+    rng = np.random.default_rng(13)
+    serve_round(gen, serve_prompts(rng))                 # warm round
+    round_prompts = serve_prompts(rng)
+    zero_counts()
+    g0 = graph_counts(gen.step_graphs)
+    jobs, new, dt = serve_round(gen, round_prompts)
+    got = arch_counts()
+    g_round = graph_counts(gen.step_graphs, g0)
+    dec = step_launches(model, SERVE_JOBS)
+    hd = head_launches(model)
+    # the batched 16 x 128-row prefill launches what step_launches says of
+    # 2048 rows and skips the head; then SERVE_NEW one-token steps
+    pre = step_launches(model, SERVE_JOBS * SERVE_PROMPT)
+    want = {"qmm": pre["qmm"] + (dec["qmm"] + hd) * SERVE_NEW,
+            "qmm_gated": pre["qmm_gated"] + dec["qmm_gated"] * SERVE_NEW,
+            "decode_attn": 0,
+            "paged_decode_attn": st.num_layers * SERVE_NEW}
+    log(f"[{tag}] serving16 launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError(f"{tag} serving16 launch counts {got} != {want}")
+    tps, p50, _ = check_round(f"{tag} serving16", jobs, new, dt, vocab)
+    dropped = gen.moe_dropped_tokens
+    log(f"[{tag}] serving16: {new} tokens in {dt * 1e3:.1f} ms = "
+        f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms; dropped MoE routes "
+        f"{dropped}")
+    if drops and dropped:
+        log(f"[{tag}] serving16: the prefill dispatch dropped {dropped} "
+            f"routes (capacity factor 2)")
+    per, busy, dt_prof = profile_round(
+        lambda: serve_round(gen, serve_prompts(rng)))
+    top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    for name, (t, c) in top:
+        log(f"[{tag}] serving16 profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
+    del gen
+    gen_e = new_gen(False)
+    jobs_e, new_e, dt_e = serve_round(gen_e, round_prompts)
+    same_tokens(tag, jobs, jobs_e)
+    idle = 1 - busy / (dt_prof * 1e3)
+    log(f"[{tag}] serving16 device busy {busy:.1f} ms of the profiled "
+        f"{dt_prof * 1e3:.1f} ms round (idle share {idle:.1%}); eager "
+        f"{new_e / dt_e:.1f} tokens/s against {tps:.1f} graphed; step "
+        f"graphs {g_round}")
+    del gen_e, cache
+    return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
+            "p50_ttft_ms": p50, "tokens_per_s_eager": new_e / dt_e,
+            "device_busy_ms": busy, "profiled_round_ms": dt_prof * 1e3,
+            "idle_share": idle, "moe_dropped_tokens": dropped,
+            "step_graphs": g_round,
+            "top_kernels": [(k[:70], t, c) for k, (t, c) in top]}
+
+
+def moe_gate_check(dev, rate) -> tuple[list, float]:
+    """Kernel 1's gated entry against its plain version at Mixtral's expert
+    shapes (4-bit EXL2, prescaled), m in MOE_ROWS, the flag on and off:
+    within QMM_TOL of max |plain| on, exact zeros off. Timed like phase 2
+    (weights cycled past the L2); off, the launch writes zeros only."""
+    from exllamav2_tpu_torch.ops import qmm as Q
+    from exllamav2_tpu_torch.ops.dequant import dequant_linear
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    rows, worst = [], 0.0
+    for k, n in MOE_SHAPES:
+        def make():
+            return make_linear("exl2_4b_prescaled", k, n, gen, dev)
+        one = make()
+        copies = [one] + [make() for _ in range(
+            max(1, -(-2 * L2_BYTES // linear_bytes(one, 0))) - 1)]
+        wdense = dequant_linear(one, torch.bfloat16, original_order=False)
+        for m in MOE_ROWS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(
+                torch.bfloat16)
+            for on in (1, 0):
+                gate = torch.tensor([on], dtype=torch.int32, device=dev)
+                seg = one.segments[0]
+                got = Q.fused_segment_matmul(x, seg, gate)
+                ref = Q.qmm_gated_plain(x, seg, gate)
+                torch.cuda.synchronize()
+                err = (got - ref).abs().max().item()
+                if on:
+                    scale = ref.abs().max().item()
+                    if not (torch.isfinite(got).all()
+                            and err <= QMM_TOL * scale):
+                        raise AssertionError(f"gated {k}x{n} m={m}: err "
+                                             f"{err} of {scale}")
+                elif not torch.equal(got, torch.zeros_like(got)):
+                    raise AssertionError(f"gated off {k}x{n} m={m}: not "
+                                         "zeros")
+                worst = max(worst, err)
+                ms = graph_ms([(lambda c=c: Q.fused_segment_matmul(
+                    x, c.segments[0], gate)) for c in copies], 40)
+                plain_ms = eager_ms(lambda: Q.qmm_gated_plain(x, seg, gate),
+                                    3)
+                lib_ms = graph_ms([lambda: torch.matmul(x, wdense)], 40) \
+                    if on else None
+                nbytes = linear_bytes(one, m) if on else m * n * 4 + 4
+                rows.append(dict(k=k, n=n, m=m, on=bool(on),
+                                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bytes=nbytes,
+                                 bound_ms=nbytes / rate * 1e3))
+                log(f"[moe] gated kernel {k:5d}x{n:5d} m={m:2d} "
+                    f"gate={'on ' if on else 'off'} err={err:.2e} "
+                    f"kernel={ms * 1e3:7.1f}us plain={plain_ms * 1e3:8.1f}us"
+                    f" bound={nbytes / rate * 1e6:6.1f}us"
+                    + (f" lib={lib_ms * 1e3:6.1f}us" if lib_ms else ""))
+        del copies, wdense
+        torch.cuda.empty_cache()
+    return rows, worst
+
+
+def moe_routed(model, prompt, new) -> list:
+    """Experts switched on per layer, for each forward of an eager
+    generate_greedy (the gated decode's flags, collected on the device and
+    read back after the call): [forwards][layers]."""
+    from exllamav2_tpu_torch.models import forward as F
+    F._MOE_GATES[0] = []
+    try:
+        eager(model, lambda: model.generate_greedy(prompt, new))
+        gates = torch.stack(F._MOE_GATES[0]).sum(dim=1).cpu().numpy()
+    finally:
+        F._MOE_GATES[0] = None
+    return gates.reshape(-1, model.static.num_layers).tolist()
+
+
+def phase_archs(dev, rate):
+    """Phase 13: Mixtral-8x7B at full width and depth (the gated MoE
+    decode), Gemma-3-12B's text model at full width and depth, and Command
+    R7B and GPT-2 layers at published width: each model path graphed and
+    once eager (bitwise the same tokens), launch counts asserted."""
+    import gc
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.ops import qmm as Q
+    t_all = time.perf_counter()
+    out = {"launches": {}}
+    rng = np.random.default_rng(5)
+
+    # --- the gated kernel at Mixtral's expert shapes
+    out["gate_rows"], out["gate_err"] = moe_gate_check(dev, rate)
+
+    # --- 13a Mixtral-8x7B
+    t0 = time.perf_counter()
+    model, gbytes, t_build = arch_model(MIXTRAL, dev)
+    st = model.static
+    log(f"[mixtral] weights built on {dev} in {t_build:.1f} s, "
+        f"{gbytes:.2f} GB")
+    p1 = rng.integers(3, 32000, (1, ARCH_PROMPT)).astype(np.int32)
+    p4 = rng.integers(3, 32000, (4, ARCH_PROMPT)).astype(np.int32)
+    mix = {}
+    for name, p in (("b1", p1), ("b4", p4)):
+        mix[name] = arch_greedy("mixtral", model, p, ARCH_NEW, 32000)
+        out["launches"][f"mixtral_generate_greedy_{name}"] = \
+            mix[name]["launches"]
+    routed = {name: moe_routed(model, p, 8) for name, p in
+              (("b1", p1), ("b4", p4))}
+    # forward 0 is the prefill; the rest are one-token steps
+    dec_routed = {k: float(np.mean(v[1:])) for k, v in routed.items()}
+    log(f"[mixtral] experts switched on per layer per decode step: "
+        f"b1 {dec_routed['b1']:.2f}, b4 {dec_routed['b4']:.2f} of "
+        f"{st.num_experts} (prefill of 16 rows: b1 "
+        f"{np.mean(routed['b1'][0]):.2f})")
+    rel = decode_vs_prefill("mixtral", model, p1)
+    ms, ms_e = decode_rate_b1(model, p1, 64)
+    prof = profile_decode(model, p1)
+    busy = prof["device_ms_per_token"]
+    k1 = sum(t for n, t, _ in prof["kernels"] if "qmm_kernel" in n)
+    # the bytes a batch-1 token must move: q, k, v, o, the routed
+    # experts' three linears (dec_routed of them a layer) and the head
+    lw = model.weights.layers[0]
+    attn_b = sum(linear_bytes(x, 1) for x in
+                 (lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o))
+    exp_b = sum(linear_bytes(x[0], 1) for x in (lw.mlp.w1, lw.mlp.w2,
+                                                 lw.mlp.w3))
+    floor_b = (st.num_layers * (attn_b + dec_routed["b1"] * exp_b)
+               + linear_bytes(model.weights.head, 1))
+    floor_ms = floor_b / rate * 1e3
+    log(f"[mixtral] decode batch 1: {1e3 / ms:.2f} tokens/s ({ms:.3f} ms a "
+        f"token graphed, {ms_e:.3f} eager); device busy {busy:.3f} ms a "
+        f"token (idle share {1 - busy / ms:.1%}), "
+        f"{prof['device_launches_per_token']:.0f} launches a token; kernel 1 "
+        f"{k1:.3f} ms a token against the routed-bytes floor "
+        f"{floor_ms:.3f} ms ({floor_b / 1e9:.2f} GB)")
+    k2 = sum(t for n, t, _ in prof["kernels"] if "decode_attn" in n)
+    rest_n = (prof["device_launches_per_token"] - st.num_layers
+              - step_launches(model, 1)["qmm"] - head_launches(model))
+    log(f"[mixtral] profile: kernel 2 {k2:.3f} ms a token; everything else "
+        f"(router, top-k, the experts' act * up, casts, routing-weight "
+        f"scales and adds, norms, rope, residuals) {busy - k1 - k2:.3f} ms "
+        f"in {rest_n:.0f} launches a token")
+    for name, t in prof["top"]:
+        log(f"[mixtral] profile: {t:6.3f} ms/token  {name}")
+    # the gated decode against the dense formulation, teacher-forced on the
+    # b1 tokens (both eager)
+    toks = np.asarray(mix["b1"]["tokens"][0])
+    g0 = Q.GATED_LAUNCHES["qmm_gated"]
+    sparse_lg = teacher_forced_logits(model, p1[0], toks)
+    g1 = Q.GATED_LAUNCHES["qmm_gated"]
+    F._FORCE_DENSE_MOE[0] = True
+    try:
+        dense_lg = teacher_forced_logits(model, p1[0], toks)
+    finally:
+        F._FORCE_DENSE_MOE[0] = False
+    if not (g1 > g0 and Q.GATED_LAUNCHES["qmm_gated"] == g1):
+        raise AssertionError("mixtral: the dense pass launched gated "
+                             "kernels, or the gated pass none")
+    moe_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(sparse_lg, dense_lg))
+    parts = [i for i, (a, b) in enumerate(zip(sparse_lg, dense_lg))
+             if int(a.argmax()) != int(b.argmax())]
+    for i in parts:
+        top = torch.topk(dense_lg[i].float(), 2).values
+        gap = ((top[0] - top[1]) / dense_lg[i].abs().max()).item()
+        if not gap < TIE_GAP:
+            raise AssertionError(f"mixtral: gated and dense argmax differ "
+                                 f"at step {i} off a near-tie ({gap:.2e})")
+    log(f"[mixtral] gated vs forced-dense decode logits rel err "
+        f"{moe_rel:.2e} over {len(dense_lg)} steps; argmax parts at "
+        f"{parts} (near-ties only)")
+    if not moe_rel < MOE_TOL:
+        raise AssertionError(f"mixtral gated vs dense rel err {moe_rel}")
+    serve = arch_serving("mixtral", model, dev, 32000, drops=True)
+    out["launches"]["mixtral_serving16"] = serve["launches"]
+    out["mixtral"] = {
+        "weights_gb": gbytes, "greedy": mix, "routed_per_layer": dec_routed,
+        "decode_vs_prefill_rel_err": rel, "decode_ms_per_token_b1": ms,
+        "decode_ms_per_token_b1_eager": ms_e,
+        "decode_tokens_per_s_b1": 1e3 / ms, "device_busy_ms_per_token": busy,
+        "kernel2_ms_per_token": k2, "other_ms_per_token": busy - k1 - k2,
+        "other_launches_per_token": rest_n,
+        "idle_share": 1 - busy / ms, "kernel1_ms_per_token": k1,
+        "routed_floor_ms": floor_ms, "routed_floor_gb": floor_b / 1e9,
+        "gated_vs_dense_rel_err": moe_rel, "argmax_parts": parts,
+        "profile": prof, "serving16": serve,
+        "seconds": time.perf_counter() - t0}
+    log(f"[time] phase 13a: {time.perf_counter() - t0:.1f} s")
+    del model, sparse_lg, dense_lg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 13b Gemma-3-12B text
+    t0 = time.perf_counter()
+    model, gbytes, t_build = arch_model(GEMMA3, dev, seed=1)
+    log(f"[gemma3] weights built in {t_build:.1f} s, {gbytes:.2f} GB")
+    g1 = arch_greedy("gemma3", model, p1, ARCH_NEW, GEMMA3["vocab"])
+    out["launches"]["gemma3_generate_greedy_b1"] = g1["launches"]
+    rel_g = decode_vs_prefill("gemma3", model, p1, production_gate=False)
+    ms_g, ms_ge = decode_rate_b1(model, p1, 32)
+    prof_g = profile_decode(model, p1)
+    busy_g = prof_g["device_ms_per_token"]
+    k1_g = sum(t for n, t, _ in prof_g["kernels"] if "qmm_kernel" in n)
+    log(f"[gemma3] decode batch 1: {1e3 / ms_g:.2f} tokens/s ({ms_g:.3f} ms "
+        f"a token graphed, {ms_ge:.3f} eager); device busy {busy_g:.3f} ms "
+        f"a token (idle share {1 - busy_g / ms_g:.1%}), "
+        f"{prof_g['device_launches_per_token']:.0f} launches a token; kernel "
+        f"1 {k1_g:.3f} ms a token")
+    for name, t in prof_g["top"]:
+        log(f"[gemma3] profile: {t:6.3f} ms/token  {name}")
+    serve_g = arch_serving("gemma3", model, dev, GEMMA3["vocab"])
+    out["launches"]["gemma3_serving16"] = serve_g["launches"]
+    out["gemma3"] = {"weights_gb": gbytes, "greedy": g1,
+                     "decode_vs_prefill_rel_err": rel_g,
+                     "decode_ms_per_token_b1": ms_g,
+                     "decode_ms_per_token_b1_eager": ms_ge,
+                     "device_busy_ms_per_token": busy_g,
+                     "kernel1_ms_per_token": k1_g, "profile": prof_g,
+                     "serving16": serve_g,
+                     "seconds": time.perf_counter() - t0}
+    log(f"[time] phase 13b: {time.perf_counter() - t0:.1f} s")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- 13c Command R7B and GPT-2 layers at published width
+    t0 = time.perf_counter()
+    for tag, cfg, max_seq in (("cohere2", COHERE2, 2048),
+                              ("gpt2", GPT2, 1024)):
+        model, gbytes, _ = arch_model(cfg, dev, seed=2, max_seq=max_seq)
+        st = model.static
+        if tag == "cohere2":
+            assert st.parallel_blocks and not st.layers[3].rope_enabled
+        else:
+            assert st.learned_pos_emb and model.weights.pos_emb is not None
+        g = arch_greedy(tag, model, p1 % cfg["vocab"], ARCH_NEW,
+                        cfg["vocab"])
+        out["launches"][f"{tag}_generate_greedy_b1"] = g["launches"]
+        out[tag] = {"weights_gb": gbytes, "greedy": g,
+                    "decode_vs_prefill_rel_err": decode_vs_prefill(
+                        tag, model, p1 % cfg["vocab"])}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[time] phase 13c: {time.perf_counter() - t0:.1f} s")
+    out["seconds"] = time.perf_counter() - t_all
+    out["gated_launches_b1"] = mix["b1"]["launches"]["qmm_gated"]
+    return out
+
+
+def gated_entry(archs, rate) -> dict:
+    """The kernels-line entry of kernel 1's gated launch: one Mixtral
+    batch-1 decode token's expert launches (routed ones at m = 1 with
+    their flag on, the others off), from the gate rows of phase 13."""
+    mx = archs["mixtral"]
+    on = mx["routed_per_layer"]["b1"]
+    off = MIXTRAL["moe"] - on
+    layers = MIXTRAL["layers"]
+
+    def tot(key):
+        s = 0.0
+        for r in archs["gate_rows"]:
+            if r["m"] != 1:
+                continue
+            mult = (2 if r["k"] == 4096 else 1) * (on if r["on"] else off)
+            s += mult * (r[key] or 0.0)
+        return layers * s
+
+    return {"name": "qmm_fused_segment_matmul_gated", "route": "cuda",
+            "source": "exllamav2_tpu_torch/csrc/qmm.cu",
+            "replaces": "exllamav2_tpu/ops/qmm.py:437",
+            "launches": archs["gated_launches_b1"],
+            "launches_by_path": {p: c["qmm_gated"]
+                                 for p, c in archs["launches"].items()},
+            "max_abs_err": archs["gate_err"],
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bytes") / rate * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "design": "kernel 1 with an int32 device flag read before the "
+                      "first load: 0 writes zeros and streams no planes (the "
+                      "reference's lax.cond around an expert, "
+                      "exllamav2_tpu/models/forward.py:641)"}
+
+
 def tools_entries(tools, rate) -> list:
     """The kernels-line entries of the tools path: each perf_qmm kernel
     summed over the three 7B shapes at M = 8, 4 bits, groups of 32 (the
@@ -2795,6 +3359,14 @@ def main() -> int:
         log(f"[done] build and the spec phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["archs"]:
+        detail["archs"] = phase_archs(dev, rate)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_archs.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the architectures phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -2822,6 +3394,7 @@ def main() -> int:
     detail["tools"] = timed("tools", phase_tools, dev, rate)
     detail["constrained"] = timed("constrained", phase_constrained, dev)
     detail["spec"] = timed("spec", phase_spec, dev)
+    detail["archs"] = timed("archs", phase_archs, dev, rate)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -2832,8 +3405,10 @@ def main() -> int:
     launches["serving16_constrained"] = detail["constrained"]["launches"]
     launches["tools"] = detail["tools"]["launches"]
     launches.update(detail["spec"]["launches"])
+    launches.update(detail["archs"]["launches"])
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
                         detail["paged"], perr, partials, launches, rate)
+    kernels.insert(1, gated_entry(detail["archs"], rate))
     kernels += tools_entries(detail["tools"], rate)
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_all

@@ -76,6 +76,15 @@
 //     scratch (graph capture safe). Blocks of 16 (non-portable clusters) and
 //     two warp groups splitting a slot's k-steps measured slower at the 7B
 //     shapes.
+//   * The gated entry (qmm_segment_gated) takes an int32 flag in device
+//     memory, the MoE decode's "is any row routed to this expert", computed
+//     on the device in the same stream (no host readback, so a CUDA graph
+//     replays it). Every block reads the flag before its first load; when
+//     it is 0 the split-0 block of each column block writes zeros over its
+//     tile and every block returns: no plane is streamed. All blocks of a
+//     cluster read the same flag and leave together, so no cluster barrier
+//     waits on a block that left. Zeros, not an unwritten buffer: the
+//     caller scales the output by a routing weight of 0, and 0 * NaN is NaN.
 // Constraints: n % 4 == 0 and 16-byte aligned buffers (the wrapper checks),
 // group sizes a multiple of 16.
 
@@ -102,6 +111,7 @@ struct Args {
   const void* meta0;
   const void* meta1;
   int nsrc, src1, src2;   // META_SRC_COLS: sources, start columns of 1 and 2
+  const int* gate;        // nullptr, or a flag: 0 = write zeros, load nothing
   float* out;
   int sb_per_split, nsb;
   // a pipeline stage in shared memory: activations, then the group meta of
@@ -375,6 +385,16 @@ __global__ void __launch_bounds__(THREADS, min_blocks(MT))
   const int cw4 = warp * 32 + 4 * g;               // the lane's four columns
   const int c4 = n0 + cw4;
   const bool live = c4 < a.n;
+  if (a.gate != nullptr && *a.gate == 0) {
+    if (blockIdx.y == 0)
+      for (int e = threadIdx.x; e < a.m * (NB / 4); e += THREADS) {
+        const int row = e / (NB / 4), cc = (e % (NB / 4)) * 4;
+        if (n0 + cc < a.n)
+          *reinterpret_cast<float4*>(a.out + (size_t)row * a.n + n0 + cc) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    return;
+  }
   const int sb0 = blockIdx.y * a.sb_per_split;
   const int sb1 = min(sb0 + a.sb_per_split, a.nsb);
   const float zf = (float)(128 + (1 << (a.bits - 1)));
@@ -540,17 +560,15 @@ const char* error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// x [m, k_pad] bf16; planes int32/uint32 [k_pad*bp/32, n]; meta as in
-// read_slot (nsrc, src1, src2 are read for META_SRC_COLS only); out [m, n]
-// f32. splits <= 8 blocks of one cluster share a column block, each
-// sb_per_split sub-blocks of K. n % 4 == 0, buffers 16-byte aligned.
-// Returns the cudaError_t of the launch (0 on success).
-int qmm_segment(const void* x, int m, int k_pad,
-                const void* plane0, const void* plane1, int bp0, int bp1,
-                int n, int bits, int group_rows, int meta,
-                const void* meta0, const void* meta1,
-                int nsrc, int src1, int src2,
-                void* out, int splits, int sb_per_split, void* stream) {
+}  // extern "C"
+
+namespace {
+
+int segment(const void* x, int m, int k_pad, const void* plane0,
+            const void* plane1, int bp0, int bp1, int n, int bits,
+            int group_rows, int meta, const void* meta0, const void* meta1,
+            int nsrc, int src1, int src2, void* out, int splits,
+            int sb_per_split, const void* gate, void* stream) {
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
@@ -578,6 +596,7 @@ int qmm_segment(const void* x, int m, int k_pad,
   a.nsrc = nsrc;
   a.src1 = src1;
   a.src2 = src2;
+  a.gate = (const int*)gate;
   a.out = (float*)out;
   a.sb_per_split = sb_per_split;
   a.nsb = k_pad / SB;
@@ -608,6 +627,41 @@ int qmm_segment(const void* x, int m, int k_pad,
   }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// x [m, k_pad] bf16; planes int32/uint32 [k_pad*bp/32, n]; meta as in
+// read_slot (nsrc, src1, src2 are read for META_SRC_COLS only); out [m, n]
+// f32. splits <= 8 blocks of one cluster share a column block, each
+// sb_per_split sub-blocks of K. n % 4 == 0, buffers 16-byte aligned.
+// Returns the cudaError_t of the launch (0 on success).
+int qmm_segment(const void* x, int m, int k_pad,
+                const void* plane0, const void* plane1, int bp0, int bp1,
+                int n, int bits, int group_rows, int meta,
+                const void* meta0, const void* meta1,
+                int nsrc, int src1, int src2,
+                void* out, int splits, int sb_per_split, void* stream) {
+  return segment(x, m, k_pad, plane0, plane1, bp0, bp1, n, bits, group_rows,
+                 meta, meta0, meta1, nsrc, src1, src2, out, splits,
+                 sb_per_split, nullptr, stream);
+}
+
+// qmm_segment with a gate: an int32 flag in device memory (read by the
+// kernel when it runs); 0 makes out zeros and streams no planes.
+int qmm_segment_gated(const void* x, int m, int k_pad,
+                      const void* plane0, const void* plane1, int bp0,
+                      int bp1, int n, int bits, int group_rows, int meta,
+                      const void* meta0, const void* meta1,
+                      int nsrc, int src1, int src2,
+                      void* out, int splits, int sb_per_split,
+                      const void* gate, void* stream) {
+  if (gate == nullptr) return (int)cudaErrorInvalidValue;
+  return segment(x, m, k_pad, plane0, plane1, bp0, bp1, n, bits, group_rows,
+                 meta, meta0, meta1, nsrc, src1, src2, out, splits,
+                 sb_per_split, gate, stream);
 }
 
 }  // extern "C"

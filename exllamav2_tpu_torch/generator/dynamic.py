@@ -55,8 +55,15 @@ accepted. Rejected drafts leave KV rows past the accepted length, which
 the next step overwrites before any query reads them. ``set_loras``
 attaches PEFT adapters (lora.py) to the served weights.
 
-Not ported yet (each raises NotImplementedError when asked for): mesh,
-embeddings / MRoPE and the MoE drop counters.
+MoE models count the routes their prefill's capacity dispatch drops
+(models/forward.moe_forward): each prefill forward sums its layers' counts
+on the device, and the host reads them back when a job finishes (its result
+carries ``moe_dropped_tokens``) or when ``moe_dropped_tokens`` is read, never
+in the middle of a step. The prefill's pad rows and columns are masked out
+of the routing.
+
+Not ported yet (each raises NotImplementedError when asked for): mesh and
+embeddings / MRoPE.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ from exllamav2_tpu_torch.generator.hooks import PostSamplingResult
 from exllamav2_tpu_torch.generator.sampler import (
     ROWS, Settings, params_from_rows, settings_rows)
 from exllamav2_tpu_torch.generator.speculative import NgramDrafter
+from exllamav2_tpu_torch.models import forward as F
 from exllamav2_tpu_torch.models.forward import model_forward_paged
 from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
 from exllamav2_tpu_torch.ops.sampling import (
@@ -214,6 +222,9 @@ class DynamicJob:
         self.time_enqueue = 0.0
         self.time_first_token = 0.0
         self.time_last_token = 0.0
+        # dropped MoE routes of each prefill chunk (int32 device scalars),
+        # totalled when the job finishes
+        self._moe_drop_parts: list = []
 
     @property
     def is_cfg(self) -> bool:
@@ -326,6 +337,10 @@ class DynamicGenerator:
         self.referenced: dict[bytes, CachePage] = {}
         self.unreferenced: OrderedDict[bytes, CachePage] = OrderedDict()
         self.access_serial = 0
+        # dropped MoE routes of finished jobs, and the device scalars of
+        # batched prefills (not one job's), folded when read
+        self._moe_dropped_host = 0
+        self._moe_drop_batch: list = []
 
         # device-side token history; the extra row is the dummy slot of pad
         # rows, the extra columns hold the tokens sampled at the end (a
@@ -461,6 +476,7 @@ class DynamicGenerator:
             if job.slot >= 0:
                 self.free_slots.append(job.slot)
                 job.slot = -1
+            self._moe_dropped_host += self._fold_drops(job)
         else:
             return
         job.status = "done"
@@ -537,7 +553,22 @@ class DynamicGenerator:
 
     @property
     def moe_dropped_tokens(self) -> int:
-        _unported("the MoE drop counters")
+        """Routes the MoE prefill dispatch dropped past expert capacity, over
+        finished jobs and batched prefills (0 when none: the prefill then
+        equals the exact dense mix; forward.set_moe_dispatch raises the
+        capacity). Reads the batched prefills' device counts back."""
+        if self._moe_drop_batch:
+            self._moe_dropped_host += int(sum(
+                int(d) for d in self._moe_drop_batch))
+            self._moe_drop_batch.clear()
+        return self._moe_dropped_host
+
+    @staticmethod
+    def _fold_drops(job: DynamicJob) -> int:
+        """Read back and clear a job's dropped-route scalars."""
+        n = int(sum(int(d) for d in job._moe_drop_parts))
+        job._moe_drop_parts.clear()
+        return n
 
     def print_page_list(self, short: bool = True):
         """Debug dump of the page pool."""
@@ -809,19 +840,37 @@ class DynamicGenerator:
                    for j in jobs)
 
     def _prefill_forward(self, ids: np.ndarray, bt: np.ndarray,
-                         pos: np.ndarray, draft: bool = True):
+                         pos: np.ndarray, lens: np.ndarray,
+                         draft: bool = True):
         """One prefill forward that fills the cache (and the draft model's
         cache, unless draft=False); its logits are never used, so the head
-        is skipped."""
+        is skipped. lens [B]: the real tokens of each row. For an MoE model
+        the rows' pad tokens route nowhere, and the return is the forward's
+        dropped-route count (an int32 device scalar), else None."""
+        moe = bool(self.model.static.num_experts)
+        if moe:
+            valid = np.arange(ids.shape[1])[None, :] < lens[:, None]
+            F._MOE_STATS[0] = []
+            F._MOE_VALID[0] = self._dev(valid.reshape(-1))
         ids, bt, pos = self._dev(ids), self._dev(bt), self._dev(pos)
-        model_forward_paged(self.model.weights, self.model.static, ids,
-                            self.cache, bt, pos, last_token_only=True,
-                            with_logits=False)
+        dropped = None
+        try:
+            model_forward_paged(self.model.weights, self.model.static, ids,
+                                self.cache, bt, pos, last_token_only=True,
+                                with_logits=False)
+            if moe:
+                parts = F._MOE_STATS[0]
+                dropped = sum(parts) if parts else torch.zeros(
+                    (), dtype=torch.int32, device=self.device)
+        finally:
+            F._MOE_STATS[0] = None
+            F._MOE_VALID[0] = None
         if draft and self.draft_model is not None:
             model_forward_paged(self.draft_model.weights,
                                 self.draft_model.static, ids,
                                 self.draft_cache, bt, pos,
                                 last_token_only=True, with_logits=False)
+        return dropped
 
     @staticmethod
     def _block_table(pages: list[CachePage], width: int) -> np.ndarray:
@@ -870,11 +919,16 @@ class DynamicGenerator:
         ids = np.zeros((b_bucket, t_bucket), np.int32)
         bt = np.zeros((b_bucket, p_bucket), np.int32)
         pos_a = np.zeros((b_bucket,), np.int32)
+        lens = np.zeros((b_bucket,), np.int32)
         for i, (job, pos, end) in enumerate(chunks):
             ids[i, :end - pos] = job.prompt_ids[pos:end]
             bt[i] = self._block_table(job.pages, p_bucket)
             pos_a[i] = pos
-        self._prefill_forward(ids, bt, pos_a)
+            lens[i] = end - pos
+        dropped = self._prefill_forward(ids, bt, pos_a, lens)
+        if dropped is not None:
+            # a batch's count is not one job's: folded when read
+            self._moe_drop_batch.append(dropped)
         for job, pos, end in chunks:
             job.kv_pos = end
             self._update_page_fill(job)
@@ -893,8 +947,11 @@ class DynamicGenerator:
         chunk = np.zeros((1, t_bucket), np.int32)
         chunk[0, :t] = ids[pos:end]
         bt = self._block_table(pages, p_bucket)[None]
-        self._prefill_forward(chunk, bt, np.asarray([pos], np.int32),
-                              draft=not stream2)
+        dropped = self._prefill_forward(
+            chunk, bt, np.asarray([pos], np.int32),
+            np.asarray([t], np.int32), draft=not stream2)
+        if dropped is not None:
+            job._moe_drop_parts.append(dropped)
         if stream2:
             job.kv_pos2 = end
         else:
@@ -1656,11 +1713,11 @@ class DynamicGenerator:
             r.update(self._final_stats(job))
         results.append(r)
 
-    @staticmethod
-    def _final_stats(job: DynamicJob) -> dict:
-        """The fields a job's last result carries."""
+    def _final_stats(self, job: DynamicJob) -> dict:
+        """The fields a job's last result carries; its dropped MoE routes,
+        where its prefill dropped any, are read back and counted."""
         t_gen = max(job.time_last_token - job.time_first_token, 1e-9)
-        return {
+        out = {
             "eos_reason": job.eos_reason,
             "full_completion": job.emitted_text,
             "new_tokens": job.new_tokens,
@@ -1671,6 +1728,11 @@ class DynamicGenerator:
             "tokens_per_second": (job.new_tokens - 1) / t_gen
             if job.new_tokens > 1 else 0.0,
         }
+        if job._moe_drop_parts:
+            nd = self._fold_drops(job)
+            out["moe_dropped_tokens"] = nd
+            self._moe_dropped_host += nd
+        return out
 
     # ------------------------------------------------------------------
     # convenience API

@@ -17,8 +17,8 @@ import torch
 
 from exllamav2_tpu_torch.device import resolve_device
 from exllamav2_tpu_torch.models.modules import (
-    AttnWeights, LayerStatic, LayerWeights, MLPWeights, ModelWeights,
-    NormWeights, StaticModel)
+    AttnWeights, LayerStatic, LayerWeights, MLPWeights, MoEWeights,
+    ModelWeights, NormWeights, StaticModel)
 from exllamav2_tpu_torch.quant.qtensor import (
     DenseLinear, GptqSegment, QuantLinear, QuantSegment)
 
@@ -110,33 +110,49 @@ def weights_from_reference(w, st, *, device=None
                            ) -> tuple[ModelWeights, StaticModel]:
     """Reference (ModelWeights with numpy leaves, StaticModel) -> this
     package's (ModelWeights, StaticModel) on `device` (the card by
-    default)."""
+    default). Per-head and post norms, learned positions, the alternate
+    rope tables and block-sparse MoE layers come along (a tuple of expert
+    linears becomes an nn.ModuleList); expert-parallel MoE (EPMoEWeights,
+    stacked experts over a mesh) is not ported and raises."""
     device = resolve_device(device)
-    for name in ("pos_emb", "sin_alt", "cos_alt"):
-        if getattr(w, name, None) is not None:
-            raise NotImplementedError(f"{name} is not ported yet")
+
+    def lin(x):
+        return None if x is None else linear_from_reference(x, device)
+
+    def norm(nw):
+        return None if nw is None else _norm(nw, device)
+
     layers = []
     for lw in w.layers:
         aw, mw = lw.attn, lw.mlp
-        for name in ("q_norm", "k_norm", "norm_post"):
-            if getattr(aw, name, None) is not None:
-                raise NotImplementedError(f"attention {name} not ported yet")
-        if not hasattr(mw, "up") or getattr(mw, "norm_post", None) is not None:
-            raise NotImplementedError("MoE / post-norm MLPs not ported yet")
-        def lin(x):
-            return None if x is None else linear_from_reference(x, device)
-
         # the merged qkv / gate_up linears come along where the reference
         # tree carries them
         attn = AttnWeights(_norm(aw.norm, device), lin(aw.q), lin(aw.k),
-                           lin(aw.v), lin(aw.o), qkv=lin(aw.qkv))
-        mlp = MLPWeights(_norm(mw.norm, device), lin(mw.gate), lin(mw.up),
-                         lin(mw.down), gate_up=lin(mw.gate_up))
+                           lin(aw.v), lin(aw.o), q_norm=norm(aw.q_norm),
+                           k_norm=norm(aw.k_norm),
+                           norm_post=norm(aw.norm_post), qkv=lin(aw.qkv))
+        if hasattr(mw, "up"):
+            mlp = MLPWeights(_norm(mw.norm, device), lin(mw.gate),
+                             lin(mw.up), lin(mw.down),
+                             norm_post=norm(mw.norm_post),
+                             gate_up=lin(mw.gate_up))
+        elif isinstance(mw.w1, (tuple, list)):
+            mlp = MoEWeights(_norm(mw.norm, device), lin(mw.router),
+                             [lin(x) for x in mw.w1], [lin(x) for x in mw.w2],
+                             [lin(x) for x in mw.w3],
+                             norm_post=norm(mw.norm_post))
+        else:
+            raise NotImplementedError(
+                f"{type(mw).__name__} (expert-parallel MoE) is not ported "
+                "yet")
         layers.append(LayerWeights(attn, mlp))
     out = ModelWeights(to_tensor(w.embed, device), layers,
                        _norm(w.final_norm, device),
                        linear_from_reference(w.head, device),
-                       to_tensor(w.sin, device), to_tensor(w.cos, device))
+                       to_tensor(w.sin, device), to_tensor(w.cos, device),
+                       pos_emb=to_tensor(w.pos_emb, device),
+                       sin_alt=to_tensor(w.sin_alt, device),
+                       cos_alt=to_tensor(w.cos_alt, device))
     return out, _static(st)
 
 

@@ -15,27 +15,73 @@ device memory, so one graph serves every position of a limit bucket.
 ``model_forward_paged`` is the serving forward over the paged KV cache
 (cache_paged.PagedKVCache, per-sequence block tables and positions): its t = 1
 attention goes through the paged flash-decode kernel (ops/paged_attn.py).
+
+The architecture quirks follow the reference: per-head QK norms, post-norms
+of the attention and MLP outputs, Cohere's parallel blocks, NoPE layers,
+learned positions and the sliding-window layers' own rope tables; every
+position-dependent gather indexes with the step's position tensor, so a
+captured step reads its position from device memory. ``moe_forward`` is the
+block-sparse MoE in three regimes, with the reference's thresholds: up to 32
+rows on the card each expert's kernel-1 launches read a device gate (is any
+row routed here?) and an expert with no routed row streams no weights;
+mid-size batches (and the CPU) run every expert on every row and mix by the
+routing weights; from max(64, 2E) rows a capacity dispatch gathers each
+expert's routed rows into a static [E, C] buffer.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as Fn
 
 from exllamav2_tpu_torch.architecture import RopeStyle
 from exllamav2_tpu_torch.cache import KVCache
 from exllamav2_tpu_torch.models.modules import (
-    AttnWeights, MLPWeights, ModelWeights, NormWeights, StaticModel)
+    AttnWeights, MLPWeights, MoEWeights, ModelWeights, NormWeights,
+    StaticModel)
 from exllamav2_tpu_torch.ops.decode_attn import decode_attention
 from exllamav2_tpu_torch.ops.paged_attn import (
     gqa_scores, gqa_values, paged_attention)
-from exllamav2_tpu_torch.ops.qmm import linear_apply
+from exllamav2_tpu_torch.ops.qmm import gate_capable, linear_apply
 from exllamav2_tpu_torch.ops.rope import apply_rope
 
-__all__ = ["norm_apply", "attn_forward", "mlp_forward", "model_forward",
-           "attn_forward_paged", "model_forward_paged"]
+__all__ = ["norm_apply", "attn_forward", "mlp_forward", "moe_forward",
+           "model_forward", "attn_forward_paged", "model_forward_paged",
+           "set_moe_dispatch"]
 
 _NEG = -1e30
+
+# test hook: the gated (sparse) MoE decode on a CPU tensor, through the
+# gated kernel's plain version (on the card it is the default up to 32 rows)
+_FORCE_SPARSE_MOE = [False]
+# measurement hooks: the dense formulation even on the card (what the gated
+# decode is held against), and, while a caller holds a list here, the gated
+# decode's expert flags ([E] int32 device tensors, one a layer)
+_FORCE_DENSE_MOE = [False]
+_MOE_GATES = [None]
+# capacity factor of the prefill dispatch (tokens per expert buffer =
+# BT * topk * CF / E; routes past capacity drop that expert's term)
+_MOE_CAPACITY_FACTOR = [2.0]
+# the dispatch serves max(this, 2 E) rows and more
+_MOE_DISPATCH_MIN_TOKENS = [64]
+# a list while a caller collects the dispatch's dropped-route counts (int32
+# device scalars, one a layer; the generator's prefill sets it), else None
+_MOE_STATS = [None]
+# a [BT] validity mask of the rows (bucketed prefill pads rows and columns
+# with token 0; a pad row must not route), or None; set by the generator
+_MOE_VALID = [None]
+
+
+def set_moe_dispatch(capacity_factor: float | None = None,
+                     min_tokens: int | None = None) -> None:
+    """Tune the prefill MoE dispatch: raise `capacity_factor` to shrink
+    drops on unbalanced routers, or set `min_tokens` very large (1 << 30)
+    to run the exact dense mix everywhere."""
+    if capacity_factor is not None:
+        _MOE_CAPACITY_FACTOR[0] = float(capacity_factor)
+    if min_tokens is not None:
+        _MOE_DISPATCH_MIN_TOKENS[0] = int(min_tokens)
 
 
 def _fz(st: StaticModel):
@@ -60,14 +106,23 @@ def norm_apply(x: torch.Tensor, w: NormWeights, st: StaticModel) -> torch.Tensor
     return y.to(x.dtype)
 
 
+def _head_norm(x: torch.Tensor, w: NormWeights, eps: float) -> torch.Tensor:
+    """Per-head RMS norm over head_dim in f32, returned in x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * w.weight.float()).to(x.dtype)
+
+
 def _rope_style(st: StaticModel) -> RopeStyle:
     return {"neox": RopeStyle.NEOX, "gptj": RopeStyle.GPTJ,
             "none": RopeStyle.NONE}[st.rope_style]
 
 
 def _attn_qkv(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
-              sin: torch.Tensor, cos: torch.Tensor):
-    """norm -> Q/K/V projections -> RoPE; returns bf16 q, k, v [B, T, H, D]."""
+              sin: torch.Tensor, cos: torch.Tensor, layer: int):
+    """norm -> Q/K/V projections -> QK norms -> RoPE (none on a NoPE
+    layer); returns bf16 q, k, v [B, T, H, D]."""
     b, t, d = x.shape
     hq, hkv, hd = st.num_heads, st.num_kv_heads, st.head_dim
     hidden = norm_apply(x, aw.norm, st)
@@ -83,7 +138,12 @@ def _attn_qkv(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
         q = linear_apply(h2, aw.q, fused=_fz(st)).reshape(b, t, hq, hd)
         k = linear_apply(h2, aw.k, fused=_fz(st)).reshape(b, t, hkv, hd)
         v = linear_apply(h2, aw.v, fused=_fz(st)).reshape(b, t, hkv, hd)
+    if st.use_qk_norm:
+        q = _head_norm(q, aw.q_norm, st.norm_eps)
+        k = _head_norm(k, aw.k_norm, st.norm_eps)
     style = _rope_style(st)
+    if st.layers and not st.layers[layer].rope_enabled:
+        style = RopeStyle.NONE
     q = apply_rope(q.to(torch.bfloat16), sin, cos, style)
     k = apply_rope(k.to(torch.bfloat16), sin, cos, style)
     return q, k, v.to(torch.bfloat16)
@@ -114,7 +174,7 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     """
     b, t, d = x.shape
     hq, hkv, hd = st.num_heads, st.num_kv_heads, st.head_dim
-    q, k, v = _attn_qkv(x, aw, st, sin, cos)
+    q, k, v = _attn_qkv(x, aw, st, sin, cos, layer)
 
     cache.update(layer, k, v, past_len)
     scale = st.attn_scale if st.attn_scale is not None else hd ** -0.5
@@ -127,7 +187,7 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
                                float(st.attn_logit_softcap), int(window))
         out = out.to(torch.bfloat16).reshape(b, hq * hd)
         out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, 1, -1)
-        return out, cache
+        return _post(out, aw, st), cache
 
     ck, cv = cache.layer(layer)                           # [B, Hkv, S, D]
     if attn_limit is not None and attn_limit < ck.shape[2]:
@@ -153,7 +213,14 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     out = gqa_values(torch.softmax(scores, dim=-1), cv)
     out = out.to(torch.bfloat16).reshape(b * t, hq * hd)
     out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, t, -1)
-    return out, cache
+    return _post(out, aw, st), cache
+
+
+def _post(out: torch.Tensor, w, st: StaticModel) -> torch.Tensor:
+    """A block output through its post-norm, where the block has one."""
+    if w.norm_post is not None:
+        out = norm_apply(out, w.norm_post, st)
+    return out
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -181,7 +248,120 @@ def mlp_forward(x: torch.Tensor, mw: MLPWeights, st: StaticModel) -> torch.Tenso
         else:
             inter = _act(up, st.mlp_act)
     out = linear_apply(inter.to(torch.bfloat16), mw.down, fused=_fz(st))
-    return out.reshape(b, t, -1)
+    return _post(out.reshape(b, t, -1), mw, st)
+
+
+# ---------------------------------------------------------------- MoE
+
+def _note_moe_drops(dropped: torch.Tensor) -> None:
+    if _MOE_STATS[0] is not None:
+        _MOE_STATS[0].append(dropped.to(torch.int32))
+
+
+def _mask_pad_routes(mix: torch.Tensor) -> torch.Tensor:
+    """Zero the routes of the pad rows the generator's validity mask
+    names (they would take expert capacity and count as drops)."""
+    v = _MOE_VALID[0]
+    if v is not None and v.shape[0] == mix.shape[0]:
+        mix = mix * v.to(mix.dtype)[:, None]
+    return mix
+
+
+def _route(hidden: torch.Tensor, mw: MoEWeights,
+           st: StaticModel) -> torch.Tensor:
+    """Router -> softmax in f32 -> top-k -> the dense mixing weights
+    [BT, E] (zero off the top k). Equal probabilities go to the lower
+    expert index, as jax.lax.top_k orders them (a stable sort; torch.topk
+    promises no order among ties)."""
+    logits = linear_apply(hidden, mw.router, fused=_fz(st))
+    probs = torch.softmax(logits.float(), dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw = topw[:, :st.num_experts_per_tok]
+    topi = topi[:, :st.num_experts_per_tok]
+    if st.norm_topk_prob:
+        topw = topw / topw.sum(dim=-1, keepdim=True)
+    mix = torch.zeros_like(probs).scatter_(1, topi, topw)
+    return _mask_pad_routes(mix)
+
+
+def _expert(hb: torch.Tensor, mw: MoEWeights, e: int, st: StaticModel,
+            gate=None) -> torch.Tensor:
+    """Expert e on rows hb [R, d] bf16 -> [R, d] f32; `gate` (an int32
+    device flag) switches its kernel-1 launches off when 0."""
+    g = linear_apply(hb, mw.w1[e], fused=_fz(st), gate=gate)
+    u = linear_apply(hb, mw.w3[e], fused=_fz(st), gate=gate)
+    inter = (_act(g, st.mlp_act) * u).to(torch.bfloat16)
+    return linear_apply(inter, mw.w2[e], fused=_fz(st), gate=gate)
+
+
+def _moe_dispatch(hb: torch.Tensor, mix: torch.Tensor, mw: MoEWeights,
+                  st: StaticModel) -> torch.Tensor:
+    """Capacity dispatch: each expert runs on its routed rows only, up to
+    C = min(ceil8(ceil(BT * topk * CF / E)), BT), in static [E, C] buffers.
+    A row's slot is the running count of the rows routed to the expert
+    before it; routes past C drop that expert's term (counted); empty
+    slots point at a zero sentinel row, and the combine is an f32
+    scatter-add."""
+    bt, d = hb.shape
+    ne = st.num_experts
+    cap = int(np.ceil(bt * st.num_experts_per_tok
+                      * _MOE_CAPACITY_FACTOR[0] / ne))
+    cap = min(-(-cap // 8) * 8, bt)
+    routed = mix > 0                                          # [BT, E]
+    pos = torch.cumsum(routed.to(torch.int32), dim=0) - 1
+    _note_moe_drops((routed & (pos >= cap)).sum())
+    # overflow routes park in a throwaway column (sliced off)
+    pos_c = torch.where(routed & (pos < cap), pos, cap).long()
+    t_idx = torch.arange(bt, device=hb.device)[:, None].expand(bt, ne)
+    e_idx = torch.arange(ne, device=hb.device)[None, :].expand(bt, ne)
+    disp = torch.full((ne, cap + 1), bt, dtype=torch.long, device=hb.device)
+    disp[e_idx.reshape(-1), pos_c.reshape(-1)] = t_idx.reshape(-1)
+    disp = disp[:, :cap]                                      # [E, C]
+    hpad = torch.cat([hb, hb.new_zeros((1, d))])              # sentinel row
+    mixp = torch.cat([mix, mix.new_zeros((1, ne))])
+    out = torch.zeros((bt + 1, d), dtype=torch.float32, device=hb.device)
+    for e in range(ne):
+        idx = disp[e]
+        y = _expert(hpad[idx], mw, e, st)                     # [C, d]
+        out.index_add_(0, idx, y * mixp[idx, e][:, None])
+    return out[:bt]
+
+
+def moe_forward(x: torch.Tensor, mw: MoEWeights,
+                st: StaticModel) -> torch.Tensor:
+    """Block-sparse MoE: x [B, T, d] -> [B, T, d] f32.
+
+    Up to 32 rows on the card (or with _FORCE_SPARSE_MOE): each expert's
+    launches read the device flag "any row routed here", computed from the
+    routing in the same stream, so an unrouted expert's kernel-1 blocks
+    write zeros and stream no planes, with no host readback (the reference
+    wraps the expert in lax.cond). Linears that kernel 1 does not serve
+    (dense, W4A8, scales-on-partials, LoRA) take the dense formulation.
+    Mid-size batches: every expert on every row, mixed by the routing
+    weights. From max(64, 2E) rows (top-k < E): the capacity dispatch."""
+    b, t, d = x.shape
+    bt = b * t
+    hidden = norm_apply(x, mw.norm, st).reshape(bt, d)
+    mix = _route(hidden, mw, st)
+    hb = hidden.to(torch.bfloat16)
+    sparse = (bt <= 32 and (x.is_cuda or _FORCE_SPARSE_MOE[0])
+              and not _FORCE_DENSE_MOE[0] and st.fused_matmul
+              and gate_capable([*mw.w1, *mw.w2, *mw.w3]))
+    if (not sparse
+            and bt >= max(_MOE_DISPATCH_MIN_TOKENS[0], 2 * st.num_experts)
+            and st.num_experts_per_tok < st.num_experts):
+        out = _moe_dispatch(hb, mix, mw, st)
+        return _post(out.reshape(b, t, -1), mw, st)
+    gates = (mix > 0).any(dim=0).to(torch.int32) if sparse else None
+    if sparse and _MOE_GATES[0] is not None:
+        _MOE_GATES[0].append(gates)
+    out = None
+    for e in range(st.num_experts):
+        y = _expert(hb, mw, e, st,
+                    gate=gates[e:e + 1] if sparse else None)
+        y = y * mix[:, e:e + 1]
+        out = y if out is None else out + y
+    return _post(out.reshape(b, t, -1), mw, st)
 
 
 def _residual_add(x, out, st):
@@ -193,22 +373,59 @@ def _residual_add(x, out, st):
     return x + out
 
 
-def _block_forward(x, layer_w, st, layer, sin, cos, cache, past_len,
+def _ffn(x, mlp, st):
+    if isinstance(mlp, MoEWeights):
+        return moe_forward(x, mlp, st)
+    return mlp_forward(x, mlp, st)
+
+
+def _block_tail(x, attn_out, mlp, st):
+    """A decoder block after its attention: the residual adds around the
+    MLP, or a parallel block's single add of attention and MLP on the
+    same input (Cohere; no scale_depth)."""
+    if st.parallel_blocks:
+        return x + attn_out + _ffn(x, mlp, st)
+    x = _residual_add(x, attn_out, st)
+    return _residual_add(x, _ffn(x, mlp, st), st)
+
+
+def _block_forward(x, layer_w, st, layer, rope, cache, past_len,
                    attn_limit=None):
+    """One decoder block on the linear cache; `rope` is _rope_rows'."""
+    sin, cos = _layer_rope(rope, st, layer)
     attn_out, cache = attn_forward(
         x, layer_w.attn, st, layer, sin, cos, cache, past_len, attn_limit)
-    x = _residual_add(x, attn_out, st)
-    x = _residual_add(x, mlp_forward(x, layer_w.mlp, st), st)
-    return x, cache
+    return _block_tail(x, attn_out, layer_w.mlp, st), cache
 
 
-def _embed(w: ModelWeights, st: StaticModel, ids: torch.Tensor):
+def _embed(w: ModelWeights, st: StaticModel, ids: torch.Tensor, pos=None):
+    """Token embeddings (scaled as the architecture says) plus, for learned
+    positions, the rows of `pos` ([T] or [B, T] positions)."""
     x = w.embed[ids.long()]                                  # [B, T, d]
     if st.normalize_embeddings:
         x = x.float() * (st.hidden_size ** 0.5)
     if st.embedding_multiplier != 1.0:
         x = x.float() * st.embedding_multiplier
-    return x.to(torch.float32 if st.residual_fp32 else torch.bfloat16)
+    x = x.to(torch.float32 if st.residual_fp32 else torch.bfloat16)
+    if st.learned_pos_emb and w.pos_emb is not None:
+        x = x + w.pos_emb[pos].to(x.dtype)
+    return x
+
+
+def _rope_rows(w: ModelWeights, pos: torch.Tensor):
+    """The rope rows of positions `pos`: (sin, cos, sin_alt, cos_alt), the
+    alternate pair the sliding-window layers' table where there is one."""
+    sin, cos = w.sin[pos], w.cos[pos]
+    if w.sin_alt is None:
+        return sin, cos, sin, cos
+    return sin, cos, w.sin_alt[pos], w.cos_alt[pos]
+
+
+def _layer_rope(rope, st: StaticModel, layer: int):
+    """(sin, cos) of `layer` from _rope_rows' four."""
+    if st.layers and st.layers[layer].alt_rope:
+        return rope[2], rope[3]
+    return rope[0], rope[1]
 
 
 def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
@@ -223,13 +440,12 @@ def model_forward(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
     the caller (Model.forward).
     """
     b, t = ids.shape
-    x = _embed(w, st, ids)
     pos = _positions(past_len, t, ids.device)                # [T] or [B, T]
-    sin = w.sin[pos]                                 # [(B,) T, rot/2]
-    cos = w.cos[pos]
+    x = _embed(w, st, ids, pos)
+    rope = _rope_rows(w, pos)                        # [(B,) T, rot/2] each
 
     for layer in range(st.num_layers):
-        x, cache = _block_forward(x, w.layers[layer], st, layer, sin, cos,
+        x, cache = _block_forward(x, w.layers[layer], st, layer, rope,
                                   cache, past_len, attn_limit)
     return _head(w, st, x, last_token_only), cache
 
@@ -243,7 +459,7 @@ def attn_forward_paged(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     sequence's positions."""
     b, t, d = x.shape
     hq, hd = st.num_heads, st.head_dim
-    q, k, v = _attn_qkv(x, aw, st, sin, cos)
+    q, k, v = _attn_qkv(x, aw, st, sin, cos, layer)
     cache.append(layer, block_table, cache_seqlens, k, v)
     scale = st.attn_scale if st.attn_scale is not None else hd ** -0.5
     window = st.layers[layer].sliding_window if st.layers else 0
@@ -253,7 +469,7 @@ def attn_forward_paged(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
                           allow_kernel=st.fused_matmul)
     out = out.to(torch.bfloat16).reshape(b * t, hq * hd)
     out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, t, -1)
-    return out, cache
+    return _post(out, aw, st), cache
 
 
 def model_forward_paged(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
@@ -277,19 +493,18 @@ def model_forward_paged(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
             raise NotImplementedError(f"model_forward_paged({name}=...) is "
                                       "not ported yet")
     b, t = ids.shape
-    x = _embed(w, st, ids)
-    # per-sequence positions differ -> gather per-batch rope rows
+    # per-sequence positions differ -> gather per-batch rows
     pos = cache_seqlens.long()[:, None] + torch.arange(
         t, device=ids.device)[None]                           # [B, T]
-    sin = w.sin[pos]                                          # [B, T, rot/2]
-    cos = w.cos[pos]
+    x = _embed(w, st, ids, pos)
+    rope = _rope_rows(w, pos)                          # [B, T, rot/2] each
     for layer in range(st.num_layers):
         lw = w.layers[layer]
+        sin, cos = _layer_rope(rope, st, layer)
         attn_out, cache = attn_forward_paged(
             x, lw.attn, st, layer, sin, cos, cache, block_table,
             cache_seqlens)
-        x = _residual_add(x, attn_out, st)
-        x = _residual_add(x, mlp_forward(x, lw.mlp, st), st)
+        x = _block_tail(x, attn_out, lw.mlp, st)
     if not with_logits:
         return None, cache
     return _head(w, st, x, last_token_only), cache

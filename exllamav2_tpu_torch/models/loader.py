@@ -3,13 +3,15 @@ exllamav2_tpu/models/loader.py).
 
 Auto-detects EXL2 ('.q_weight'), GPTQ ('.qweight') and FP16 ('.weight')
 tensor sets per linear, reads them through the mmap safetensors reader and
-builds the plane layout (quant/qtensor.py) directly on `device`. Dense,
-non-MoE decoders only; architecture features whose forward is not ported yet
-raise NotImplementedError in build_static.
+builds the plane layout (quant/qtensor.py) directly on `device`: dense
+and block-sparse MoE decoders (experts per key, or DBRX's fused expert
+blocks), with the per-head, post-attention and post-feedforward norms,
+learned positions and the sliding-window layers' rope tables.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -23,8 +25,8 @@ from exllamav2_tpu_torch.quant.qtensor import (
     slice_columns, gather_columns)
 from exllamav2_tpu_torch.stloader import TensorFileMap, read_weight_f32
 from exllamav2_tpu_torch.models.modules import (
-    NormWeights, AttnWeights, MLPWeights, LayerWeights, ModelWeights,
-    StaticModel, LayerStatic)
+    NormWeights, AttnWeights, MLPWeights, MoEWeights, LayerWeights,
+    ModelWeights, StaticModel, LayerStatic)
 from exllamav2_tpu_torch.ops.rope import build_sincos
 
 __all__ = ["load_model", "load_linear", "load_norm", "build_static"]
@@ -126,31 +128,28 @@ def _swa_layers(cfg: ModelConfig) -> list[int]:
     return out
 
 
-def _unported_features(cfg: ModelConfig, swa: list[int]) -> list[str]:
-    """Architecture features whose forward this package does not have yet."""
-    arch = cfg.arch
-    checks = {
-        "post-norms": bool(arch.key_norm_1_post or arch.key_norm_2_post),
-        "parallel blocks": arch.parallel_decoder_blocks,
-        "learned positions": arch.learned_pos_emb,
-        "QK-norm": cfg.use_qk_norm,
-        "alternate rope tables": bool(arch.sliding_rope_theta is not None
-                                      and any(swa)),
-        "NoPE layers": arch.rope_swa_only,
-        "MoE": arch.is_moe,
-    }
-    return [name for name, on in checks.items() if on]
+def _unported_features(cfg: ModelConfig) -> list[str]:
+    """Architecture features whose forward this package does not have yet:
+    the multimodal rope positions of the vision-language models (a vision
+    tower's own checkpoints load their language model, whose prompts are
+    text; image embeddings are refused by the generator). Expert-parallel
+    MoE needs a mesh, which DynamicGenerator refuses."""
+    return ["MRoPE (vision-language positions)"] if cfg.arch.mrope else []
 
 
 def build_static(cfg: ModelConfig) -> StaticModel:
     arch = cfg.arch
-    swa = _swa_layers(cfg)
-    missing = _unported_features(cfg, swa)
+    missing = _unported_features(cfg)
     if missing:
         raise NotImplementedError(
             f"{arch.arch_string}: {', '.join(missing)} not ported yet")
-    per_layer = [LayerStatic(sliding_window=swa[l])
-                 for l in range(cfg.num_hidden_layers)]
+    swa = _swa_layers(cfg)
+    has_alt_rope = arch.sliding_rope_theta is not None and any(swa)
+    per_layer = [
+        LayerStatic(sliding_window=swa[l],
+                    alt_rope=bool(has_alt_rope and swa[l]),
+                    rope_enabled=not (arch.rope_swa_only and not swa[l]))
+        for l in range(cfg.num_hidden_layers)]
     attn_scale = None
     if cfg.attention_multiplier is not None:
         attn_scale = float(cfg.attention_multiplier)
@@ -171,6 +170,7 @@ def build_static(cfg: ModelConfig) -> StaticModel:
         rope_style=rope_style,
         mlp_act=arch.mlp_act,
         mlp_gated=arch.mlp_gated,
+        use_qk_norm=cfg.use_qk_norm,
         attn_logit_softcap=cfg.attn_logit_softcapping,
         final_logit_softcap=cfg.final_logit_softcapping,
         normalize_embeddings=arch.normalize_embeddings,
@@ -178,9 +178,14 @@ def build_static(cfg: ModelConfig) -> StaticModel:
         attn_scale=attn_scale,
         logit_scale=cfg.logit_scale,
         residual_fp32=arch.residual_stream_fp32,
+        parallel_blocks=arch.parallel_decoder_blocks,
         scale_depth=cfg.scale_depth,
+        learned_pos_emb=arch.learned_pos_emb,
         fused_matmul=fused,
         layers=tuple(per_layer),
+        num_experts=cfg.num_experts,
+        num_experts_per_tok=cfg.num_experts_per_tok,
+        norm_topk_prob=cfg.norm_topk_prob,
     )
 
 
@@ -244,31 +249,47 @@ def load_model(cfg: ModelConfig, *, device) -> tuple[ModelWeights, StaticModel]:
             q_lin = lin(arch.key_attn_q.format(l=l))
             k_lin = lin(arch.key_attn_k.format(l=l))
             v_lin = lin(arch.key_attn_v.format(l=l))
-        attn = AttnWeights(norm=norm(k(arch.key_norm_1)),
-                           q=q_lin, k=k_lin, v=v_lin,
-                           o=lin(arch.key_attn_o.format(l=l)))
+        attn = AttnWeights(
+            norm=norm(k(arch.key_norm_1)), q=q_lin, k=k_lin, v=v_lin,
+            o=lin(arch.key_attn_o.format(l=l)),
+            q_norm=norm(k(arch.key_attn_q_norm))
+            if arch.key_attn_q_norm and cfg.use_qk_norm else None,
+            k_norm=norm(k(arch.key_attn_k_norm))
+            if arch.key_attn_k_norm and cfg.use_qk_norm else None,
+            norm_post=norm(k(arch.key_norm_1_post))
+            if arch.key_norm_1_post else None)
+        # parallel-decoder archs without a second norm (Cohere) share the
+        # attention input norm with the MLP
         mlp_norm = norm(k(arch.key_norm_2)) if arch.key_norm_2 else attn.norm
-        if arch.fused_gate_up and not _has(
+        mlp_norm_post = norm(k(arch.key_norm_2_post)) \
+            if arch.key_norm_2_post else None
+        if arch.is_moe:
+            mlp = _load_moe(cfg, tfm, l, lin, _has, mlp_norm, mlp_norm_post,
+                            device)
+        elif arch.fused_gate_up and not _has(
                 "model.layers.{l}.mlp.up_proj".format(l=l)):
             fused = lin(arch.key_fused_gate_up.format(l=l))
             inter = cfg.intermediate_size
             mlp = MLPWeights(norm=mlp_norm,
                              gate=slice_columns(fused, 0, inter),
                              up=slice_columns(fused, inter, 2 * inter),
-                             down=lin(arch.key_mlp_down.format(l=l)))
+                             down=lin(arch.key_mlp_down.format(l=l)),
+                             norm_post=mlp_norm_post)
         elif arch.fused_gate_up:
             mlp = MLPWeights(
                 norm=mlp_norm,
                 gate=lin("model.layers.{l}.mlp.gate_proj".format(l=l)),
                 up=lin("model.layers.{l}.mlp.up_proj".format(l=l)),
-                down=lin(arch.key_mlp_down.format(l=l)))
+                down=lin(arch.key_mlp_down.format(l=l)),
+                norm_post=mlp_norm_post)
         else:
             mlp = MLPWeights(
                 norm=mlp_norm,
                 gate=lin(arch.key_mlp_gate.format(l=l))
                 if arch.mlp_gated and arch.key_mlp_gate else None,
                 up=lin(arch.key_mlp_up.format(l=l)),
-                down=lin(arch.key_mlp_down.format(l=l)))
+                down=lin(arch.key_mlp_down.format(l=l)),
+                norm_post=mlp_norm_post)
         layers.append(LayerWeights(attn=attn, mlp=mlp))
 
     final_norm = norm(pre + arch.key_norm)
@@ -277,7 +298,58 @@ def load_model(cfg: ModelConfig, *, device) -> tuple[ModelWeights, StaticModel]:
     else:
         head = load_linear(tfm, pre + arch.key_head, device=device)
 
+    pos_emb = None
+    if arch.learned_pos_emb and arch.key_learned_pos_emb:
+        pos_emb = torch.from_numpy(np.ascontiguousarray(read_weight_f32(
+            tfm, pre + arch.key_learned_pos_emb + ".weight"))).to(
+            device).to(torch.bfloat16)
+
     sin, cos = build_sincos(cfg, device=device)
+    sin_alt = cos_alt = None
+    if any(ls.alt_rope for ls in st.layers):
+        # the sliding-window layers' table: their own theta, no scaling
+        alt_cfg = dataclasses.replace(
+            cfg, rotary_embedding_base=float(arch.sliding_rope_theta),
+            rope_scaling=None, tensor_file_map=cfg.tensor_file_map)
+        sin_alt, cos_alt = build_sincos(alt_cfg, device=device)
     w = ModelWeights(embed=embed_t, layers=layers, final_norm=final_norm,
-                     head=head, sin=sin, cos=cos)
+                     head=head, sin=sin, cos=cos, pos_emb=pos_emb,
+                     sin_alt=sin_alt, cos_alt=cos_alt)
     return w, st
+
+
+def _load_moe(cfg: ModelConfig, tfm: TensorFileMap, l: int, lin, has,
+              norm, norm_post, device) -> MoEWeights:
+    """Layer l's router and experts: one tensor set per expert and
+    projection, or DBRX's fused storage (one raw [E*ffn, d] tensor a
+    projection, row blocks sliced per expert; w1/v1 blocks are [out=ffn,
+    in=d], w2 blocks act as x @ w2_e, i.e. already [K=ffn, N=d])."""
+    arch = cfg.arch
+    pre = arch.lm_prefix
+    ne = cfg.num_experts
+    router = lin(arch.key_moe_gate.format(l=l))
+    if (arch.key_moe_fused_w1 and not has(arch.key_moe_w1.format(l=l, e=0))
+            and pre + arch.key_moe_fused_w1.format(l=l) in tfm):
+        ffn = cfg.intermediate_size
+        w1f, w2f, w3f = (read_weight_f32(tfm, pre + key.format(l=l))
+                         for key in (arch.key_moe_fused_w1,
+                                     arch.key_moe_fused_w2,
+                                     arch.key_moe_fused_w3))
+
+        def blk(t, e):
+            return t[e * ffn:(e + 1) * ffn]
+
+        return MoEWeights(
+            norm=norm, router=router,
+            w1=[from_dense(np.ascontiguousarray(blk(w1f, e).T),
+                           device=device) for e in range(ne)],
+            w2=[from_dense(blk(w2f, e), device=device) for e in range(ne)],
+            w3=[from_dense(np.ascontiguousarray(blk(w3f, e).T),
+                           device=device) for e in range(ne)],
+            norm_post=norm_post)
+    return MoEWeights(
+        norm=norm, router=router,
+        w1=[lin(arch.key_moe_w1.format(l=l, e=e)) for e in range(ne)],
+        w2=[lin(arch.key_moe_w2.format(l=l, e=e)) for e in range(ne)],
+        w3=[lin(arch.key_moe_w3.format(l=l, e=e)) for e in range(ne)],
+        norm_post=norm_post)

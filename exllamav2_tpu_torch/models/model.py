@@ -211,14 +211,14 @@ class Model:
         w, st = self.weights, self.static
         past_len = int(past_len)
         with torch.inference_mode():
-            x = F._embed(w, st, ids)
             pos = F._positions(past_len, ids.shape[1], ids.device)
-            sin, cos = w.sin[pos], w.cos[pos]
+            x = F._embed(w, st, ids, pos)
+            rope = F._rope_rows(w, pos)
             for layer in range(st.num_layers):
                 if layer in pre_hooks:
                     x = pre_hooks[layer](x)
                 x, cache = F._block_forward(x, w.layers[layer], st, layer,
-                                            sin, cos, cache, past_len)
+                                            rope, cache, past_len)
                 if layer in post_hooks:
                     x = post_hooks[layer](x)
             return F._head(w, st, x, False), cache

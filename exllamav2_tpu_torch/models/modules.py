@@ -13,8 +13,8 @@ import dataclasses
 
 from torch import nn
 
-__all__ = ["NormWeights", "AttnWeights", "MLPWeights", "LayerWeights",
-           "ModelWeights", "StaticModel", "LayerStatic"]
+__all__ = ["NormWeights", "AttnWeights", "MLPWeights", "MoEWeights",
+           "LayerWeights", "ModelWeights", "StaticModel", "LayerStatic"]
 
 
 class NormWeights(nn.Module):
@@ -28,10 +28,11 @@ class NormWeights(nn.Module):
 
 class AttnWeights(nn.Module):
     """One attention block. q/k/v/o are QuantLinear or DenseLinear;
-    q_norm/k_norm are per-head-dim norms, norm_post the post-attention norm
-    (architectures not served by this package yet leave them None). qkv is
-    the optional merged q|k|v linear (ops/dequant.merge_serving_weights),
-    which the forward prefers when it is there."""
+    q_norm/k_norm are per-head-dim norms (Qwen3, Gemma3), norm_post the
+    post-attention norm applied to the block output before the residual add
+    (Gemma2/3, GLM4). qkv is the optional merged q|k|v linear
+    (ops/dequant.merge_serving_weights), which the forward prefers when it
+    is there."""
 
     def __init__(self, norm, q, k, v, o, q_norm=None, k_norm=None,
                  norm_post=None, qkv=None):
@@ -43,8 +44,9 @@ class AttnWeights(nn.Module):
 
 
 class MLPWeights(nn.Module):
-    """Gated or ungated MLP; gate is None when ungated. gate_up is the
-    optional merged gate|up linear (ops/dequant.merge_serving_weights)."""
+    """Gated or ungated MLP; gate is None when ungated; norm_post is the
+    post-feedforward norm (Gemma2/3, GLM4). gate_up is the optional merged
+    gate|up linear (ops/dequant.merge_serving_weights)."""
 
     def __init__(self, norm, gate, up, down, norm_post=None, gate_up=None):
         super().__init__()
@@ -54,18 +56,36 @@ class MLPWeights(nn.Module):
         self.gate_up = gate_up
 
 
+class MoEWeights(nn.Module):
+    """Block-sparse MoE: a dense router [d, n_experts] and one gate (w1),
+    down (w2) and up (w3) linear per expert, each list an nn.ModuleList."""
+
+    def __init__(self, norm, router, w1, w2, w3, norm_post=None):
+        super().__init__()
+        self.norm = norm
+        self.router = router
+        self.w1 = nn.ModuleList(w1)
+        self.w2 = nn.ModuleList(w2)
+        self.w3 = nn.ModuleList(w3)
+        self.norm_post = norm_post
+
+
 class LayerWeights(nn.Module):
-    def __init__(self, attn: AttnWeights, mlp: MLPWeights):
+    def __init__(self, attn: AttnWeights, mlp):
         super().__init__()
         self.attn = attn
         self.mlp = mlp
 
 
 class ModelWeights(nn.Module):
-    """embed [vocab, d] bf16, layers, final norm, head linear and the rope
-    tables sin/cos [max_seq, rot/2] f32."""
+    """embed [vocab, d] bf16, layers (each mlp an MLPWeights or a
+    MoEWeights), final norm, head linear and the rope tables sin/cos
+    [max_seq, rot/2] f32; pos_emb [max_pos, d] bf16 the learned positions
+    (GPT2) and sin_alt/cos_alt the rope tables of the sliding-window layers
+    (Gemma3), or None."""
 
-    def __init__(self, embed, layers, final_norm, head, sin, cos):
+    def __init__(self, embed, layers, final_norm, head, sin, cos,
+                 pos_emb=None, sin_alt=None, cos_alt=None):
         super().__init__()
         self.register_buffer("embed", embed)
         self.layers = nn.ModuleList(layers)
@@ -73,19 +93,24 @@ class ModelWeights(nn.Module):
         self.head = head
         self.register_buffer("sin", sin)
         self.register_buffer("cos", cos)
+        self.register_buffer("pos_emb", pos_emb)
+        self.register_buffer("sin_alt", sin_alt)
+        self.register_buffer("cos_alt", cos_alt)
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerStatic:
     """Per-layer static info."""
     sliding_window: int = 0           # 0 = full attention
+    alt_rope: bool = False            # gemma3: SWA layers use sin/cos_alt
+    rope_enabled: bool = True         # cohere2: NoPE on full-attn layers
 
 
 @dataclasses.dataclass(frozen=True)
 class StaticModel:
     """Static model description: the reference's fields that this package's
-    forward reads (architecture features it has not ported are rejected by
-    build_static and interop.weights_from_reference)."""
+    forward reads (tensor-parallel meshes are not ported: interop refuses a
+    tp_axis)."""
     num_layers: int
     num_heads: int
     num_kv_heads: int
@@ -98,6 +123,7 @@ class StaticModel:
     rope_style: str = "neox"          # "neox" | "gptj" | "none"
     mlp_act: str = "silu"
     mlp_gated: bool = True
+    use_qk_norm: bool = False
     attn_logit_softcap: float = 0.0
     final_logit_softcap: float = 0.0
     normalize_embeddings: bool = False
@@ -105,10 +131,16 @@ class StaticModel:
     attn_scale: float | None = None   # None -> 1/sqrt(head_dim)
     logit_scale: float = 1.0
     residual_fp32: bool = False
+    parallel_blocks: bool = False
     scale_depth: float = 1.0          # minicpm/granite residual multiplier
+    learned_pos_emb: bool = False     # gpt2: add pos_emb rows after embed
     # False forces the dequant + matmul path everywhere
     fused_matmul: bool = True
     layers: tuple = ()                # tuple[LayerStatic, ...]
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    norm_topk_prob: bool = True
 
     @property
     def q_per_kv(self) -> int:

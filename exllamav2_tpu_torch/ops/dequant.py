@@ -328,14 +328,15 @@ def merge_serving_weights(w):
     """Copy of a ModelWeights with merged qkv / gate_up linears attached to
     every layer whose structure allows it (bitwise exact; merge_linears).
     The forward prefers the merged linear; q/k/v and gate/up stay beside
-    it."""
+    it. MoE layers keep their experts as they are (the reference merges
+    attention and dense MLPs only)."""
     layers = []
     for lw in w.layers:
         aw, mlp = lw.attn, lw.mlp
         qkv = merge_linears([aw.q, aw.k, aw.v])
         if qkv is not None:
             aw = _with(aw, qkv=qkv)
-        if mlp.gate is not None:
+        if getattr(mlp, "gate", None) is not None:
             gu = merge_linears([mlp.gate, mlp.up])
             if gu is not None:
                 mlp = _with(mlp, gate_up=gu)

@@ -22,6 +22,13 @@ Counterpart of exllamav2_tpu/ops/qmm.py. Two paths:
   * prefill (more rows): dequantize to bf16, then one matrix product
     (exact; ``act8`` is ignored there).
 
+A ``gate`` (an int32 flag on the device) makes a quantized linear's output
+zero when the flag is 0: the MoE decode's "is any row routed to this
+expert". Kernel 1 reads it before its first plane load and, when it is 0,
+writes zeros and streams no planes (the reference's lax.cond around an
+expert). Only kernel 1's path takes a gate (gate_capable says which linears
+it serves); the others refuse one.
+
 Mixed-bit-width EXL2 matrices are a sum of per-segment matmuls over disjoint
 K-row ranges. Act-order is an activation column gather (x[:, perm]).
 
@@ -47,10 +54,12 @@ from exllamav2_tpu_torch.device import sm_count
 from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["qmm", "linear_apply", "FUSED_MAX_ROWS", "fused_segment_matmul",
-           "qmm_plain", "qmm_template", "qmm_split",
+           "qmm_plain", "qmm_gated_plain", "gate_capable", "qmm_template",
+           "qmm_split",
            "w4a8_segment_matmul", "w4a8_quantize",
            "qmm_w4a8_plain", "w4a8_template",
-           "partials_segment_matmul", "qmm_partials_plain", "LAUNCHES"]
+           "partials_segment_matmul", "qmm_partials_plain", "LAUNCHES",
+           "GATED_LAUNCHES"]
 
 # Below this many activation rows the fused kernel serves the linear.
 FUSED_MAX_ROWS = 32
@@ -58,6 +67,9 @@ FUSED_MAX_ROWS = 32
 # launches of each kernel, counted by its wrapper: csrc/qmm.cu,
 # csrc/qmm_w4a8.cu, csrc/qmm_partials.cu
 LAUNCHES = {"qmm": 0, "qmm_w4a8": 0, "qmm_partials": 0}
+# the launches of csrc/qmm.cu's gated entry among LAUNCHES["qmm"] (the MoE
+# decode's experts, their flag on or off)
+GATED_LAUNCHES = {"qmm_gated": 0}
 
 # The W4A8 integer group dots are exact in f32 (the plain version's type)
 # while 127 * 255 * group_rows < 2^24.
@@ -81,6 +93,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # sub-blocks per split, stream
 _ARGTYPES = [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
              _I, _I, _I, _P, _I, _I, _P]
+# the same with the gate (int32 flag) before the stream
+_ARGTYPES_GATED = _ARGTYPES[:-1] + [_P, _P]
 # x f32, m, k_pad, xq, a, x1a, plane0, plane1, bp0, bp1, n, bits,
 # group_rows, meta kind, meta0, meta1, partials, out, splits, sub-blocks
 # per split, mma template, stream
@@ -113,6 +127,14 @@ def qmm_plain(x: torch.Tensor, seg) -> torch.Tensor:
     dequant(seg) -> f32 [m, N]. Weight rounded to bf16, products in f32."""
     w = D.dequant_segment(seg, torch.bfloat16, rows=seg.rows_pad)
     return torch.matmul(x.float(), w.float())
+
+
+def qmm_gated_plain(x: torch.Tensor, seg, gate: torch.Tensor
+                    ) -> torch.Tensor:
+    """Plain version of the gated fused kernel: qmm_plain where the flag
+    `gate` (int32 [1]) is nonzero, else zeros."""
+    y = qmm_plain(x, seg)
+    return torch.where(gate != 0, y, torch.zeros_like(y))
 
 
 def _meta_kind(seg) -> str:
@@ -199,8 +221,10 @@ def qmm_split(n: int, nsb: int, target: int, unit: int = 1
     return -(-nsb // per), per
 
 
-def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
-    """Launch csrc/qmm.cu on one segment (CUDA tensors only)."""
+def _kernel_segment_matmul(x: torch.Tensor, seg, gate=None) -> torch.Tensor:
+    """Launch csrc/qmm.cu on one segment (CUDA tensors only); with `gate`
+    (int32 [1] on the device) the gated entry, whose blocks write zeros
+    and load nothing when the flag is 0."""
     from exllamav2_tpu_torch import _build
     kind = _meta_kind(seg)
     if kind == "gptq":
@@ -232,14 +256,28 @@ def _kernel_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
         n, k_pad // SUB_BLOCK,
         _target_blocks(x.device, _QMM_BLOCKS_PER_SM[qmm_template(m)]))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = _build.function("qmm", "qmm_segment", _ARGTYPES)
-    rc = fn(x.data_ptr(), m, k_pad, *_plane_args(seg, bp),
+    args = [x.data_ptr(), m, k_pad, *_plane_args(seg, bp),
             n, seg.bits, seg.group_rows, _META[kind],
             meta[0].data_ptr(), meta[1].data_ptr(), *src,
-            out.data_ptr(), splits, per,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("qmm", rc, "qmm_segment")
+            out.data_ptr(), splits, per]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if gate is None:
+        entry = "qmm_segment"
+        fn = _build.function("qmm", entry, _ARGTYPES)
+        rc = fn(*args, stream)
+    else:
+        if (gate.device != x.device or gate.dtype != torch.int32
+                or gate.numel() < 1):
+            raise ValueError(f"gate {gate.dtype} {gate.device} "
+                             f"{tuple(gate.shape)} (want int32 on "
+                             f"{x.device})")
+        entry = "qmm_segment_gated"
+        fn = _build.function("qmm", entry, _ARGTYPES_GATED)
+        rc = fn(*args, gate.data_ptr(), stream)
+    _build.check("qmm", rc, entry)
     LAUNCHES["qmm"] += 1
+    if gate is not None:
+        GATED_LAUNCHES["qmm_gated"] += 1
     return out
 
 
@@ -458,24 +496,40 @@ def partials_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
     return qmm_partials_plain(x, seg)
 
 
-def fused_segment_matmul(x: torch.Tensor, seg) -> torch.Tensor:
+def fused_segment_matmul(x: torch.Tensor, seg, gate=None) -> torch.Tensor:
     """x [m <= 32, rows_pad] (zero-padded K; f32 for a W4A8 segment, else
     bf16) @ dequant(seg) -> f32 [m, N]. Dispatch as the reference's: W4A8
     segments, then GPTQ scales-on-partials where asked for, else the fused
     dequant-matmul. Each launches its CUDA kernel on a card tensor; on a
-    CPU tensor it runs the plain version."""
+    CPU tensor it runs the plain version. `gate` (int32 [1]): zeros where
+    the flag is 0, read by kernel 1 itself; kernels 4 and 5 take none."""
+    if gate is not None and (seg.act8 or _use_partials(seg)):
+        raise NotImplementedError("only kernel 1 takes a gate")
     if seg.act8:
         return w4a8_segment_matmul(x, seg)
     if _use_partials(seg):
         return partials_segment_matmul(x, seg)
     if x.is_cuda:
-        return _kernel_segment_matmul(x, seg)
+        return _kernel_segment_matmul(x, seg, gate)
+    if gate is not None:
+        return qmm_gated_plain(x, seg, gate)
     return qmm_plain(x, seg)
 
 
+def gate_capable(linears) -> bool:
+    """Every linear of `linears` (an MoE layer's experts) is a QuantLinear
+    whose segments kernel 1 serves: no W4A8 segment, none under
+    QMM_PARTIALS=1, no LoRA wrap or dense weight. Only then does a gate
+    save the weight stream."""
+    return all(isinstance(lin, QuantLinear) and not any(
+        s.act8 or _use_partials(s) for s in lin.segments) for lin in linears)
+
+
 def qmm(x: torch.Tensor, lin: QuantLinear, *,
-        fused: bool | None = None) -> torch.Tensor:
-    """x [..., K] -> [..., n] f32 (padded width; caller slices to n_orig)."""
+        fused: bool | None = None, gate=None) -> torch.Tensor:
+    """x [..., K] -> [..., n] f32 (padded width; caller slices to n_orig);
+    zeros where `gate` (int32 [1] on the device) is 0. Every segment of a
+    mixed-bit linear reads the same gate."""
     lead = x.shape[:-1]
     k = x.shape[-1]
     if k != lin.k:
@@ -487,6 +541,9 @@ def qmm(x: torch.Tensor, lin: QuantLinear, *,
 
     if fused is None:
         fused = m <= FUSED_MAX_ROWS
+    if gate is not None and not fused:
+        raise ValueError("a gate needs the fused path (<= FUSED_MAX_ROWS "
+                         "rows)")
     y = None
     row = 0
     if fused:
@@ -502,25 +559,32 @@ def qmm(x: torch.Tensor, lin: QuantLinear, *,
             if seg.rows < seg.rows_pad:
                 xs = torch.nn.functional.pad(
                     xs, (0, seg.rows_pad - seg.rows))
-            part = fused_segment_matmul(xs.contiguous(), seg)
+            part = fused_segment_matmul(xs.contiguous(), seg, gate)
         else:
             part = _dot(xs, D.dequant_segment(seg))
         y = part if y is None else y + part
         row += seg.rows
     if lin.bias is not None:
-        y = y + torch.nn.functional.pad(lin.bias.float(),
-                                        (0, lin.n - lin.n_orig))
+        bias = torch.nn.functional.pad(lin.bias.float(),
+                                       (0, lin.n - lin.n_orig))
+        if gate is not None:
+            bias = torch.where(gate != 0, bias, torch.zeros_like(bias))
+        y = y + bias
     return y.reshape(*lead, lin.n)
 
 
 def linear_apply(x: torch.Tensor, lin, *,
-                 fused: bool | None = None) -> torch.Tensor:
-    """Apply a (quantized or dense) linear, returning the logical width.
+                 fused: bool | None = None, gate=None) -> torch.Tensor:
+    """Apply a (quantized or dense) linear, returning the logical width;
+    a QuantLinear's output is zeros where `gate` (an int32 [1] device flag)
+    is 0 (qmm).
 
     A LoRA linear (lora.LoraLinear) adds scaling * (x @ a) @ b to its base
     linear's output, with the reference's rounding points: bf16 x and a, an
     f32 product rounded to bf16, times b to f32 (operands in dot_dtype, as
     every plain product)."""
+    if gate is not None and not isinstance(lin, QuantLinear):
+        raise NotImplementedError(f"a gate on a {type(lin).__name__}")
     if hasattr(lin, "base") and hasattr(lin, "a"):
         y = linear_apply(x, lin.base, fused=fused)
         xa = _dot(x.to(torch.bfloat16), lin.a)
@@ -530,7 +594,7 @@ def linear_apply(x: torch.Tensor, lin, *,
         if lin.bias is not None:
             y = y + lin.bias.float()
         return y
-    y = qmm(x, lin, fused=fused)
+    y = qmm(x, lin, fused=fused, gate=gate)
     if lin.n != lin.n_orig:
         y = y[..., :lin.n_orig]
     return y

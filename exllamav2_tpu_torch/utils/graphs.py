@@ -72,8 +72,8 @@ def capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 def _counters() -> tuple[dict, ...]:
     from exllamav2_tpu_torch.ops import decode_attn, paged_attn, qmm
-    return (qmm.LAUNCHES, decode_attn.LAUNCHES, paged_attn.LAUNCHES,
-            paged_attn.KIND_LAUNCHES)
+    return (qmm.LAUNCHES, qmm.GATED_LAUNCHES, decode_attn.LAUNCHES,
+            paged_attn.LAUNCHES, paged_attn.KIND_LAUNCHES)
 
 
 def _snapshot() -> list[dict]:

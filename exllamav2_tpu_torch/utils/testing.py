@@ -1,10 +1,12 @@
-"""Random weights of real geometry, synthesized on the device (PyTorch port
-of exllamav2_tpu/utils/testing.py).
+"""Random weights of real geometry, synthesized on the device, and tiny
+random checkpoints on disk (PyTorch port of exllamav2_tpu/utils/testing.py).
 
 Uniform random packed words ARE uniform random quantized values, so drawing
 the plane words directly is distribution-equivalent to packing random ints,
 and costs nothing but the draw. Every draw comes from the explicit
 ``torch.Generator`` passed in (seeded once by random_model_weights).
+``make_tiny_llama`` writes a small random FP16 / EXL2 / GPTQ checkpoint in any
+registered architecture's layout, with numpy draws only.
 """
 
 from __future__ import annotations
@@ -15,16 +17,20 @@ import os
 import numpy as np
 import torch
 
+from exllamav2_tpu_torch.architecture import NormType, RopeStyle, get_arch
 from exllamav2_tpu_torch.device import resolve_device
 from exllamav2_tpu_torch.models.modules import (
-    AttnWeights, LayerWeights, MLPWeights, ModelWeights, NormWeights,
-    StaticModel, LayerStatic)
+    AttnWeights, LayerWeights, MLPWeights, MoEWeights, ModelWeights,
+    NormWeights, StaticModel, LayerStatic)
+from exllamav2_tpu_torch.quant import formats as F
 from exllamav2_tpu_torch.quant.qtensor import (
-    QuantLinear, QuantSegment, GptqSegment, SUB_BLOCK, plane_split)
+    DenseLinear, QuantLinear, QuantSegment, GptqSegment, SUB_BLOCK,
+    plane_split)
 from exllamav2_tpu_torch.ops.rope import build_sincos
+from exllamav2_tpu_torch.stloader import write_safetensors
 
 __all__ = ["random_quant_linear", "random_gptq_linear",
-           "random_model_weights", "write_random_lora"]
+           "random_model_weights", "write_random_lora", "make_tiny_llama"]
 
 
 def _words(gen, shape, device):
@@ -79,53 +85,138 @@ def random_gptq_linear(gen: torch.Generator, k: int, n: int, bits: int = 4,
 
 def random_model_weights(*, vocab=32000, hidden=4096, layers=32, heads=32,
                          kv_heads=32, inter=11008, max_seq=2048, bits=4,
-                         seed=0, fmt="exl2", device=None
+                         seed=0, fmt="exl2", moe=0, moe_topk=2, arch=None,
+                         head_dim=None, sliding_window=0,
+                         rope_theta=10000.0, device=None
                          ) -> tuple[ModelWeights, StaticModel]:
     """In-memory random model (ModelWeights, StaticModel) of real geometry,
     built on `device` (the card by default): EXL2 linears with 32-row
     groups, or with fmt="gptq" GPTQ linears with 128-row groups. The
-    defaults are Llama-2-7B's geometry."""
+    defaults are Llama-2-7B's geometry.
+
+    moe > 0 makes every layer a block-sparse MoE of that many experts, top
+    moe_topk, with a bf16 router drawn from N(0, 0.02^2). `arch` (a
+    registered architecture string) takes that architecture's structure:
+    norm kind and constant bias, activation and gating, per-head QK norms,
+    post-norms, parallel blocks, learned positions (max_seq rows), rope
+    style, embedding scale, f32 residual, softcaps and a tied bf16 head;
+    sliding_window windows its pattern's layers, which take a table of the
+    architecture's sliding theta where it has one (rope_theta is the
+    other layers'), and NoPE layers where it says so. Norms are the
+    identity (zero biases); head_dim defaults to hidden // heads."""
     if fmt not in ("exl2", "gptq"):
         raise ValueError(f"fmt {fmt!r}: want 'exl2' or 'gptq'")
     device = resolve_device(device)
+    ap = get_arch(arch) if arch else None
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    head_dim = hidden // heads
+    head_dim = head_dim or hidden // heads
 
     def lin(k, n):
         if fmt == "gptq":
             return random_gptq_linear(gen, k, n, bits=bits, device=device)
         return random_quant_linear(gen, k, n, bits=bits, device=device)
 
-    def norm():
-        return NormWeights(weight=torch.ones((hidden,), dtype=torch.float32,
-                                             device=device))
+    layernorm = ap is not None and ap.norm == NormType.LAYERNORM
 
+    # identity norms: weight 1, or 0 where the architecture scales by
+    # (bias + weight) with a constant bias of 1 (Gemma)
+    w_norm = 1.0 - (ap.norm_constant_bias if ap is not None else 0.0)
+
+    def norm(width=hidden):
+        return NormWeights(
+            weight=torch.full((width,), w_norm, dtype=torch.float32,
+                              device=device),
+            bias=torch.zeros((width,), dtype=torch.float32, device=device)
+            if layernorm else None)
+
+    def dense(k, n):
+        return DenseLinear((torch.randn((k, n), generator=gen, device=device)
+                            * 0.02).to(torch.bfloat16), None)
+
+    qk_norm = ap is not None and ap.default_use_qk_norm
+    gated = ap is None or (ap.mlp_gated and ap.key_mlp_gate is not None)
     lws = []
     for _ in range(layers):
-        attn = AttnWeights(norm=norm(),
+        an = norm()
+        attn = AttnWeights(norm=an,
                            q=lin(hidden, heads * head_dim),
                            k=lin(hidden, kv_heads * head_dim),
                            v=lin(hidden, kv_heads * head_dim),
-                           o=lin(heads * head_dim, hidden))
-        mlp = MLPWeights(norm=norm(), gate=lin(hidden, inter),
-                         up=lin(hidden, inter), down=lin(inter, hidden))
+                           o=lin(heads * head_dim, hidden),
+                           q_norm=norm(head_dim) if qk_norm else None,
+                           k_norm=norm(head_dim) if qk_norm else None,
+                           norm_post=norm() if ap is not None
+                           and ap.key_norm_1_post else None)
+        mn = norm() if ap is None or ap.key_norm_2 else an
+        mpost = norm() if ap is not None and ap.key_norm_2_post else None
+        if moe:
+            mlp = MoEWeights(
+                norm=mn, router=dense(hidden, moe),
+                w1=[lin(hidden, inter) for _ in range(moe)],
+                w2=[lin(inter, hidden) for _ in range(moe)],
+                w3=[lin(hidden, inter) for _ in range(moe)],
+                norm_post=mpost)
+        else:
+            mlp = MLPWeights(norm=mn,
+                             gate=lin(hidden, inter) if gated else None,
+                             up=lin(hidden, inter), down=lin(inter, hidden),
+                             norm_post=mpost)
         lws.append(LayerWeights(attn=attn, mlp=mlp))
 
     from types import SimpleNamespace
-    rope_cfg = SimpleNamespace(
-        rotary_dim=head_dim, rotary_embedding_base=10000.0, rope_scaling=None,
-        max_seq_len=max_seq, max_position_embeddings=max_seq,
-        original_max_position_embeddings=None, head_dim=head_dim)
-    sin, cos = build_sincos(rope_cfg, device=device)
+
+    def tables(theta):
+        return build_sincos(SimpleNamespace(
+            rotary_dim=head_dim, rotary_embedding_base=theta,
+            rope_scaling=None, max_seq_len=max_seq,
+            max_position_embeddings=max_seq,
+            original_max_position_embeddings=None, head_dim=head_dim),
+            device=device)
+
+    sin, cos = tables(rope_theta)
     embed = (torch.randn((vocab, hidden), generator=gen, device=device)
              * 0.02).to(torch.bfloat16)
-    w = ModelWeights(embed=embed, layers=lws, final_norm=norm(),
-                     head=lin(hidden, vocab), sin=sin, cos=cos)
+    pos_emb = None
+    if ap is not None and ap.learned_pos_emb:
+        pos_emb = (torch.randn((max_seq, hidden), generator=gen,
+                               device=device) * 0.01).to(torch.bfloat16)
+    pattern = ap.sliding_window_pattern if ap is not None else 0
+    swa = [sliding_window if sliding_window and (
+        pattern <= 1 or (l + 1) % pattern != 0) else 0
+        for l in range(layers)]
+    alt = (ap is not None and ap.sliding_rope_theta is not None
+           and any(swa))
+    sin_alt, cos_alt = tables(ap.sliding_rope_theta) if alt else (None, None)
+    per_layer = tuple(LayerStatic(
+        sliding_window=swa[l], alt_rope=bool(alt and swa[l]),
+        rope_enabled=not (ap is not None and ap.rope_swa_only
+                          and not swa[l])) for l in range(layers))
+    tied = ap is not None and ap.tied_head_default
+    head = DenseLinear(embed.t().contiguous(), None) if tied \
+        else lin(hidden, vocab)
+    w = ModelWeights(embed=embed, layers=lws, final_norm=norm(), head=head,
+                     sin=sin, cos=cos, pos_emb=pos_emb, sin_alt=sin_alt,
+                     cos_alt=cos_alt)
+    quirks = {}
+    if ap is not None:
+        quirks = dict(
+            norm_type="layernorm" if layernorm else "rms",
+            norm_constant_bias=ap.norm_constant_bias,
+            rope_style={RopeStyle.NEOX: "neox", RopeStyle.GPTJ: "gptj",
+                        RopeStyle.NONE: "none"}[ap.rope_style],
+            mlp_act=ap.mlp_act, mlp_gated=gated, use_qk_norm=qk_norm,
+            attn_logit_softcap=ap.attn_logit_softcapping,
+            final_logit_softcap=ap.final_logit_softcapping,
+            normalize_embeddings=ap.normalize_embeddings,
+            residual_fp32=ap.residual_stream_fp32,
+            parallel_blocks=ap.parallel_decoder_blocks,
+            learned_pos_emb=ap.learned_pos_emb)
     st = StaticModel(
         num_layers=layers, num_heads=heads, num_kv_heads=kv_heads,
         head_dim=head_dim, hidden_size=hidden, vocab_size=vocab,
-        norm_eps=1e-5, layers=tuple(LayerStatic() for _ in range(layers)))
+        norm_eps=1e-5, layers=per_layer, num_experts=moe,
+        num_experts_per_tok=moe_topk if moe else 0, **quirks)
     return w, st
 
 
@@ -144,7 +235,6 @@ def write_random_lora(directory: str, weights: ModelWeights, *,
     A and B drawn from N(0, scale^2) on the weights' device in bf16, from a
     generator seeded with `seed`. Returns `directory` (lora.Lora reads
     it)."""
-    from exllamav2_tpu_torch.stloader import write_safetensors
     device = weights.embed.device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -172,3 +262,224 @@ def write_random_lora(directory: str, weights: ModelWeights, *,
         json.dump({"r": rank, "lora_alpha": alpha,
                    "target_modules": list(targets)}, f)
     return directory
+
+
+def _quant_linear_exl2(rng, w_hf: np.ndarray, bits_pattern, group_rows=32,
+                       act_order=False) -> dict[str, np.ndarray]:
+    """w_hf [out, in] f32 -> EXL2 tensor dict. Stored layout is W^T [in, out]."""
+    wt = np.ascontiguousarray(w_hf.T)                        # [K, N]
+    k = wt.shape[0]
+    groups = -(-k // group_rows)
+    bits = [bits_pattern[i % len(bits_pattern)] for i in range(groups)]
+    invperm = None
+    if act_order:
+        perm = rng.permutation(k).astype(np.int32)
+        invperm = np.argsort(perm).astype(np.int32)
+        wt = wt[perm]
+    t = F.exl2_pack(wt, bits, group_rows, invperm=invperm)
+    out = {"q_weight": t.q_weight, "q_scale": t.q_scale,
+           "q_scale_max": t.q_scale_max.astype(np.float16),
+           "q_groups": t.q_groups}
+    if t.q_invperm is not None:
+        out["q_invperm"] = t.q_invperm
+    return out
+
+
+def _quant_linear_gptq(rng, w_hf: np.ndarray, bits=4, group_size=32,
+                       act_order=False) -> dict[str, np.ndarray]:
+    wt = np.ascontiguousarray(w_hf.T)
+    k, n = wt.shape
+    g_idx = None
+    if act_order:
+        perm = rng.permutation(k)
+        g_idx = (perm // group_size).astype(np.int32)
+        # quantize rows grouped by g_idx but stored in original order:
+        order = np.argsort(g_idx, kind="stable")
+        inv = np.argsort(order)
+        wt_g = wt[order]
+    else:
+        wt_g = wt
+    groups = -(-k // group_size)
+    maxq = 2 ** bits - 1
+    q = np.empty((k, n), np.uint16)
+    zeros = np.empty((groups, n), np.uint16)
+    scales = np.empty((groups, n), np.float16)
+    for g in range(groups):
+        rows = wt_g[g * group_size:(g + 1) * group_size]
+        lo, hi = rows.min(axis=0), rows.max(axis=0)
+        scale = np.maximum((hi - lo) / maxq, 1e-8)
+        zero = np.clip(np.round(-lo / scale), 0, maxq)
+        q[g * group_size:g * group_size + rows.shape[0]] = np.clip(
+            np.round(rows / scale) + zero, 0, maxq).astype(np.uint16)
+        zeros[g] = zero.astype(np.uint16)
+        scales[g] = scale.astype(np.float16)
+    if act_order:
+        q = q[inv]
+    t = F.gptq_pack(q, zeros, scales.astype(np.float32), bits=bits,
+                    g_idx=g_idx)
+    out = {"qweight": t.qweight, "qzeros": t.qzeros,
+           "scales": t.scales.astype(np.float16)}
+    if t.g_idx is not None:
+        out["g_idx"] = t.g_idx
+    return out
+
+
+def make_tiny_llama(model_dir: str, *, quant: str | None = "exl2",
+                    vocab: int = 256, hidden: int = 256, layers: int = 2,
+                    heads: int = 4, kv_heads: int = 2, inter: int = 512,
+                    max_pos: int = 512, seed: int = 0,
+                    act_order: bool = False, arch: str = "LlamaForCausalLM",
+                    extra_config: dict | None = None,
+                    scale: float = 0.05, head_scale: float = 1.0,
+                    attn_scale: float = 1.0) -> str:
+    """Write a tiny random checkpoint in the layout the given architecture
+    declares (keys derived from the ArchParams registry); returns model_dir.
+    numpy only, in the reference's order of draws: for one seed the files
+    are byte for byte the reference's make_tiny_llama's."""
+    os.makedirs(model_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ap = get_arch(arch, allow_fallback=True)
+    head_dim = hidden // heads
+    if ap.mqa:
+        kv_heads = 1
+    cfg = {
+        "architectures": [arch],
+        "hidden_size": hidden,
+        "intermediate_size": inter,
+        "num_hidden_layers": layers,
+        "num_attention_heads": heads,
+        "num_key_value_heads": kv_heads,
+        "vocab_size": vocab,
+        "rms_norm_eps": 1e-5,
+        "layer_norm_eps": 1e-5,
+        "layer_norm_epsilon": 1e-5,
+        "norm_epsilon": 1e-5,
+        "rope_theta": 10000.0,
+        "max_position_embeddings": max_pos,
+        "tie_word_embeddings": False,
+        "bos_token_id": 1, "eos_token_id": 2,
+    }
+    if extra_config:
+        cfg.update(extra_config)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+
+    def dense(o, i):
+        return (rng.standard_normal((o, i)) * scale).astype(np.float32)
+
+    tensors: dict[str, np.ndarray] = {}
+    pre = ap.lm_prefix
+    norm_bias = ap.norm == NormType.LAYERNORM
+
+    def put_linear(key, w_hf, bias_width=0):
+        if ap.orig_weights_transposed:
+            w_hf = np.ascontiguousarray(w_hf.T)   # Conv1D stores [in, out]
+            assert quant is None, "transposed fixtures are fp16-only"
+        if quant == "exl2":
+            sub = _quant_linear_exl2(rng, w_hf, bits_pattern=[4, 4, 5, 3],
+                                     act_order=act_order)
+        elif quant == "gptq":
+            sub = _quant_linear_gptq(rng, w_hf, act_order=act_order)
+        else:
+            sub = {"weight": w_hf.astype(np.float16)}
+        for suffix, arr in sub.items():
+            tensors[f"{pre}{key}.{suffix}"] = arr
+        if bias_width:
+            tensors[f"{pre}{key}.bias"] = \
+                (rng.standard_normal(bias_width) * 0.01).astype(np.float16)
+
+    def put_norm(key_pat, l):
+        key = pre + key_pat.split("|")[0].format(l=l)
+        tensors[f"{key}.weight"] = (
+            np.ones(hidden, np.float16)
+            + rng.standard_normal(hidden).astype(np.float16) * 0.01)
+        if norm_bias:
+            tensors[f"{key}.bias"] = np.zeros(hidden, np.float16)
+
+    tensors[f"{pre}model.embed_tokens.weight"] = \
+        dense(vocab, hidden).astype(np.float16)
+    if ap.learned_pos_emb and ap.key_learned_pos_emb:
+        tensors[f"{pre}{ap.key_learned_pos_emb}.weight"] = \
+            (rng.standard_normal((max_pos, hidden)) * 0.01).astype(np.float16)
+
+    attn_bias = bool(ap.attention_bias
+                     or (extra_config or {}).get("attention_bias"))
+    mlp_bias = ap.mlp_bias
+    nq, nkv = heads * head_dim, kv_heads * head_dim
+    for l in range(layers):
+        put_norm(ap.key_norm_1, l)
+        if ap.key_norm_1_post:
+            put_norm(ap.key_norm_1_post, l)
+        if ap.key_norm_2:
+            put_norm(ap.key_norm_2, l)
+        if ap.key_norm_2_post:
+            put_norm(ap.key_norm_2_post, l)
+        if ap.fused_qkv:
+            if ap.fused_qkv_altpack:
+                # [q_group | k | v] per kv head (InternLM2 wqkv)
+                g = heads // kv_heads
+                blocks = []
+                for h in range(kv_heads):
+                    blocks += [dense(g * head_dim, hidden),
+                               dense(head_dim, hidden),
+                               dense(head_dim, hidden)]
+                w = np.concatenate(blocks, axis=0)
+            else:
+                w = dense(nq + 2 * nkv, hidden)
+            put_linear(ap.key_fused_qkv.format(l=l), w,
+                       bias_width=(nq + 2 * nkv) if attn_bias else 0)
+        else:
+            # attn_scale > 1 peaks the softmax (scores scale ~ s^2): a
+            # random-init net attends near-uniformly, which hides
+            # K-cache quantization error — peaked attention restores the
+            # trained-model sensitivity (K error perturbs WHERE attention
+            # lands, see docs/QUALITY.md q6-vs-q4 discussion)
+            put_linear(ap.key_attn_q.format(l=l),
+                       dense(nq, hidden) * attn_scale,
+                       bias_width=nq if attn_bias else 0)
+            put_linear(ap.key_attn_k.format(l=l),
+                       dense(nkv, hidden) * attn_scale,
+                       bias_width=nkv if attn_bias else 0)
+            put_linear(ap.key_attn_v.format(l=l), dense(nkv, hidden),
+                       bias_width=nkv if attn_bias else 0)
+        put_linear(ap.key_attn_o.format(l=l), dense(hidden, nq),
+                   bias_width=hidden if ap.attention_bias_o else 0)
+        if ap.is_moe:
+            n_exp = (extra_config or {}).get(
+                "num_local_experts", (extra_config or {}).get(
+                    "num_experts", 4))
+            # router stays fp16 (reference keeps it unquantized)
+            tensors[f"{pre}{ap.key_moe_gate.format(l=l)}.weight"] = \
+                dense(n_exp, hidden).astype(np.float16)
+            for e in range(n_exp):
+                put_linear(ap.key_moe_w1.format(l=l, e=e),
+                           dense(inter, hidden))
+                put_linear(ap.key_moe_w2.format(l=l, e=e),
+                           dense(hidden, inter))
+                put_linear(ap.key_moe_w3.format(l=l, e=e),
+                           dense(inter, hidden))
+        elif ap.fused_gate_up:
+            put_linear(ap.key_fused_gate_up.format(l=l),
+                       dense(2 * inter, hidden))
+            put_linear(ap.key_mlp_down.format(l=l), dense(hidden, inter))
+        else:
+            if ap.mlp_gated and ap.key_mlp_gate:
+                put_linear(ap.key_mlp_gate.format(l=l), dense(inter, hidden),
+                           bias_width=inter if mlp_bias else 0)
+            put_linear(ap.key_mlp_up.format(l=l), dense(inter, hidden),
+                       bias_width=inter if mlp_bias else 0)
+            put_linear(ap.key_mlp_down.format(l=l), dense(hidden, inter),
+                       bias_width=hidden if mlp_bias else 0)
+    tensors[f"{pre}model.norm.weight"] = np.ones(hidden, np.float16)
+    if norm_bias:
+        tensors[f"{pre}model.norm.bias"] = np.zeros(hidden, np.float16)
+    if not ap.tied_head_default:
+        # head_scale > 1 sharpens logit margins so greedy argmax is stable
+        # under bf16 shape-dependent accumulation (speculative-decode tests)
+        w = dense(vocab, hidden) * head_scale
+        if ap.orig_weights_transposed:
+            w = np.ascontiguousarray(w.T)
+        tensors[f"{pre}lm_head.weight"] = w.astype(np.float16)
+
+    write_safetensors(os.path.join(model_dir, "model.safetensors"), tensors)
+    return model_dir

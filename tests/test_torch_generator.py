@@ -383,16 +383,16 @@ def test_ported_generator_arguments_work(model, arg):
 
 
 def test_unported_generator_methods_raise(model):
-    """Embeddings and the MoE counters still raise; set_loras is ported (a
-    detach with nothing attached leaves the weights as they are)."""
+    """Embeddings still raise; set_loras is ported (a detach with nothing
+    attached leaves the weights as they are), and so are the MoE drop
+    counters (a dense model drops nothing)."""
     gen = _gen(model)
     w = gen.model.weights
     gen.set_loras(None)
     assert gen.model.weights is w
     with pytest.raises(NotImplementedError, match="embeddings"):
         gen.generate("x", embeddings=[object()])
-    with pytest.raises(NotImplementedError, match="MoE"):
-        gen.moe_dropped_tokens
+    assert gen.moe_dropped_tokens == 0
     with pytest.raises(NotImplementedError):
         gen.encode_with_embeddings("x", [])
 

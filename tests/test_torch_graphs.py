@@ -691,3 +691,60 @@ def test_card_feature_steps_graphed_equal_eager(dev, path, tmp_path):
         out[graphs] = [(j.sequence.tolist(), j.draft_accepted, j.kv_pos2)
                        for j in js]
     assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_card_moe_steps_graphed_equal_eager(dev):
+    """An MoE model on the card: the gated decode (every expert's kernel-1
+    launches read a device flag computed from the routing) replays in one
+    graph a step with the eager tokens bitwise and the same launches, its
+    logits within 0.02 of the forced-dense formulation's, and a serving
+    round (the prefill's capacity dispatch, gated decode steps) graphed
+    equals eager."""
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.ops.dequant import precompute_model_scales
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    w, st = random_model_weights(vocab=1024, hidden=512, layers=2, heads=4,
+                                 kv_heads=2, inter=1024, max_seq=512, bits=4,
+                                 seed=4, moe=4, moe_topk=2, device=dev)
+    w = precompute_model_scales(w)
+    prompt = np.random.default_rng(1).integers(3, 1000, (2, 9)).astype(
+        np.int32)
+    runs = {}
+    for graphs in (False, True):
+        m = Model(w, st, graphs=graphs)
+        before, g0 = _counts(), Q.GATED_LAUNCHES["qmm_gated"]
+        seq = m.generate_greedy(prompt, 10)
+        torch.cuda.synchronize()
+        after = _counts()
+        runs[graphs] = (seq, {k: after[k] - before[k] for k in after},
+                        Q.GATED_LAUNCHES["qmm_gated"] - g0)
+    assert np.array_equal(runs[True][0], runs[False][0])
+    assert runs[True][1:] == runs[False][1:]
+    # the 18-row prefill and 9 steps: every expert's three linears, gated
+    assert runs[True][2] == 10 * st.num_layers * 3 * 4
+    m = Model(w, st, graphs=False)
+    cache = m.new_cache(2, 64)
+    gated, _ = m.forward(prompt, cache, 0)
+    F._FORCE_DENSE_MOE[0] = True
+    try:
+        dense, _ = m.forward(prompt, m.new_cache(2, 64), 0)
+    finally:
+        F._FORCE_DENSE_MOE[0] = False
+    assert ((gated - dense).abs().max() / dense.abs().max()).item() < 0.02
+    tok = ByteTokenizer(256)
+    out = {}
+    for graphs in (False, True):
+        gen = DynamicGenerator(
+            Model(w, st), PagedKVCache.alloc(st.num_layers, 16,
+                                             st.num_kv_heads, st.head_dim,
+                                             device=dev),
+            tok, max_batch_size=4, decode_burst=4, graphs=graphs)
+        js = [gen.enqueue(DynamicJob(
+            np.random.default_rng(i).integers(3, 250, 70).astype(np.int32),
+            max_new_tokens=9, settings=Settings.greedy())) for i in range(3)]
+        while any(j.status != "done" for j in js):
+            gen.iterate()
+        out[graphs] = ([j.sequence.tolist() for j in js],
+                       gen.moe_dropped_tokens)
+    assert out[True] == out[False]

@@ -113,6 +113,56 @@ def test_qmm_kernel_merged_meta_matches_plain(dev, nsrc, m):
     _check_qmm(x, seg)
 
 
+@pytest.mark.parametrize("on", [True, False])
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+@pytest.mark.parametrize("kind,k,n", [
+    ("exl2_4_prescaled", 4096, 1024), ("gptq_4", 1024, 4100),
+    ("exl2_3", 512, 256)])
+def test_qmm_gated_kernel_matches_plain(dev, kind, k, n, m, on):
+    """The gated entry (the MoE decode's device flag) against its plain
+    version: the kernel's product where the flag is 1, exact zeros where it
+    is 0 (over an output buffer that held garbage), with K split over a
+    cluster (k = 4096) whose blocks all leave together; one launch each."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k + n + m)
+    seg = _qmm_linear(kind, k, n, gen, dev).segments[0]
+    x = torch.randn((m, seg.rows_pad), generator=gen, device=dev).to(
+        torch.bfloat16)
+    gate = torch.tensor([1 if on else 0], dtype=torch.int32, device=dev)
+    torch.empty((m, n), device=dev).fill_(float("nan"))   # a dirty pool
+    before = Q.LAUNCHES["qmm"]
+    got = Q.fused_segment_matmul(x, seg, gate)
+    assert Q.LAUNCHES["qmm"] == before + 1
+    ref = Q.qmm_gated_plain(x, seg, gate)
+    if on:
+        assert torch.isfinite(got).all()
+        assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+    else:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_qmm_gated_mixed_bit_linear_reads_one_gate(dev):
+    """Every segment of a 3/5/6-bit EXL2 linear reads the same flag; a flag
+    flipped on the device between two launches changes the next result
+    (read when the kernel runs, not when it is queued)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    segs = [random_quant_linear(gen, r, 512, bits=b, device=dev).segments[0]
+            for r, b in ((512, 3), (768, 5), (256, 6))]
+    lin = precompute_scales_linear(QuantLinear(segs, None, None, k=1536,
+                                               n=512, n_orig=512))
+    x = torch.randn((4, 1536), generator=gen, device=dev).to(torch.bfloat16)
+    gate = torch.ones((1,), dtype=torch.int32, device=dev)
+    before = Q.LAUNCHES["qmm"]
+    on = Q.linear_apply(x, lin, gate=gate)
+    gate.zero_()
+    off = Q.linear_apply(x, lin, gate=gate)
+    assert Q.LAUNCHES["qmm"] == before + 6
+    ref = Q.linear_apply(x, lin)
+    assert torch.equal(on, ref)
+    assert torch.equal(off, torch.zeros_like(off))
+
+
 @pytest.mark.parametrize("m", [1, 3, 8, 16, 17, 24, 32])
 @pytest.mark.parametrize("kind", [
     "exl2_2", "exl2_3", "exl2_4", "exl2_5", "exl2_6", "exl2_8",

@@ -135,11 +135,11 @@ def test_default_device_is_the_card(fixtures, monkeypatch):
 
 
 def test_unported_architecture_features_raise(tmp_path):
-    """Post-norms and softcaps (Gemma2) have no forward here yet: loading
-    fails loudly instead of computing something else."""
-    d = make_tiny_llama(str(tmp_path / "g2"), quant=None,
-                        arch="Gemma2ForCausalLM")
-    with pytest.raises(NotImplementedError, match="post-norms"):
+    """MRoPE (the vision-language positions of Qwen2-VL) has no forward
+    here yet: loading fails loudly instead of computing something else."""
+    d = make_tiny_llama(str(tmp_path / "qvl"), quant=None,
+                        arch="Qwen2VLForConditionalGeneration")
+    with pytest.raises(NotImplementedError, match="MRoPE"):
         Model.from_dir(d, device="cpu")
 
 
