@@ -140,6 +140,31 @@ the captures and their ms, the replays, host ms a token or a dispatch
               Command R7B (4 layers: parallel blocks, a NoPE layer) and
               GPT-2 (2 layers: learned positions) at published width:
               batch-1 greedy and decode-vs-prefill.
+ 14. vlm      the vision-language path: (a) Qwen2.5-VL-7B at full width
+              and depth (EXL2 4.0 bpw LM with q/k/v biases, prescaled; the
+              32-block tower in bf16, random from a seed; config.json and
+              preprocessor_config.json as published, written to
+              build/vlm_qwen25vl/): the tower's ms for a 1024x768 image
+              (3,996 patches, 999 rows) and a 4-frame video; two tower
+              blocks (6 windowed, 7 full) and the merger against the same
+              cut in f32 on the CPU (< 0.02 of max |CPU|); a round of 8
+              image jobs and 4 text jobs (32-token prompts, 48 greedy new
+              tokens, decode_burst 16) graphed and once eager (bitwise the
+              same tokens), its launches of kernels 1 and 3 asserted from
+              its prefill forwards and step dispatches, tokens/s, p50 TTFT
+              with the towers' share, device idle share; one image job's
+              decode logits against one teacher-forced prefill with MRoPE
+              rows over the whole sequence (< 0.02, also with f32
+              probabilities), and the same decode at offset 0 failing that
+              gate; batch-1 ms a token, device busy and kernel 1 against
+              the linears' byte bound, the prompt's pages reused; CFG at
+              1.0 giving the plain job's tokens up to a near-tie; (b)
+              Gemma-3-12B's SigLIP tower (27 blocks, 896 px, 256 rows)
+              over 4 of its 48 text layers and (c) Mistral-Small-3.1's
+              pixtral tower with its patch merger (24 blocks) over 2 of its
+              40 text layers: the tower's ms, a batch-1 image job graphed
+              and once eager, decode against prefill (Gemma-3: the f32
+              variant gated, as in phase 13).
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -151,11 +176,13 @@ paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 `python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
 constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12,
-`python3 chip_smoke.py archs` phases 1 and 13.
+`python3 chip_smoke.py archs` phases 1 and 13, `python3 chip_smoke.py vlm`
+phases 1 and 14.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -183,6 +210,13 @@ MERGED_SHAPES = [(HIDDEN, 3 * HIDDEN), (HIDDEN, HIDDEN), (HIDDEN, 2 * INTER),
 QMM_ROWS = (1, 4, 8, 16, 32)   # one m per row tile MT of the qmm kernels
 QMM_TOL = 1e-4          # max |kernel - plain| <= QMM_TOL * max |plain|
 ATTN_TOL = 1e-4         # max |kernel - plain| <= ATTN_TOL * max |v|
+# kernel 3 on a served model's own decode inputs (phase 14): kernel and
+# plain version round p to bf16 at the same points, but their f32 scores
+# differ in summation order, so a probability near a rounding boundary can
+# round either way; one such step moves the output by up to 2^-8 of max |v|
+# (each is as far from an f64 evaluation with those rounding points, a
+# peaked softmax leaves few rows to average the step away)
+ATTN_PATH_TOL = 2.0 ** -8
 # W4A8 through a model, both limits at the depth of the reference's model
 # test (2 layers): a sum-order ulp can flip the int8 rounding of a later
 # activation, so two W4A8 runs drift apart with depth (the script prints the
@@ -746,30 +780,16 @@ def phase_7b(dev):
 
 
 def profile_decode(model, prompt, n: int = 8) -> dict:
-    """torch.profiler around generate_greedy(prompt, 1 + n) and
+    """profile_round around generate_greedy(prompt, 1 + n) and
     generate_greedy(prompt, 1): their difference over n is one batch-1
-    decode token's device time and launches, summed over kernel events only
-    (operator rows repeat their kernels' time)."""
-    from torch.profiler import profile, ProfilerActivity
+    decode token's device time and launches."""
 
     def kernels(n_new):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            model.generate_greedy(prompt, n_new)
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total", None) \
-                    or e.self_cuda_time_total
-                t, c = out.get(e.key, (0.0, 0))
-                out[e.key] = (t + us, c + e.count)
-        return out
+        return profile_round(lambda: model.generate_greedy(prompt, n_new))[0]
 
     kernels(1 + n)                                    # warm-up
     long, short = kernels(1 + n), kernels(1)
-    per = {k: ((t - short.get(k, (0.0, 0))[0]) / n / 1e3,
+    per = {k: ((t - short.get(k, (0.0, 0))[0]) / n,
                (c - short.get(k, (0.0, 0))[1]) / n)
            for k, (t, c) in long.items()}
     ranked = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)
@@ -791,8 +811,8 @@ def profile_partials(model, prompt, n: int, tries: int = 3) -> dict:
     for session in range(1, tries + 1):
         torch.cuda.synchronize()
         zero_counts()
-        kern = profile_round(lambda: (model.generate_greedy(prompt, 1 + n),
-                                      torch.cuda.synchronize(), 0.0))[0]
+        kern = profile_round(
+            lambda: model.generate_greedy(prompt, 1 + n))[0]
         calls = launch_counts()["qmm_partials"]
         events = sum(c for name, (_, c) in kern.items()
                      if "partials_kernel" in name)
@@ -806,7 +826,10 @@ def profile_partials(model, prompt, n: int, tries: int = 3) -> dict:
             return {"kernels": kern, "events": events, "calls": calls,
                     "forwards": 1 + n, "sessions": session}
         log(f"[merged] QMM_PARTIALS=1 session {session}: {events} events "
-            f"for {calls} calls (records lost); taking it again")
+            f"for {calls} calls (records lost); taking it again; its "
+            f"linear kernels: " + "; ".join(
+                f"{c}x {name[:60]}" for name, (_, c) in kern.items()
+                if "qmm" in name or "partials" in name))
     raise AssertionError(f"QMM_PARTIALS=1: no session of {tries} recorded one "
                          f"partials_kernel event a call")
 
@@ -845,6 +868,10 @@ def paged_cases():
               dict(kind="q4", b=16, hkv=8, cap=0.0, win=512),
               # one serving16 decode step's shape (the kernels line)
               dict(kind="bf16", b=16, hkv=32, cap=0.0, win=0, serving=True)]
+    # Qwen2.5-VL-7B's 28/4 heads: a group of 7, a partial group of the
+    # kernel's 16-row query tile
+    cases += [dict(kind=k, b=b, hkv=4, hq=28, cap=0.0, win=0)
+              for k in PAGED_KINDS for b in (1, 16)]
     return cases
 
 
@@ -855,13 +882,13 @@ def phase_paged(dev, rate):
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     cpu_gen = torch.Generator().manual_seed(7)
-    hq, d, ps = HEADS, 128, 256
+    d, ps = 128, 256
     scale = d ** -0.5
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, worst, pools = [], 0.0, {}
     for case in paged_cases():
         kind, b, hkv = case["kind"], case["b"], case["hkv"]
-        cap, win = case["cap"], case["win"]
+        hq, cap, win = case.get("hq", HEADS), case["cap"], case["win"]
         kk, vk = _kinds(kind)
         if (kind, hkv) not in pools:
             pools.clear()
@@ -1038,11 +1065,8 @@ def call_kernels(call, calls: int = 16, tries: int = 3) -> dict:
     torch.cuda.synchronize()
 
     def run():
-        t0 = time.perf_counter()
         for _ in range(calls):
             call()
-        torch.cuda.synchronize()
-        return None, None, time.perf_counter() - t0
     for _ in range(tries):
         kern = profile_round(run)[0]
         if kern:
@@ -1051,21 +1075,23 @@ def call_kernels(call, calls: int = 16, tries: int = 3) -> dict:
 
 
 def profile_round(run):
-    """Device time by kernel name over one call of `run` (a serving round)
-    under torch.profiler: ({name: (ms, count)}, busy ms, wall seconds of
-    the profiled round)."""
+    """Device time by kernel name over one call of `run` under
+    torch.profiler, CUDA activity only, summed from the raw trace (building
+    key_averages()'s tables takes minutes for a round of ~10^5 kernels):
+    ({name: (ms, count)}, busy ms, wall seconds of the call)."""
     from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, dt_prof = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     per = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None) \
-                or e.self_cuda_time_total
-            t, c = per.get(e.key, (0.0, 0))
-            per[e.key] = (t + us / 1e3, c + e.count)
-    return per, sum(t for t, _ in per.values()), dt_prof
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t, c = per.get(e.name(), (0.0, 0))
+            per[e.name()] = (t + e.duration_ns() / 1e6, c + 1)
+    return per, sum(t for t, _ in per.values()), dt
 
 
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -3101,6 +3127,759 @@ def phase_archs(dev, rate):
     return out
 
 
+# --------------------------------------------------------------- phase 14
+
+# Qwen/Qwen2.5-VL-7B-Instruct: config.json and preprocessor_config.json as
+# published (full width and depth)
+QWEN25VL = {
+    "architectures": ["Qwen2_5_VLForConditionalGeneration"],
+    "hidden_size": 3584, "intermediate_size": 18944, "num_hidden_layers": 28,
+    "num_attention_heads": 28, "num_key_value_heads": 4,
+    "vocab_size": 152064, "rms_norm_eps": 1e-6, "rope_theta": 1e6,
+    "max_position_embeddings": 128000, "tie_word_embeddings": False,
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vision_config": {
+        "depth": 32, "hidden_size": 1280, "intermediate_size": 3420,
+        "num_heads": 16, "out_hidden_size": 3584, "patch_size": 14,
+        "spatial_merge_size": 2, "spatial_patch_size": 14,
+        "temporal_patch_size": 2, "window_size": 112,
+        "fullatt_block_indexes": [7, 15, 23, 31], "hidden_act": "silu",
+        "in_chans": 3}}
+CLIP_MEAN = [0.48145466, 0.4578275, 0.40821073]
+CLIP_STD = [0.26862954, 0.26130258, 0.27577711]
+QWEN25VL_PREP = {"image_processor_type": "Qwen2VLImageProcessor",
+                 "min_pixels": 3136, "max_pixels": 12845056, "patch_size": 14,
+                 "temporal_patch_size": 2, "merge_size": 2,
+                 "image_mean": CLIP_MEAN, "image_std": CLIP_STD,
+                 "rescale_factor": 1 / 255}
+# its language model for random_model_weights: Qwen2's q/k/v biases
+QWEN25VL_LM = dict(vocab=152064, hidden=3584, layers=28, heads=28, kv_heads=4,
+                   inter=18944, rope_theta=1e6, attn_bias=True)
+# google/gemma-3-12b-it: the SigLIP tower as published, the text model at 4
+# of its 48 layers (phase 13's geometry)
+GEMMA3_VLM = {
+    "architectures": ["Gemma3ForConditionalGeneration"],
+    "mm_tokens_per_image": 256,
+    "text_config": {"hidden_size": 3840, "intermediate_size": 15360,
+                    "num_hidden_layers": 4, "num_attention_heads": 16,
+                    "num_key_value_heads": 8, "head_dim": 256,
+                    "vocab_size": 262208, "sliding_window": 1024,
+                    "rope_theta": 1e6},
+    "vision_config": {"model_type": "siglip_vision_model",
+                      "hidden_size": 1152, "image_size": 896,
+                      "intermediate_size": 4304, "num_attention_heads": 16,
+                      "num_hidden_layers": 27, "patch_size": 14,
+                      "hidden_act": "gelu_pytorch_tanh"}}
+GEMMA3_PREP = {"image_processor_type": "Gemma3ImageProcessor",
+               "size": {"height": 896, "width": 896},
+               "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5],
+               "rescale_factor": 1 / 255, "resample": 2}
+# mistralai/Mistral-Small-3.1-24B-Instruct-2503: the pixtral tower and its
+# patch merger as published, the text model at 2 of its 40 layers
+MISTRAL3 = {
+    "architectures": ["Mistral3ForConditionalGeneration"],
+    "spatial_merge_size": 2, "multimodal_projector_bias": False,
+    "text_config": {"hidden_size": 5120, "intermediate_size": 32768,
+                    "num_hidden_layers": 2, "num_attention_heads": 32,
+                    "num_key_value_heads": 8, "head_dim": 128,
+                    "vocab_size": 131072, "rope_theta": 1e9},
+    "vision_config": {"model_type": "pixtral", "hidden_size": 1024,
+                      "head_dim": 64, "num_attention_heads": 16,
+                      "num_hidden_layers": 24, "intermediate_size": 4096,
+                      "patch_size": 14, "image_size": 1540,
+                      "rope_theta": 10000.0, "hidden_act": "silu"}}
+MISTRAL3_PREP = {"image_processor_type": "PixtralImageProcessor",
+                 "patch_size": {"height": 14, "width": 14},
+                 "size": {"longest_edge": 1540}, "image_mean": CLIP_MEAN,
+                 "image_std": CLIP_STD, "rescale_factor": 1 / 255,
+                 "resample": 3}
+MISTRAL3_LM = dict(vocab=131072, hidden=5120, layers=2, heads=32, kv_heads=8,
+                   head_dim=128, inter=32768, rope_theta=1e9)
+VLM_IMAGE = (1024, 768)         # (w, h) of the seeded images
+VLM_JOBS, VLM_TEXT_JOBS, VLM_TEXT, VLM_NEW = 8, 4, 32, 48
+VLM_PAGES = 48                  # 8 x 5 pages of image jobs, 4 text pages
+VLM_TOL = 0.02                  # the tower cut's gate, of max |CPU|
+VLM_B1_NEW = 32
+
+
+def vlm_config(tag: str, config: dict, prep: dict):
+    """A ModelConfig read from `config` and `prep`, written as config.json
+    and preprocessor_config.json to build/vlm_<tag>/ (no weights)."""
+    from exllamav2_tpu_torch.config import ModelConfig
+    d = os.path.join(OUT_DIR, f"vlm_{tag}")
+    os.makedirs(d, exist_ok=True)
+    for name, obj in (("config.json", config),
+                      ("preprocessor_config.json", prep)):
+        with open(os.path.join(d, name), "w") as f:
+            json.dump(obj, f)
+    cfg = ModelConfig(model_dir=d)
+    cfg.load_dict(config)
+    return cfg
+
+
+def vlm_image(rng, size=VLM_IMAGE):
+    return (rng.random((size[1], size[0], 3)) * 255).astype(np.uint8)
+
+
+def tower_ms(tower, px, thw, iters: int = 3) -> float:
+    """Device ms of one tower pass (process: patch embedding, blocks,
+    projector), CUDA events around `iters` passes after a warm one."""
+    return eager_ms(lambda: tower.process(px, None, thw), iters)
+
+
+@contextlib.contextmanager
+def held_kernels(tag):
+    """While on, every call of kernel 3's wrapper (P.paged_decode_attention)
+    and kernel 1's (Q.fused_segment_matmul) launches its kernel as before,
+    and the first call at each shape is also held against the plain version
+    on the same inputs: max |kernel - plain| <= QMM_TOL of max |plain|
+    (kernel 1, as phase 2 holds it) or ATTN_PATH_TOL of max |v| in the
+    layer's pool (kernel 3), or the phase fails. Yields {"paged": {(b, hq,
+    hkv, pages): rel}, "paged_f64": {(b, hq, hkv, pages): [kernel, plain]
+    against the f64 evaluation}, "qmm": {(m, k, n): rel}, "seconds": s},
+    filled as the calls come (seconds: the plain versions' wall time,
+    synchronized, for the caller to take out of its own). Eager steps only:
+    a graph capture reads nothing back."""
+    from exllamav2_tpu_torch.cache_paged import _raw
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    from exllamav2_tpu_torch.ops import qmm as Q
+    held = {"paged": {}, "qmm": {}, "paged_f64": {}, "seconds": 0.0}
+    attn, mm = P.paged_decode_attention, Q.fused_segment_matmul
+
+    def hold(kind, key, got, plain, scale, tol, also=None):
+        if key not in held[kind]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = plain()
+            rel = ((got - ref).abs().max() / scale(ref)).item()
+            held[kind][key] = rel
+            if also:
+                held[kind + "_f64"][key] = also(got, ref)
+            held["seconds"] += time.perf_counter() - t
+            if not (torch.isfinite(got).all() and rel <= tol):
+                raise AssertionError(f"{tag}: {kind} at {key}: rel err "
+                                     f"{rel:.3g} against its plain version")
+        return got
+
+    def attn_held(*a):
+        # (q, k_data, v_data, layer, block_table, valid_lens, k_scales,
+        #  v_scales, scale, page_size, hq, kinds, softcap, window)
+        v, layer, vs = a[2], a[3], a[7]
+
+        def vmax(_=None):
+            return P._dq_page(_raw(v)[layer].view(v.dtype),
+                              None if vs is None else vs[layer],
+                              a[11][1]).abs().max()
+
+        def f64(got, ref):
+            # kernel and plain version against the same rounding points
+            # evaluated in f64: each is a bf16 step of p away at most
+            r64 = P.paged_decode_attention_plain(*a, dtype=torch.float64)
+            vm = vmax()
+            return [((x - r64).abs().max() / vm).item() for x in (got, ref)]
+        return hold("paged", (a[0].shape[0], a[10], a[1].shape[1],
+                              a[4].shape[1]), attn(*a),
+                    lambda: P.paged_decode_attention_plain(*a), vmax,
+                    ATTN_PATH_TOL, f64)
+
+    def mm_held(x, seg, gate=None):
+        if seg.act8 or gate is not None:
+            raise AssertionError(f"{tag}: held_kernels holds kernel 1's "
+                                 f"plain launches only")
+        got = mm(x, seg)
+        return hold("qmm", (x.shape[0], x.shape[1], got.shape[1]), got,
+                    lambda: Q.qmm_plain(x, seg),
+                    lambda ref: ref.abs().max(), QMM_TOL)
+
+    P.paged_decode_attention, Q.fused_segment_matmul = attn_held, mm_held
+    try:
+        yield held
+    finally:
+        P.paged_decode_attention, Q.fused_segment_matmul = attn, mm
+
+
+def check_held(tag, model, held) -> dict:
+    """held_kernels' results must cover kernel 1 at m = 1 and m = 16 for
+    every linear shape of the model (a layer's q, k, v, o, gate, up, down
+    and the head) and kernel 3 at batch 1 and 16 at the model's heads."""
+    st, lw = model.static, model.weights.layers[0]
+    want = {(s.rows_pad, s.plane0.shape[1])
+            for lin in (lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o,
+                        lw.mlp.gate, lw.mlp.up, lw.mlp.down,
+                        model.weights.head) for s in lin.segments}
+    missing = [(m, k, n) for m in (1, 16) for k, n in sorted(want)
+               if (m, k, n) not in held["qmm"]]
+    heads = {(b, hq, hkv) for b, hq, hkv, _ in held["paged"]}
+    missing += [(b, st.num_heads, st.num_kv_heads) for b in (1, 16)
+                if (b, st.num_heads, st.num_kv_heads) not in heads]
+    worst = {k: max(held[k].values(), default=float("nan"))
+             for k in ("qmm", "paged")}
+    log(f"[{tag}] kernels 1 and 3 on the path's own inputs against their "
+        f"plain versions: kernel 1 at {len(held['qmm'])} shapes (m, k, n) "
+        f"{sorted(held['qmm'])}, worst rel err {worst['qmm']:.2e}; kernel 3 "
+        f"at {len(held['paged'])} (b, hq, hkv, pages) "
+        f"{sorted(held['paged'])}, worst rel err {worst['paged']:.2e} "
+        f"(limits {QMM_TOL} of max |plain| and {ATTN_PATH_TOL:.2e} of max "
+        f"|v|); kernel 3 and its plain version against the same rounding "
+        f"points in f64, of max |v|: " + ", ".join(
+            f"{k} {a:.1e} / {b:.1e}"
+            for k, (a, b) in sorted(held["paged_f64"].items())))
+    if missing:
+        raise AssertionError(f"{tag}: no held call at {missing}")
+    return {"qmm": {str(k): v for k, v in held["qmm"].items()},
+            "paged": {str(k): v for k, v in held["paged"].items()},
+            "paged_f64": {str(k): v for k, v in held["paged_f64"].items()},
+            "worst": worst}
+
+
+def logged(gen):
+    """Record `gen`'s prefill forwards (their id shapes) and step dispatches
+    (their keys) from now on -> (shapes, keys), filled as it runs."""
+    shapes, keys = [], []
+    prefill, run = gen._prefill_forward, gen._run
+
+    def prefill_logged(ids, *a, **kw):
+        shapes.append(ids.shape)
+        return prefill(ids, *a, **kw)
+
+    def run_logged(key, *a):
+        keys.append(key)
+        return run(key, *a)
+
+    gen._prefill_forward, gen._run = prefill_logged, run_logged
+    return shapes, keys
+
+
+def vlm_want(model, shapes, keys) -> dict:
+    """The kernel launches of the logged prefill forwards (no head) and
+    step dispatches (k one-token forwards a burst of k, head included)."""
+    hd, layers = head_launches(model), model.static.num_layers
+    want = {"qmm": sum(step_launches(model, b * t)["qmm"]
+                       for b, t in shapes),
+            "qmm_gated": 0, "decode_attn": 0, "paged_decode_attn": 0}
+    for key in keys:
+        k = key[3] if key[0] == "decode_burst" else 1
+        want["qmm"] += k * (step_launches(model, key[1])["qmm"] + hd)
+        want["paged_decode_attn"] += k * layers
+    return want
+
+
+def check_launches(tag, model, shapes, keys) -> dict:
+    got, want = arch_counts(), vlm_want(model, shapes, keys)
+    log(f"[{tag}] launches {got} (expected {want} from {len(shapes)} "
+        f"prefill forwards and {len(keys)} step dispatches)")
+    if got != want:
+        raise AssertionError(f"{tag} launch counts {got} != {want}")
+    return got
+
+
+def mm_ids(rng, emb, text: int = VLM_TEXT) -> np.ndarray:
+    """A prompt: half of `text` random text tokens, the embedding's ids,
+    the other half."""
+    t = rng.integers(3, 250, text).astype(np.int32)
+    return np.concatenate([t[:text // 2], emb.get_ids_array().astype(
+        np.int32), t[text // 2:]])
+
+
+def mm_job(gen, ids, emb, new, **kw):
+    """One greedy job with return_logits to its end -> (job, [new] logits
+    of its decode steps)."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    job = gen.enqueue(DynamicJob(ids, max_new_tokens=new,
+                                 settings=kw.pop("settings",
+                                                 Settings.greedy()),
+                                 embeddings=[emb], return_logits=True, **kw))
+    got = []
+    while job.status != "done":
+        for r in gen.iterate():
+            if r["job"] is job and r.get("logits") is not None:
+                got.append(torch.from_numpy(r["logits"][0]))
+    torch.cuda.synchronize()
+    return job, got
+
+
+def mm_teacher_forced(gen, job, f32_probs=False) -> torch.Tensor:
+    """The logits a job's decode steps should give: one t > 1 paged forward
+    over its prompt and generated tokens but the last, from its embedding
+    rows and, on an MRoPE model, the rope rows of the whole sequence
+    (gen_mrope_pos_ids), on a cache of its own -> [new, vocab] f32 on the
+    CPU. f32_probs keeps the attention probabilities in f32 (the forward
+    rounds them to bf16 where the one-token kernel does not)."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    from exllamav2_tpu_torch.ops.mrope import gen_mrope_pos_ids, mrope_rows
+    from exllamav2_tpu_torch.ops.rope import rope_params
+    dev = gen.device
+    seq = job.sequence[:-1]
+    t = len(seq)
+    cfg, st = gen.model.config, gen.model.static
+    rope = None
+    if cfg.arch.mrope:
+        pos, _ = gen_mrope_pos_ids(
+            seq.astype(np.int64), cfg.vision_spatial_merge_size,
+            [e.get_vision_token_range() for e in job.embeddings],
+            [e.thw_grid for e in job.embeddings], t)
+        inv, scale = rope_params(cfg)
+        rope = tuple(torch.from_numpy(a)[None].to(dev) for a in
+                     mrope_rows(pos, inv, cfg.mrope_section, scale))
+    pages = -(-t // gen.page_size) + 1
+    cache = PagedKVCache.alloc(st.num_layers, pages, st.num_kv_heads,
+                               st.head_dim, "bf16", gen.page_size,
+                               device=dev)
+    bt = torch.arange(1, pages, dtype=torch.int32, device=dev)[None]
+    served = P.gqa_values
+    if f32_probs:
+        P.gqa_values = lambda p, v: torch.einsum(
+            "bkgts,bksd->btkgd", p.float(), v.float())
+    try:
+        with torch.no_grad():
+            logits, _ = F.model_forward_paged(
+                gen.model.weights, st,
+                torch.zeros((1, t), dtype=torch.int32, device=dev), cache,
+                bt, torch.zeros((1,), dtype=torch.int32, device=dev),
+                input_embeds=gen._chunk_embeds(job, seq), rope_rows=rope)
+    finally:
+        P.gqa_values = served
+    return logits[0, job.prompt_len - 1:].cpu()
+
+
+def mm_decode_vs_prefill(tag, gen, job, logits, gate_served=True) -> dict:
+    """A graphed job's decode logits against mm_teacher_forced, max |diff|
+    / max |prefill|, as served and with f32 probabilities (the gate, and
+    the served one too where gate_served)."""
+    dec = torch.stack(logits)
+    out = {}
+    for name, f32 in (("served", False), ("f32_probabilities", True)):
+        ref = mm_teacher_forced(gen, job, f32)
+        if not torch.isfinite(ref).all() or ref.shape != dec.shape:
+            raise AssertionError(f"{tag}: teacher-forced logits {ref.shape}")
+        out[name] = ((dec - ref).abs().max() / ref.abs().max()).item()
+    log(f"[{tag}] decode vs prefill logits rel err {out['served']:.2e} as "
+        f"served, {out['f32_probabilities']:.2e} with the prefill's "
+        f"probabilities in f32 ({len(logits)} steps)")
+    if not (out["f32_probabilities"] < 0.02
+            and (out["served"] < 0.02 or not gate_served)):
+        raise AssertionError(f"{tag}: decode vs prefill {out}")
+    return out
+
+
+def vlm_round(gen, tower, imgs, texts, embs=None):
+    """One round: every request arrives at t0; each image goes through the
+    tower in turn (or, with `embs`, the rows of an earlier round are used
+    again) and its job is enqueued with the image between the halves of its
+    text; the text-only jobs follow; iterate to the end. So every job's
+    first token comes after all the towers. -> (jobs, embeddings, new
+    tokens, wall s, each image job's tower s with the host's
+    preprocessing)."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    jobs, used, towers = [], [], []
+    for i, img in enumerate(imgs):
+        if embs is None:
+            t = time.perf_counter()
+            e = tower.get_image_embeddings(gen.model, gen.tokenizer, img)
+            torch.cuda.synchronize()
+            towers.append(time.perf_counter() - t)
+        else:
+            e = embs[i]
+        used.append(e)
+        tx = texts[i]
+        ids = np.concatenate([tx[:VLM_TEXT // 2],
+                              e.get_ids_array().astype(np.int32),
+                              tx[VLM_TEXT // 2:]])
+        jobs.append(gen.enqueue(DynamicJob(
+            ids, max_new_tokens=VLM_NEW, settings=Settings.greedy(),
+            embeddings=[e])))
+    for tx in texts[len(imgs):]:
+        jobs.append(gen.enqueue(DynamicJob(tx, max_new_tokens=VLM_NEW,
+                                           settings=Settings.greedy())))
+    while any(j.status != "done" for j in jobs):
+        gen.iterate()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    for j in jobs:
+        j.time_request = t0
+        toks = j.sequence[j.prompt_len:]
+        if (j.new_tokens != VLM_NEW or toks.min() < 0
+                or toks.max() >= gen.model.static.vocab_size):
+            raise AssertionError(f"vlm round job: {j.new_tokens} tokens, "
+                                 f"{j.eos_reason}")
+    return jobs, used, sum(j.new_tokens for j in jobs), dt, towers
+
+
+def vlm_tower_cut(tower, px, thw) -> dict:
+    """Blocks 6 (windowed) and 7 (full attention) of the tower with its
+    merger, on the card against the same cut in f32 on the CPU (bf16
+    operands either way): max |diff| / max |CPU| < VLM_TOL."""
+    import copy
+    from exllamav2_tpu_torch.vlm import VisionTower
+    cfg = dataclasses.replace(tower.cfg, vision_num_layers=2,
+                              vision_fullatt_block_indexes=[1])
+    parts = dict(layers=[tower.layers[6], tower.layers[7]],
+                 patch_conv=tower.patch_conv, ln_pre=tower.ln_pre,
+                 pos_emb=tower.pos_emb,
+                 mmp=dict(kind=tower.mmp_kind, act=tower.mmp_act,
+                          norm_kind=tower.mmp_norm_kind, norm=tower.mmp_norm,
+                          patch_merger=tower.mmp_patch_merger,
+                          up=tower.mmp_up, down=tower.mmp_down,
+                          proj=tower.mmp_proj))
+    cut = VisionTower(cfg, parts=parts)
+    got = cut.process(px, None, thw).cpu()
+    t = time.perf_counter()
+    ref = copy.deepcopy(cut).to("cpu").process(px, None, thw)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"[vlm] tower cut (blocks 6 windowed and 7 full, merger) on the "
+        f"card against f32 on the CPU: rel err {rel:.2e} over {got.shape} "
+        f"(CPU {time.perf_counter() - t:.1f} s)")
+    if not (torch.isfinite(got).all() and rel < VLM_TOL):
+        raise AssertionError(f"vlm tower cut rel err {rel}")
+    return {"rel_err": rel, "rows": list(got.shape)}
+
+
+def vlm_b1(gen, ids, emb, n: int) -> dict:
+    """Batch-1 decode of an image job: a job for 1 + n new tokens less a
+    job for 1, over n, both taking the prompt's full pages from the cache
+    (a warm job fills them): wall ms a token, and under the profiler the
+    device busy ms and kernel 1's ms a token."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+
+    def run(n_new):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        job = gen.enqueue(DynamicJob(ids, max_new_tokens=n_new,
+                                     settings=Settings.greedy(),
+                                     embeddings=[emb]))
+        while job.status != "done":
+            gen.iterate()
+        torch.cuda.synchronize()
+        return None, job, time.perf_counter() - t
+
+    run(1 + n)
+    short = min(run(1)[2] for _ in range(2))
+    long = min(run(1 + n)[2] for _ in range(2))
+    per_s, busy_s, _ = profile_round(lambda: run(1))
+    per_l, busy_l, _ = profile_round(lambda: run(1 + n))
+
+    def k1(per):
+        return sum(t for k, (t, _) in per.items() if "qmm_kernel" in k)
+
+    reused = run(1)[1].reused_tokens
+    return {"ms_per_token": (long - short) / n * 1e3,
+            "device_busy_ms_per_token": (busy_l - busy_s) / n,
+            "kernel1_ms_per_token": (k1(per_l) - k1(per_s)) / n,
+            "reused_tokens": reused}
+
+
+def vlm_qwen(dev, rate, rng) -> dict:
+    """Phase 14a: Qwen2.5-VL-7B at full width and depth."""
+    import gc
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.testing import random_vision_tower
+    from exllamav2_tpu_torch.vlm import processing as VP
+    out = {}
+    t_all = time.perf_counter()
+    cfg = vlm_config("qwen25vl", QWEN25VL, QWEN25VL_PREP)
+    model, gbytes, t_build = arch_model(QWEN25VL_LM, dev, seed=3,
+                                        max_seq=4096)
+    model.config = cfg
+    t = time.perf_counter()
+    tower = random_vision_tower(cfg, seed=4, device=dev)
+    torch.cuda.synchronize()
+    log(f"[vlm] Qwen2.5-VL-7B: LM built in {t_build:.1f} s ({gbytes:.2f} "
+        f"GB), tower in {time.perf_counter() - t:.1f} s")
+    st = model.static
+    tok = ByteTokenizer(256)        # no EOS id: every job runs all its tokens
+
+    # 1. the tower: an image and a video
+    img = vlm_image(rng)
+    t = time.perf_counter()
+    px, size, thw = VP.preprocess(cfg, img)
+    prep_ms = (time.perf_counter() - t) * 1e3
+    frames = [vlm_image(rng, (448, 448)) for _ in range(4)]
+    vpx, _, vthw = VP.preprocess(cfg, frames)
+    ms_img, ms_vid = tower_ms(tower, px, thw), tower_ms(tower, vpx, vthw)
+    t = time.perf_counter()
+    emb = tower.get_image_embeddings(model, tok, img)
+    torch.cuda.synchronize()
+    emb_ms = (time.perf_counter() - t) * 1e3
+    vid = tower.get_video_embeddings(model, tok, frames)
+    if (size != (1036, 756) or thw != (1, 54, 74)
+            or tuple(emb.embeddings.shape) != (999, st.hidden_size)
+            or vthw != (2, 32, 32) or vid.embeddings.shape[0] != 512
+            or not torch.isfinite(emb.embeddings).all()):
+        raise AssertionError(f"vlm: image {size} {thw} "
+                             f"{tuple(emb.embeddings.shape)}, video {vthw}")
+    log(f"[vlm] tower: {ms_img:.2f} ms an image (3996 patches -> 999 rows; "
+        f"get_image_embeddings {emb_ms:.1f} ms with the host's resize), "
+        f"{ms_vid:.2f} ms the 4-frame video (2048 patches -> 512 rows); "
+        f"the host's preprocessing (resize, normalisation, patches) "
+        f"{prep_ms:.1f} ms an image")
+    out["tower"] = {"ms_image": ms_img, "ms_video": ms_vid,
+                    "embedding_ms_image": emb_ms,
+                    "preprocess_ms_image": prep_ms}
+
+    # 2. two blocks and the merger against the CPU
+    out["tower_cut"] = vlm_tower_cut(tower, px, thw)
+
+    # 3. the serving round: 8 image jobs and 4 text jobs, graphed (a warm
+    # round of other images, then the measured one) and once eager
+    cache = PagedKVCache.alloc(st.num_layers, VLM_PAGES + 1, st.num_kv_heads,
+                               st.head_dim, "bf16", device=dev)
+
+    def new_gen(graphs):
+        return DynamicGenerator(model, cache, tok, max_batch_size=16,
+                                max_chunk_size=1024, decode_burst=16,
+                                graphs=graphs)
+
+    def requests():
+        return ([vlm_image(rng) for _ in range(VLM_JOBS)],
+                [rng.integers(3, 250, VLM_TEXT).astype(np.int32)
+                 for _ in range(VLM_JOBS + VLM_TEXT_JOBS)])
+
+    log(f"[time] phase 14a tower: {time.perf_counter() - t_all:.1f} s")
+    gen = new_gen(True)
+    vlm_round(gen, tower, *requests())                    # warm round
+    log(f"[time] phase 14a warm round: {time.perf_counter() - t_all:.1f} s")
+    imgs, texts = requests()
+    zero_counts()
+    g0 = graph_counts(gen.step_graphs)
+    shapes, keys = logged(gen)
+    jobs, embs, new, dt, towers = vlm_round(gen, tower, imgs, texts)
+    got = check_launches("vlm qwen2.5-vl round", model, shapes, keys)
+    g_round = graph_counts(gen.step_graphs, g0)
+    # TTFT from the requests' arrival (every tower runs first), and each
+    # image job's TTFT less the other jobs' towers (its own tower and the
+    # language model's queue)
+    ttft = [(j.time_first_token - j.time_request) * 1e3
+            for j in jobs[:VLM_JOBS]]
+    own = [t - (sum(towers) - tw) * 1e3 for t, tw in zip(ttft, towers)]
+    p50 = sorted(ttft)[len(ttft) // 2]
+    i50 = sorted(range(len(own)), key=own.__getitem__)[len(own) // 2]
+    offsets = sorted({j.mrope_offset for j in jobs})
+    # a round of new requests under the profiler (the same ones again
+    # would take their prompts' pages from the cache)
+    per, busy, dt_prof = profile_round(
+        lambda: vlm_round(gen, tower, *requests()))
+    idle = 1 - busy / (dt_prof * 1e3)
+    log(f"[time] phase 14a measured and profiled rounds: "
+        f"{time.perf_counter() - t_all:.1f} s")
+    del gen
+    # the same round eager, kernels 1 and 3 held against their plain
+    # versions on its inputs (m = 16 in its decode steps), then one eager
+    # batch-1 image job for m = 1; the plain versions' time is taken out
+    # of the eager round's
+    ids = mm_ids(rng, emb)
+    gen_e = new_gen(False)
+    with held_kernels("vlm qwen2.5-vl") as held:
+        jobs_e, _, new_e, dt_e, _ = vlm_round(gen_e, None, imgs, texts, embs)
+        dt_e -= held["seconds"]
+        gen_1 = DynamicGenerator(model, PagedKVCache.alloc(
+            st.num_layers, 8, st.num_kv_heads, st.head_dim, "bf16",
+            device=dev), tok, max_batch_size=4, graphs=False)
+        mm_job(gen_1, ids, emb, 2)
+    out["held"] = check_held("vlm qwen2.5-vl", model, held)
+    same_tokens("vlm qwen2.5-vl", jobs, jobs_e)
+    del gen_e, gen_1
+    log(f"[vlm] round of {VLM_JOBS} image jobs and {VLM_TEXT_JOBS} text "
+        f"jobs: {new} tokens in {dt * 1e3:.1f} ms = {new / dt:.1f} "
+        f"tokens/s (eager {new_e / dt_e:.1f}); p50 TTFT of the image jobs "
+        f"from arrival {p50:.1f} ms, the {VLM_JOBS} towers "
+        f"{sum(towers) * 1e3:.1f} ms of it ({sum(towers) * 1e3 / p50:.1%}); "
+        f"p50 of TTFT less the other jobs' towers {own[i50]:.1f} ms, its own "
+        f"tower {towers[i50] * 1e3:.1f} ms of it "
+        f"({towers[i50] * 1e3 / own[i50]:.1%}); "
+        f"host {dt * 1e3 / max(1, len(keys)):.2f}"
+        f" ms a dispatch ({len(keys)} dispatches, towers and prefill "
+        f"included); a round of new requests under the profiler: device "
+        f"busy {busy:.1f} ms of {dt_prof * 1e3:.1f} (idle share "
+        f"{idle:.1%}); step graphs "
+        f"{g_round}, {len(offsets)} distinct MRoPE offsets {offsets}")
+    if g_round["captures"]:
+        raise AssertionError(f"vlm: the measured round captured "
+                             f"{g_round['captures']} graphs")
+    top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
+    for name, (tt, c) in top:
+        log(f"[vlm] round profile: {tt:8.2f} ms {c:6d}x  {name[:70]}")
+    out["round"] = {"launches": got, "tokens_per_s": new / dt,
+                    "tokens_per_s_eager": new_e / dt_e, "round_ms": dt * 1e3,
+                    "p50_ttft_ms": p50, "towers_ms": sum(towers) * 1e3,
+                    "towers_share_of_p50_ttft": sum(towers) * 1e3 / p50,
+                    "p50_own_tower_ttft_ms": own[i50],
+                    "own_tower_ms": towers[i50] * 1e3,
+                    "own_tower_share": towers[i50] * 1e3 / own[i50],
+                    "host_ms_per_dispatch": dt * 1e3 / max(1, len(keys)),
+                    "device_busy_ms": busy, "idle_share": idle,
+                    "step_graphs": g_round, "offsets": offsets,
+                    "top_kernels": [(k[:70], tt, c) for k, (tt, c) in top]}
+
+    log(f"[time] phase 14a rounds: {time.perf_counter() - t_all:.1f} s")
+    # 4-8 on one image job, a generator of its own
+    gen = DynamicGenerator(model, PagedKVCache.alloc(
+        st.num_layers, 12, st.num_kv_heads, st.head_dim, "bf16", device=dev),
+        tok, max_batch_size=4, decode_burst=16, graphs=True)
+    zero_counts()
+    shapes, keys = logged(gen)
+    job, logits = mm_job(gen, ids, emb, VLM_B1_NEW)
+    out["launches_b1"] = check_launches("vlm qwen2.5-vl b1", model, shapes,
+                                        keys)
+    out["decode_vs_prefill"] = mm_decode_vs_prefill("vlm qwen2.5-vl", gen,
+                                                    job, logits)
+    # 5. the negative control: the same decode at offset 0
+    prepare = gen._prepare_mrope
+
+    def zero_offset(j):
+        prepare(j)
+        j.mrope_offset = 0
+
+    gen._prepare_mrope = zero_offset
+    ctrl_job, ctrl_logits = mm_job(gen, ids, emb, VLM_B1_NEW)
+    del gen._prepare_mrope
+    ctrl = torch.stack(ctrl_logits)
+    ref = mm_teacher_forced(gen, ctrl_job)
+    out["control_rel_err"] = ((ctrl - ref).abs().max()
+                              / ref.abs().max()).item()
+    log(f"[vlm] control: the same decode with the offsets forced to 0 "
+        f"(job offset {job.mrope_offset}): rel err "
+        f"{out['control_rel_err']:.2e} (must fail the 0.02 gate)")
+    if not out["control_rel_err"] >= 0.02 and dev.type == "cuda":
+        raise AssertionError("vlm: the zero-offset control passes the gate")
+    log(f"[time] phase 14a decode vs prefill and control: "
+        f"{time.perf_counter() - t_all:.1f} s")
+    # 6. batch-1 decode rate, 8. prompt reuse
+    b1 = vlm_b1(gen, ids, emb, VLM_B1_NEW)
+    lw = model.weights.layers[0]
+    lin_b = st.num_layers * sum(linear_bytes(x, 1) for x in (
+        lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o, lw.mlp.gate, lw.mlp.up,
+        lw.mlp.down)) + linear_bytes(model.weights.head, 1)
+    b1["bound_ms"] = lin_b / rate * 1e3
+    b1["bound_gb"] = lin_b / 1e9
+    log(f"[vlm] batch-1 image job: {1e3 / b1['ms_per_token']:.2f} tokens/s "
+        f"({b1['ms_per_token']:.3f} ms a token); device busy "
+        f"{b1['device_busy_ms_per_token']:.3f} ms a token (idle share "
+        f"{1 - b1['device_busy_ms_per_token'] / b1['ms_per_token']:.1%}); "
+        f"kernel 1 {b1['kernel1_ms_per_token']:.3f} ms a token against the "
+        f"linears' byte bound {b1['bound_ms']:.3f} ms "
+        f"({b1['bound_gb']:.2f} GB); the prompt's pages reused: "
+        f"{b1['reused_tokens'] // gen.page_size} "
+        f"({b1['reused_tokens']} of {len(ids)} tokens)")
+    if b1["reused_tokens"] < 3 * gen.page_size:
+        raise AssertionError(f"vlm: reused {b1['reused_tokens']} tokens")
+    out["b1"] = b1
+    # 7. CFG at 1.0: the plain job's tokens up to a near-tie
+    cfg_job, _ = mm_job(gen, ids, emb, VLM_B1_NEW,
+                        settings=Settings.greedy(cfg_scale=1.0),
+                        negative_prompt_ids=rng.integers(
+                            3, 250, 24).astype(np.int32))
+    pa, pb = job.sequence[job.prompt_len:], cfg_job.sequence[job.prompt_len:]
+    diff = np.nonzero(pa != pb)[0]
+    gap = None
+    if diff.size:
+        top = torch.topk(logits[int(diff[0])], 2).values
+        gap = ((top[0] - top[1]) / logits[int(diff[0])].abs().max()).item()
+        if not gap < TIE_GAP:
+            raise AssertionError(f"vlm CFG 1.0 parts at {int(diff[0])} off "
+                                 f"a near-tie ({gap:.2e})")
+    log(f"[vlm] CFG at 1.0 on the image job: tokens equal the plain "
+        f"job's: {not diff.size}"
+        + (f" (parts at {int(diff[0])}, top-2 gap {gap:.2e})" if gap else ""))
+    out["cfg_parts_at"] = None if not diff.size else int(diff[0])
+    out["captures"] = graph_counts(gen.step_graphs)
+    keys = gen.step_graphs.captures
+    log(f"[vlm] the one-job generator: offsets {job.mrope_offset} and 0 "
+        f"(the control) through {len(keys)} keys, each captured once: "
+        f"{all(n == 1 for n in keys.values())}")
+    if not all(n == 1 for n in keys.values()):
+        raise AssertionError(f"vlm: a key captured again: {keys}")
+    del gen, model, tower, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_b1_leg(tag, dev, rng, config, prep, lm, gate_served) -> dict:
+    """Phases 14b and 14c: a tower at full depth and width over a cut
+    language model: the tower's ms, one image job at batch 1 graphed and
+    once eager (bitwise the same tokens, launch counts asserted), and its
+    decode against the prefill."""
+    import gc
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.testing import random_vision_tower
+    from exllamav2_tpu_torch.vlm import processing as VP
+    t0 = time.perf_counter()
+    cfg = vlm_config(tag, config, prep)
+    model, gbytes, _ = arch_model(lm, dev, seed=5, max_seq=2048)
+    model.config = cfg
+    tower = random_vision_tower(cfg, seed=6, device=dev)
+    tok = ByteTokenizer(256)
+    img = vlm_image(rng)
+    px, size, thw = VP.preprocess(cfg, img)
+    ms = tower_ms(tower, px, thw)
+    emb = tower.get_image_embeddings(model, tok, img)
+    ids = mm_ids(rng, emb, 16)
+    st = model.static
+    log(f"[vlm] {tag}: tower {ms:.2f} ms an image ({size[0]}x{size[1]} px "
+        f"-> {emb.embeddings.shape[0]} rows), LM {gbytes:.2f} GB")
+    seqs = {}
+    for graphs in (True, False):
+        gen = DynamicGenerator(model, PagedKVCache.alloc(
+            st.num_layers, 8, st.num_kv_heads, st.head_dim, "bf16",
+            device=dev), tok, max_batch_size=4, decode_burst=16,
+            graphs=graphs)
+        zero_counts()
+        shapes, keys = logged(gen)
+        job, logits = mm_job(gen, ids, emb, VLM_B1_NEW)
+        launches = check_launches(f"vlm {tag}", model, shapes, keys)
+        seqs[graphs] = job.sequence.tolist()
+        if graphs:
+            rel = mm_decode_vs_prefill(f"vlm {tag}", gen, job, logits,
+                                       gate_served)
+        del gen
+    log(f"[vlm] {tag}: graphed tokens equal the eager path's: "
+        f"{seqs[True] == seqs[False]}")
+    if seqs[True] != seqs[False]:
+        raise AssertionError(f"vlm {tag}: graphed and eager tokens differ")
+    del model, tower
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tower_ms": ms, "rows": emb.embeddings.shape[0],
+            "launches": launches, "decode_vs_prefill": rel,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_vlm(dev, rate):
+    """Phase 14: the vision-language path. (a) Qwen2.5-VL-7B at full width
+    and depth; (b) Gemma-3-12B's SigLIP tower; (c) Mistral-Small-3.1's
+    pixtral tower with its patch merger."""
+    rng = np.random.default_rng(14)
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    out["qwen25vl"] = vlm_qwen(dev, rate, rng)
+    out["launches"]["vlm_qwen25vl_round"] = out["qwen25vl"]["round"][
+        "launches"]
+    out["launches"]["vlm_qwen25vl_b1"] = out["qwen25vl"]["launches_b1"]
+    log(f"[time] phase 14a: {time.perf_counter() - t0:.1f} s")
+    for tag, config, prep, lm, gate_served in (
+            ("gemma3", GEMMA3_VLM, GEMMA3_PREP, dict(GEMMA3, layers=4),
+             False),
+            ("mistral3", MISTRAL3, MISTRAL3_PREP, MISTRAL3_LM, True)):
+        t = time.perf_counter()
+        out[tag] = vlm_b1_leg(tag, dev, rng, config, prep, lm, gate_served)
+        out["launches"][f"vlm_{tag}_b1"] = out[tag]["launches"]
+        log(f"[time] phase 14 {tag}: {time.perf_counter() - t:.1f} s")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def gated_entry(archs, rate) -> dict:
     """The kernels-line entry of kernel 1's gated launch: one Mixtral
     batch-1 decode token's expert launches (routed ones at m = 1 with
@@ -3128,7 +3907,9 @@ def gated_entry(archs, rate) -> dict:
             "max_abs_err": archs["gate_err"],
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bytes") / rate * 1e3, "bound_by": "bytes",
-            "library_ms": None,
+            # torch.matmul on the bf16 expert weight for the launches whose
+            # flag is on (an off launch computes zeros: no library call)
+            "library_ms": tot("library_ms"),
             "design": "kernel 1 with an int32 device flag read before the "
                       "first load: 0 writes zeros and streams no planes (the "
                       "reference's lax.cond around an expert, "
@@ -3367,6 +4148,14 @@ def main() -> int:
         log(f"[done] build and the architectures phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["vlm"]:
+        detail["vlm"] = phase_vlm(dev, rate)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_vlm.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the vision-language phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -3395,6 +4184,7 @@ def main() -> int:
     detail["constrained"] = timed("constrained", phase_constrained, dev)
     detail["spec"] = timed("spec", phase_spec, dev)
     detail["archs"] = timed("archs", phase_archs, dev, rate)
+    detail["vlm"] = timed("vlm", phase_vlm, dev, rate)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -3406,6 +4196,7 @@ def main() -> int:
     launches["tools"] = detail["tools"]["launches"]
     launches.update(detail["spec"]["launches"])
     launches.update(detail["archs"]["launches"])
+    launches.update(detail["vlm"]["launches"])
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
                         detail["paged"], perr, partials, launches, rate)
     kernels.insert(1, gated_entry(detail["archs"], rate))

@@ -62,8 +62,19 @@ carries ``moe_dropped_tokens``) or when ``moe_dropped_tokens`` is read, never
 in the middle of a step. The prefill's pad rows and columns are masked out
 of the routing.
 
-Not ported yet (each raises NotImplementedError when asked for): mesh and
-embeddings / MRoPE.
+Multimodal jobs (``DynamicJob(embeddings=)``, vlm.MMEmbedding: an image's
+rows under a token-id range of its own from 1e9 up) prefill one job at a
+time: the chunk's rows are one gather of the embedding table plus each
+embedding's rows copied in on the device, and the embedding ids take part
+in the page hashes, so the same image's pages are reused. On an MRoPE model
+(Qwen2-VL) every job's prompt gets its 3-axis rope rows on the host, and its
+decode steps add a per-job offset to the rope positions: the offsets are
+one more section of a step's input buffer (0 for a text job and for pad
+rows), data of the step and never part of a graph key, so text and image
+jobs share one captured step. Multimodal and MRoPE jobs take no part in the
+batched prefill, and multimodal jobs none in speculative rounds.
+
+Not ported yet (raises NotImplementedError when asked for): mesh.
 """
 
 from __future__ import annotations
@@ -90,6 +101,7 @@ from exllamav2_tpu_torch.models.forward import model_forward_paged
 from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
 from exllamav2_tpu_torch.ops.sampling import (
     apply_dry, apply_penalties, sample, unpack_mask)
+from exllamav2_tpu_torch.vlm.mm_embedding import EMBEDDING_INDEX
 
 __all__ = ["DynamicGenerator", "DynamicJob"]
 
@@ -156,8 +168,6 @@ class DynamicJob:
                  min_new_tokens: int = 0,
                  max_skips: int | None = 4,
                  return_logits: bool = False):
-        if _given(embeddings):
-            _unported("DynamicJob(embeddings=...)")
         ids = np.asarray(input_ids, np.int32).reshape(-1)
         self.prompt_ids = ids
         self.min_new_tokens = min_new_tokens   # suppress EOS below this
@@ -184,6 +194,11 @@ class DynamicJob:
         self.checkpoint = None                  # banned-string rewind state
         self.rewind_deferred = False            # awaiting a page for rewind
         self.draft_accepted = 0
+        # multimodal embeddings: prompt ids >= EMBEDDING_INDEX resolve into
+        # their rows at prefill
+        self.embeddings = embeddings or []
+        self.mrope_offset = 0          # decode rope offset (MRoPE models)
+        self.mrope_rows = None         # (sin, cos) np rows of the prompt
 
         # CFG: the second (negative, unconditional) stream, when the
         # settings carry a cfg_scale
@@ -548,8 +563,37 @@ class DynamicGenerator:
             self.step_graphs.drop(lambda k: True)
         self._active_loras = requested
 
-    def encode_with_embeddings(self, *args, **kwargs):
-        _unported("DynamicGenerator.encode_with_embeddings")
+    def encode_with_embeddings(self, text: str, embeddings: list,
+                               add_bos: bool = False,
+                               encode_special_tokens: bool = False
+                               ) -> np.ndarray:
+        """Tokenize text holding MMEmbedding text aliases, each alias
+        replaced by its embedding's token-id range -> int32 ids."""
+        segments = [(None, text)]
+        for e in embeddings:
+            out = []
+            for emb, seg in segments:
+                if emb is not None:
+                    out.append((emb, seg))
+                    continue
+                for i, part in enumerate(seg.split(e.text_alias)):
+                    if i:
+                        out.append((e, None))
+                    out.append((None, part))
+            segments = out
+        ids = []
+        if add_bos and self.tokenizer.bos_token_id is not None:
+            ids.append(np.asarray([self.tokenizer.bos_token_id], np.int64))
+        for emb, seg in segments:
+            if emb is not None:
+                ids.append(emb.get_ids_array())
+            elif seg:
+                ids.append(np.asarray(self.tokenizer.encode(
+                    seg, add_bos=False,
+                    encode_special_tokens=encode_special_tokens),
+                    np.int64).reshape(-1))
+        return np.concatenate(ids).astype(np.int32) if ids else \
+            np.zeros(0, np.int32)
 
     @property
     def moe_dropped_tokens(self) -> int:
@@ -782,13 +826,40 @@ class DynamicGenerator:
         self.active.append(job)
 
         # upload the prompt into the device history once (length bucketed;
-        # the pad is overwritten by decode steps before it is read)
+        # the pad is overwritten by decode steps before it is read).
+        # Embedding ids are masked to 0: the history only feeds the
+        # penalties and DRY, which leave image rows out
         n = min(_bucket(job.prompt_len, 16), self.max_seq_len)
         padded = np.zeros((n,), np.int32)
-        padded[:job.prompt_len] = job.prompt_ids
+        padded[:job.prompt_len] = np.where(
+            job.prompt_ids >= EMBEDDING_INDEX, 0, job.prompt_ids)
         self._write_hist(job.slot, 0, padded)
+        self._prepare_mrope(job)
         self._sync_bias_row(job)
         return True
+
+    def _prepare_mrope(self, job: DynamicJob):
+        """On an MRoPE model: the prompt's rope rows and the job's decode
+        offset (every job, text-only ones too, as the reference does). The
+        offset is <= 0 (a span advances the text position by max(t, h, w),
+        at most its length), so every decode position stays in the table:
+        checked here once, never in a step."""
+        cfg = getattr(self.model, "config", None)
+        if (cfg is None or not getattr(cfg.arch, "mrope", False)
+                or not cfg.mrope_section):
+            return
+        from exllamav2_tpu_torch.ops.mrope import gen_mrope_pos_ids, mrope_rows
+        from exllamav2_tpu_torch.ops.rope import rope_params
+        spans = [e.get_vision_token_range() for e in job.embeddings]
+        grids = [e.thw_grid for e in job.embeddings]
+        merge = cfg.vision_spatial_merge_size if job.embeddings else 1
+        pos, nxt = gen_mrope_pos_ids(
+            job.prompt_ids.astype(np.int64), merge, spans, grids,
+            job.prompt_len)
+        inv, scale = rope_params(cfg)
+        job.mrope_rows = mrope_rows(pos, inv, cfg.mrope_section, scale)
+        job.mrope_offset = int(nxt - job.prompt_len)
+        assert -job.prompt_len < job.mrope_offset <= 0, job.mrope_offset
 
     def _copy_pages(self, src: list[int], dst: list[int]):
         """Copy pages of the cache, and of the draft cache with it."""
@@ -841,23 +912,31 @@ class DynamicGenerator:
 
     def _prefill_forward(self, ids: np.ndarray, bt: np.ndarray,
                          pos: np.ndarray, lens: np.ndarray,
-                         draft: bool = True):
+                         draft: bool = True, embeds=None, rope=None):
         """One prefill forward that fills the cache (and the draft model's
         cache, unless draft=False); its logits are never used, so the head
-        is skipped. lens [B]: the real tokens of each row. For an MoE model
-        the rows' pad tokens route nowhere, and the return is the forward's
-        dropped-route count (an int32 device scalar), else None."""
+        is skipped. lens [B]: the real tokens of each row. `embeds` [B, T,
+        d] (a device tensor) replaces the main model's embedding lookup and
+        `rope` = (sin, cos) [B, T, rot/2] numpy its rope gather (multimodal
+        and MRoPE prompts; the main model then reads no id). For an MoE
+        model the rows' pad tokens route nowhere, and the return is the
+        forward's dropped-route count (an int32 device scalar), else
+        None."""
         moe = bool(self.model.static.num_experts)
         if moe:
             valid = np.arange(ids.shape[1])[None, :] < lens[:, None]
             F._MOE_STATS[0] = []
             F._MOE_VALID[0] = self._dev(valid.reshape(-1))
         ids, bt, pos = self._dev(ids), self._dev(bt), self._dev(pos)
+        if rope is not None:
+            rope = tuple(self._dev(r) for r in rope)
         dropped = None
         try:
-            model_forward_paged(self.model.weights, self.model.static, ids,
-                                self.cache, bt, pos, last_token_only=True,
-                                with_logits=False)
+            model_forward_paged(
+                self.model.weights, self.model.static,
+                torch.zeros_like(ids) if embeds is not None else ids,
+                self.cache, bt, pos, last_token_only=True,
+                input_embeds=embeds, rope_rows=rope, with_logits=False)
             if moe:
                 parts = F._MOE_STATS[0]
                 dropped = sum(parts) if parts else torch.zeros(
@@ -947,9 +1026,22 @@ class DynamicGenerator:
         chunk = np.zeros((1, t_bucket), np.int32)
         chunk[0, :t] = ids[pos:end]
         bt = self._block_table(pages, p_bucket)[None]
+        embeds = rope = None
+        if not stream2 and (job.mrope_rows is not None or (
+                job.embeddings and (chunk >= EMBEDDING_INDEX).any())):
+            embeds = self._chunk_embeds(job, chunk[0])
+            if job.mrope_rows is not None:
+                # pad columns rotate by nothing: sin 0, cos 1
+                rot = job.mrope_rows[0].shape[-1]
+                rope = (np.zeros((1, t_bucket, rot), np.float32),
+                        np.ones((1, t_bucket, rot), np.float32))
+                for r, rows in zip(rope, job.mrope_rows):
+                    r[0, :t] = rows[pos:end]
         dropped = self._prefill_forward(
             chunk, bt, np.asarray([pos], np.int32),
-            np.asarray([t], np.int32), draft=not stream2)
+            np.asarray([t], np.int32),
+            draft=not stream2 and not job.embeddings, embeds=embeds,
+            rope=rope)
         if dropped is not None:
             job._moe_drop_parts.append(dropped)
         if stream2:
@@ -957,6 +1049,22 @@ class DynamicGenerator:
         else:
             job.kv_pos = end
             self._update_page_fill(job)
+
+    def _chunk_embeds(self, job: DynamicJob, chunk_ids: np.ndarray):
+        """Embedding rows [1, T, d] of a prefill chunk: one gather of the
+        embedding table (embedding ids read as 0), then each embedding's
+        rows copied over its positions, on the device."""
+        ids = np.asarray(chunk_ids, np.int64)
+        x = self.model.weights.embed[self._dev(
+            np.where(ids >= EMBEDDING_INDEX, 0, ids))]
+        for e in job.embeddings:
+            sel = np.nonzero((ids >= e.first_index)
+                             & (ids < e.first_index + e.length))[0]
+            if sel.size:
+                rows = e.embeddings[self._dev(ids[sel] - e.first_index)]
+                x.index_copy_(0, self._dev(sel),
+                              rows.to(self.device, x.dtype))
+        return x[None]
 
     def _update_page_fill(self, job: DynamicJob):
         """Track per-page fill; hash pages as they fill."""
@@ -1023,16 +1131,17 @@ class DynamicGenerator:
         job.rewind_deferred = not ok
         return ok
 
-    def _step(self, bts, seqlens, slots, params, use_pen: bool,
+    def _step(self, bts, seqlens, slots, offs, params, use_pen: bool,
               use_dry: bool, biased: bool, lf=None):
         """One decode step on the device: the token at hist[slot, seqlen]
-        of every row -> (raw logits, filtered logits, tokens, probs, mu);
-        the sampled token is written to hist[slot, seqlen + 1]."""
+        of every row, at rope position seqlen + offs -> (raw logits,
+        filtered logits, tokens, probs, mu); the sampled token is written to
+        hist[slot, seqlen + 1]."""
         pos = seqlens.long()
         ids = self.hist[slots, pos][:, None]                    # [B, 1]
         logits, _ = model_forward_paged(
             self.model.weights, self.model.static, ids, self.cache, bts,
-            seqlens, last_token_only=True)
+            seqlens, last_token_only=True, pos_offsets=offs)
         raw = lg = logits[:, -1, :]
         if biased:
             lg = lg + self._bias_pool[slots]
@@ -1052,17 +1161,20 @@ class DynamicGenerator:
                      masks) -> torch.Tensor:
         """A step's host inputs in one int32 buffer, uploaded at once (into
         the key's static buffer when the step is a graph): block tables
-        [b, p], seqlens [b], slots [b], the sampler rows (f32 as their
-        bits, bools as 0 / 1) and, when `masks` is given, the allow-masks
-        packed eight tokens a byte. Pad rows point at the dummy history slot
-        and the null page, and sample greedily."""
+        [b, p], seqlens [b], slots [b], MRoPE offsets [b], the sampler
+        rows (f32 as their bits, bools as 0 / 1) and, when `masks` is given,
+        the allow-masks packed eight tokens a byte. Pad rows point at the
+        dummy history slot and the null page, take offset 0 and sample
+        greedily."""
         bts = np.zeros((b, p), np.int32)
         seqlens = np.zeros((b,), np.int32)
         slots = np.full((b,), self.num_slots, np.int32)         # dummy slot
+        offs = np.zeros((b,), np.int32)
         for i, job in enumerate(jobs):
             bts[i] = self._block_table(job.pages, p)
             seqlens[i] = job.kv_pos
             slots[i] = job.slot
+            offs[i] = job.mrope_offset
         extra = []
         if masks is not None:
             vocab = self.model.static.vocab_size
@@ -1073,55 +1185,58 @@ class DynamicGenerator:
             packed = np.packbits(allow, axis=1, bitorder="little")
             packed = np.pad(packed, ((0, 0), (0, -packed.shape[1] % 4)))
             extra.append(packed.view(np.int32).ravel())
-        return self._pack_inputs(bts, seqlens, slots, jobs, b, *extra)
+        return self._pack_inputs(bts, seqlens, slots, offs, jobs, b, *extra)
 
     @staticmethod
-    def _pack_inputs(bts, seqlens, slots, jobs, n: int, *extra
+    def _pack_inputs(bts, seqlens, slots, offs, jobs, n: int, *extra
                      ) -> torch.Tensor:
-        """Block tables, seqlens, slots, the sampler rows of `jobs` padded
-        to n greedy rows (f32 as their bits, bools as 0 / 1) and `extra`
-        int32 arrays, as one int32 host buffer."""
+        """Block tables, seqlens, slots, MRoPE offsets, the sampler rows of
+        `jobs` padded to n greedy rows (f32 as their bits, bools as 0 / 1)
+        and `extra` int32 arrays, as one int32 host buffer."""
         sett = [j.settings for j in jobs] + \
             [Settings.greedy()] * (n - len(jobs))
         mus = [j.mirostat_mu for j in jobs] + [0.0] * (n - len(jobs))
         f, i32, bl = settings_rows(sett, mus)
         return torch.from_numpy(np.concatenate(
-            [bts.ravel(), seqlens, slots, f.view(np.int32).ravel(),
+            [bts.ravel(), seqlens, slots, offs, f.view(np.int32).ravel(),
              i32.ravel(), bl.astype(np.int32).ravel(), *extra]))
 
     @staticmethod
     def _views(buf: torch.Tensor, b: int, p: int, n: int | None = None):
         """The device views of a _pack_inputs buffer of b rows and n sampler
-        rows (default b): (block tables, seqlens, slots, SamplingParams,
-        the extra int32 words)."""
+        rows (default b): (block tables, seqlens, slots, MRoPE offsets,
+        SamplingParams, the extra int32 words)."""
         n = b if n is None else n
-        sizes = [b * p, b, b, ROWS[0] * n, ROWS[1] * n, ROWS[2] * n]
+        sizes = [b * p, b, b, b, ROWS[0] * n, ROWS[1] * n, ROWS[2] * n]
         sizes.append(buf.numel() - sum(sizes))
         parts = buf.split(sizes)
         params = params_from_rows(
-            parts[3].view(torch.float32).view(ROWS[0], n),
-            parts[4].view(ROWS[1], n), parts[5].view(ROWS[2], n) != 0)
-        return parts[0].view(b, p), parts[1], parts[2].long(), params, \
-            parts[6]
+            parts[4].view(torch.float32).view(ROWS[0], n),
+            parts[5].view(ROWS[1], n), parts[6].view(ROWS[2], n) != 0)
+        return parts[0].view(b, p), parts[1], parts[2].long(), parts[3], \
+            params, parts[7]
 
     def _step_views(self, buf: torch.Tensor, b: int, p: int, masked: bool):
         """The device views of a _step_inputs buffer: (block tables,
-        seqlens, slots, SamplingParams, allow-mask or None)."""
-        bts, seqlens, slots, params, rest = self._views(buf, b, p)
+        seqlens, slots, MRoPE offsets, SamplingParams, allow-mask or
+        None)."""
+        bts, seqlens, slots, offs, params, rest = self._views(buf, b, p)
         lf = None
         if masked:
             packed = rest.view(b, -1).view(torch.uint8)
             lf = unpack_mask(packed, self.model.static.vocab_size)
-        return bts, seqlens, slots, params, lf
+        return bts, seqlens, slots, offs, params, lf
 
     def _decode_fn(self, b, p, masked, use_dry, biased, topk, ret_logits,
                    use_pen, buf):
         """The decode step of key ("decode", b, p, masked, use_dry, biased,
         topk, ret_logits, use_pen) on the inputs `buf` -> [tokens, probs,
         mu] f32 [3, b] (+ top-k ids and probs [b, topk], + raw logits)."""
-        bts, seqlens, slots, params, lf = self._step_views(buf, b, p, masked)
-        raw, lg, toks, probs, mu = self._step(bts, seqlens, slots, params,
-                                              use_pen, use_dry, biased, lf)
+        bts, seqlens, slots, offs, params, lf = self._step_views(
+            buf, b, p, masked)
+        raw, lg, toks, probs, mu = self._step(bts, seqlens, slots, offs,
+                                              params, use_pen, use_dry,
+                                              biased, lf)
         outs = [torch.stack([toks.float(), probs, mu])]
         if topk:
             dist = torch.softmax(
@@ -1136,13 +1251,16 @@ class DynamicGenerator:
     def _burst_fn(self, b, p, k, use_dry, biased, use_pen, buf):
         """k decode steps of key ("decode_burst", b, p, k, use_dry, biased,
         use_pen): each sampled token feeds the next step through the device
-        history, mirostat's mu is carried from step to step -> [tokens [k],
-        probs [k], mu] f32 [2k + 1, b]."""
-        bts, seqlens, slots, params, _ = self._step_views(buf, b, p, False)
+        history (the MRoPE offsets stay as seqlens advance), mirostat's mu
+        is carried from step to step -> [tokens [k], probs [k], mu] f32
+        [2k + 1, b]."""
+        bts, seqlens, slots, offs, params, _ = self._step_views(
+            buf, b, p, False)
         toks_k, probs_k = [], []
         for i in range(k):
             _, _, toks, probs, mu = self._step(
-                bts, seqlens + i, slots, params, use_pen, use_dry, biased)
+                bts, seqlens + i, slots, offs, params, use_pen, use_dry,
+                biased)
             params = dataclasses.replace(params, mirostat_mu=mu)
             toks_k.append(toks.float())
             probs_k.append(probs)
@@ -1276,15 +1394,20 @@ class DynamicGenerator:
         mix s * cond + (1 - s) * uncond of their log-probabilities, with
         the penalties over the conditional history, is sampled once a job
         and written to both streams' history -> [tokens, probs, mu] f32
-        [3, rows / 2]. The scales are the buffer's last rows / 2 words."""
+        [3, rows / 2]. The scales are the buffer's last rows / 2 words. The
+        conditional rows take their job's MRoPE offset, the unconditional
+        (text-only) rows 0; the reference's paired step passes no offsets
+        and decodes an image job's conditional stream at its cache
+        positions (ROADMAP.md, section 3)."""
         n = rows // 2
-        bts, seqlens, slots, params, scale = self._views(buf, rows, p, n)
+        bts, seqlens, slots, offs, params, scale = self._views(
+            buf, rows, p, n)
         scale = scale.view(torch.float32)[:, None]
         pos = seqlens.long()
         ids = self.hist[slots, pos][:, None]
         logits, _ = model_forward_paged(
             self.model.weights, self.model.static, ids, self.cache, bts,
-            seqlens, last_token_only=True)
+            seqlens, last_token_only=True, pos_offsets=offs)
         lsm = torch.log_softmax(logits[:, -1, :].float(), dim=-1)
         mixed = scale * lsm[0::2] + (1.0 - scale) * lsm[1::2]
         mixed = apply_penalties(mixed, self.hist[slots[0::2]],
@@ -1302,14 +1425,16 @@ class DynamicGenerator:
         bts = np.zeros((rows, p_bucket), np.int32)
         seqlens = np.zeros((rows,), np.int32)
         slots = np.full((rows,), self.num_slots, np.int32)
+        offs = np.zeros((rows,), np.int32)
         scales = np.ones((n_bucket,), np.float32)
         for i, job in enumerate(jobs):
+            offs[2 * i] = job.mrope_offset
             bts[2 * i] = self._block_table(job.pages, p_bucket)
             bts[2 * i + 1] = self._block_table(job.pages2, p_bucket)
             seqlens[2 * i], seqlens[2 * i + 1] = job.kv_pos, job.kv_pos2
             slots[2 * i], slots[2 * i + 1] = job.slot, job.slot2
             scales[i] = job.settings.cfg_scale
-        buf = self._pack_inputs(bts, seqlens, slots, jobs, n_bucket,
+        buf = self._pack_inputs(bts, seqlens, slots, offs, jobs, n_bucket,
                                 scales.view(np.int32))
         out = self._run(("decode_cfg", rows, p_bucket),
                         DynamicGenerator._cfg_fn, buf)
@@ -1330,7 +1455,7 @@ class DynamicGenerator:
         the first input is hist[slot, seqlen] of each row, each step's
         argmax the next -> drafts int32 [b, k]. Writes the draft cache's
         rows seqlen .. seqlen + k - 1."""
-        bts, seqlens, slots, _, _ = self._views(buf, b, p)
+        bts, seqlens, slots, _, _, _ = self._views(buf, b, p)
         dm = self.draft_model
         ids = self.hist[slots, seqlens.long()][:, None]
         drafts = []
@@ -1351,13 +1476,13 @@ class DynamicGenerator:
         when it and every draft before it equal the samples. The d + 1
         samples go to hist[slot, seqlen + 1 ..] -> int32 [b, d + 2]: the
         samples, then the accepted count."""
-        bts, seqlens, slots, params, _ = self._views(buf, b, p)
+        bts, seqlens, slots, offs, params, _ = self._views(buf, b, p)
         pos = seqlens.long()
         t0 = self.hist[slots, pos][:, None]
         ids = torch.cat([t0, drafts.clamp(min=0)], dim=1)
         logits, _ = model_forward_paged(
             self.model.weights, self.model.static, ids, self.cache, bts,
-            seqlens)
+            seqlens, pos_offsets=offs)
         lg = logits.reshape(b * (d + 1), -1)
         rep = functools.partial(torch.repeat_interleave, repeats=d + 1,
                                 dim=0)
@@ -1434,9 +1559,12 @@ class DynamicGenerator:
 
         # prefill round: plain jobs batch into one forward per group of
         # max_batch_size (a lone job takes the single-job path); CFG jobs
-        # take the single-job path for each stream
+        # take the single-job path for each stream, and so do multimodal
+        # and MRoPE jobs
         prefilling = [j for j in self.active if j.status == "prefill"]
-        plain = [j for j in prefilling if not j.is_cfg]
+        plain = [j for j in prefilling
+                 if not (j.embeddings or j.mrope_rows is not None
+                         or j.is_cfg)]
         batched = set()
         if len(plain) >= 2:
             batched = set(map(id, plain))
@@ -1500,7 +1628,8 @@ class DynamicGenerator:
             grp = gen_jobs[i:i + self.max_batch_size]
             constrained = any(
                 j.filters or j.banned_strings or j.blocked_tokens
-                or j.new_tokens < j.min_new_tokens or j.settings.banned_tokens
+                or j.embeddings or j.new_tokens < j.min_new_tokens
+                or j.settings.banned_tokens
                 or (j.healing_token is not None and j.new_tokens == 0)
                 for j in grp)
             if spec and not constrained:
@@ -1747,9 +1876,9 @@ class DynamicGenerator:
         """Generate for one prompt (str or ids) or a list of them, all
         enqueued at once -> completion text(s). negative_prompt_ids (ids,
         or a list of them, one a prompt) makes CFG jobs when the settings
-        carry a cfg_scale; the speculative options are the generator's."""
-        if embeddings:
-            _unported("DynamicGenerator.generate(embeddings=...)")
+        carry a cfg_scale; the speculative options are the generator's.
+        `embeddings` (MMEmbeddings) go with every job, and a str prompt's
+        aliases of them become their token ids."""
         if add_bos is None:
             # the architecture decides (BOS-trained Llama / Gemma families)
             cfg = getattr(self.model, "config", None)
@@ -1762,7 +1891,11 @@ class DynamicGenerator:
             negs = [None] * len(prompts)
         jobs = []
         for i, p in enumerate(prompts):
-            if isinstance(p, str):
+            if embeddings and isinstance(p, str):
+                ids = self.encode_with_embeddings(
+                    p, embeddings, add_bos=add_bos,
+                    encode_special_tokens=encode_special_tokens)
+            elif isinstance(p, str):
                 ids = self.tokenizer.encode(
                     p, add_bos=add_bos,
                     encode_special_tokens=encode_special_tokens)
@@ -1771,7 +1904,8 @@ class DynamicGenerator:
             jobs.append(self.enqueue(DynamicJob(
                 ids, max_new_tokens=max_new_tokens, settings=settings,
                 seed=seed + i, stop_conditions=stop_conditions,
-                identifier=i, negative_prompt_ids=negs[i])))
+                identifier=i, negative_prompt_ids=negs[i],
+                embeddings=embeddings)))
         completions = {id(j): "" for j in jobs}
         pending = {id(j) for j in jobs}
         guard = 0

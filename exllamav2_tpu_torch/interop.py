@@ -5,7 +5,8 @@ tree whose leaves have been mapped to numpy arrays, and its ``StaticModel``,
 reads their fields by name and returns (ModelWeights, StaticModel) of this
 package holding the same bits, so both packages compute with identical
 weights (``random_model_weights`` of the reference draws with jax.random,
-which this package cannot reproduce). Nothing of JAX is imported here.
+which this package cannot reproduce). ``vision_tower_from_reference`` does
+the same for a vision tower. Nothing of JAX is imported here.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from exllamav2_tpu_torch.quant.qtensor import (
     DenseLinear, GptqSegment, QuantLinear, QuantSegment)
 
 __all__ = ["to_tensor", "linear_from_reference", "weights_from_reference",
-           "paged_cache_from_reference", "sampling_params_from_reference"]
+           "paged_cache_from_reference", "sampling_params_from_reference",
+           "vision_tower_from_reference"]
 
 
 def to_tensor(a, device=None) -> torch.Tensor | None:
@@ -175,3 +177,40 @@ def sampling_params_from_reference(p, device=None):
     device = resolve_device(device)
     return SamplingParams(**{f.name: to_tensor(getattr(p, f.name), device)
                              for f in dataclasses.fields(SamplingParams)})
+
+
+def _config(cfg):
+    """A reference ModelConfig -> this package's, field by field (the
+    architecture by its name; no tensor file map)."""
+    from exllamav2_tpu_torch.architecture import get_arch
+    from exllamav2_tpu_torch.config import ModelConfig
+    kw = {f.name: getattr(cfg, f.name)
+          for f in dataclasses.fields(ModelConfig) if hasattr(cfg, f.name)}
+    kw["arch"] = get_arch(cfg.arch.arch_string) if cfg.arch else None
+    kw["tensor_file_map"] = None
+    return ModelConfig(**kw)
+
+
+def vision_tower_from_reference(tower, *, device=None):
+    """The reference's VisionTower (numpy or JAX leaves) -> this package's
+    vlm.VisionTower holding the same bits on `device` (the card by
+    default): the _VLayer blocks, patch_conv, ln_pre, pos_emb and the
+    projector dict."""
+    from exllamav2_tpu_torch.vlm.vision_tower import VisionTower, _VLayer
+    device = resolve_device(device)
+
+    def lin(x):
+        return None if x is None else linear_from_reference(x, device)
+
+    def norm(nw):
+        return None if nw is None else _norm(nw, device)
+
+    layers = [_VLayer(norm(l.norm1), lin(l.q), lin(l.k), lin(l.v), lin(l.o),
+                      norm(l.norm2), lin(l.gate), lin(l.up), lin(l.down))
+              for l in tower.layers]
+    mmp = {k: v if isinstance(v, str) else norm(v) if k == "norm"
+           else lin(v) for k, v in tower.mmp.items()}
+    parts = dict(layers=layers, patch_conv=lin(tower.patch_conv),
+                 ln_pre=norm(tower.ln_pre),
+                 pos_emb=to_tensor(tower.pos_emb, device), mmp=mmp)
+    return VisionTower(_config(tower.cfg), device=device, parts=parts)

@@ -398,10 +398,13 @@ def _block_forward(x, layer_w, st, layer, rope, cache, past_len,
     return _block_tail(x, attn_out, layer_w.mlp, st), cache
 
 
-def _embed(w: ModelWeights, st: StaticModel, ids: torch.Tensor, pos=None):
+def _embed(w: ModelWeights, st: StaticModel, ids: torch.Tensor, pos=None,
+           rows: torch.Tensor | None = None):
     """Token embeddings (scaled as the architecture says) plus, for learned
-    positions, the rows of `pos` ([T] or [B, T] positions)."""
-    x = w.embed[ids.long()]                                  # [B, T, d]
+    positions, the rows of `pos` ([T] or [B, T] positions). `rows` [B, T, d]
+    stands in for the table lookup (multimodal prompts) and is scaled the
+    same way, image rows included, as in the reference."""
+    x = w.embed[ids.long()] if rows is None else rows        # [B, T, d]
     if st.normalize_embeddings:
         x = x.float() * (st.hidden_size ** 0.5)
     if st.embedding_multiplier != 1.0:
@@ -484,20 +487,27 @@ def model_forward_paged(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
 
     with_logits=False skips the final norm and the head and returns
     (None, cache): a prefill step that only fills the cache.
-    input_embeds, rope_rows and pos_offsets (multimodal embeddings and
-    MRoPE) are not ported yet and raise.
+
+    Multimodal inputs, as in the reference: input_embeds [B, T, d] replaces
+    the token-embedding lookup (`ids` are then never read: a prompt's
+    embedding ids lie past the table); rope_rows = (sin, cos) [B, T, rot/2]
+    replaces the gather of the main rope table (MRoPE prefill; the
+    alternate table is still gathered by position); pos_offsets [B] int32
+    adds a per-sequence offset to the rope and learned positions (MRoPE
+    decode: after the multimodal prompt all three axes advance in
+    lockstep), while the cache write and the attention keep cache_seqlens.
     """
-    for name, val in (("input_embeds", input_embeds),
-                      ("rope_rows", rope_rows), ("pos_offsets", pos_offsets)):
-        if val is not None:
-            raise NotImplementedError(f"model_forward_paged({name}=...) is "
-                                      "not ported yet")
     b, t = ids.shape
+    base = cache_seqlens if pos_offsets is None \
+        else cache_seqlens + pos_offsets
     # per-sequence positions differ -> gather per-batch rows
-    pos = cache_seqlens.long()[:, None] + torch.arange(
+    pos = base.long()[:, None] + torch.arange(
         t, device=ids.device)[None]                           # [B, T]
-    x = _embed(w, st, ids, pos)
+    x = _embed(w, st, ids, pos, rows=input_embeds)
     rope = _rope_rows(w, pos)                          # [B, T, rot/2] each
+    if rope_rows is not None:
+        alt = rope[2:] if w.sin_alt is not None else rope_rows
+        rope = (*rope_rows, *alt)
     for layer in range(st.num_layers):
         lw = w.layers[layer]
         sin, cos = _layer_rope(rope, st, layer)

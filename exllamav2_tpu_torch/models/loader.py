@@ -6,7 +6,10 @@ tensor sets per linear, reads them through the mmap safetensors reader and
 builds the plane layout (quant/qtensor.py) directly on `device`: dense
 and block-sparse MoE decoders (experts per key, or DBRX's fused expert
 blocks), with the per-head, post-attention and post-feedforward norms,
-learned positions and the sliding-window layers' rope tables.
+learned positions and the sliding-window layers' rope tables. A
+vision-language checkpoint loads its language model here (Qwen2-VL's MRoPE
+needs nothing of the loader: its positions come with each job); its vision
+tower is vlm.VisionTower's.
 """
 
 from __future__ import annotations
@@ -128,21 +131,8 @@ def _swa_layers(cfg: ModelConfig) -> list[int]:
     return out
 
 
-def _unported_features(cfg: ModelConfig) -> list[str]:
-    """Architecture features whose forward this package does not have yet:
-    the multimodal rope positions of the vision-language models (a vision
-    tower's own checkpoints load their language model, whose prompts are
-    text; image embeddings are refused by the generator). Expert-parallel
-    MoE needs a mesh, which DynamicGenerator refuses."""
-    return ["MRoPE (vision-language positions)"] if cfg.arch.mrope else []
-
-
 def build_static(cfg: ModelConfig) -> StaticModel:
     arch = cfg.arch
-    missing = _unported_features(cfg)
-    if missing:
-        raise NotImplementedError(
-            f"{arch.arch_string}: {', '.join(missing)} not ported yet")
     swa = _swa_layers(cfg)
     has_alt_rope = arch.sliding_rope_theta is not None and any(swa)
     per_layer = [

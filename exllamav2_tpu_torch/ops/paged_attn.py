@@ -100,21 +100,25 @@ def paged_decode_attention_plain(q, k_data, v_data, layer: int,
                                  scale: float, page_size: int, hq: int,
                                  kinds: tuple = ("bf16", "bf16"),
                                  softcap: float = 0.0,
-                                 window: int = 0) -> torch.Tensor:
+                                 window: int = 0,
+                                 dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
     """Plain version of the kernel: the same recurrence over the page
     columns of the block table, f32 state, K/V and p rounded to bf16.
-    -> [B, 1, Hq, D] f32."""
+    -> [B, 1, Hq, D] f32. dtype=torch.float64 evaluates the same rounding
+    points with f64 scores and state (a yardstick for how far f32
+    summation order alone moves the result)."""
     b, _, d = q.shape
     hkv = k_data.shape[1]
     g = hq // hkv
     kk, vk = kinds
     dev = q.device
-    qf = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    qf = q.to(torch.bfloat16).to(dtype).reshape(b, hkv, g, d)
     vl = valid_lens.to(dev).long()
     bt = block_table.to(dev).long()
-    m = torch.full((b, hkv, g, 1), _NEG, device=dev)
-    l = torch.zeros((b, hkv, g, 1), device=dev)
-    acc = torch.zeros((b, hkv, g, d), device=dev)
+    m = torch.full((b, hkv, g, 1), _NEG, device=dev, dtype=dtype)
+    l = torch.zeros((b, hkv, g, 1), device=dev, dtype=dtype)
+    acc = torch.zeros((b, hkv, g, d), device=dev, dtype=dtype)
     offs = torch.arange(page_size, device=dev)
 
     def page(data, scales, kind, rows):
@@ -122,7 +126,7 @@ def paged_decode_attention_plain(q, k_data, v_data, layer: int,
         s = scales[layer][:, rows] if scales is not None else None
         out = _dq_page(raw.transpose(0, 1), None if s is None
                        else s.transpose(0, 1), kind)
-        return out.to(torch.bfloat16).float()             # [B, H, page, D]
+        return out.to(torch.bfloat16).to(dtype)           # [B, H, page, D]
 
     for p in range(bt.shape[1]):
         start = p * page_size
@@ -147,14 +151,14 @@ def paged_decode_attention_plain(q, k_data, v_data, layer: int,
         pr = torch.exp(s - m_next)
         l_new = alpha * l + pr.sum(dim=-1, keepdim=True)
         o = torch.einsum("bhgp,bhpd->bhgd",
-                         pr.to(torch.bfloat16).float(), vpg)
+                         pr.float().to(torch.bfloat16).to(dtype), vpg)
         acc_new = acc * alpha + o
         lv = live[:, None, None, None]
         m = torch.where(lv, m_next, m)
         l = torch.where(lv, l_new, l)
         acc = torch.where(lv, acc_new, acc)
     out = acc / torch.where(l == 0.0, torch.ones_like(l), l)
-    return out.reshape(b, 1, hq, d)
+    return out.float().reshape(b, 1, hq, d)
 
 
 def _kernel(q, k_data, v_data, layer, block_table, valid_lens, k_scales,

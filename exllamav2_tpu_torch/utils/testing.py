@@ -6,7 +6,9 @@ the plane words directly is distribution-equivalent to packing random ints,
 and costs nothing but the draw. Every draw comes from the explicit
 ``torch.Generator`` passed in (seeded once by random_model_weights).
 ``make_tiny_llama`` writes a small random FP16 / EXL2 / GPTQ checkpoint in any
-registered architecture's layout, with numpy draws only.
+registered architecture's layout, with numpy draws only; ``make_tiny_vlm``
+adds a vision tower of one of the four families, and ``random_vision_tower``
+draws a tower of real geometry on the device.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ from exllamav2_tpu_torch.ops.rope import build_sincos
 from exllamav2_tpu_torch.stloader import write_safetensors
 
 __all__ = ["random_quant_linear", "random_gptq_linear",
-           "random_model_weights", "write_random_lora", "make_tiny_llama"]
+           "random_model_weights", "write_random_lora", "make_tiny_llama",
+           "random_vision_tower", "make_tiny_vlm"]
 
 
 def _words(gen, shape, device):
@@ -87,7 +90,7 @@ def random_model_weights(*, vocab=32000, hidden=4096, layers=32, heads=32,
                          kv_heads=32, inter=11008, max_seq=2048, bits=4,
                          seed=0, fmt="exl2", moe=0, moe_topk=2, arch=None,
                          head_dim=None, sliding_window=0,
-                         rope_theta=10000.0, device=None
+                         rope_theta=10000.0, attn_bias=False, device=None
                          ) -> tuple[ModelWeights, StaticModel]:
     """In-memory random model (ModelWeights, StaticModel) of real geometry,
     built on `device` (the card by default): EXL2 linears with 32-row
@@ -102,7 +105,8 @@ def random_model_weights(*, vocab=32000, hidden=4096, layers=32, heads=32,
     style, embedding scale, f32 residual, softcaps and a tied bf16 head;
     sliding_window windows its pattern's layers, which take a table of the
     architecture's sliding theta where it has one (rope_theta is the
-    other layers'), and NoPE layers where it says so. Norms are the
+    other layers'), and NoPE layers where it says so. attn_bias gives q, k
+    and v bf16 biases drawn from N(0, 0.02^2) (Qwen2). Norms are the
     identity (zero biases); head_dim defaults to hidden // heads."""
     if fmt not in ("exl2", "gptq"):
         raise ValueError(f"fmt {fmt!r}: want 'exl2' or 'gptq'")
@@ -139,10 +143,14 @@ def random_model_weights(*, vocab=32000, hidden=4096, layers=32, heads=32,
     lws = []
     for _ in range(layers):
         an = norm()
+        qkv = [lin(hidden, w) for w in (heads * head_dim, kv_heads * head_dim,
+                                        kv_heads * head_dim)]
+        if attn_bias:
+            for x in qkv:
+                x.bias = (torch.randn((x.n_orig,), generator=gen,
+                                      device=device) * 0.02).to(torch.bfloat16)
         attn = AttnWeights(norm=an,
-                           q=lin(hidden, heads * head_dim),
-                           k=lin(hidden, kv_heads * head_dim),
-                           v=lin(hidden, kv_heads * head_dim),
+                           q=qkv[0], k=qkv[1], v=qkv[2],
                            o=lin(heads * head_dim, hidden),
                            q_norm=norm(head_dim) if qk_norm else None,
                            k_norm=norm(head_dim) if qk_norm else None,
@@ -482,4 +490,253 @@ def make_tiny_llama(model_dir: str, *, quant: str | None = "exl2",
         tensors[f"{pre}lm_head.weight"] = w.astype(np.float16)
 
     write_safetensors(os.path.join(model_dir, "model.safetensors"), tensors)
+    return model_dir
+
+
+# ---------------------------------------------------------------- vision
+
+def random_vision_tower(cfg, *, seed: int = 0, device=None):
+    """The vision tower of `cfg` (a ModelConfig with a vision_config) with
+    random bf16 weights drawn on `device` (the card by default) from a
+    torch.Generator seeded with `seed`: linears N(0, 0.02^2) with biases
+    N(0, 0.01^2) where the family has them, identity norms. A pixtral
+    tower with a spatial merge takes Mistral 3's projector norm and patch
+    merger."""
+    from exllamav2_tpu_torch.vlm.vision_tower import VisionTower, _VLayer
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    vt = cfg.vision_model_type
+    vh, inter = cfg.vision_hidden_size, cfg.vision_intermediate_size
+    nh, hd = cfg.vision_num_attention_heads, cfg.vision_head_dim
+    biased = vt != "pixtral"
+    layernorm = vt in ("qwen2", "siglip_vision_model")
+
+    def draw(shape, std):
+        return (torch.randn(shape, generator=gen, device=device)
+                * std).to(torch.bfloat16)
+
+    def lin(k, n, bias=biased):
+        return DenseLinear(draw((k, n), 0.02),
+                           draw((n,), 0.01) if bias else None)
+
+    def norm(width=vh, ln=layernorm):
+        return NormWeights(
+            torch.ones((width,), dtype=torch.float32, device=device),
+            torch.zeros((width,), dtype=torch.float32, device=device)
+            if ln else None)
+
+    ph, pw = cfg.vision_patch_size["height"], cfg.vision_patch_size["width"]
+    tps = cfg.vision_temporal_patch_size if vt in ("qwen2", "qwen2.5") \
+        else 1
+    gated = vt in ("pixtral", "qwen2.5")
+    layers = [_VLayer(norm(), lin(vh, nh * hd), lin(vh, nh * hd),
+                      lin(vh, nh * hd), lin(nh * hd, vh), norm(),
+                      lin(vh, inter) if gated else None, lin(vh, inter),
+                      lin(inter, vh))
+              for _ in range(cfg.vision_num_layers)]
+    patch_conv = lin(3 * tps * ph * pw, vh,
+                     bias=vt == "siglip_vision_model")
+    ln_pre = pos_emb = None
+    lm = cfg.hidden_size
+    merge = cfg.vision_spatial_merge_size ** 2
+    if vt == "pixtral":
+        ln_pre = norm()
+        merger = merge > 1
+        mmp = dict(kind="mlp", act="gelu", norm_kind="rms",
+                   norm=norm() if merger else None,
+                   patch_merger=lin(merge * vh, vh, bias=False)
+                   if merger else None,
+                   up=lin(vh, lm, bias=False), down=lin(lm, lm, bias=False))
+    elif vt in ("qwen2", "qwen2.5"):
+        mi = merge * vh
+        mmp = dict(kind="mlp", act="gelu",
+                   norm_kind="rms" if vt == "qwen2.5" else "layernorm",
+                   norm=norm(), patch_merger=None, up=lin(mi, mi, True),
+                   down=lin(mi, lm, True))
+    else:
+        side = cfg.vision_size["height"] // ph
+        pos_emb = draw((side * side, vh), 0.02)
+        mmp = dict(kind="proj", norm=norm(ln=False),
+                   proj=lin(vh, lm, bias=False))
+    return VisionTower(cfg, device=device, parts=dict(
+        layers=layers, patch_conv=patch_conv, ln_pre=ln_pre,
+        pos_emb=pos_emb, mmp=mmp))
+
+
+# tiny vision-language checkpoints: (architecture, LM config, vision_config
+# and top-level extras, preprocessor_config.json)
+_PREP = {"image_mean": [0.48, 0.46, 0.41], "image_std": [0.27, 0.26, 0.28],
+         "rescale_factor": 1 / 255.0}
+_TINY_VLM = {
+    "pixtral": ("LlavaForConditionalGeneration", {
+        "vision_config": {
+            "model_type": "pixtral", "hidden_size": 64, "head_dim": 16,
+            "num_attention_heads": 4, "patch_size": 4, "rope_theta": 10000.0,
+            "num_hidden_layers": 2, "intermediate_size": 96,
+            "hidden_act": "silu"},
+        "vision_feature_layer": -1}, {
+        "image_processor_type": "PixtralImageProcessor", **_PREP,
+        "resample": 3, "patch_size": {"width": 4, "height": 4},
+        "size": {"longest_edge": 32}}),
+    "qwen2": ("Qwen2VLForConditionalGeneration", {
+        "rope_scaling": {"type": "mrope", "mrope_section": [8, 12, 12]},
+        "vision_config": {
+            "model_type": "qwen2", "embed_dim": 32, "num_heads": 2,
+            "mlp_ratio": 4, "patch_size": 4, "spatial_merge_size": 2,
+            "spatial_patch_size": 4, "temporal_patch_size": 2,
+            "depth": 2}}, {
+        "image_processor_type": "Qwen2VLImageProcessor", **_PREP,
+        "patch_size": 4, "temporal_patch_size": 2, "merge_size": 2,
+        "min_pixels": 8 * 8, "max_pixels": 64 * 64}),
+    # window 16 px = 2 merged units of 8 px: a 6 x 6 unit grid has nine
+    # windows; block 1 attends over the whole image
+    "qwen2.5": ("Qwen2_5_VLForConditionalGeneration", {
+        "rope_scaling": {"type": "mrope", "mrope_section": [8, 12, 12]},
+        "vision_config": {
+            "hidden_size": 32, "intermediate_size": 48, "num_heads": 2,
+            "out_hidden_size": 256, "patch_size": 4, "spatial_merge_size": 2,
+            "spatial_patch_size": 4, "temporal_patch_size": 2, "depth": 2,
+            "window_size": 16, "fullatt_block_indexes": [1]}}, {
+        "image_processor_type": "Qwen2VLImageProcessor", **_PREP,
+        "patch_size": 4, "temporal_patch_size": 2, "merge_size": 2,
+        "min_pixels": 8 * 8, "max_pixels": 64 * 64}),
+    "siglip": ("Gemma3ForConditionalGeneration", {
+        "mm_tokens_per_image": 4,
+        "vision_config": {
+            "model_type": "siglip_vision_model", "hidden_size": 32,
+            "num_attention_heads": 2, "num_hidden_layers": 2,
+            "intermediate_size": 64, "patch_size": 4, "image_size": 16,
+            "hidden_act": "gelu_pytorch_tanh"}}, {
+        "image_processor_type": "Gemma3ImageProcessor",
+        "image_mean": [0.5, 0.5, 0.5], "image_std": [0.5, 0.5, 0.5],
+        "rescale_factor": 1 / 255.0, "resample": 2,
+        "size": {"width": 16, "height": 16}}),
+}
+
+
+def _tiny_tower_tensors(kind: str, vc: dict, lm_hidden: int,
+                        seed: int) -> dict[str, np.ndarray]:
+    """Tower and projector tensors of a tiny checkpoint, fp16, in the
+    checkpoint's key layout. pixtral and qwen2 draw as the reference's
+    tests/test_vlm.py fixtures do, seed for seed."""
+    rng = np.random.default_rng(seed)
+
+    def dense(o, i):
+        return (rng.standard_normal((o, i)) * 0.05).astype(np.float16)
+
+    def ones(n):
+        return np.ones(n, np.float16)
+
+    def zeros(n):
+        return np.zeros(n, np.float16)
+
+    t = {}
+    if kind == "pixtral":
+        vh, p, inter = vc["hidden_size"], vc["patch_size"], \
+            vc["intermediate_size"]
+        t["vision_tower.ln_pre.weight"] = ones(vh)
+        t["vision_tower.patch_conv.weight"] = \
+            (rng.standard_normal((vh, 3, p, p)) * 0.05).astype(np.float16)
+        for l in range(vc["num_hidden_layers"]):
+            b = f"vision_tower.transformer.layers.{l}"
+            t[f"{b}.attention_norm.weight"] = ones(vh)
+            t[f"{b}.ffn_norm.weight"] = ones(vh)
+            for nm in ("q", "k", "v", "o"):
+                t[f"{b}.attention.{nm}_proj.weight"] = dense(vh, vh)
+            t[f"{b}.feed_forward.gate_proj.weight"] = dense(inter, vh)
+            t[f"{b}.feed_forward.up_proj.weight"] = dense(inter, vh)
+            t[f"{b}.feed_forward.down_proj.weight"] = dense(vh, inter)
+        t["multi_modal_projector.linear_1.weight"] = dense(lm_hidden, vh)
+        t["multi_modal_projector.linear_1.bias"] = zeros(lm_hidden)
+        t["multi_modal_projector.linear_2.weight"] = dense(lm_hidden,
+                                                           lm_hidden)
+        t["multi_modal_projector.linear_2.bias"] = zeros(lm_hidden)
+    elif kind in ("qwen2", "qwen2.5"):
+        q25 = kind == "qwen2.5"
+        vh = vc["hidden_size"] if q25 else vc["embed_dim"]
+        inter = vc["intermediate_size"] if q25 else vc["mlp_ratio"] * vh
+        p, tps = vc["patch_size"], vc["temporal_patch_size"]
+        t["visual.patch_embed.proj.weight"] = \
+            (rng.standard_normal((vh, 3, tps, p, p)) * 0.05
+             ).astype(np.float16)
+        for l in range(vc["depth"]):
+            b = f"visual.blocks.{l}"
+            t[f"{b}.norm1.weight"] = ones(vh)
+            t[f"{b}.norm2.weight"] = ones(vh)
+            if not q25:
+                t[f"{b}.norm1.bias"] = zeros(vh)
+                t[f"{b}.norm2.bias"] = zeros(vh)
+            t[f"{b}.attn.qkv.weight"] = dense(3 * vh, vh)
+            t[f"{b}.attn.qkv.bias"] = zeros(3 * vh)
+            t[f"{b}.attn.proj.weight"] = dense(vh, vh)
+            t[f"{b}.attn.proj.bias"] = zeros(vh)
+            mlp = (("gate_proj", inter, vh), ("up_proj", inter, vh),
+                   ("down_proj", vh, inter)) if q25 else \
+                (("fc1", inter, vh), ("fc2", vh, inter))
+            for nm, o, i in mlp:
+                t[f"{b}.mlp.{nm}.weight"] = dense(o, i)
+                t[f"{b}.mlp.{nm}.bias"] = zeros(o)
+        merge = 4 * vh          # spatial merge 2: four patches concatenated
+        out = vc["out_hidden_size"] if q25 else lm_hidden
+        t["visual.merger.ln_q.weight"] = ones(vh)
+        if not q25:
+            t["visual.merger.ln_q.bias"] = zeros(vh)
+        t["visual.merger.mlp.0.weight"] = dense(merge, merge)
+        t["visual.merger.mlp.0.bias"] = zeros(merge)
+        t["visual.merger.mlp.2.weight"] = dense(out, merge)
+        t["visual.merger.mlp.2.bias"] = zeros(out)
+    else:                                               # siglip
+        vh, p, inter = vc["hidden_size"], vc["patch_size"], \
+            vc["intermediate_size"]
+        pre = "vision_tower.vision_model."
+        t[pre + "embeddings.patch_embedding.weight"] = \
+            (rng.standard_normal((vh, 3, p, p)) * 0.05).astype(np.float16)
+        t[pre + "embeddings.patch_embedding.bias"] = zeros(vh)
+        n_pos = (vc["image_size"] // p) ** 2
+        t[pre + "embeddings.position_embedding.weight"] = \
+            (rng.standard_normal((n_pos, vh)) * 0.05).astype(np.float16)
+        for l in range(vc["num_hidden_layers"]):
+            b = f"{pre}encoder.layers.{l}"
+            for nm in ("layer_norm1", "layer_norm2"):
+                t[f"{b}.{nm}.weight"] = ones(vh)
+                t[f"{b}.{nm}.bias"] = zeros(vh)
+            for nm in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                t[f"{b}.self_attn.{nm}.weight"] = dense(vh, vh)
+                t[f"{b}.self_attn.{nm}.bias"] = zeros(vh)
+            t[f"{b}.mlp.fc1.weight"] = dense(inter, vh)
+            t[f"{b}.mlp.fc1.bias"] = zeros(inter)
+            t[f"{b}.mlp.fc2.weight"] = dense(vh, inter)
+            t[f"{b}.mlp.fc2.bias"] = zeros(vh)
+        t["multi_modal_projector.mm_soft_emb_norm.weight"] = ones(vh)
+        # stored [vision_hidden, lm_hidden], as Gemma 3 keeps it
+        t["multi_modal_projector.mm_input_projection.weight"] = \
+            dense(vh, lm_hidden)
+    return t
+
+
+def make_tiny_vlm(model_dir: str, kind: str, *, seed: int = 51,
+                  tower_seed: int | None = None, **lm_kw) -> str:
+    """A tiny random vision-language checkpoint: make_tiny_llama's FP16
+    language model (vocab 384, max_pos 4096, in the architecture's layout)
+    plus a vision tower of `kind` ("pixtral", "qwen2", "qwen2.5" or
+    "siglip") and its preprocessor_config.json. numpy only, so the
+    reference package loads the same files; pixtral (tower_seed 7) and
+    qwen2 (tower_seed 9) are the reference's tests/test_vlm.py fixtures.
+    Returns model_dir."""
+    arch, extra, prep = _TINY_VLM[kind]
+    kw = dict(quant=None, seed=seed, vocab=384, max_pos=4096)
+    kw.update(lm_kw)
+    make_tiny_llama(model_dir, arch=arch, extra_config=extra, **kw)
+    if tower_seed is None:
+        tower_seed = {"pixtral": 7, "qwen2": 9}.get(kind, 11)
+    from exllamav2_tpu_torch.stloader import TensorFileMap
+    tfm = TensorFileMap(model_dir)
+    tensors = {k: tfm.get_tensor(k).copy() for k in tfm.keys()}
+    tfm.close()
+    tensors.update(_tiny_tower_tensors(kind, extra["vision_config"],
+                                       kw.get("hidden", 256), tower_seed))
+    write_safetensors(os.path.join(model_dir, "model.safetensors"), tensors)
+    with open(os.path.join(model_dir, "preprocessor_config.json"), "w") as f:
+        json.dump(prep, f)
     return model_dir

@@ -327,14 +327,11 @@ def test_base_generator(model):
     "filters", "token_healing", "banned_strings", "negative_prompt_ids",
     "embeddings", "post_sampling_hooks"])
 def test_unported_job_arguments_raise(arg):
-    """Embeddings still raise; the constrained-generation arguments land on
-    the job, and negative_prompt_ids makes a CFG job when the settings
-    carry a cfg_scale (and none without)."""
+    """Every job argument is ported: the constrained-generation arguments
+    and the embeddings land on the job, and negative_prompt_ids makes a CFG
+    job when the settings carry a cfg_scale (and none without)."""
     val = {"token_healing": True, "negative_prompt_ids": np.array([1, 2])}
-    if arg == "embeddings":
-        with pytest.raises(NotImplementedError, match=arg):
-            DynamicJob([1, 2, 3], **{arg: ["x"]})
-    elif arg == "negative_prompt_ids":
+    if arg == "negative_prompt_ids":
         assert not DynamicJob([1, 2, 3], **{arg: val[arg]}).is_cfg
         job = DynamicJob([1, 2, 3], settings=Settings(cfg_scale=1.5),
                          **{arg: val[arg]})
@@ -383,18 +380,27 @@ def test_ported_generator_arguments_work(model, arg):
 
 
 def test_unported_generator_methods_raise(model):
-    """Embeddings still raise; set_loras is ported (a detach with nothing
-    attached leaves the weights as they are), and so are the MoE drop
-    counters (a dense model drops nothing)."""
+    """Every generator method is ported: set_loras (a detach with nothing
+    attached leaves the weights as they are), the MoE drop counters (a
+    dense model drops nothing) and the embeddings: an alias becomes its
+    embedding's ids, and a job with embedding rows runs to its end."""
+    from exllamav2_tpu_torch.vlm import MMEmbedding
     gen = _gen(model)
     w = gen.model.weights
     gen.set_loras(None)
     assert gen.model.weights is w
-    with pytest.raises(NotImplementedError, match="embeddings"):
-        gen.generate("x", embeddings=[object()])
     assert gen.moe_dropped_tokens == 0
-    with pytest.raises(NotImplementedError):
-        gen.encode_with_embeddings("x", [])
+    assert gen.encode_with_embeddings("xy", []).tolist() == \
+        TOK.encode("xy").tolist()
+    mme = MMEmbedding(np.random.default_rng(0).standard_normal(
+        (3, model.static.hidden_size)) * 0.02, text_alias="<e>",
+                      device="cpu")
+    ids = gen.encode_with_embeddings("a<e>b", [mme])
+    assert ids.tolist() == [*TOK.encode("a").tolist(), *mme.get_ids(),
+                            *TOK.encode("b").tolist()]
+    out = gen.generate("a<e>b", max_new_tokens=4, settings=Settings.greedy(),
+                       embeddings=[mme])
+    assert isinstance(out, str) and gen.num_remaining_jobs() == 0
 
 
 def test_generator_device_follows_model(model, monkeypatch):

@@ -748,3 +748,45 @@ def test_card_moe_steps_graphed_equal_eager(dev):
         out[graphs] = ([j.sequence.tolist() for j in js],
                        gen.moe_dropped_tokens)
     assert out[True] == out[False]
+
+
+@pytest.mark.cuda
+def test_card_mrope_mixed_offsets_graphed_equal_eager(dev, tmp_path):
+    """A Qwen2-VL model on the card (the tiny checkpoint, its tower too):
+    image jobs (MRoPE offsets < 0) and a text job (offset 0) decode in one
+    batch through one step graph per key, single steps and bursts, with
+    the eager round's tokens bitwise; the keys are those of a text-only
+    round."""
+    from exllamav2_tpu_torch.utils.testing import make_tiny_vlm
+    from exllamav2_tpu_torch.vlm import VisionTower
+    d = make_tiny_vlm(str(tmp_path / "qwen2"), "qwen2")
+    model = Model.from_dir(d, device=dev)
+    tower = VisionTower(model.config, device=dev)
+    tok = ByteTokenizer(384)
+    rng = np.random.default_rng(3)
+    embs = [tower.get_image_embeddings(
+        model, tok, (rng.random(s) * 255).astype(np.uint8), f"<i{i}>")
+        for i, s in enumerate([(16, 16, 3), (32, 32, 3), (24, 32, 3)])]
+    st = model.static
+    out, keys = {}, {}
+    for graphs in (False, True):
+        gen = DynamicGenerator(model, PagedKVCache.alloc(
+            st.num_layers, 16, st.num_kv_heads, st.head_dim, device=dev),
+            tok, max_batch_size=4, decode_burst=4, graphs=graphs)
+        js = [gen.enqueue(DynamicJob(
+            gen.encode_with_embeddings(f"x <i{i}> y", [e]), max_new_tokens=11,
+            settings=Settings.greedy(), embeddings=[e]))
+            for i, e in enumerate(embs)]
+        js.append(gen.enqueue(DynamicJob(tok.encode("text only"),
+                                         max_new_tokens=11,
+                                         settings=Settings.greedy())))
+        while any(j.status != "done" for j in js):
+            gen.iterate()
+        torch.cuda.synchronize()
+        out[graphs] = [j.sequence.tolist() for j in js]
+        if graphs:
+            assert len({j.mrope_offset for j in js}) == 4
+            keys = dict(gen.step_graphs.captures)
+    assert out[True] == out[False]
+    assert keys and all(n == 1 for n in keys.values())
+    assert {k[0] for k in keys} <= {"decode", "decode_burst"}

@@ -50,6 +50,8 @@ def test_import_with_jax_absent():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "assert {'exllamav2_tpu_torch.vlm', 'exllamav2_tpu_torch.ops.mrope',"
+        " 'exllamav2_tpu_torch.vlm.vision_tower'} <= set(names)\n"
         "assert not any(k == 'exllamav2_tpu' or k.startswith('exllamav2_tpu.')"
         " for k in sys.modules), 'JAX package imported'\n"
         "print(len(names))\n")

@@ -135,12 +135,22 @@ def test_default_device_is_the_card(fixtures, monkeypatch):
 
 
 def test_unported_architecture_features_raise(tmp_path):
-    """MRoPE (the vision-language positions of Qwen2-VL) has no forward
-    here yet: loading fails loudly instead of computing something else."""
+    """No architecture feature of the registry is refused at load any
+    more: Qwen2-VL (MRoPE, whose positions come with each job; its
+    multimodal path is tests/test_torch_vlm.py's) loads its language model
+    with the config a vision tower reads, and gives the reference's greedy
+    tokens on a text prompt."""
     d = make_tiny_llama(str(tmp_path / "qvl"), quant=None,
-                        arch="Qwen2VLForConditionalGeneration")
-    with pytest.raises(NotImplementedError, match="MRoPE"):
-        Model.from_dir(d, device="cpu")
+                        arch="Qwen2VLForConditionalGeneration",
+                        extra_config={"rope_scaling": {
+                            "type": "mrope", "mrope_section": [8, 12, 12]}})
+    model = Model.from_dir(d, device="cpu")
+    assert model.config.arch.mrope
+    assert model.config.mrope_section == [8, 12, 12]
+    prompt = np.array([[1, 7, 42, 9]], np.int32)
+    ref = RefModel.from_dir(d).generate_greedy(prompt, 6, max_seq=32)
+    got = model.generate_greedy(prompt, 6, max_seq=32)
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_random_model_weights_on_cpu():

@@ -98,6 +98,29 @@ def test_decode_kernel_plain_softcap_window(kind, cap, win):
     assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("kind", ["bf16", "q4"])
+def test_decode_plain_f64_evaluation(kind):
+    """dtype=torch.float64 evaluates the plain version's rounding points
+    (bf16 K/V, p rounded to bf16 against the running page max) with f64
+    scores and state, chip_smoke's yardstick for kernel 3 on a served
+    model's inputs: an f32 result of the f32 evaluation's shape, within
+    1e-5 of its max (measured 3.0e-8 at bf16, 3.9e-7 at q4: here no p
+    lands near a rounding boundary)."""
+    rc, tc = _pools(kind, 2)
+    bt = torch.tensor([[5, 2, 7, 0], [3, 6, 1, 0], [0, 0, 0, 0]],
+                      dtype=torch.int32)
+    q = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (3, 4, D)).astype(np.float32)).to(torch.bfloat16)
+    args = (q, tc.k_data, tc.v_data, 1, bt,
+            torch.tensor([600, 257, 1], dtype=torch.int32), tc.k_scales,
+            tc.v_scales, 0.09, 256, 4, _kinds(kind))
+    f32 = TP.paged_decode_attention_plain(*args)
+    f64 = TP.paged_decode_attention_plain(*args, dtype=torch.float64)
+    assert f64.dtype == f32.dtype == torch.float32
+    assert f64.shape == f32.shape == (3, 1, 4, D)
+    assert _rel(f64, f32) < 1e-5
+
+
 @pytest.mark.parametrize("kind", ["bf16", "q4", "q6"])
 def test_prefill_branch_matches_reference(kind):
     """t > 1: gather + dequant + masked softmax, f32 on both sides."""
@@ -166,9 +189,45 @@ def test_model_forward_paged_matches_reference(kind, kernel, monkeypatch):
 
 
 def test_unported_forward_arguments_raise():
-    with pytest.raises(NotImplementedError, match="input_embeds"):
-        model_forward_paged(None, None, torch.zeros((1, 1), dtype=torch.int32),
-                            None, None, None, input_embeds=torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="pos_offsets"):
-        model_forward_paged(None, None, torch.zeros((1, 1), dtype=torch.int32),
-                            None, None, None, pos_offsets=torch.zeros(1))
+    """The multimodal arguments are ported (tests/test_torch_vlm.py holds
+    them against the reference): the embedding rows of the ids as
+    input_embeds, the table's rows as rope_rows and zero pos_offsets give
+    the plain forward's logits bitwise; an offset reads the rope rows of
+    the offset positions."""
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    w, st = random_model_weights(vocab=64, hidden=128, layers=1, heads=1,
+                                 kv_heads=1, inter=128, max_seq=512,
+                                 device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        3, 60, (2, 5)).astype(np.int32))
+    bt = torch.tensor([[1], [2]], dtype=torch.int32)
+    lens = torch.tensor([0, 3], dtype=torch.int32)
+    pos = lens.long()[:, None] + torch.arange(5)
+
+    def run(**kw):
+        return model_forward_paged(w, st, ids, _tiny_pool(st), bt, lens,
+                                   **kw)[0]
+
+    def step(**kw):
+        # a prefill, then one token
+        pool = _tiny_pool(st)
+        model_forward_paged(w, st, ids, pool, bt, lens)
+        return model_forward_paged(w, st, ids[:, :1], pool, bt, lens + 5,
+                                   **kw)[0]
+
+    plain = run()
+    for kw in ({"input_embeds": w.embed[ids.long()]},
+               {"rope_rows": (w.sin[pos], w.cos[pos])},
+               {"pos_offsets": torch.zeros(2, dtype=torch.int32)}):
+        assert torch.equal(run(**kw), plain), list(kw)
+    # an offset takes the rope rows of seqlen + offset
+    offs = torch.tensor([0, -2], dtype=torch.int32)
+    at = (lens + 5 + offs).long()[:, None]
+    assert torch.equal(step(pos_offsets=offs),
+                       step(rope_rows=(w.sin[at], w.cos[at])))
+
+
+def _tiny_pool(st):
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    return PagedKVCache.alloc(st.num_layers, 3, st.num_kv_heads, st.head_dim,
+                              device="cpu")
