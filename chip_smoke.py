@@ -165,6 +165,27 @@ the captures and their ms, the replays, host ms a token or a dispatch
               40 text layers: the tower's ms, a batch-1 image job graphed
               and once eager, decode against prefill (Gemma-3: the f32
               variant gated, as in phase 13).
+ 15. convert  the EXL2 converter: (a) kernel G1 (csrc/gptq.cu, the GPTQ row
+              recursion of one group) against its plain version at the
+              Llama-2-7B shapes (4096x4096, 4096x11008, 11008x4096,
+              4096x32000), groups of 32 and 128 rows, 2-8 bits, on the
+              factor of a Hessian of correlated activations: codes equal,
+              dq and err within G1_TOL (bitwise logged), kernel and plain
+              timed beside the bound; (b) random fp16 weights at
+              Llama-2-7B width, 8 of 32 layers and the full head, written
+              to build/convert_src/ and converted through `python -m
+              exllamav2_tpu_torch.convert`'s entry with its defaults (4.0
+              bpw, head 8 bits, 16 x 256 corpus rows, gs 32): seconds by
+              stage and layer and a full-depth estimate, bits per weight
+              from total_bits within the budget, G1 launches equal to the
+              groups quantized, GPTQ below RTN on every linear of layer 0;
+              (c) the output served: generate_greedy at batch 1 graphed
+              (launch counts asserted, one a segment) and eager (bitwise
+              the same tokens), kernel 1 held on every converted segment
+              shape at m 1 and 16, decode vs prefill; (d)
+              tests/fixtures/trained_tiny converted on the card (4.0 bpw,
+              head 6 bits): perplexity dense and converted, greedy tokens
+              equal to the CPU's on the card's checkpoint.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -177,7 +198,7 @@ paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
 constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12,
 `python3 chip_smoke.py archs` phases 1 and 13, `python3 chip_smoke.py vlm`
-phases 1 and 14.
+phases 1 and 14, `python3 chip_smoke.py convert` phases 1 and 15.
 """
 
 from __future__ import annotations
@@ -3880,6 +3901,498 @@ def phase_vlm(dev, rate):
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+
+CONVERT_LAYERS = 8          # of Llama-2-7B's 32 (phase 15 cuts the depth)
+G1_BITS = (2, 3, 4, 5, 6, 8)
+G1_GROUPS = (32, 128)
+# G1 against its plain version: codes equal, dq and err within this share
+# of max |plain| (the kernel repeats the plain loop's operations in its
+# order, each rounded on its own: the phase logs whether they are bitwise)
+G1_TOL = 1e-6
+# one Llama-2-7B layer's GPTQ groups at gs 32: q, k, v, o | gate, up | down
+G1_LAYER = {(HIDDEN, HIDDEN): 4 * HIDDEN // 32,
+            (HIDDEN, INTER): 2 * HIDDEN // 32, (INTER, HIDDEN): INTER // 32}
+CONVERT_DEFAULTS = ["-b", "4.0", "-hb", "8", "-r", "16", "-l", "256",
+                    "-gs", "32"]
+
+
+def g1_hessian_factor(k: int, gen, dev) -> torch.Tensor:
+    """U (hinv = U^T U) of the Hessian of 2,048 correlated activation rows
+    of width k, prepared by the converter's own AdaptiveGPTQ (act order,
+    damped Cholesky)."""
+    from exllamav2_tpu_torch.convert.gptq import AdaptiveGPTQ
+    base = torch.randn((2048, 64), generator=gen, device=dev)
+    mix = torch.randn((64, k), generator=gen, device=dev)
+    x = base @ mix + 0.1 * torch.randn((2048, k), generator=gen, device=dev)
+    g = AdaptiveGPTQ(torch.zeros((k, 1), device=dev))
+    g.add_batch(x)
+    g.prepare()
+    return g.hessian_inv
+
+
+def g1_bytes(blk: int, n: int) -> int:
+    """What G1 must move for one group: w in, q, dq and err out, U's
+    block."""
+    return blk * n * (4 + 2 + 4 + 4) + blk * blk * 4
+
+
+def g1_check(dev, rate) -> dict:
+    """Kernel G1 against its plain version at the Llama-2-7B shapes, every
+    width of the grids, groups of 32 and 128 rows, on a real U; timed at 4
+    bits (the kernel's work does not depend on the width)."""
+    from exllamav2_tpu_torch.convert import gptq as G
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1515)
+    hinv = {k: g1_hessian_factor(k, gen, dev) for k in (HIDDEN, INTER)}
+    rows, worst, worst_abs, bitwise = [], 0.0, 0.0, True
+    for k, n in SHAPES:
+        w = 0.02 * torch.randn((k, n), generator=gen, device=dev)
+        for gs in G1_GROUPS:
+            a = (k // 2) // gs * gs
+            for bits in G1_BITS:
+                qz = G.AdaptiveQuantizer(bits=bits)
+                scale = qz.find_params(w[a:a + gs])[0]
+                args = (w, hinv[k], scale, qz.qzero, qz.maxq, a, gs)
+                before = G.LAUNCHES["gptq"]
+                q, dq, err = G.gptq_rows(*args)
+                if G.LAUNCHES["gptq"] != before + 1:
+                    raise AssertionError("G1 did not count its launch")
+                pq, pdq, perr = G.gptq_rows_plain(*args)
+                torch.cuda.synchronize()
+                codes = int((q != pq).sum())
+                rel = max(((dq - pdq).abs().max() / pdq.abs().max()).item(),
+                          ((err - perr).abs().max()
+                           / perr.abs().max()).item())
+                worst_abs = max(worst_abs, (dq - pdq).abs().max().item(),
+                                (err - perr).abs().max().item())
+                same = bool(torch.equal(dq, pdq) and torch.equal(err, perr))
+                bitwise &= same and codes == 0
+                worst = max(worst, rel)
+                finite = torch.isfinite(dq).all() and torch.isfinite(
+                    err).all()
+                if codes or not rel <= G1_TOL or not finite:
+                    raise AssertionError(
+                        f"G1 {k}x{n} gs {gs} {bits} bits: {codes} codes "
+                        f"differ, dq/err rel err {rel:.3g}")
+                if bits != 4:
+                    continue
+                ms = graph_ms([lambda: G.gptq_rows(*args)], 64)
+                plain = eager_ms(lambda: G.gptq_rows_plain(*args), 3)
+                rows.append({"k": k, "n": n, "gs": gs, "ms": ms,
+                             "plain_ms": plain, "bytes": g1_bytes(gs, n),
+                             "bound_ms": g1_bytes(gs, n) / rate * 1e3,
+                             "bitwise": same})
+                log(f"[convert] G1 {k}x{n} gs {gs}: kernel {ms * 1e3:.2f} us,"
+                    f" plain {plain:.3f} ms, bound "
+                    f"{rows[-1]['bound_ms'] * 1e3:.3f} us; bitwise {same}")
+    log(f"[convert] G1 against its plain version at {len(SHAPES)} shapes x "
+        f"{len(G1_GROUPS)} groups x {len(G1_BITS)} widths: codes equal, "
+        f"worst dq/err rel err {worst:.2e} (limit {G1_TOL}), bitwise "
+        f"{bitwise}")
+    return {"rows": rows, "max_rel_err": worst, "max_abs_err": worst_abs,
+            "bitwise": bitwise}
+
+
+def write_convert_source(path: str, dev, seed: int = 15) -> int:
+    """Random fp16 weights at Llama-2-7B geometry, CONVERT_LAYERS layers and
+    the full head, drawn on the card from a seed and written one
+    safetensors file a layer (Hugging Face layout, no tokenizer: the
+    converter's byte tokenizer cuts the calibration rows). -> bytes."""
+    from exllamav2_tpu_torch.stloader import write_safetensors
+    os.makedirs(path, exist_ok=True)
+    cfg = {"architectures": ["LlamaForCausalLM"], "hidden_size": HIDDEN,
+           "intermediate_size": INTER, "num_hidden_layers": CONVERT_LAYERS,
+           "num_attention_heads": HEADS, "num_key_value_heads": HEADS,
+           "vocab_size": VOCAB, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+           "max_position_embeddings": 4096, "tie_word_embeddings": False,
+           "bos_token_id": 1, "eos_token_id": 2, "torch_dtype": "float16"}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def rnd(*shape):
+        return (0.02 * torch.randn(shape, generator=gen, device=dev)).half(
+        ).cpu().numpy()
+
+    ones = np.ones(HIDDEN, np.float16)
+    total = 0
+    files = {"embed": {"model.embed_tokens.weight": rnd(VOCAB, HIDDEN)},
+             "head": {"lm_head.weight": rnd(VOCAB, HIDDEN),
+                      "model.norm.weight": ones}}
+    for l in range(CONVERT_LAYERS):
+        p = f"model.layers.{l}."
+        files[f"layer_{l:02d}"] = {
+            p + "input_layernorm.weight": ones,
+            p + "post_attention_layernorm.weight": ones,
+            **{p + f"self_attn.{x}_proj.weight": rnd(HIDDEN, HIDDEN)
+               for x in "qkvo"},
+            p + "mlp.gate_proj.weight": rnd(INTER, HIDDEN),
+            p + "mlp.up_proj.weight": rnd(INTER, HIDDEN),
+            p + "mlp.down_proj.weight": rnd(HIDDEN, INTER)}
+    for name, tensors in files.items():
+        write_safetensors(os.path.join(path, f"model-{name}.safetensors"),
+                          tensors)
+        total += sum(t.nbytes for t in tensors.values())
+    return total
+
+
+@contextlib.contextmanager
+def convert_parts():
+    """While on, the seconds of the converter's parts summed by name: the
+    GPTQ quantize, Hessian factorization and RTN sweeps of AdaptiveGPTQ
+    (the device work, synchronized at their end), the host's EXL2 packing
+    and dequantization (the reconstruction check) and file writes. Yields
+    {name: seconds}, filled as the conversion runs."""
+    from exllamav2_tpu_torch.convert import gptq as G
+    from exllamav2_tpu_torch.convert import pipeline as CP
+    parts = {}
+    saved = []
+
+    def clock(owner, attr, name, sync):
+        fn = getattr(owner, attr)
+
+        def timed(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+            return out
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, timed)
+
+    for owner, attr, name, sync in (
+            (G.AdaptiveGPTQ, "quantize", "gptq_quantize", True),
+            (G.AdaptiveGPTQ, "prepare", "gptq_prepare", True),
+            (G.AdaptiveGPTQ, "quantize_rtn", "rtn_measure", True),
+            (CP.F, "exl2_pack_quantized", "host_pack", False),
+            (CP.F, "exl2_dequantize", "host_dequantize", False),
+            (CP, "write_safetensors", "write_files", False)):
+        clock(owner, attr, name, sync)
+    try:
+        yield parts
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+class Stamped:
+    """A stdout that stamps each line the converter prints (its progress
+    and [STATUS] lines) with perf_counter, echoing it to the real one."""
+
+    def __init__(self, out):
+        self.out, self.lines, self.buf = out, [], ""
+
+    def write(self, s):
+        self.buf += s
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+            self.out.write(f"[convert] {line}\n")
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def convert_times(t0: float, lines, layers: int) -> dict:
+    """Seconds by stage and by layer from the stamped progress lines."""
+    def at(text):
+        return next(t for t, line in lines if line.strip() == text)
+
+    meas = [at(f"-- measured layer {i}/{layers}")
+            for i in range(1, layers + 1)]
+    quant = [at(f"-- quantized layer {i}/{layers}")
+             for i in range(1, layers + 1)]
+    opt = at("-- optimized bit allocation")
+    head = next(t for t, line in lines if "quantized lm_head" in line)
+    done = next(t for t, line in lines if "compiled ->" in line)
+    m_layer = np.diff(meas).tolist()        # layers 2.. (1 holds the load)
+    q_layer = [quant[0] - opt] + np.diff(quant).tolist()
+    m_mean = float(np.mean(m_layer))
+    return {"load_and_setup": meas[0] - t0 - m_mean,
+            "measure_per_layer": [meas[0] - t0] + m_layer,
+            "measure_mean": m_mean,
+            "optimize": opt - meas[-1],
+            "quantize_per_layer": q_layer,
+            "quantize_mean": float(np.mean(q_layer)),
+            "head": head - quant[-1], "compile": done - head,
+            "total": done - t0}
+
+
+def segment_launches(model, steps: int) -> dict:
+    """Kernel-1 and kernel-2 launches of generate_greedy at batch 1 with a
+    prompt of more than 32 tokens: one launch a segment of every quantized
+    linear in each of the steps one-token steps, and the head's segments on
+    the prefill's last token too."""
+    from exllamav2_tpu_torch.quant.qtensor import QuantLinear
+    w = model.weights
+    segs = sum(len(lin.segments) for lw in w.layers
+               for lin in (lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o,
+                           lw.mlp.gate, lw.mlp.up, lw.mlp.down)
+               if isinstance(lin, QuantLinear))
+    head = len(w.head.segments) if isinstance(w.head, QuantLinear) else 0
+    return {"qmm": head + (segs + head) * steps, "qmm_gated": 0,
+            "decode_attn": model.static.num_layers * steps,
+            "paged_decode_attn": 0}
+
+
+def layer0_gptq_vs_rtn(src: str, out: str, dev) -> dict:
+    """Every linear of the converted layer 0 against round-to-nearest at the
+    option the optimizer chose for it, in GPTQ's row order, on the layer's
+    captured inputs: GPTQ's output error must be the smaller
+    (tests/test_convert.py:31's property at full width)."""
+    from exllamav2_tpu_torch.config import ModelConfig
+    from exllamav2_tpu_torch.convert import pipeline as CP
+    from exllamav2_tpu_torch.convert.gptq import AdaptiveGPTQ
+    from exllamav2_tpu_torch.convert.qparams import qparams_attn, qparams_mlp
+    from exllamav2_tpu_torch.models.loader import load_model
+    from exllamav2_tpu_torch.stloader import STFile
+    from exllamav2_tpu_torch.tokenizer import load_tokenizer
+    cfg = ModelConfig.from_dir(src)
+    cfg.num_hidden_layers = 1
+    with torch.no_grad():
+        w, st = load_model(cfg, device=dev)
+        rows = np.clip(CP.calibration_rows(load_tokenizer(src), 16, 256),
+                       0, VOCAB - 1)
+        hs = CP.embed_rows(w, st, rows)
+        _, cap = CP._layer_forward_capture(w.layers[0], st, hs, w.sin[:256],
+                                           w.cos[:256], 0)
+        cap = {k: v.half() for k, v in cap.items()}
+        with open(os.path.join(out, "job.json")) as f:
+            strategy = json.load(f)["strategy"]
+        opts = {"attn": qparams_attn(32), "mlp": qparams_mlp(32)}
+        subs = CP._layer_subs(cfg, w.layers[0], 0)
+        path = os.path.join(out, "quant", "layer_0.safetensors")
+        recons = CP._load_layer_recons(path, subs)
+        stf = STFile(path)
+        res = {}
+        for sub in subs:
+            qp = opts[sub.kind][strategy[f"0.{sub.kind}"]]
+            w_t = sub.lin.weight.float()
+            invperm = torch.from_numpy(stf.get_tensor(
+                f"{sub.name}.q_invperm").astype(np.int64)).to(dev)
+            g = AdaptiveGPTQ(w_t)
+            g.w = w_t[torch.argsort(invperm)]
+            rtn = g.quantize_rtn(qp.groups(w_t.shape[0]))[invperm]
+            e_gptq = CP._sublayer_out_err(
+                cap[sub.cap], w_t, torch.from_numpy(recons[sub.name]).to(dev))
+            e_rtn = CP._sublayer_out_err(cap[sub.cap], w_t, rtn)
+            res[sub.name.rsplit(".", 1)[1]] = {
+                "option": qp.desc, "gptq": e_gptq, "rtn": e_rtn}
+        stf.close()
+    log("[convert] layer 0, output error on its captured inputs, GPTQ / RTN "
+        "at the chosen option: " + ", ".join(
+            f"{k} ({v['option']}) {v['gptq']:.3e} / {v['rtn']:.3e}"
+            for k, v in res.items()))
+    bad = [k for k, v in res.items() if not v["gptq"] < v["rtn"]]
+    if bad:
+        raise AssertionError(f"GPTQ no better than RTN on layer 0's {bad}")
+    return res
+
+
+def convert_bits(out: str, layers: int) -> dict:
+    """The achieved bits per weight, exact from QParams.total_bits, of the
+    strategy the converter chose (layers at Llama-2-7B width)."""
+    from exllamav2_tpu_torch.convert.qparams import qparams_attn, qparams_mlp
+    with open(os.path.join(out, "job.json")) as f:
+        strategy = json.load(f)["strategy"]
+    shapes = {"attn": [(HIDDEN, HIDDEN)] * 4,
+              "mlp": [(HIDDEN, INTER)] * 2 + [(INTER, HIDDEN)]}
+    opts = {"attn": qparams_attn(32), "mlp": qparams_mlp(32)}
+    bits = weights = groups = 0
+    choice = {}
+    for l in range(layers):
+        for kind in ("attn", "mlp"):
+            qp = opts[kind][strategy[f"{l}.{kind}"]]
+            choice[f"{l}.{kind}"] = qp.desc
+            for k, n in shapes[kind]:
+                bits += qp.total_bits(k, n)
+                weights += k * n
+                groups += len(qp.groups(k))
+    return {"bpw": bits / weights, "groups": groups, "choice": choice}
+
+
+def phase_convert(dev, rate):
+    """Phase 15: G1 held to its plain version; a Llama-2-7B-width source
+    (CONVERT_LAYERS layers) converted through `python -m
+    exllamav2_tpu_torch.convert`'s entry with its defaults and served; the
+    trained fixture converted on the card."""
+    import io
+    import shutil
+    from exllamav2_tpu_torch.convert import __main__ as cli
+    from exllamav2_tpu_torch.convert import gptq as G
+    from exllamav2_tpu_torch.convert.pipeline import calibration_rows
+    from exllamav2_tpu_torch.convert.qparams import qparams_head_for
+    from exllamav2_tpu_torch.evals import perplexity
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    t_phase = time.perf_counter()
+    out = {"g1": g1_check(dev, rate)}
+
+    # (b) the full-width conversion
+    src = os.path.join(OUT_DIR, "convert_src")
+    dst = os.path.join(OUT_DIR, "convert_out")
+    tt_out = os.path.join(OUT_DIR, "convert_trained_tiny")
+    for d in (src, dst, tt_out):
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+    t = time.perf_counter()
+    out["source_bytes"] = write_convert_source(src, dev)
+    out["source_seconds"] = time.perf_counter() - t
+    log(f"[convert] source: {CONVERT_LAYERS} of 32 Llama-2-7B layers and "
+        f"the 32000x4096 head, {out['source_bytes'] / 1e9:.2f} GB fp16, "
+        f"written in {out['source_seconds']:.1f} s")
+    G.LAUNCHES["gptq"] = 0
+    stamped = Stamped(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped), convert_parts() as parts:
+        cli.main(["-i", src, "-o", dst, *CONVERT_DEFAULTS,
+                  "--status_output", "--device", dev.type])
+    torch.cuda.synchronize()
+    launches = G.LAUNCHES["gptq"]
+    times = convert_times(t0, stamped.lines, CONVERT_LAYERS)
+    bits = convert_bits(dst, CONVERT_LAYERS)
+    head_groups = len(qparams_head_for(8).groups(HIDDEN))
+    want = bits["groups"] + head_groups
+    out.update(times=times, bits=bits, g1_launches=launches,
+               groups=want, parts=parts)
+    scale = (32 * (out["source_bytes"] - 2 * VOCAB * HIDDEN * 2)
+             / CONVERT_LAYERS + 2 * VOCAB * HIDDEN * 2) / out["source_bytes"]
+    full = ((times["load_and_setup"] + times["compile"]) * scale
+            + 32 * (times["measure_mean"] + times["quantize_mean"])
+            + times["optimize"] + times["head"])
+    out["full_depth_estimate_s"] = full
+    log(f"[convert] {CONVERT_LAYERS} layers converted in "
+        f"{times['total']:.1f} s: load and setup "
+        f"{times['load_and_setup']:.1f}, measure "
+        f"{times['measure_mean']:.2f} s a layer "
+        f"({', '.join(f'{x:.2f}' for x in times['measure_per_layer'])}; "
+        f"the first holds the load), optimize {times['optimize']:.2f}, "
+        f"quantize {times['quantize_mean']:.2f} s a layer "
+        f"({', '.join(f'{x:.2f}' for x in times['quantize_per_layer'])}), "
+        f"head {times['head']:.2f}, compile {times['compile']:.1f}; full "
+        f"depth (32 layers) estimate {full:.0f} s: 32 x (measure + "
+        f"quantize a layer) + optimize + head + (setup + compile) x "
+        f"{scale:.2f} (the source's bytes)")
+    log("[convert] seconds by part, summed over the conversion: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+    log(f"[convert] bits per weight {bits['bpw']:.4f} (budget 4.0, exact "
+        f"from total_bits); strategy {bits['choice']}; G1 launches "
+        f"{launches} = groups quantized {want} ({bits['groups']} in the "
+        f"layers, {head_groups} in the head); every linear passed the "
+        f"reconstruction check (< 0.05)")
+    if bits["bpw"] > 4.0:
+        raise AssertionError(f"bpw {bits['bpw']} over the 4.0 budget")
+    if launches != want:
+        raise AssertionError(f"G1 launches {launches} != groups {want}")
+    out["layer0"] = layer0_gptq_vs_rtn(src, dst, dev)
+
+    # (c) serve the converted model
+    model = Model.from_dir(dst, device=dev)
+    segs = sorted({(s.bits, s.rows) for lw in model.weights.layers
+                   for lin in (lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o,
+                               lw.mlp.gate, lw.mlp.up, lw.mlp.down)
+                   for s in lin.segments})
+    log(f"[convert] served: {len(segs)} (bits, rows) segment kinds "
+        f"{segs}")
+    rng = np.random.default_rng(15)
+    prompt = rng.integers(3, 250, (1, 48)).astype(np.int32)
+    new = 32
+    model.generate_greedy(prompt[:, :4], 2)               # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    seq = model.generate_greedy(prompt, new)
+    torch.cuda.synchronize()
+    got = arch_counts()
+    want_l = segment_launches(model, new - 1)
+    log(f"[convert] generate_greedy b1 graphed: launches {got} (expected "
+        f"{want_l})")
+    if got != want_l:
+        raise AssertionError(f"converted model launches {got} != {want_l}")
+    with held_kernels("convert") as held:
+        seq_e = eager(model, lambda: model.generate_greedy(prompt, new))
+        eager(model, lambda: model.generate_greedy(
+            rng.integers(3, 250, (16, 40)).astype(np.int32), 3))
+    if not np.array_equal(seq, seq_e):
+        raise AssertionError(f"converted model: graphed {seq.tolist()} != "
+                             f"eager {seq_e.tolist()}")
+    want_keys = {(m, s.rows_pad, s.plane0.shape[1]) for m in (1, 16)
+                 for lw in model.weights.layers
+                 for lin in (lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o,
+                             lw.mlp.gate, lw.mlp.up, lw.mlp.down,
+                             model.weights.head) for s in lin.segments}
+    missing = sorted(want_keys - set(held["qmm"]))
+    worst = max(held["qmm"].values())
+    log(f"[convert] graphed tokens equal the eager path's; kernel 1 held on "
+        f"the converted linears at {len(held['qmm'])} (m, k, n) shapes, "
+        f"worst rel err {worst:.2e} (limit {QMM_TOL})")
+    if missing:
+        raise AssertionError(f"convert: no held kernel-1 call at {missing}")
+    out["serve"] = {"tokens": seq[:, 48:].tolist(), "launches": got,
+                    "held_qmm": {str(k): v for k, v in held["qmm"].items()},
+                    "decode_vs_prefill": decode_vs_prefill(
+                        "convert", model, prompt[:, :24])}
+    del model
+    torch.cuda.empty_cache()
+
+    # (d) the trained fixture, converted on the card
+    tt = os.path.join(HERE, "tests", "fixtures", "trained_tiny")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["-i", tt, "-o", tt_out, "-b", "4.0", "-hb", "6",
+                  "--device", dev.type])
+    tt_s = time.perf_counter() - t
+    rows = calibration_rows(ByteTokenizer(), 16, 256, noise_rows=0)
+    dense = Model.from_dir(tt, device=dev)
+    conv = Model.from_dir(tt_out, device=dev)
+    conv_cpu = Model.from_dir(tt_out, device="cpu")
+    ppl = {"dense": perplexity(dense, rows), "converted": perplexity(
+        conv, rows), "converted_q4_cache": perplexity(conv, rows, "q4")}
+    p = np.array([[1, 50, 99, 7, 23]], np.int32)
+    g_tok, c_tok = conv.generate_greedy(p, 16), conv_cpu.generate_greedy(p, 16)
+    log(f"[convert] trained_tiny converted on the card in {tt_s:.1f} s; "
+        f"perplexity on 16 x 256 corpus rows: dense {ppl['dense']:.4f}, "
+        f"converted {ppl['converted']:.4f} (q4 cache "
+        f"{ppl['converted_q4_cache']:.4f}); greedy tokens card "
+        f"{g_tok[0, 5:].tolist()}, CPU {c_tok[0, 5:].tolist()}")
+    if not np.array_equal(g_tok, c_tok):
+        raise AssertionError("converted trained_tiny: card and CPU tokens "
+                             "differ")
+    if not all(np.isfinite(v) for v in ppl.values()):
+        raise AssertionError(f"perplexity {ppl}")
+    out["trained_tiny"] = {"seconds": tt_s, "perplexity": ppl,
+                           "tokens": g_tok.tolist()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+def g1_entry(conv, rate) -> dict:
+    """The kernels-line entry of G1: one Llama-2-7B layer's 1,112 groups at
+    4 bits, gs 32 (q, k, v, o, gate, up, down), from the per-shape rows of
+    phase 15a; `launches` the count of phase 15b's conversion."""
+    rows = {(r["k"], r["n"]): r for r in conv["g1"]["rows"] if r["gs"] == 32}
+
+    def tot(key):
+        return sum(c * rows[s][key] for s, c in G1_LAYER.items())
+
+    return {"name": "gptq_rows", "route": "cuda",
+            "source": "exllamav2_tpu_torch/csrc/gptq.cu",
+            "replaces": "exllamav2_tpu/convert/gptq.py:202",
+            "launches": conv["g1_launches"],
+            "max_abs_err": conv["g1"]["max_abs_err"],
+            "ms": tot("ms"), "plain_ms": tot("plain_ms"),
+            "bound_ms": tot("bytes") / rate * 1e3, "bound_by": "bytes",
+            "library_ms": None,
+            "unit": "one Llama-2-7B layer's 1,112 GPTQ groups, 4 bits, gs 32",
+            "design": "a thread a column, the group's rows in registers, "
+                      "U's block in shared memory: one launch a group (no "
+                      "Pallas kernel: the reference's fori_loop)"}
+
+
 def gated_entry(archs, rate) -> dict:
     """The kernels-line entry of kernel 1's gated launch: one Mixtral
     batch-1 decode token's expert launches (routed ones at m = 1 with
@@ -4156,6 +4669,15 @@ def main() -> int:
         log(f"[done] build and the vision-language phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["convert"]:
+        detail["convert"] = phase_convert(dev, rate)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_convert.json"),
+                  "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the converter phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -4185,6 +4707,7 @@ def main() -> int:
     detail["spec"] = timed("spec", phase_spec, dev)
     detail["archs"] = timed("archs", phase_archs, dev, rate)
     detail["vlm"] = timed("vlm", phase_vlm, dev, rate)
+    detail["convert"] = timed("convert", phase_convert, dev, rate)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -4197,10 +4720,14 @@ def main() -> int:
     launches.update(detail["spec"]["launches"])
     launches.update(detail["archs"]["launches"])
     launches.update(detail["vlm"]["launches"])
+    launches["convert_7b_8_layers"] = {
+        "gptq": detail["convert"]["g1_launches"]}
+    launches["convert_served_b1"] = detail["convert"]["serve"]["launches"]
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
                         detail["paged"], perr, partials, launches, rate)
     kernels.insert(1, gated_entry(detail["archs"], rate))
     kernels += tools_entries(detail["tools"], rate)
+    kernels.append(g1_entry(detail["convert"], rate))
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

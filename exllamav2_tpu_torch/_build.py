@@ -24,7 +24,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("qmm", "decode_attn", "paged_attn", "qmm_w4a8", "qmm_partials",
-           "perf_qmm", "probe_features")
+           "perf_qmm", "probe_features", "gptq")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -903,3 +903,38 @@ def test_partials_kernel_rows_bits_ragged(dev, bits, gs, n, m, monkeypatch):
     ref = Q.qmm_partials_plain(x, seg)
     assert torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-4 * ref.abs().max()
+
+
+@pytest.mark.parametrize("blk,a", [(32, 64), (17, 0), (64, 128),
+                                   (128, 64), (100, 92)])
+@pytest.mark.parametrize("bits,n", [(2, 96), (4, 200), (8, 64)])
+def test_gptq_rows_kernel_matches_plain(dev, blk, a, bits, n):
+    """Kernel G1 (csrc/gptq.cu) against its plain loop on a Hessian factor of
+    correlated rows: every template (32, 64, 128 rows) and a ragged group,
+    n % 64 != 0; codes, dq and err bit for bit; one launch a call; w left
+    as it was; a group of more than 128 rows refused."""
+    from exllamav2_tpu_torch.convert import gptq as G
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(blk * 100 + bits + n)
+    k = 256
+    x = (torch.randn((512, 8), generator=gen, device=dev)
+         @ torch.randn((8, k), generator=gen, device=dev)
+         + 0.1 * torch.randn((512, k), generator=gen, device=dev))
+    g = G.AdaptiveGPTQ(torch.zeros((k, 1), device=dev))
+    g.add_batch(x)
+    g.prepare()
+    w = 0.05 * torch.randn((k, n), generator=gen, device=dev)
+    qz = G.AdaptiveQuantizer(bits=bits)
+    scale = qz.find_params(w[a:a + blk])[0]
+    args = (w, g.hessian_inv, scale, qz.qzero, qz.maxq, a, blk)
+    w0 = w.clone()
+    before = G.LAUNCHES["gptq"]
+    q, dq, err = G.gptq_rows(*args)
+    assert G.LAUNCHES["gptq"] == before + 1
+    pq, pdq, perr = G.gptq_rows_plain(*args)
+    torch.cuda.synchronize(dev)
+    assert torch.equal(w, w0)
+    assert q.dtype == torch.uint16 and torch.equal(q, pq)
+    assert torch.equal(dq, pdq) and torch.equal(err, perr)
+    with pytest.raises(NotImplementedError):
+        G.gptq_rows(w, g.hessian_inv, scale, qz.qzero, qz.maxq, 0, 129)
