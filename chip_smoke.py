@@ -186,6 +186,39 @@ the captures and their ms, the replays, host ms a token or a dispatch
               tests/fixtures/trained_tiny converted on the card (4.0 bpw,
               head 6 bits): perplexity dense and converted, greedy tokens
               equal to the CPU's on the card's checkpoint.
+ 16. cli      the tools around the model on phase 15's outputs (the
+              8-layer 3.9947-bpw conversion in build/convert_out and its
+              fp16 source in build/convert_src; the phase raises if either
+              is missing): (a) model_init.init(-m convert_out -l 2048,
+              max_batch_size 16): torch.cuda.memory_allocated of the model
+              and of the cache beside cli.fit_hbm's prediction for the same
+              directory, bits and context, and their ratios, the load's
+              peak, and the loader's plane words packed on the card equal
+              to the CPU's at 1-8 bits; (b) the
+              websocket server's dispatch over in-process connections: 8
+              concurrent greedy requests (128-byte prompts, 64 new tokens)
+              with echo, estimate_token and lefttrim_token beside them and
+              an extra request that a stop ends after 8 tokens (a warm
+              round, then the measured one, graphed): chunks joined equal
+              each full text, each text equals its prompt run alone through
+              generator.generate (or parts at a near-tie), the stopped job
+              cancelled and every page back in the pool, launches of
+              kernels 1 and 3 counted; tokens/s, requests/s, p50 time to
+              first chunk; a graphed round with no stop, its texts
+              bitwise generate()'s of the same 8 prompts as one batch; the
+              measured round, stop included, through an eager generator and
+              the first prompt alone under held_kernels (kernel 1 at m 1,
+              8 and 16 on every segment shape, kernel 3 at batch 1, 8 and
+              16: every bucket of the measured round);
+              the byte tokenizer's decode is replaced by one that names
+              every id; (c) `cli.test_inference -ed random -er 4 -el 512 -p
+              -t 64 -ps --greedy`: a finite perplexity; (d)
+              `cli.estimate_kld` and `cli.model_diff` with A the fp16
+              source, B the conversion (A against A: KLD <= 1e-6, top-1
+              100 %); (e) fpxify of the source at e4m3, e3m2, e2m1: KLD
+              against it rising as bits fall; (f) rank_reduce_linear on
+              layer 0's gate, up and down: fraction 1.0 within 1e-3 of max
+              |w|, the error and seconds at 0.5.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -198,7 +231,8 @@ paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
 constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12,
 `python3 chip_smoke.py archs` phases 1 and 13, `python3 chip_smoke.py vlm`
-phases 1 and 14, `python3 chip_smoke.py convert` phases 1 and 15.
+phases 1 and 14, `python3 chip_smoke.py convert` phases 1 and 15,
+`python3 chip_smoke.py cli` phases 1, 15 and 16.
 """
 
 from __future__ import annotations
@@ -3319,19 +3353,22 @@ def held_kernels(tag):
         P.paged_decode_attention, Q.fused_segment_matmul = attn, mm
 
 
-def check_held(tag, model, held) -> dict:
-    """held_kernels' results must cover kernel 1 at m = 1 and m = 16 for
-    every linear shape of the model (a layer's q, k, v, o, gate, up, down
-    and the head) and kernel 3 at batch 1 and 16 at the model's heads."""
-    st, lw = model.static, model.weights.layers[0]
+def check_held(tag, model, held, rows=(1, 16)) -> dict:
+    """held_kernels' results must cover kernel 1 at every m of `rows` for
+    every segment shape of the model's quantized linears (each layer's q, k,
+    v, o, gate, up, down and the head) and kernel 3 at every batch of
+    `rows` at the model's heads."""
+    from exllamav2_tpu_torch.quant.qtensor import QuantLinear
+    st, w = model.static, model.weights
     want = {(s.rows_pad, s.plane0.shape[1])
+            for lw in w.layers
             for lin in (lw.attn.q, lw.attn.k, lw.attn.v, lw.attn.o,
-                        lw.mlp.gate, lw.mlp.up, lw.mlp.down,
-                        model.weights.head) for s in lin.segments}
-    missing = [(m, k, n) for m in (1, 16) for k, n in sorted(want)
+                        lw.mlp.gate, lw.mlp.up, lw.mlp.down, w.head)
+            if isinstance(lin, QuantLinear) for s in lin.segments}
+    missing = [(m, k, n) for m in rows for k, n in sorted(want)
                if (m, k, n) not in held["qmm"]]
     heads = {(b, hq, hkv) for b, hq, hkv, _ in held["paged"]}
-    missing += [(b, st.num_heads, st.num_kv_heads) for b in (1, 16)
+    missing += [(b, st.num_heads, st.num_kv_heads) for b in rows
                 if (b, st.num_heads, st.num_kv_heads) not in heads]
     worst = {k: max(held[k].values(), default=float("nan"))
              for k in ("qmm", "paged")}
@@ -4370,6 +4407,474 @@ def phase_convert(dev, rate):
     return out
 
 
+# ---------------------------------------------------------------- phase 16
+
+SERVER_REQUESTS = 8     # concurrent infer requests of the round
+SERVER_PROMPT = 128     # bytes (tokens) a prompt
+SERVER_NEW = 64         # greedy new tokens a request
+SERVER_LEN = 2048       # model_init -l
+SERVER_STOP_AFTER = 8   # new tokens of the extra request before its stop
+SERVER_GREEDY = {"top_k": 1, "temperature": 1.0, "top_p": 0.0,
+                 "rep_pen": 1.0}
+FPX_FORMATS = ((4, 3), (3, 2), (2, 1))      # e4m3, e3m2, e2m1: 8, 6, 4 bits
+RR_TOL = 1e-3           # rank fraction 1.0 against the weight, of max |w|
+KLD_SELF = 1e-6         # estimate_kld with A against A
+SERVER_BATCH = 16       # the generator's max_batch_size: every request live
+GIB = 1024 ** 3
+
+
+def id_tokenizer():
+    """The byte tokenizer with a decode that names every id ("<id>"): the
+    converted model's directory has no tokenizer, and the byte tokenizer's
+    decode drops ids past 255, which a random model draws 99 % of the time,
+    so its streams would carry almost no text."""
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+
+    class IdTokenizer(ByteTokenizer):
+        def decode(self, ids) -> str:
+            return "".join(f"<{int(i)}>" for i in np.asarray(ids).reshape(-1))
+
+    return IdTokenizer()
+
+
+def tokens_of(text: str) -> list:
+    """The ids of an IdTokenizer text."""
+    return [int(t) for t in text[1:-1].split("><")] if text else []
+
+
+class Conn:
+    """An in-process connection of the server: every message sent to it,
+    decoded, beside the perf_counter time it arrived."""
+
+    def __init__(self):
+        self.sent = []
+
+    async def send(self, message: str):
+        self.sent.append((time.perf_counter(), json.loads(message)))
+
+
+def server_prompts(rng) -> list:
+    """SERVER_REQUESTS + 1 distinct prompts of SERVER_PROMPT letters (the
+    last one the extra request's)."""
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    return [bytes(rng.choice(letters, SERVER_PROMPT)).decode()
+            for _ in range(SERVER_REQUESTS + 1)]
+
+
+def server_round(server, prompts, stop_extra: bool) -> dict:
+    """One round of the websocket server's dispatch: SERVER_REQUESTS greedy
+    infer requests, each on its own connection, all in flight together;
+    echo, estimate_token and lefttrim_token on another connection meanwhile;
+    with stop_extra, one more request that a stop ends once its job has
+    SERVER_STOP_AFTER new tokens. Gates: each request's chunks joined equal
+    its full text, the side actions answer as the tokenizer says, the
+    stopped request ends with a full response and its job is cancelled."""
+    import asyncio
+    gen, tok = server.generator, server.tokenizer
+    conns = [Conn() for _ in prompts]
+    side = Conn()
+
+    def infer(i, p):
+        return {"action": "infer", "text": p, "max_new_tokens": SERVER_NEW,
+                "request_id": i, **SERVER_GREEDY}
+
+    extra_ids = tok.encode(prompts[-1])
+
+    async def run():
+        t0 = time.perf_counter()
+        tasks = [asyncio.create_task(server.dispatch(infer(i, p), c))
+                 for i, (p, c) in enumerate(zip(prompts[:-1], conns))]
+        if stop_extra:
+            tasks.append(asyncio.create_task(server.dispatch(
+                infer("extra", prompts[-1]), conns[-1])))
+        await server.dispatch({"action": "echo", "request_id": "e"}, side)
+        await server.dispatch({"action": "estimate_token",
+                               "text": prompts[0]}, side)
+        await server.dispatch({"action": "lefttrim_token",
+                               "text": prompts[1], "max_tokens": 16}, side)
+        stopped = None
+        while stop_extra and stopped is None:
+            stopped = next((j for j in list(gen.active)
+                            if np.array_equal(j.prompt_ids, extra_ids)
+                            and j.new_tokens >= SERVER_STOP_AFTER), None)
+            if any(m.get("response_type") == "full"
+                   for _, m in conns[-1].sent):
+                raise AssertionError("server: the extra request ended "
+                                     "before its stop")
+            await asyncio.sleep(0.0005)
+        if stop_extra:
+            await server.dispatch({"action": "stop", "request_id": "extra"},
+                                  conns[-1])
+        await asyncio.gather(*tasks)
+        return t0, time.perf_counter(), stopped
+
+    t0, t1, stopped = asyncio.run(run())
+    out = {"seconds": t1 - t0, "texts": [], "first_chunk_ms": []}
+    for i, c in enumerate(conns[:SERVER_REQUESTS]):
+        chunks = [m["chunk"] for _, m in c.sent
+                  if m.get("response_type") == "chunk"]
+        full = [m for _, m in c.sent if m.get("response_type") == "full"]
+        if len(full) != 1 or full[0].get("request_id") != i:
+            raise AssertionError(f"server: request {i} got {full}")
+        if "".join(chunks) != full[0]["response"]:
+            raise AssertionError(f"server: request {i}'s chunks do not join "
+                                 f"to its full text")
+        out["texts"].append(full[0]["response"])
+        out["first_chunk_ms"].append(
+            (c.sent[0][0] - t0) * 1e3 if chunks else float("nan"))
+    want = [{"action": "echo", "request_id": "e"},
+            {"action": "estimate_token",
+             "num_tokens": len(tok.encode(prompts[0]))},
+            {"action": "lefttrim_token",
+             "trimmed_text": tok.decode(tok.encode(prompts[1])[-16:])}]
+    if [m for _, m in side.sent] != want:
+        raise AssertionError(f"server: side actions {side.sent}")
+    if stop_extra:
+        extra = [m for _, m in conns[-1].sent]
+        if extra[-1].get("response_type") != "full" or \
+                {"action": "stop", "request_id": "extra"} not in extra:
+            raise AssertionError(f"server: the stopped request {extra[-3:]}")
+        if stopped.eos_reason != "cancelled" or stopped.pages:
+            raise AssertionError(f"server: the stopped job {stopped.status} "
+                                 f"{stopped.eos_reason}, {len(stopped.pages)}"
+                                 f" pages held")
+        out["stopped_at"] = stopped.new_tokens
+        out["stopped_text_tokens"] = len(tokens_of(extra[-1]["response"]))
+    out["tokens"] = sum(len(tokens_of(t)) for t in out["texts"])
+    return out
+
+
+def alone_check(tag, model, tok, prompts, texts, alone, gaps) -> list:
+    """Each request's text against its prompt run alone: equal, or the first
+    differing token falls on a near-tie of the alone run's teacher-forced
+    logits (top-2 gap under TIE_GAP of max |logit|), else the phase fails.
+    `gaps` keeps the gap of each (request, position) for the next call.
+    -> the first differing position of each request (None where equal)."""
+    out = []
+    for i, (p, got, want) in enumerate(zip(prompts, texts, alone)):
+        a, b = tokens_of(want), tokens_of(got)
+        if a == b:
+            out.append(None)
+            continue
+        d = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if (i, d) not in gaps:
+            lg = teacher_forced_logits(model, tok.encode(p), a[:d + 1])[d]
+            top = torch.topk(lg.float(), 2).values
+            gaps[i, d] = ((top[0] - top[1]) / lg.abs().max()).item()
+        gap = gaps[i, d]
+        log(f"[cli] {tag}: request {i} parts from its prompt alone at new "
+            f"token {d}: top-2 gap {gap:.2e} of max |logit| (limit "
+            f"{TIE_GAP})")
+        if not gap < TIE_GAP:
+            raise AssertionError(f"{tag}: request {i} differs from its "
+                                 f"prompt alone off a near-tie")
+        out.append((d, gap))
+    return out
+
+
+def quiet(fn, *a):
+    """fn(*a) with its standard output captured -> (result, the lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = fn(*a)
+    return r, [l for l in buf.getvalue().replace("\r", "\n").splitlines()
+               if l.strip()]
+
+
+def phase_cli(dev, card):
+    """Phase 16: phase 15's converted 8-layer Llama-2-7B-width model served
+    through the tools around the model: model_init and fit_hbm, the
+    websocket server's dispatch, the test_inference, estimate_kld and
+    model_diff CLIs, fpxify of the fp16 source and rank reduction of its
+    layer-0 MLP."""
+    import argparse
+    import gc
+    from exllamav2_tpu_torch import model_init
+    from exllamav2_tpu_torch.cli import (estimate_kld, fit_hbm, model_diff,
+                                         test_inference)
+    from exllamav2_tpu_torch.experimental.fpx import fpxify
+    from exllamav2_tpu_torch.generator.dynamic import (DynamicGenerator,
+                                                       _bucket)
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    from exllamav2_tpu_torch.quant.qtensor import pack_planes_on
+    from exllamav2_tpu_torch.server.websocket import WebSocketServer
+    from exllamav2_tpu_torch.tokenizer import ByteTokenizer
+    from exllamav2_tpu_torch.utils.rank_reduce import rank_reduce_linear
+    t_phase = time.perf_counter()
+    src = os.path.join(OUT_DIR, "convert_src")
+    dst = os.path.join(OUT_DIR, "convert_out")
+    for d in (src, dst):
+        if not os.path.isfile(os.path.join(d, "config.json")):
+            raise AssertionError(f"cli: phase 15 left no model in {d}")
+    out = {"card": card}
+    seconds = {}
+
+    # (a) model_init, beside fit_hbm's prediction; the loader packs plane
+    # words on the card: the CPU's words (the tests hold those against the
+    # reference's) at every width
+    t = time.perf_counter()
+    rng_p = np.random.default_rng(16)
+    for bits in (1, 2, 3, 4, 5, 6, 8):
+        v = rng_p.integers(0, 1 << bits, (512, 4096)).astype(np.uint16)
+        for g, w in zip(pack_planes_on(v, bits, dev),
+                        pack_planes_on(v, bits, "cpu")):
+            if not torch.equal(g.cpu(), w):
+                raise AssertionError(f"pack_planes_on at {bits} bits: the "
+                                     f"card's words are not the CPU's")
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ap = argparse.ArgumentParser()
+    model_init.add_args(ap)
+    model, _, gen = model_init.init(ap.parse_args(
+        ["-m", dst, "-l", str(SERVER_LEN)]), max_batch_size=SERVER_BATCH)
+    torch.cuda.synchronize()
+    total = torch.cuda.memory_allocated() - m0
+    peak = torch.cuda.max_memory_allocated() - m0
+    c = gen.cache
+    cache_b = sum(x.numel() * x.element_size() for x in (
+        c.k_data, c.k_scales, c.v_data, c.v_scales) if x is not None)
+    ctx = c.num_pages * c.page_size
+    bpw = convert_bits(dst, CONVERT_LAYERS)["bpw"]
+    plan, lines = quiet(fit_hbm.main, ["-m", dst, "-b", f"{bpw:.4f}", "-hb",
+                                       "8", "-ctx", str(ctx), "-tp", "1"])
+    for l in lines:
+        log(f"[cli] fit_hbm: {l}")
+    out["setup"] = {
+        "allocated_bytes": total, "peak_bytes": peak,
+        "cache_bytes": cache_b,
+        "model_bytes": total - cache_b, "context": ctx,
+        "pages": c.num_pages, "max_seq_len": gen.max_seq_len,
+        "predicted_weights_bytes": plan["weights_bytes"],
+        "predicted_cache_bytes": plan["cache_bytes"],
+        "weights_ratio": (total - cache_b) / plan["weights_bytes"],
+        "cache_ratio": cache_b / plan["cache_bytes"]}
+    s = out["setup"]
+    log(f"[cli] model_init.init(-m convert_out -l {SERVER_LEN}, "
+        f"max_batch_size {SERVER_BATCH}) on {card}: "
+        f"{c.num_pages} pages ({ctx} tokens, bf16), max_len "
+        f"{gen.max_seq_len}; torch.cuda.memory_allocated: model and "
+        f"generator {s['model_bytes'] / GIB:.3f} GiB against fit_hbm's "
+        f"weights {s['predicted_weights_bytes'] / GIB:.3f} GiB (ratio "
+        f"{s['weights_ratio']:.3f}), cache {cache_b / GIB:.3f} GiB against "
+        f"{s['predicted_cache_bytes'] / GIB:.3f} (ratio "
+        f"{s['cache_ratio']:.3f}) at {bpw:.4f} bpw; peak during init "
+        f"{peak / GIB:.3f} GiB, {(peak - total) / GIB:.3f} GiB above what "
+        f"stays allocated; "
+        f"plane words packed on the card equal the CPU's at 1-8 bits")
+    seconds["setup"] = time.perf_counter() - t
+
+    # (b) the websocket server: a warm round, then the measured one
+    t = time.perf_counter()
+    steps = {}
+    tok = id_tokenizer()
+    gen.tokenizer = tok
+    server = WebSocketServer(gen)
+    rng = np.random.default_rng(16)
+    server_round(server, server_prompts(rng), stop_extra=True)      # warm
+    prompts = server_prompts(rng)
+    free0 = gen._free_capacity()
+    g0 = graph_counts(gen.step_graphs)
+    steps["warm"] = time.perf_counter() - t
+    torch.cuda.synchronize()
+    zero_counts()
+    r = server_round(server, prompts, stop_extra=True)
+    torch.cuda.synchronize()
+    launches = arch_counts()
+    g_round = graph_counts(gen.step_graphs, g0)
+    if gen.num_remaining_jobs() or gen._free_capacity() != free0:
+        raise AssertionError(f"server: {gen.num_remaining_jobs()} jobs left, "
+                             f"{gen._free_capacity()} of {free0} pages free")
+    if not (launches["qmm"] and launches["paged_decode_attn"]):
+        raise AssertionError(f"server round launches {launches}")
+    ttft = np.nanpercentile(r["first_chunk_ms"], 50)
+    # each prompt alone through generator.generate (graphed)
+    t1 = time.perf_counter()
+    main = prompts[:SERVER_REQUESTS]
+    alone = [gen.generate(tok.encode(p), max_new_tokens=SERVER_NEW,
+                          settings=Settings.greedy()) for p in main]
+    steps["alone"] = time.perf_counter() - t1
+    # a graphed round with no stop: its texts must be generate()'s for the
+    # same prompts as one batch, bitwise (what each request was sent is its
+    # own job's)
+    t1 = time.perf_counter()
+    r_g = server_round(server, prompts, stop_extra=False)
+    batch_g = gen.generate([tok.encode(p) for p in main],
+                           max_new_tokens=SERVER_NEW,
+                           settings=Settings.greedy())
+    if batch_g != r_g["texts"]:
+        raise AssertionError("server: the graphed round's texts are not "
+                             "generate's for the same batch")
+    steps["batch"] = time.perf_counter() - t1
+    # the measured round again, stop included, through an eager generator of
+    # the served model, and the first prompt alone: kernels 1 and 3 held on
+    # their inputs at every batch bucket the measured round ran (its 9 live
+    # jobs, then 8 after the stop, and 1)
+    t1 = time.perf_counter()
+    gen_e = DynamicGenerator(gen.model, PagedKVCache.alloc(
+        model.static.num_layers, c.num_pages, model.static.num_kv_heads,
+        model.static.head_dim, "bf16", device=dev), tok,
+        max_batch_size=gen.max_batch_size, max_seq_len=gen.max_seq_len,
+        prescale=False, graphs=False)
+    with held_kernels("cli server") as held:
+        r_e = server_round(WebSocketServer(gen_e), prompts,
+                           stop_extra=True)
+        alone_e = gen_e.generate(tok.encode(main[0]),
+                                 max_new_tokens=SERVER_NEW,
+                                 settings=Settings.greedy())
+    steps["eager"] = time.perf_counter() - t1
+    if alone_e != alone[0]:
+        raise AssertionError("server: prompt 0 alone, eager != graphed")
+    held_out = check_held("cli server", gen.model, held,
+                          rows=(1, SERVER_REQUESTS,
+                                _bucket(SERVER_REQUESTS + 1)))
+    t1 = time.perf_counter()
+    gaps = {}
+    parts = alone_check("server round", gen.model, tok, main, r["texts"],
+                        alone, gaps)
+    parts_e = alone_check("eager server round", gen.model, tok, main,
+                          r_e["texts"], alone, gaps)
+    steps["ties"] = time.perf_counter() - t1
+    out["server"] = {
+        "tokens": r["tokens"], "seconds": r["seconds"],
+        "tokens_per_s": r["tokens"] / r["seconds"],
+        "requests_per_s": SERVER_REQUESTS / r["seconds"],
+        "p50_first_chunk_ms": ttft, "first_chunk_ms": r["first_chunk_ms"],
+        "launches": launches, "step_graphs": g_round,
+        "stopped_after_tokens": r["stopped_at"],
+        "stopped_text_tokens": r["stopped_text_tokens"],
+        "equal_alone": sum(p is None for p in parts),
+        "equal_alone_eager": sum(p is None for p in parts_e),
+        "near_ties": {str(k): v for k, v in gaps.items()},
+        "held": held_out, "seconds_by_part": steps}
+    v = out["server"]
+    log(f"[cli] websocket server on {card}: {SERVER_REQUESTS} concurrent "
+        f"greedy requests ({SERVER_PROMPT}-token prompts, {SERVER_NEW} new "
+        f"tokens) with echo / estimate_token / lefttrim_token beside them "
+        f"and an extra request stopped after {r['stopped_at']} tokens: "
+        f"{r['tokens']} tokens in {r['seconds'] * 1e3:.1f} ms = "
+        f"{v['tokens_per_s']:.1f} tokens/s, {v['requests_per_s']:.2f} "
+        f"requests/s, p50 time to first chunk {ttft:.1f} ms; launches "
+        f"{launches}; step graphs {g_round}; texts equal to each prompt "
+        f"alone: {v['equal_alone']} of {SERVER_REQUESTS} graphed, "
+        f"{v['equal_alone_eager']} eager (the rest part at near-ties); a "
+        f"graphed round with no stop bitwise generate()'s of the same "
+        f"batch; the stopped job cancelled, every page back in the pool; seconds "
+        + ", ".join(f"{k} {x:.1f}" for k, x in steps.items()))
+    del server, gen, gen_e
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["server"] = time.perf_counter() - t
+
+    # (c) test_inference
+    t = time.perf_counter()
+    zero_counts()
+    ti, _ = quiet(test_inference.main, [
+        "-m", dst, "-ed", "random", "-er", "4", "-el", "512", "-p",
+        prompts[0], "-t", str(SERVER_NEW), "-ps", "--greedy"])
+    ti_launches = arch_counts()
+    ppl = ti["perplexity"]
+    log(f"[cli] test_inference -ed random -er 4 -el 512 -p -t {SERVER_NEW} "
+        f"-ps --greedy on {card}: perplexity {ppl:.4f} (random rows of a "
+        f"random model), -p {ti['prompt_tokens_per_s']:.2f} tokens/s, -ps "
+        f"{ti['speed_tokens_per_s']:.2f} tokens/s; launches {ti_launches}")
+    if not np.isfinite(ppl):
+        raise AssertionError(f"test_inference perplexity {ppl}")
+    out["test_inference"] = {k: v for k, v in ti.items() if k != "text"}
+    out["test_inference"]["launches"] = ti_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["test_inference"] = time.perf_counter() - t
+
+    # (d) estimate_kld and model_diff: A = the fp16 source, B = the EXL2;
+    # the CLI once as a user runs it, then its parts on the loaded models
+    t = time.perf_counter()
+    kld, _ = quiet(estimate_kld.main, ["-ma", src, "-mb", dst])
+    t1 = time.perf_counter()
+    a = Model.from_dir(src, device=dev)
+    load_a = time.perf_counter() - t1
+    rng_ids = np.random.default_rng(0)
+    ids = rng_ids.integers(0, VOCAB, (1, 64)).astype(np.int32)
+    diff, _ = quiet(model_diff.diff, *model_diff.hidden_states(a, ids),
+                        *model_diff.hidden_states(model, ids))
+    rows = estimate_kld._rows(ByteTokenizer(), None, 2, 512, 0)
+    same, _ = quiet(estimate_kld.compare, a, a, rows)
+    log(f"[cli] estimate_kld -ma convert_src -mb convert_out on {card}: "
+        f"mean KLD {kld['mean_kld']:.6f}, max {kld['max_kld']:.5f}, top-1 "
+        f"{100 * kld['top1']:.2f} % (8 random rows of 512); model_diff "
+        f"(64 tokens): KLD {diff['kld']:.6f}, top-1 "
+        f"{100 * diff['top1']:.2f} %, MSE by layer " + ", ".join(
+            f"{n} {m:.3g}" for n, m, _ in diff["layers"])
+        + f"; A against A: KLD {same['mean_kld']:.2e}, top-1 "
+        f"{100 * same['top1']:.2f} %; the fp16 source loads in "
+        f"{load_a:.1f} s")
+    if not (same["mean_kld"] <= KLD_SELF and same["top1"] == 1.0):
+        raise AssertionError(f"estimate_kld A against A {same}")
+    if not all(np.isfinite(x) for x in (kld["mean_kld"], kld["max_kld"],
+                                        diff["kld"])):
+        raise AssertionError(f"estimate_kld {kld}, model_diff {diff['kld']}")
+    out["quality"] = {"estimate_kld": kld, "model_diff": diff,
+                      "self": same, "source_load_s": load_a}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["quality"] = time.perf_counter() - t
+
+    # (e) fpxify the fp16 source
+    t = time.perf_counter()
+    fpx = {}
+    for e, m in FPX_FORMATS:
+        fx = Model(fpxify(a.weights, e, m), a.static, a.config)
+        fpx[f"e{e}m{m}"], _ = quiet(estimate_kld.compare, a, fx, rows)
+        del fx
+    k = [fpx[f"e{e}m{m}"]["mean_kld"] for e, m in FPX_FORMATS]
+    log(f"[cli] fpxify of the fp16 source on {card}: mean KLD against it "
+        + ", ".join(f"{n} {v['mean_kld']:.6f} (top-1 "
+                    f"{100 * v['top1']:.2f} %)" for n, v in fpx.items()))
+    if not 0 < k[0] < k[1] < k[2]:
+        raise AssertionError(f"fpxify KLD does not rise as bits fall: {k}")
+    out["fpx"] = fpx
+    seconds["fpx"] = time.perf_counter() - t
+
+    # (f) rank_reduce_linear on layer 0's MLP
+    t = time.perf_counter()
+    rr = {}
+    for name in ("gate", "up", "down"):
+        lin = getattr(a.weights.layers[0].mlp, name)
+        wmax = lin.weight.float().abs().max()
+        for frac in (1.0, 0.5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            red = rank_reduce_linear(lin, frac)
+            torch.cuda.synchronize()
+            rr[f"{name}_{frac}"] = {
+                "seconds": time.perf_counter() - t1,
+                "rel_err": ((red.weight.float() - lin.weight.float()).abs()
+                            .max() / wmax).item()}
+    log(f"[cli] rank_reduce_linear on layer 0's MLP (4096x11008, f64 SVD) "
+        f"on {card}: " + ", ".join(
+            f"{n} {v['rel_err']:.2e} of max |w| in {v['seconds']:.2f} s"
+            for n, v in rr.items()))
+    bad = {n: v for n, v in rr.items()
+           if n.endswith("_1.0") and not v["rel_err"] <= RR_TOL}
+    if bad:
+        raise AssertionError(f"rank fraction 1.0 off the weight: {bad}")
+    out["rank_reduce"] = rr
+    del a
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["rank_reduce"] = time.perf_counter() - t
+    out["seconds_by_step"] = seconds
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] phase 16: {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return out
+
+
 def g1_entry(conv, rate) -> dict:
     """The kernels-line entry of G1: one Llama-2-7B layer's 1,112 groups at
     4 bits, gs 32 (q, k, v, o, gate, up, down), from the per-shape rows of
@@ -4678,6 +5183,15 @@ def main() -> int:
         log(f"[done] build and the converter phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["cli"]:
+        detail["convert"] = phase_convert(dev, rate)
+        detail["cli"] = phase_cli(dev, card)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_cli.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the converter and tools phases passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -4708,6 +5222,7 @@ def main() -> int:
     detail["archs"] = timed("archs", phase_archs, dev, rate)
     detail["vlm"] = timed("vlm", phase_vlm, dev, rate)
     detail["convert"] = timed("convert", phase_convert, dev, rate)
+    detail["cli"] = timed("cli", phase_cli, dev, card)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -4723,6 +5238,9 @@ def main() -> int:
     launches["convert_7b_8_layers"] = {
         "gptq": detail["convert"]["g1_launches"]}
     launches["convert_served_b1"] = detail["convert"]["serve"]["launches"]
+    launches["cli_server_round"] = detail["cli"]["server"]["launches"]
+    launches["cli_test_inference"] = \
+        detail["cli"]["test_inference"]["launches"]
     kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
                         detail["paged"], perr, partials, launches, rate)
     kernels.insert(1, gated_entry(detail["archs"], rate))

@@ -16,6 +16,7 @@ import copy
 import math
 
 import torch
+from torch import nn
 
 from exllamav2_tpu_torch.quant.qtensor import (
     SUB_BLOCK, GptqSegment, QuantLinear)
@@ -24,7 +25,8 @@ __all__ = ["fp16_round", "unpack_plane", "unpack_planes", "exl2_scales",
            "broadcast_groups", "dequant_segment", "dequant_linear",
            "precompute_scales_linear", "precompute_model_scales",
            "enable_w4a8_linear", "enable_w4a8", "merge_linears",
-           "merge_serving_weights", "strip_merged_weights"]
+           "merge_serving_weights", "strip_merged_weights",
+           "replace_linears"]
 
 
 def fp16_round(x: torch.Tensor) -> torch.Tensor:
@@ -156,6 +158,31 @@ def _with(module, **attrs):
     for name, val in attrs.items():
         setattr(new, name, val)
     return new
+
+
+def replace_linears(weights, f, which=("attn", "mlp", "head")):
+    """Copy of ModelWeights `weights` with f(linear) -> linear applied to
+    every attention q/k/v/o ("attn"), every gated or plain MLP's
+    gate/up/down ("mlp"; MoE experts are left alone) and the head ("head").
+    Containers are shallow copies; everything else is shared with
+    `weights`, which is not touched."""
+    from exllamav2_tpu_torch.models.modules import MLPWeights
+
+    def maybe(lin):
+        return None if lin is None else f(lin)
+
+    layers = []
+    for lw in weights.layers:
+        attn, mlp = lw.attn, lw.mlp
+        if "attn" in which:
+            attn = _with(attn, q=maybe(attn.q), k=maybe(attn.k),
+                         v=maybe(attn.v), o=maybe(attn.o))
+        if "mlp" in which and isinstance(mlp, MLPWeights):
+            mlp = _with(mlp, gate=maybe(mlp.gate), up=maybe(mlp.up),
+                        down=maybe(mlp.down))
+        layers.append(_with(lw, attn=attn, mlp=mlp))
+    head = maybe(weights.head) if "head" in which else weights.head
+    return _with(weights, layers=nn.ModuleList(layers), head=head)
 
 
 def _pad_w4a8_rows(seg, max_overhead: float = 0.125):

@@ -34,7 +34,7 @@ from exllamav2_tpu_torch.quant import formats as F
 
 __all__ = ["QuantSegment", "GptqSegment", "QuantLinear", "DenseLinear",
            "from_exl2", "from_gptq", "from_dense", "slice_columns",
-           "gather_columns", "SUB_BLOCK", "plane_split", "pack_planes"]
+           "gather_columns", "SUB_BLOCK", "plane_split", "pack_planes_on"]
 
 # K-rows of every segment are padded to a multiple of this at load time, with
 # zero values and zero smax (padded rows dequantize to exactly 0, and the
@@ -57,34 +57,45 @@ def plane_split(bits: int) -> tuple[int, ...]:
             6: (4, 2), 8: (8,)}[bits]
 
 
-def pack_planes(values: np.ndarray, bits: int) -> list[np.ndarray]:
-    """Pack uint values [rows, N] (rows % SUB_BLOCK == 0) into plane arrays.
+# elements of one chunk of pack_planes_on: its int32 temporaries stay a few
+# times 64 MiB, whatever the size of the tensor being loaded
+_PACK_CHUNK = 1 << 24
 
-    Plane p of width bp is uint32 [rows*bp/32, N]; within each 256-row
-    sub-block, natural row r maps to word (r mod Qsb), slot (r div Qsb) where
-    Qsb = 256*bp/32.
+
+def pack_planes_on(values: np.ndarray, bits: int, device
+                   ) -> tuple[torch.Tensor, ...]:
+    """Pack uint values [rows, N] (rows % SUB_BLOCK == 0, values < 256) into
+    plane words on `device`, by torch ops there: one int32 tensor a plane.
+
+    Plane p of width bp is [rows*bp/32, N]; within each 256-row sub-block,
+    natural row r maps to word (r mod Qsb), slot (r div Qsb) where
+    Qsb = 256*bp/32. The values go over as bytes and are packed a few
+    sub-blocks at a time (on the card, the host's numpy packing of a 7B
+    layer takes seconds).
     """
     rows, n = values.shape
     assert rows % SUB_BLOCK == 0, rows
-    out = []
-    shift = 0
-    for bp in plane_split(bits):
-        v = (values.astype(np.uint32) >> shift) & ((1 << bp) - 1)
-        qsb = SUB_BLOCK * bp // 32
-        per = 32 // bp
-        # [sb, j, w, n] where natural row = sb*256 + j*qsb + w
-        v4 = v.reshape(rows // SUB_BLOCK, per, qsb, n)
-        shifts = (np.arange(per, dtype=np.uint32) * bp)[None, :, None, None]
-        words = (v4 << shifts).sum(axis=1, dtype=np.uint64) & 0xFFFFFFFF
-        out.append(words.reshape(rows * bp // 32, n).astype(np.uint32))
-        shift += bp
-    return out
-
-
-def _words_to_tensor(words: np.ndarray, device) -> torch.Tensor:
-    """uint32 plane words -> int32 tensor with the same bits."""
-    a = np.ascontiguousarray(np.asarray(words).view(np.int32))
-    return torch.from_numpy(a.copy()).to(device)
+    v8 = torch.from_numpy(np.ascontiguousarray(values).astype(
+        np.uint8, copy=False)).to(device)
+    split = plane_split(bits)
+    out = [torch.empty((rows * bp // 32, n), dtype=torch.int32,
+                       device=v8.device) for bp in split]
+    step = max(1, _PACK_CHUNK // (SUB_BLOCK * n))
+    for sb in range(0, rows // SUB_BLOCK, step):
+        v = v8[sb * SUB_BLOCK:(sb + step) * SUB_BLOCK].to(torch.int32)
+        nsb = v.shape[0] // SUB_BLOCK
+        shift = 0
+        for bp, plane in zip(split, out):
+            qsb = SUB_BLOCK * bp // 32
+            # [sb, j, w, n] where natural row = sb*256 + j*qsb + w
+            v4 = ((v >> shift) & ((1 << bp) - 1)).reshape(
+                nsb, 32 // bp, qsb, n)
+            words = v4[:, 0].clone()
+            for j in range(1, 32 // bp):     # disjoint fields
+                words |= v4[:, j] << (j * bp)
+            plane[sb * qsb:(sb + nsb) * qsb] = words.reshape(nsb * qsb, n)
+            shift += bp
+    return tuple(out)
 
 
 class QuantSegment(nn.Module):
@@ -231,9 +242,8 @@ def from_exl2(t: F.Exl2Tensor, lane_pad: int = 128, *,
         smax = np.zeros((max(groups_pad, seg.groups), 1), np.float32)
         smax[:seg.groups, 0] = smax_all[
             seg.group_start:seg.group_start + seg.groups]
-        planes = pack_planes(q, seg.bits)
         segs.append(QuantSegment(
-            planes=tuple(_words_to_tensor(p, device) for p in planes),
+            planes=pack_planes_on(q, seg.bits, device),
             qscale=torch.from_numpy(qs.astype(np.uint8)).to(device),
             smax=torch.from_numpy(smax).to(device),
             bits=seg.bits, plane_bits=plane_split(seg.bits),
@@ -280,8 +290,7 @@ def from_gptq(t: F.GptqTensor, lane_pad: int = 128, *,
     sp = _pad2d(t.scales.astype(np.float16).astype(np.float32),
                 groups_pad, n_pad, fill=0.0)
     seg = GptqSegment(
-        planes=tuple(_words_to_tensor(p, device)
-                     for p in pack_planes(qp, t.bits)),
+        planes=pack_planes_on(qp, t.bits, device),
         scale=torch.from_numpy(sp).to(device),
         zero=torch.from_numpy(zp).to(device),
         bits=t.bits, plane_bits=plane_split(t.bits),

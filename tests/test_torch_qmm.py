@@ -155,3 +155,32 @@ def test_fused_segment_matmul_cpu_is_plain():
     got = TM.fused_segment_matmul(x, seg)
     assert TM.LAUNCHES["qmm"] == before
     assert torch.equal(got, TM.qmm_plain(x, seg))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 8])
+def test_pack_planes_on_device_matches_reference(bits):
+    """The loader packs plane words with torch ops on the model's device
+    (qtensor.pack_planes_on): the reference's words, bit for bit."""
+    from exllamav2_tpu_torch.quant.qtensor import pack_planes_on
+    rng = np.random.default_rng(bits)
+    v = rng.integers(0, 1 << bits, (768, 200)).astype(np.uint16)
+    want = Q.pack_planes(v, bits)
+    got = pack_planes_on(v, bits, "cpu")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w).view(np.int32))
+
+
+def test_pack_planes_on_in_chunks_matches_reference(monkeypatch):
+    """A tensor larger than a chunk is packed a few sub-blocks at a time,
+    the last chunk short: the reference's words all the same."""
+    from exllamav2_tpu_torch.quant import qtensor as PQ
+    monkeypatch.setattr(PQ, "_PACK_CHUNK", 2 * PQ.SUB_BLOCK * 200)
+    rng = np.random.default_rng(0)
+    for bits in (3, 5, 6):
+        v = rng.integers(0, 1 << bits, (5 * 256, 200)).astype(np.uint16)
+        got = PQ.pack_planes_on(v, bits, "cpu")
+        for g, w in zip(got, Q.pack_planes(v, bits)):
+            np.testing.assert_array_equal(g.numpy(),
+                                          np.asarray(w).view(np.int32))

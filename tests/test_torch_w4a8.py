@@ -329,7 +329,7 @@ def test_w4a8_flagship_chain_gptq_merged():
 # gathered as one byte of each word, then one shift and one mask.
 # ---------------------------------------------------------------------------
 
-from exllamav2_tpu_torch.quant.qtensor import pack_planes, plane_split
+from exllamav2_tpu_torch.quant.qtensor import pack_planes_on, plane_split
 
 
 def _fragment_source(bp, ks, hf, t, i):
@@ -358,7 +358,7 @@ def test_mma_fragment_map_covers_each_row_once(bits):
     out once per column, in k order, for every plane of the value."""
     rng = np.random.default_rng(bits)
     values = rng.integers(0, 2 ** bits, size=(256, 8), dtype=np.uint32)
-    planes = pack_planes(values, bits)
+    planes = [p.numpy() for p in pack_planes_on(values, bits, "cpu")]
     seen = np.zeros(256, np.int64)
     for ks in range(8):
         for t in range(4):
