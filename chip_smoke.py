@@ -137,9 +137,14 @@ the captures and their ms, the replays, host ms a token or a dispatch
               text model at full width and depth (post-norms, QK-norm, the
               sliding layers' rope table, a tied bf16 head): batch-1
               greedy, decode-vs-prefill, tokens/s, a serving16 round; (c)
-              Command R7B (4 layers: parallel blocks, a NoPE layer) and
-              GPT-2 (2 layers: learned positions) at published width:
-              batch-1 greedy and decode-vs-prefill.
+              Command R7B (4 layers: parallel blocks, a NoPE layer), GPT-2
+              (2 layers: learned positions) and StarCoder-15B (2 layers:
+              GPTBigCode, 48 query heads on one KV head, kernels 2 and 3 in
+              three head chunks) at published width: batch-1 greedy and
+              decode-vs-prefill (StarCoder's under DVP_LIMIT, and moved by
+              less than DVP_WITNESS when kernel 2 is swapped for its plain
+              version on the same weights); StarCoder also a serving16 round (kernel 3's
+              launches asserted).
  14. vlm      the vision-language path: (a) Qwen2.5-VL-7B at full width
               and depth (EXL2 4.0 bpw LM with q/k/v biases, prescaled; the
               32-block tower in bf16, random from a seed; config.json and
@@ -219,6 +224,30 @@ the captures and their ms, the replays, host ms a token or a dispatch
               against it rising as bits fall; (f) rank_reduce_linear on
               layer 0's gate, up and down: fraction 1.0 within 1e-3 of max
               |w|, the error and seconds at 0.5.
+ 17. tp       multi-GPU serving on the one card: (a) kernels 2 and 3 at 48
+              and 22 query heads on one KV head, D 128 (StarCoder-15B's
+              and StarCoderBase-3B's multi-query attention; head chunks of
+              at most 16), against their plain versions (kernel 3 at every
+              cache kind), timed beside SDPA and the bound; (b) two
+              tensor-parallel ranks (processes started by
+              exllamav2_tpu_torch/parallel/launch.py, both on cuda:0, gloo
+              between them through the host: not NVLink) serving 4 greedy
+              jobs of 32 tokens at Llama-2-7B width and 8 layers, 4-bit:
+              round 0 with kernels 1 and 3 held against their plain
+              versions on each rank's own inputs at its shard's widths
+              (N / 2, 16 KV heads), the ranks' tokens and logits bitwise
+              equal, and within TP_LOGITS_TOL of one process's on the same
+              weights up to each job's first differing token, which must
+              fall on a near-tie (TIE_GAP); round 1's launch counts and ms
+              a decode step; (c) the same over two expert-parallel ranks at
+              Mixtral-8x7B's width, 2 layers (4 whole experts a rank, the
+              gated kernel 1 held with its flag set and clear); (d) DataParallelGenerator(dp=2, tp=1) with
+              both replicas on the card: the plain generator's texts (each
+              replica's batch served alone), both replicas serving; (e)
+              the bytes a rank holds at tp 2 against one process's,
+              Llama-2-7B (everything splits) and StarCoder-15B (the
+              fallback: one KV head keeps attention and its cache whole),
+              from 2-layer cuts at full depth.
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -230,9 +259,13 @@ paged` phases 1 and 6 (the paged kernel), `python3 chip_smoke.py w4a8` phases
 `python3 chip_smoke.py merged` phases 1, 7 and 9 (the serving rounds),
 `python3 chip_smoke.py tools` phases 1 and 10, `python3 chip_smoke.py
 constrained` phases 1 and 11, `python3 chip_smoke.py spec` phases 1 and 12,
-`python3 chip_smoke.py archs` phases 1 and 13, `python3 chip_smoke.py vlm`
+`python3 chip_smoke.py archs` phases 1 and 13 (`python3 chip_smoke.py
+dvp-seeds` phase 1 and StarCoder's decode-vs-prefill readings at six
+seeds, which set DVP_LIMIT and DVP_WITNESS), `python3 chip_smoke.py vlm`
 phases 1 and 14, `python3 chip_smoke.py convert` phases 1 and 15,
-`python3 chip_smoke.py cli` phases 1, 15 and 16.
+`python3 chip_smoke.py cli` phases 1, 15 and 16, `python3 chip_smoke.py
+tp` phases 1 and 17 (`chip_smoke.py tp-rank <mode> <device>` is one of
+phase 17's ranks).
 """
 
 from __future__ import annotations
@@ -615,7 +648,16 @@ def qmm_every_m(dev, gen) -> float:
 
 # ---------------------------------------------------------------- phase 3
 
-def phase_attn(dev, rate):
+def attn_cases():
+    # past_len 0 leaves every split but the first empty; with a window of
+    # 512 at past_len 1500 the attended rows start inside a split
+    cases = [(b, hq, hkv, p, 0.0, 0) for b in (1, 4)
+             for hq, hkv in ((32, 32), (32, 8)) for p in (0, 255, 1500)]
+    return cases + [(1, 32, 8, 1500, 30.0, 0), (1, 32, 8, 1500, 0.0, 512),
+                    (1, 32, 32, 1500, 0.0, 512)]
+
+
+def phase_attn(dev, rate, cases=None, tag="attn"):
     from exllamav2_tpu_torch.models.model import _limit_bucket
     from exllamav2_tpu_torch.ops import decode_attn as A
     import torch.nn.functional as Fn
@@ -623,21 +665,17 @@ def phase_attn(dev, rate):
     gen.manual_seed(99)
     d, s_max, nl = 128, 2048, 16
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # past_len 0 leaves every split but the first empty; with a window of
-    # 512 at past_len 1500 the attended rows start inside a split
-    cases = [(b, hq, hkv, p, 0.0, 0) for b in (1, 4)
-             for hq, hkv in ((32, 32), (32, 8)) for p in (0, 255, 1500)]
-    cases += [(1, 32, 8, 1500, 30.0, 0), (1, 32, 8, 1500, 0.0, 512),
-              (1, 32, 32, 1500, 0.0, 512)]
     rows, worst = [], 0.0
-    for b, hq, hkv, past, cap, win in cases:
+    for b, hq, hkv, past, cap, win in cases or attn_cases():
         shape = (nl, b, hkv, s_max, d)
         k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         qs = [torch.randn((b, hq, d), generator=gen, device=dev)
               .to(torch.bfloat16) for _ in range(nl)]
         limit = _limit_bucket(past + 1, s_max)
-        splits, per = A.split_count(b, hkv, limit, sms)
+        # the grid: every (batch, KV head, head chunk) over the splits
+        chunks = A.head_chunks(hq // hkv, d)[1]
+        splits, per = A.split_count(b, hkv * chunks, limit, sms)
         if b == 1 and splits < 2:
             raise AssertionError(f"attn b=1 {hq}/{hkv} limit={limit}: one "
                                  "split")
@@ -673,13 +711,13 @@ def phase_attn(dev, rate):
         nbytes = 2 * b * hkv * rows_read * d * 2 + b * hq * d * (2 + 4)
         bound = nbytes / rate * 1e3
         rows.append(dict(b=b, hq=hq, hkv=hkv, past_len=past, limit=limit,
-                         splits=splits, rows_per_split=per,
+                         splits=splits, rows_per_split=per, chunks=chunks,
                          softcap=cap, window=win, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
                          bound_ms=bound))
         lib_s = f"{lib_ms * 1e3:7.1f}us" if lib_ms is not None else "   n/a"
-        log(f"[attn] b={b} {hq:2d}/{hkv:2d} past={past:4d} limit={limit:4d} "
-            f"splits={splits:2d}x{per:4d} "
+        log(f"[{tag}] b={b} {hq:2d}/{hkv:2d} past={past:4d} limit={limit:4d} "
+            f"chunks={chunks} splits={splits:2d}x{per:4d} "
             f"cap={cap:4.1f} win={win:3d} err={err:.2e} "
             f"kernel={ms * 1e3:7.1f}us plain={plain_ms * 1e3:8.1f}us "
             f"sdpa={lib_s} bound={bound * 1e3:5.1f}us "
@@ -930,9 +968,10 @@ def paged_cases():
     return cases
 
 
-def phase_paged(dev, rate):
+def phase_paged(dev, rate, cases=None, tag="paged"):
     from exllamav2_tpu_torch.cache_paged import _kinds, _raw
     from exllamav2_tpu_torch.ops import paged_attn as P
+    from exllamav2_tpu_torch.ops.decode_attn import head_chunks
     import torch.nn.functional as Fn
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -941,7 +980,7 @@ def phase_paged(dev, rate):
     scale = d ** -0.5
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, worst, pools = [], 0.0, {}
-    for case in paged_cases():
+    for case in cases or paged_cases():
         kind, b, hkv = case["kind"], case["b"], case["hkv"]
         hq, cap, win = case.get("hq", HEADS), case["cap"], case["win"]
         kk, vk = _kinds(kind)
@@ -970,7 +1009,8 @@ def phase_paged(dev, rate):
               .to(torch.bfloat16) for _ in range(PAGED_LAYERS)]
         # the kernel's split: blocks of one cluster over the block table
         # (one split where the batch's pairs fill the card, as serving16's)
-        splits, per = P.split_count(b, hkv, pw, ps, sms, hq // hkv)
+        gc, chunks = head_chunks(hq // hkv, d)
+        splits, per = P.split_count(b, hkv * chunks, pw, ps, sms, gc)
         if b == 1 and splits < 2:
             raise AssertionError(f"paged {case}: one split ({per} rows)")
 
@@ -1035,12 +1075,14 @@ def phase_paged(dev, rate):
         bound_by = "bytes" if nbytes / rate >= flops / PEAK_BF16 \
             else "operations"
         rows.append(dict(case, lens=lens, max_abs_err=err, max_abs_v=vmax,
+                         chunks=chunks,
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bytes=nbytes, flops=flops, bound_ms=bound,
                          bound_by=bound_by, splits=splits,
                          rows_per_split=per, cluster=splits))
         lib_s = f"{lib_ms * 1e3:7.1f}us" if lib_ms is not None else "   n/a"
-        log(f"[paged] {kind:4s} b={b:2d} {hq}/{hkv:2d} cap={cap:4.1f} "
+        log(f"[{tag}] {kind:4s} b={b:2d} {hq}/{hkv:2d} chunks={chunks} "
+            f"cap={cap:4.1f} "
             f"win={win:3d}{' serving' if case.get('serving') else ''} "
             f"splits={splits:2d}x{per:4d} rows (cluster {splits:2d}) "
             f"err={err:.2e} (|v|<={vmax:.1f}) kernel={ms * 1e3:7.1f}us "
@@ -2294,6 +2336,13 @@ DRAFT_NEW = 32          # of the draft-model legs and the CFG leg
 # round's teacher-forced logits must have a top-2 gap under this share of
 # max |logit| (the decode-vs-prefill gate of the logits)
 TIE_GAP = 0.02
+# StarCoder's decode-vs-prefill gates (decode_vs_prefill), set from the
+# readings of `python3 chip_smoke.py dvp-seeds` over DVP_SEEDS (PERF.md
+# section 6): kernel 2 swapped for its plain version moved a reading by
+# 0.9 % at most, and the highest reading was 9.9e-2
+DVP_WITNESS = 0.1
+DVP_LIMIT = 0.15
+DVP_SEEDS = (2, 3, 4, 5, 6, 7)
 LORA_RANK = 16
 LORA_TOL = 0.02         # 2-layer cut: each adapted linear vs its f32
                         # product, and the logits vs the f32-bypass forward
@@ -2691,6 +2740,11 @@ COHERE2 = dict(vocab=256000, hidden=4096, layers=4, heads=32, kv_heads=8,
 # (1024 rows), LayerNorm, GELU, an ungated MLP
 GPT2 = dict(vocab=50257, hidden=768, layers=2, heads=12, kv_heads=12,
             inter=3072, arch="GPT2LMHeadModel")
+# StarCoder-15B (bigcode/starcoder, GPTBigCodeForCausalLM) at published
+# width, 2 of its 40 layers: multi-query attention, 48 query heads on one
+# KV head (kernels 2 and 3 in three head chunks), learned positions
+STARCODER = dict(vocab=49152, hidden=6144, layers=2, heads=48, kv_heads=1,
+                 inter=24576, arch="GPTBigCodeForCausalLM")
 MOE_SHAPES = [(4096, 14336), (14336, 4096)]    # Mixtral's w1/w3 and w2
 MOE_ROWS = (1, 4, 16)
 # the gated decode's logits against the forced-dense formulation's, max
@@ -2813,15 +2867,17 @@ def arch_greedy(tag, model, prompt, new, vocab) -> dict:
             "step_graphs": graphs, "seconds": dt, "seconds_eager": dt_e}
 
 
-def decode_vs_prefill(tag, model, prompt, production_gate=True) -> dict:
+def dvp_readings(model, prompt, plain=()) -> tuple[float, float]:
     """One-token steps against the prefill of the same prompt, max |diff| /
     max |prefill|, twice: as served, and with the prefill's attention
     probabilities kept in f32 (its t > 1 product rounds them to bf16, the
     reference's rounding point; the one-token kernel keeps them in f32).
-    The f32 one isolates the cache, the positions and the masks, and must
-    be < 0.02; so must the served one where production_gate (Gemma-3's 48
-    random layers amplify the rounding past it: PERF.md, PR 12)."""
+    Kernels named in `plain` (1: the fused dequant-matmul, 2: decode
+    attention) are swapped for their plain versions, the steps then eager
+    (a graph holds the kernels it captured)."""
     from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.ops import decode_attn as A
+    from exllamav2_tpu_torch.ops import qmm as Q
 
     def rel_err():
         full, _ = model.forward(prompt, model.new_cache(1, 64), 0)
@@ -2832,23 +2888,134 @@ def decode_vs_prefill(tag, model, prompt, production_gate=True) -> dict:
             step.append(lg[:, 0])
         step = torch.stack(step, 1)
         if not torch.isfinite(full).all():
-            raise AssertionError(f"{tag}: non-finite prefill logits")
+            raise AssertionError("non-finite prefill logits")
         return ((step - full).abs().max() / full.abs().max()).item()
 
-    rel = rel_err()
-    served = F.gqa_values
-    F.gqa_values = lambda p, v: torch.einsum("bkgts,bksd->btkgd",
-                                             p.float(), v.float())
+    def both():
+        rel = rel_err()
+        F.gqa_values = lambda p, v: torch.einsum("bkgts,bksd->btkgd",
+                                                 p.float(), v.float())
+        return rel, rel_err()
+
+    real = F.gqa_values, F.decode_attention, Q.fused_segment_matmul
+    if 1 in plain:
+        Q.fused_segment_matmul = lambda x, seg, gate=None: Q.qmm_plain(x, seg)
+    if 2 in plain:
+        F.decode_attention = A.decode_attention_plain
     try:
-        rel_f32 = rel_err()
+        return eager(model, both) if plain else both()
     finally:
-        F.gqa_values = served
+        F.gqa_values, F.decode_attention, Q.fused_segment_matmul = real
+
+
+def decode_vs_prefill(tag, model, prompt, production_gate=True,
+                      witness=False) -> dict:
+    """dvp_readings as served: the f32 one isolates the cache, the
+    positions and the masks, and must be < 0.02; so must the served one
+    where production_gate (Gemma-3's 48 random layers amplify the rounding
+    past it: PERF.md section 6). With `witness` (StarCoder: its two random
+    GPTBigCode layers amplify kernel 1's rounding to 4e-2 - 1e-1, and the
+    plain versions' to 2e-3 - 9e-2, over the seeds of dvp_seeds) each
+    reading must instead be under DVP_LIMIT and within DVP_WITNESS of
+    itself of the reading on the same weights with kernel 2, which reads
+    the cache, swapped for its plain version."""
+    rel, rel_f32 = dvp_readings(model, prompt)
     log(f"[{tag}] decode vs prefill logits rel err {rel:.2e} as served, "
         f"{rel_f32:.2e} with the prefill's probabilities in f32")
-    if not (rel_f32 < 0.02 and (rel < 0.02 or not production_gate)):
+    out = {"served": rel, "f32_probabilities": rel_f32}
+    if witness:
+        out["plain_2"] = dvp_readings(model, prompt, (2,))
+        moved = [abs(a - b) / b for a, b in zip((rel, rel_f32),
+                                                 out["plain_2"])]
+        log(f"[{tag}] the same with kernel 2 swapped for its plain version: "
+            f"{out['plain_2'][0]:.2e} as served, {out['plain_2'][1]:.2e} "
+            f"with f32 probabilities; kernel 2 moves them by {moved[0]:.1%} "
+            f"and {moved[1]:.1%} (limit {DVP_WITNESS:.0%}); the limit on "
+            f"both readings is {DVP_LIMIT}")
+        if not (max(rel, rel_f32) < DVP_LIMIT and max(moved) <= DVP_WITNESS):
+            raise AssertionError(f"{tag}: decode vs prefill rel err {rel}, "
+                                 f"{rel_f32} with f32 probabilities, "
+                                 f"{out['plain_2']} with kernel 2's plain "
+                                 f"version")
+    elif not (rel_f32 < 0.02 and (rel < 0.02 or not production_gate)):
         raise AssertionError(f"{tag}: decode vs prefill rel err {rel}, "
                              f"{rel_f32} with f32 probabilities")
-    return {"served": rel, "f32_probabilities": rel_f32}
+    return out
+
+
+def dvp_seeds(dev) -> dict:
+    """`python3 chip_smoke.py dvp-seeds`: StarCoder-15B width (phase 13c's
+    2 layers and prompt) at seeds DVP_SEEDS, dvp_readings with the kernels,
+    with both swapped for their plain versions, and with one swapped at a
+    time: the spread that sets DVP_WITNESS and DVP_LIMIT."""
+    import gc
+    p1 = np.random.default_rng(5).integers(3, 32000, (1, ARCH_PROMPT))
+    prompt = (p1 % STARCODER["vocab"]).astype(np.int32)
+    out = {}
+    for seed in DVP_SEEDS:
+        model = arch_model(STARCODER, dev, seed=seed)[0]
+        r = {name: dvp_readings(model, prompt, swap) for name, swap in
+             (("kernels", ()), ("plain", (1, 2)), ("plain_1", (1,)),
+              ("plain_2", (2,)))}
+        log(f"[dvp-seeds] seed {seed}: " + ", ".join(
+            f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in r.items())
+            + f"; kernels / plain {r['kernels'][0] / r['plain'][0]:.2f}")
+        out[seed] = r
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def starcoder_held(model, dev, prompt) -> dict:
+    """Kernel 2 held on the path's own inputs: every launch of an eager
+    generate_greedy call against its plain version on the same inputs
+    (within ATTN_TOL of max |v| in the layer's cache, as phase 3 holds it);
+    then kernels 1 and 3 under held_kernels through an eager generator job
+    (kernel 3 within ATTN_PATH_TOL). Decode against prefill is held by
+    decode_vs_prefill (DVP_LIMIT, DVP_WITNESS)."""
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import (
+        DynamicGenerator, DynamicJob)
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.ops import decode_attn as A
+    real, worst, calls = F.decode_attention, [0.0], [0]
+
+    def k2_held(q, k, v, layer, past_len, limit, scale, softcap=0.0,
+                window=0):
+        got = real(q, k, v, layer, past_len, limit, scale, softcap, window)
+        ref = A.decode_attention_plain(q, k, v, layer, past_len, limit,
+                                       scale, softcap, window)
+        rel = ((got - ref).abs().max() / v[layer].float().abs().max()).item()
+        worst[0], calls[0] = max(worst[0], rel), calls[0] + 1
+        return got
+
+    F.decode_attention = k2_held
+    try:
+        eager(model, lambda: model.generate_greedy(prompt, 8))
+    finally:
+        F.decode_attention = real
+    st = model.static
+    gen = DynamicGenerator(model, PagedKVCache.alloc(
+        st.num_layers, 4, st.num_kv_heads, st.head_dim, device=dev),
+        id_tokenizer(), graphs=False)
+    with held_kernels("starcoder") as held:
+        job = gen.enqueue(DynamicJob(prompt[0], max_new_tokens=8,
+                                     settings=Settings.greedy()))
+        while job.status != "done":
+            gen.iterate()
+    worst3 = max(held["paged"].values(), default=None)
+    log(f"[starcoder] kernel 2 held on {calls[0]} launches of the greedy "
+        f"path at {st.num_heads}/{st.num_kv_heads} heads: worst "
+        f"{worst[0]:.2e} of max |v|; kernel 3 held at {sorted(held['paged'])}"
+        f" (worst {worst3}), kernel 1 at {len(held['qmm'])} shapes")
+    if not (calls[0] and worst[0] <= ATTN_TOL and held["paged"]
+            and held["qmm"]):
+        raise AssertionError(f"starcoder: kernel 2 {calls[0]} launches, "
+                             f"worst {worst[0]}; held {held}")
+    return {"kernel2_launches": calls[0], "kernel2_worst": worst[0],
+            "kernel3_worst": worst3, "qmm_shapes": len(held["qmm"])}
 
 
 def decode_rate_b1(model, prompt, n: int) -> tuple[float, float]:
@@ -3157,14 +3324,17 @@ def phase_archs(dev, rate):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --- 13c Command R7B and GPT-2 layers at published width
+    # --- 13c Command R7B, GPT-2 and StarCoder layers at published width
     t0 = time.perf_counter()
     for tag, cfg, max_seq in (("cohere2", COHERE2, 2048),
-                              ("gpt2", GPT2, 1024)):
+                              ("gpt2", GPT2, 1024),
+                              ("starcoder", STARCODER, 2048)):
         model, gbytes, _ = arch_model(cfg, dev, seed=2, max_seq=max_seq)
         st = model.static
         if tag == "cohere2":
             assert st.parallel_blocks and not st.layers[3].rope_enabled
+        elif tag == "starcoder":
+            assert (st.num_heads, st.num_kv_heads) == (48, 1)
         else:
             assert st.learned_pos_emb and model.weights.pos_emb is not None
         g = arch_greedy(tag, model, p1 % cfg["vocab"], ARCH_NEW,
@@ -3172,7 +3342,17 @@ def phase_archs(dev, rate):
         out["launches"][f"{tag}_generate_greedy_b1"] = g["launches"]
         out[tag] = {"weights_gb": gbytes, "greedy": g,
                     "decode_vs_prefill_rel_err": decode_vs_prefill(
-                        tag, model, p1 % cfg["vocab"])}
+                        tag, model, p1 % cfg["vocab"],
+                        witness=tag == "starcoder")}
+        if tag == "starcoder":
+            # kernels 2 and 3 held on the path's own inputs at 48 query
+            # heads a KV head, and kernel 3 on the serving path
+            out[tag]["held"] = starcoder_held(model, dev,
+                                              p1 % cfg["vocab"])
+            out[tag]["serving16"] = arch_serving(tag, model, dev,
+                                                 cfg["vocab"])
+            out["launches"]["starcoder_serving16"] = \
+                out[tag]["serving16"]["launches"]
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3288,10 +3468,12 @@ def held_kernels(tag):
     and kernel 1's (Q.fused_segment_matmul) launches its kernel as before,
     and the first call at each shape is also held against the plain version
     on the same inputs: max |kernel - plain| <= QMM_TOL of max |plain|
-    (kernel 1, as phase 2 holds it) or ATTN_PATH_TOL of max |v| in the
-    layer's pool (kernel 3), or the phase fails. Yields {"paged": {(b, hq,
-    hkv, pages): rel}, "paged_f64": {(b, hq, hkv, pages): [kernel, plain]
-    against the f64 evaluation}, "qmm": {(m, k, n): rel}, "seconds": s},
+    (kernel 1, as phase 2 holds it; its gated entry at each shape with the
+    flag set and with it clear, where it must write zeros) or
+    ATTN_PATH_TOL of max |v| in the layer's pool (kernel 3), or the phase
+    fails. Yields {"paged": {(b, hq, hkv, pages): rel}, "paged_f64": {(b,
+    hq, hkv, pages): [kernel, plain] against the f64 evaluation}, "qmm":
+    {(m, k, n): rel, (m, k, n, "gated" or "gated off"): rel}, "seconds": s},
     filled as the calls come (seconds: the plain versions' wall time,
     synchronized, for the caller to take out of its own). Eager steps only:
     a graph capture reads nothing back."""
@@ -3316,7 +3498,7 @@ def held_kernels(tag):
                                      f"{rel:.3g} against its plain version")
         return got
 
-    def attn_held(*a):
+    def attn_held(*a, **kw):
         # (q, k_data, v_data, layer, block_table, valid_lens, k_scales,
         #  v_scales, scale, page_size, hq, kinds, softcap, window)
         v, layer, vs = a[2], a[3], a[7]
@@ -3333,18 +3515,22 @@ def held_kernels(tag):
             vm = vmax()
             return [((x - r64).abs().max() / vm).item() for x in (got, ref)]
         return hold("paged", (a[0].shape[0], a[10], a[1].shape[1],
-                              a[4].shape[1]), attn(*a),
+                              a[4].shape[1]), attn(*a, **kw),
                     lambda: P.paged_decode_attention_plain(*a), vmax,
                     ATTN_PATH_TOL, f64)
 
     def mm_held(x, seg, gate=None):
-        if seg.act8 or gate is not None:
-            raise AssertionError(f"{tag}: held_kernels holds kernel 1's "
-                                 f"plain launches only")
-        got = mm(x, seg)
-        return hold("qmm", (x.shape[0], x.shape[1], got.shape[1]), got,
-                    lambda: Q.qmm_plain(x, seg),
-                    lambda ref: ref.abs().max(), QMM_TOL)
+        if seg.act8:
+            raise AssertionError(f"{tag}: held_kernels holds kernel 1 only")
+        got = mm(x, seg, gate)
+        key = (x.shape[0], x.shape[1], got.shape[1])
+        if gate is None:
+            return hold("qmm", key, got, lambda: Q.qmm_plain(x, seg),
+                        lambda ref: ref.abs().max(), QMM_TOL)
+        on = bool(gate.item())
+        return hold("qmm", key + ("gated" if on else "gated off",), got,
+                    lambda: Q.qmm_gated_plain(x, seg, gate),
+                    lambda ref: ref.abs().max() if on else 1.0, QMM_TOL)
 
     P.paged_decode_attention, Q.fused_segment_matmul = attn_held, mm_held
     try:
@@ -4875,6 +5061,325 @@ def phase_cli(dev, card):
     return out
 
 
+# --------------------------------------------------------------- phase 17
+
+# Llama-2-7B width (phase 5's geometry) at 8 of its 32 layers, and
+# Mixtral-8x7B's at 2 of its 32: the two-rank legs
+TP_LLAMA = dict(vocab=VOCAB, hidden=HIDDEN, layers=8, heads=HEADS,
+                kv_heads=HEADS, inter=INTER)
+TP_MIXTRAL = dict(MIXTRAL, layers=2)
+TP_JOBS, TP_PROMPT, TP_PAGES = 4, 8, 8
+TP_NEW = {"dense": 32, "ep": 16}
+TP_SEED = {"dense": 17, "ep": 18}
+# the column widths of kernel 1's launches on a rank of the dense leg
+# (every linear at N / 2: q, k, v, o, down 2048, gate and up 5504, the head
+# 16000; its KV heads in kernel 3: 16 of 32), and of the expert-parallel
+# leg (q and o 2048, k and v 512, the head 16000, whole experts' w1 / w3
+# 14336 and w2 4096 in the prefill's capacity dispatch; the gated entry on
+# them in decode; 4 of 8 KV heads)
+TP_SHARD_N = {2048, 5504, 16000}
+TP_EP_SHARD_N = {512, 2048, 4096, 14336, 16000}
+TP_EP_GATED = [(4096, 14336), (14336, 4096)]
+# a rank's logits against one process's, of max |logit|, up to the first
+# differing token: the gate decode_vs_prefill sets for a path that rounds
+# in another order
+TP_LOGITS_TOL = 0.02
+# kernels 2 and 3 at more than 16 query heads a KV head (phase 17a)
+FAULT1_ATTN = [(b, hq, 1, p, 0.0, 0) for b in (1, 4) for hq in (48, 22)
+               for p in (255, 1500)]
+FAULT1_PAGED = [dict(kind=k, b=b, hkv=1, hq=hq, cap=0.0, win=0)
+                for k in PAGED_KINDS for hq in (48, 22) for b in (1, 16)]
+
+
+def tp_model(mode: str, dev):
+    return arch_model(TP_LLAMA if mode == "dense" else TP_MIXTRAL, dev,
+                      seed=TP_SEED[mode])[0]
+
+
+def tp_prompts(mode: str, k: int) -> list:
+    """Round k's prompts (a new draw each round: no page of a round is
+    reused by the next)."""
+    rng = np.random.default_rng(100 * TP_SEED[mode] + k)
+    return [rng.integers(3, VOCAB, TP_PROMPT).astype(np.int32)
+            for _ in range(TP_JOBS)]
+
+
+def tp_generator(model, dev, mesh=None):
+    from exllamav2_tpu_torch.cache_paged import PagedKVCache
+    from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
+    st = model.static
+    cache = PagedKVCache.alloc(st.num_layers, TP_PAGES, st.num_kv_heads,
+                               st.head_dim, "bf16", device=dev)
+    return DynamicGenerator(model, cache, id_tokenizer(),
+                            max_batch_size=TP_JOBS, mesh=mesh)
+
+
+def tp_serve(gen, prompts, new: int, logits: bool = False):
+    """Greedy jobs of `prompts` -> (their new tokens, ms a decode step: the
+    time after the first iterate, which prefills, over the steps the
+    longest job took after it; with `logits` also each job's logits at each
+    of its new tokens, [new, vocab] f32: a token an iterate, no bursts)."""
+    from exllamav2_tpu_torch.generator.dynamic import DynamicJob
+    from exllamav2_tpu_torch.generator.sampler import Settings
+
+    def sync():
+        if gen.device.type == "cuda":
+            torch.cuda.synchronize(gen.device)
+
+    def emitted():
+        return max(len(j.sequence) - j.prompt_len for j in jobs)
+
+    def step():
+        for r in gen.iterate():
+            if r.get("logits") is not None:
+                seen[ids[id(r["job"])]].append(r["logits"][0])
+
+    jobs = [gen.enqueue(DynamicJob(p, max_new_tokens=new, return_logits=logits,
+                                   settings=Settings.greedy()))
+            for p in prompts]
+    ids, seen = {id(j): i for i, j in enumerate(jobs)}, [[] for _ in jobs]
+    step()
+    sync()
+    t, first = time.perf_counter(), emitted()
+    while any(j.status != "done" for j in jobs):
+        step()
+    sync()
+    steps = emitted() - first
+    return ([j.sequence[j.prompt_len:].tolist() for j in jobs],
+            (time.perf_counter() - t) / steps * 1e3 if steps else None,
+            [np.stack(x) for x in seen] if logits else None)
+
+
+def tp_rank(mode: str, device: str) -> int:
+    """One rank of phase 17's two-rank world (started by phase_tp through
+    parallel/launch.py, each rank a process on cuda:0, gloo between them):
+    the model of `mode` built from its seed, sharded by
+    DynamicGenerator(mesh=); round 0 under held_kernels (kernels 1 and 3,
+    and the gated kernel 1 of the expert-parallel layers, held against their
+    plain versions on the rank's own inputs at its shard's shapes), its
+    tokens and per-step logits saved to build/tp_<mode>.<rank>.pt; round 1
+    with its launch counts (zeroed just before, read just after) and its
+    ms a decode step. Prints one JSON line: the held shapes and worst
+    errors, the counts, the step time."""
+    from exllamav2_tpu_torch.parallel.sharding import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh = make_mesh(2, device=dev, backend="gloo", timeout=300)
+    gen = tp_generator(tp_model(mode, dev), dev, mesh)
+    new = TP_NEW[mode]
+    with held_kernels(f"tp-{mode} rank {mesh.rank}") as held:
+        toks0, _, logits0 = tp_serve(gen, tp_prompts(mode, 0), new, True)
+    torch.save({"tokens": toks0, "logits": logits0},
+               os.path.join(OUT_DIR, f"tp_{mode}.{mesh.rank}.pt"))
+    zero_counts()
+    toks, step_ms, _ = tp_serve(gen, tp_prompts(mode, 1), new)
+    counts = arch_counts()
+    mlp = gen.model.weights.layers[0].mlp
+    qmm = held["qmm"]
+    print(json.dumps({
+        "rank": mesh.rank, "fused": gen._tp_fused, "mlp": type(mlp).__name__,
+        "experts": len(getattr(mlp, "w1", [])), "tokens": toks,
+        "launches": counts, "step_ms": step_ms,
+        "qmm_n": sorted({k[2] for k in qmm if len(k) == 3}),
+        "gated_kn": sorted({k[1:3] for k in qmm if k[3:] == ("gated",)}),
+        "gated_off": sum(k[3:] == ("gated off",) for k in qmm),
+        "paged_hkv": sorted({k[2] for k in held["paged"]}),
+        "held_shapes": len(qmm) + len(held["paged"]),
+        "worst_qmm": max(qmm.values()),
+        "worst_paged": max(held["paged"].values())}), flush=True)
+    return 0
+
+
+def tp_agree(mode, got, want) -> list:
+    """Round 0 of the ranks (`got`: tokens and per-step logits) against one
+    process's (`want`) on the same weights and prompts: each job's logits
+    within TP_LOGITS_TOL of max |logit| at every step up to its first
+    differing token, and that token on a near-tie of one process's logits
+    there (its logit under the top one by less than TIE_GAP of max |logit|),
+    else the phase fails. -> per job (steps compared, worst rel err, the
+    first differing step or None, its gap)."""
+    out = []
+    for j, (ta, tb, la, lb) in enumerate(zip(got["tokens"], want["tokens"],
+                                             got["logits"], want["logits"])):
+        d = next((i for i, (x, y) in enumerate(zip(ta, tb)) if x != y), None)
+        n = len(tb) if d is None else d + 1
+        rel = max(float(np.abs(la[i] - lb[i]).max() / np.abs(lb[i]).max())
+                  for i in range(n))
+        gap = None if d is None else float(
+            (lb[d].max() - lb[d][ta[d]]) / np.abs(lb[d]).max())
+        log(f"[tp-{mode}] job {j}: logits against one process's over {n} "
+            f"steps: rel err {rel:.2e} (limit {TP_LOGITS_TOL}); "
+            + ("tokens equal" if d is None else
+               f"parts at new token {d} ({ta[d]} on the ranks, {tb[d]} one "
+               f"process): gap {gap:.2e} of max |logit| (limit {TIE_GAP})"))
+        if not (rel <= TP_LOGITS_TOL and (gap is None or gap < TIE_GAP)):
+            raise AssertionError(f"tp-{mode} job {j}: logits rel err {rel}, "
+                                 f"gap {gap}")
+        out.append((n, rel, d, gap))
+    return out
+
+
+def tp_leg(mode: str, dev) -> dict:
+    """Two ranks of `mode` on the card against one process on the same
+    weights and prompts: every rank's kernels held on its own inputs at its
+    shard's shapes; the ranks' round-0 tokens and logits equal each other's
+    (every rank gathers the same bytes) and agree with the process's
+    (tp_agree: a rank sizes kernel 1's K split and kernel 3's sequence
+    split for its own shard, so its sums run in another order)."""
+    from exllamav2_tpu_torch.parallel.launch import launch
+    t0 = time.perf_counter()
+    outs = launch([os.path.abspath(__file__), "tp-rank", mode, str(dev)], 2,
+                  timeout=600, cwd=HERE)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    t_ranks = time.perf_counter() - t0
+    model = tp_model(mode, dev)
+    gen = tp_generator(model, dev)
+    toks0, _, logits0 = tp_serve(gen, tp_prompts(mode, 0), TP_NEW[mode],
+                                 True)
+    # a warm round of the measured length: its step graphs are captured
+    tp_serve(gen, tp_prompts(mode, 2), TP_NEW[mode])
+    want, step_ms, _ = tp_serve(gen, tp_prompts(mode, 1), TP_NEW[mode])
+    shard = {"dense": (TP_SHARD_N, [], {16}),
+             "ep": (TP_EP_SHARD_N, TP_EP_GATED, {4})}[mode]
+    for r in ranks:
+        c = r["launches"]
+        log(f"[tp-{mode}] rank {r['rank']}: fused={r['fused']} mlp "
+            f"{r['mlp']} ({r['experts']} experts); launches {c}; held on "
+            f"its own inputs at {r['held_shapes']} shapes: kernel 1 at N "
+            f"{r['qmm_n']}, gated at (k, n) {r['gated_kn']} ("
+            f"{r['gated_off']} with the flag clear), worst rel err "
+            f"{r['worst_qmm']:.2e} (limit {QMM_TOL}); kernel 3 at "
+            f"{r['paged_hkv']} KV heads, worst {r['worst_paged']:.2e} "
+            f"(limit {ATTN_PATH_TOL:.2e}); {r['step_ms']:.2f} ms a step of "
+            f"{TP_JOBS} jobs (gloo through the host, not NVLink)")
+        if not (r["fused"] and c["qmm"] > 0 and c["paged_decode_attn"] > 0
+                and r["worst_qmm"] <= QMM_TOL
+                and r["worst_paged"] <= ATTN_PATH_TOL):
+            raise AssertionError(f"tp-{mode} rank {r['rank']}: {r}")
+        if (set(r["qmm_n"]), [tuple(x) for x in r["gated_kn"]],
+                set(r["paged_hkv"])) != shard:
+            raise AssertionError(f"tp-{mode} rank {r['rank']}: held at "
+                                 f"{r['qmm_n']} {r['gated_kn']} "
+                                 f"{r['paged_hkv']}, want {shard}")
+        if mode == "ep" and (r["mlp"] != "EPMoEWeights" or r["experts"] != 4
+                             or c["qmm_gated"] == 0):
+            raise AssertionError(f"tp-ep rank {r['rank']}: {r}")
+    got = [torch.load(os.path.join(OUT_DIR, f"tp_{mode}.{r}.pt"),
+                      weights_only=False) for r in (0, 1)]
+    same_ranks = (got[0]["tokens"] == got[1]["tokens"]
+                  and ranks[0]["tokens"] == ranks[1]["tokens"] and all(
+                      np.array_equal(a, b) for a, b in
+                      zip(got[0]["logits"], got[1]["logits"])))
+    log(f"[tp-{mode}] the ranks' tokens and logits bitwise equal: "
+        f"{same_ranks}; one process {step_ms:.2f} ms a step (graphed); "
+        f"the two ranks took {t_ranks:.1f} s with their start")
+    if not same_ranks:
+        raise AssertionError(f"tp-{mode}: the ranks differ")
+    agree = tp_agree(mode, got[0], {"tokens": toks0, "logits": logits0})
+    del gen, model
+    torch.cuda.empty_cache()
+    return {"ranks": ranks, "one_process_step_ms": step_ms,
+            "one_process_tokens": want, "agree": agree,
+            "seconds": time.perf_counter() - t0}
+
+
+def dp_leg(dev) -> dict:
+    """DataParallelGenerator(dp=2, tp=1) with both replicas on the card:
+    the plain generator's texts, and both replicas serve."""
+    from exllamav2_tpu_torch.generator.sampler import Settings
+    from exllamav2_tpu_torch.parallel.dp_server import DataParallelGenerator
+    model = tp_model("dense", dev)
+    prompts = tp_prompts("dense", 3)
+    kw = dict(max_new_tokens=TP_NEW["dense"], settings=Settings.greedy())
+    # the dispatcher sends jobs 0 and 2 to replica 0, 1 and 3 to replica 1:
+    # the plain generator serves the same batches
+    plain = [None] * len(prompts)
+    for half in (0, 1):
+        idx = range(half, len(prompts), 2)
+        for i, text in zip(idx, tp_generator(model, dev).generate(
+                [prompts[i] for i in idx], **kw)):
+            plain[i] = text
+    dpg = DataParallelGenerator(model, id_tokenizer(), num_pages=TP_PAGES,
+                                dp=2, devices=[dev, dev],
+                                max_batch_size=TP_JOBS)
+    t = time.perf_counter()
+    texts = dpg.generate(prompts, **kw)
+    dt = time.perf_counter() - t
+    same = texts == plain
+    log(f"[dp] 2 replicas on {dev}: jobs served {dpg.served}; texts equal "
+        f"the plain generator's: {same}; {dt:.2f} s")
+    if not (same and dpg.served == [2, 2]):
+        raise AssertionError(f"dp: served {dpg.served}, same {same}")
+    return {"served": dpg.served, "seconds": dt}
+
+
+def module_bytes(module) -> int:
+    """Bytes of the distinct storages a module's buffers hold."""
+    seen = {}
+    for b in module.buffers():
+        st = b.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def shard_memory(tag: str, cfg: dict, layers: int, dev) -> dict:
+    """The bytes rank 0 of a tp = 2 mesh holds (parallel/sharding
+    .shard_model: what splits is split, the rest whole) against one
+    process's, from a 2-layer cut: a layer's, the rest's (embedding, head,
+    tables) and at the model's full depth `layers`, with the KV cache's
+    bytes a token."""
+    from exllamav2_tpu_torch.parallel import sharding as S
+    model = arch_model(dict(cfg, layers=2), dev)[0]
+    mesh = S.Mesh(tp=2, dp=1, rank=0, tp_rank=0, dp_rank=0, tp_group=None,
+                  dp_group=None, backend="gloo", device=dev)
+    w, st = S.shard_model(model.weights, model.static, mesh)
+    whole_l, rank_l = (module_bytes(x.layers[0]) for x in (model.weights, w))
+    whole_r = module_bytes(model.weights) - 2 * whole_l
+    rank_r = module_bytes(w) - 2 * rank_l
+    kv = 2 * layers * model.static.head_dim * 2
+    out = {"fused": S.tp_fusable(model.weights, model.static, 2),
+           "heads_split": S.heads_split(w),
+           "whole_gb": (whole_r + layers * whole_l) / 1e9,
+           "rank_gb": (rank_r + layers * rank_l) / 1e9,
+           "layer_ratio": rank_l / whole_l,
+           "kv_bytes_a_token": {"whole": kv * model.static.num_kv_heads,
+                                "rank": kv * st.num_kv_heads}}
+    log(f"[tp-memory] {tag} at {layers} layers, tp 2 (fused "
+        f"{out['fused']}, heads split {out['heads_split']}): a rank holds "
+        f"{out['rank_gb']:.3f} of {out['whole_gb']:.3f} GB "
+        f"({out['rank_gb'] / out['whole_gb']:.1%}; a layer "
+        f"{out['layer_ratio']:.1%}); KV cache {out['kv_bytes_a_token']} "
+        f"bytes a token")
+    del model, w
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp(dev, rate):
+    """Phase 17: (a) kernels 2 and 3 at 48 and 22 query heads on one KV
+    head; (b) two tensor-parallel ranks at Llama-2-7B width; (c) two
+    expert-parallel ranks at Mixtral's; (d) two data-parallel replicas;
+    (e) a rank's memory on the fused path and on the fallback."""
+    out = {}
+    t0 = time.perf_counter()
+    out["attn"], out["attn_err"] = phase_attn(dev, rate, FAULT1_ATTN,
+                                              "fault1-attn")
+    out["paged"], out["paged_err"] = phase_paged(dev, rate, FAULT1_PAGED,
+                                                 "fault1-paged")
+    log(f"[time] phase 17a: {time.perf_counter() - t0:.1f} s")
+    out["dense"] = tp_leg("dense", dev)
+    out["ep"] = tp_leg("ep", dev)
+    out["dp"] = dp_leg(dev)
+    # the fused path's memory a rank against the fallback's (StarCoder's
+    # one KV head keeps q, k, v and the cache whole on every rank)
+    out["memory"] = {
+        "llama2_7b": shard_memory("llama2-7b", TP_LLAMA, LAYERS, dev),
+        "starcoder_15b": shard_memory("starcoder-15b", STARCODER, 40, dev)}
+    out["launches"] = {f"tp_{m}_rank{r['rank']}": r["launches"]
+                       for m in ("dense", "ep") for r in out[m]["ranks"]}
+    return out
+
+
 def g1_entry(conv, rate) -> dict:
     """The kernels-line entry of G1: one Llama-2-7B layer's 1,112 groups at
     4 bits, gs 32 (q, k, v, o, gate, up, down), from the per-shape rows of
@@ -5104,6 +5609,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import exllamav2_tpu_torch  # noqa: F401  (fails outside a checkout)
+    if sys.argv[1:2] == ["tp-rank"]:            # a rank of phase 17
+        return tp_rank(*sys.argv[2:4])
     torch.backends.cuda.matmul.allow_tf32 = False      # plain versions in
     torch.backends.cudnn.allow_tf32 = False            # full f32
     dev = torch.device("cuda")
@@ -5158,6 +5665,9 @@ def main() -> int:
         log(f"[done] build and the spec phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["dvp-seeds"]:
+        print(json.dumps(dvp_seeds(dev)))
+        return 0
     if sys.argv[1:] == ["archs"]:
         detail["archs"] = phase_archs(dev, rate)
         os.makedirs(OUT_DIR, exist_ok=True)
@@ -5192,6 +5702,14 @@ def main() -> int:
         log(f"[done] build and the converter and tools phases passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["tp"]:
+        detail["tp"] = phase_tp(dev, rate)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_tp.json"), "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the multi-GPU phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -5223,6 +5741,7 @@ def main() -> int:
     detail["vlm"] = timed("vlm", phase_vlm, dev, rate)
     detail["convert"] = timed("convert", phase_convert, dev, rate)
     detail["cli"] = timed("cli", phase_cli, dev, card)
+    detail["tp"] = timed("tp", phase_tp, dev, rate)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -5241,8 +5760,21 @@ def main() -> int:
     launches["cli_server_round"] = detail["cli"]["server"]["launches"]
     launches["cli_test_inference"] = \
         detail["cli"]["test_inference"]["launches"]
-    kernels = summarize(detail["qmm"], qerr, detail["attn"], aerr,
-                        detail["paged"], perr, partials, launches, rate)
+    launches.update(detail["tp"]["launches"])
+    tp = detail["tp"]
+    kernels = summarize(detail["qmm"], qerr, detail["attn"],
+                        max(aerr, tp["attn_err"]), detail["paged"],
+                        max(perr, tp["paged_err"]), partials, launches, rate)
+    # kernels 2 and 3 at StarCoder-15B's 48 query heads on one KV head
+    # (phase 17a: b 1, past 1500; b 16 bf16 at lengths up to 1500)
+    for entry, row in (
+            (kernels[1], next(r for r in tp["attn"] if r["b"] == 1
+                              and r["hq"] == 48 and r["past_len"] == 1500)),
+            (kernels[2], next(r for r in tp["paged"] if r["b"] == 16
+                              and r["hq"] == 48 and r["kind"] == "bf16"))):
+        entry["at_48_query_heads_per_kv_head"] = {
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                "chunks", "splits")}
     kernels.insert(1, gated_entry(detail["archs"], rate))
     kernels += tools_entries(detail["tools"], rate)
     kernels.append(g1_entry(detail["convert"], rate))

@@ -22,7 +22,12 @@
 // SMs and walks its rows one tile after another; the time is then latency.
 //
 // Design (flash-decoding):
-//   * the grid is (batch * hkv, splits): split i takes cache rows
+//   * the G query heads of a KV head are cut into `chunks` of at most gc
+//     heads (gc <= 16 and gc * D <= 2048: ops/decode_attn.head_chunks picks
+//     gc = ceil(G / chunks)); a block attends for one chunk and the K/V rows
+//     are read once a chunk (three times at 48 query heads on one KV head,
+//     where the cache is 1/48 of the query width);
+//   * the grid is (batch * hkv * chunks, splits): split i takes cache rows
 //     [i * per, (i + 1) * per) of [0, limit). The caller picks splits from
 //     `limit` (its bucket), not from past_len (ops/decode_attn.py:
 //     split_count: about three blocks per SM, at least 32 rows a split), so
@@ -41,7 +46,7 @@
 //     through shared memory, in fixed order;
 //   * with one split the block writes `out`. Otherwise it writes its
 //     unnormalised acc [G, D] and (m, l) to f32 scratch; the last block of a
-//     (batch, KV head), found through a counter (the wrapper keeps one
+//     (batch, KV head, chunk), found through a counter (the wrapper keeps one
 //     counter buffer per stream: device.stream_counters), merges the splits in split
 //     order (M = max m_s, L = sum l_s e^(m_s-M), out = sum acc_s e^(m_s-M)
 //     / L; the first eight splits' acc loaded beside every (m, l), eight
@@ -70,11 +75,13 @@ struct Args {
   long long sl, sb, sh, ss;         // element strides of L, B, Hkv, S
   const int* past_len;              // [B] or [1], stride past_len_stride
   int layer, batch, hkv, g, d, past_len_stride, limit, window, splits, per;
+  int gc, chunks;                   // heads of a chunk (the last may hold
+                                    // fewer); chunks of a KV head
   float scale, softcap, inv_softcap;
   float* out;                       // [B, Hq, D]
   float* pacc;                      // [splits, B, Hq, D]   (splits > 1)
   float* pml;                       // [splits, B, Hq, 2]   (splits > 1)
-  int* count;                       // [B * Hkv], 0 between launches
+  int* count;                       // [B * Hkv * chunks], 0 between launches
 };
 
 __device__ __forceinline__ void bf16x8(const uint4 r, float (&f)[8]) {
@@ -102,13 +109,16 @@ __global__ void __launch_bounds__(THREADS, GMAX <= 2 ? 4 : 1)
   __shared__ int is_last;
 
   const int bh = blockIdx.x, split = blockIdx.y;
-  const int b = bh / a.hkv, h = bh % a.hkv;
-  const int G = a.g, D = a.d, GD = G * D;
+  const int b = bh / (a.hkv * a.chunks), h = bh / a.chunks % a.hkv;
+  const int c = bh % a.chunks;
+  // this block's query heads: c * gc .. c * gc + G - 1 of the KV head's
+  const int G = min(a.gc, a.g - c * a.gc), D = a.d, GD = G * D;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int seg = lane / LPR, d0 = (lane % LPR) * 8;
   const bool active = d0 < D;
-  const int hq = a.hkv * G;
-  const size_t head0 = (size_t)b * hq + (size_t)h * G;   // first query head
+  const int hq = a.hkv * a.g;
+  const size_t head0 =                                   // first query head
+      (size_t)b * hq + (size_t)h * a.g + (size_t)c * a.gc;
 
   // the caller checks 0 <= past_len < limit on the host; the clamp only
   // keeps every access inside the bucket
@@ -307,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, GMAX <= 2 ? 4 : 1)
     }
   }
 
-  // the last block of this (batch, KV head) merges the splits; one thread
+  // the last block of this (batch, KV head, chunk) merges the splits; one thread
   // fences and counts for the block, as a grid barrier does
   __syncthreads();
   if (tid == 0) {
@@ -391,10 +401,10 @@ __global__ void __launch_bounds__(THREADS, GMAX <= 2 ? 4 : 1)
 
 template <int LPR>
 cudaError_t launch_g(const Args& a, dim3 grid, cudaStream_t st) {
-  if (a.g <= 1)      decode_attn_kernel<LPR, 1><<<grid, THREADS, 0, st>>>(a);
-  else if (a.g <= 2) decode_attn_kernel<LPR, 2><<<grid, THREADS, 0, st>>>(a);
-  else if (a.g <= 4) decode_attn_kernel<LPR, 4><<<grid, THREADS, 0, st>>>(a);
-  else if (a.g <= 8) decode_attn_kernel<LPR, 8><<<grid, THREADS, 0, st>>>(a);
+  if (a.gc <= 1)      decode_attn_kernel<LPR, 1><<<grid, THREADS, 0, st>>>(a);
+  else if (a.gc <= 2) decode_attn_kernel<LPR, 2><<<grid, THREADS, 0, st>>>(a);
+  else if (a.gc <= 4) decode_attn_kernel<LPR, 4><<<grid, THREADS, 0, st>>>(a);
+  else if (a.gc <= 8) decode_attn_kernel<LPR, 8><<<grid, THREADS, 0, st>>>(a);
   else               decode_attn_kernel<LPR, 16><<<grid, THREADS, 0, st>>>(a);
   return cudaGetLastError();
 }
@@ -410,23 +420,25 @@ const char* error_string(int e) {
 // q [B, Hq, D] bf16 contiguous; k, v bf16 cache bases with element strides
 // (sl, sb, sh, ss) and unit stride along D; out [B, Hq, D] f32. With
 // splits > 1: pacc [splits, B, Hq, D] and pml [splits, B, Hq, 2] f32
-// scratch, count int32 [B * Hkv] all 0 (left at 0); split i takes rows
+// scratch, count int32 [B * Hkv * chunks] all 0 (left at 0), chunks =
+// ceil(g / gc) blocks of at most gc query heads a KV head; split i takes rows
 // [i * per, (i + 1) * per), and splits * per >= limit. past_len int32 in
 // device memory, row b's at past_len[b * past_len_stride] (stride 0: one
 // for every row), each in [0, limit) (checked by the caller: the kernel
 // clamps it into that range).
-// Requires D % 32 == 0, D <= 256, G <= 16,
-// G*D <= 2048, splits <= 64, 16-byte aligned K/V rows (ss and the bases
+// Requires D % 32 == 0, D <= 256, gc <= 16,
+// gc*D <= 2048, splits <= 64, 16-byte aligned K/V rows (ss and the bases
 // multiples of 8 elements) and q.
 // Returns the cudaError_t of the launch (0 on success).
 int decode_attention(const void* q, const void* k, const void* v,
                      long long sl, long long sb, long long sh, long long ss,
-                     int layer, int batch, int hkv, int g, int d,
+                     int layer, int batch, int hkv, int g, int gc, int d,
                      const void* past_len, int past_len_stride, int limit,
                      float scale, float softcap,
                      int window, int splits, int per, void* out, void* pacc,
                      void* pml, void* count, void* stream) {
-  if (d % 32 || d > 256 || g < 1 || g > MAX_G || g * d > MAX_GD ||
+  if (d % 32 || d > 256 || g < 1 || gc < 1 || gc > MAX_G ||
+      gc * d > MAX_GD ||
       !past_len || past_len_stride < 0 || past_len_stride > 1 ||
       limit < 1 || batch < 1 || hkv < 1 ||
       splits < 1 || splits > MAX_SPLITS || per < 1 ||
@@ -442,6 +454,8 @@ int decode_attention(const void* q, const void* k, const void* v,
   a.v = (const __nv_bfloat16*)v;
   a.sl = sl; a.sb = sb; a.sh = sh; a.ss = ss;
   a.layer = layer; a.batch = batch; a.hkv = hkv; a.g = g; a.d = d;
+  a.gc = gc;
+  a.chunks = (g + gc - 1) / gc;
   a.past_len = (const int*)past_len;
   a.past_len_stride = past_len_stride;
   a.limit = limit; a.window = window;
@@ -454,7 +468,7 @@ int decode_attention(const void* q, const void* k, const void* v,
   a.pml = (float*)pml;
   a.count = (int*)count;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(batch * hkv, splits);
+  const dim3 grid(batch * hkv * a.chunks, splits);
   if (d <= 32) return (int)launch_g<4>(a, grid, st);
   if (d <= 64) return (int)launch_g<8>(a, grid, st);
   if (d <= 128) return (int)launch_g<16>(a, grid, st);

@@ -29,7 +29,11 @@
 // sequences of 152 rows, 32 KV heads: 39.9 MB per layer, 11.9 us).
 //
 // Design:
-//   * split over the sequence: the grid is (batch * Hkv, splits) and split
+//   * the G query heads of a KV head are cut into `chunks` of at most gc
+//     heads (gc <= 16, gc * D <= 2048; ops/decode_attn.head_chunks); a block
+//     attends for one chunk and reads the K/V rows once a chunk;
+//   * split over the sequence: the grid is (batch * Hkv * chunks, splits)
+//     and split
 //     r takes positions [r*per, (r+1)*per), per a multiple of 16 rows that
 //     may cross page boundaries (ops/paged_attn.split_count picks splits
 //     and per from the block table's width and the SM count, never from
@@ -42,7 +46,8 @@
 //     groups; masking goes by position, never by page index (page 0 is the
 //     null page of pad rows), and rows outside the live range are never
 //     read.
-//   * the splits of one (sequence, KV head) form a thread-block cluster.
+//   * the splits of one (sequence, KV head, chunk) form a thread-block
+//     cluster.
 //     Each block scores its rows into shared memory and publishes T (the
 //     max of its scores) and F (the max of its rows in its first page) per
 //     query head. After a cluster barrier every block reads those of the
@@ -80,7 +85,7 @@
 //     (a bucket past 16 * 8192 / G positions) keeps the max pass but
 //     scores its rows again, window by window, in the P.V pass (K read
 //     twice). Windows hold whole pages, so a page's max is known in one.
-//   * G is a template bucket (1, 4 or 16 heads per KV head) so the per-head
+//   * gc is a template bucket (1, 4 or 16 heads a chunk) so the per-head
 //     loops unroll to what the model needs.
 
 #include <cooperative_groups.h>
@@ -123,6 +128,7 @@ struct Args {
   const int* bt;                    // [B, pw]
   const int* vl;                    // [B]
   int layer, hkv, g, d, rows, ps, pw, window;
+  int gc, chunks;                   // heads of a chunk; chunks a KV head
   float scale, softcap, inv_softcap;
   float* out;                       // [B, Hq, D]
   int per;                          // positions of a split (multiple of 16)
@@ -136,6 +142,7 @@ struct Args {
 // what a block knows of its split
 struct Blk {
   int b, h, rank;
+  int g;                            // query heads of this block's chunk
   int r_lo, r_hi;                   // the cluster's live ranks [r_lo, r_hi)
   int a0, a1;                       // live positions [a0, a1)
   int a0a, a1a;                     // aligned out to 16
@@ -431,7 +438,7 @@ __device__ __forceinline__ void score_chunk(const Args& a, const Blk& k,
       x = kch >= 8 ? a.tpr * (i % (8 / a.tpr))
                    : a.tpr * ((i / (8 / kch)) % (kch / a.tpr));
     for (int c = part; c < kch; c += a.tpr)
-      dot_chunk<KK, GB>(kr[c ^ x], c ^ x, a.d, a.g, qs, sr, ps);
+      dot_chunk<KK, GB>(kr[c ^ x], c ^ x, a.d, k.g, qs, sr, ps);
   }
   for (int o = a.tpr >> 1; o > 0; o >>= 1) {
 #pragma unroll
@@ -442,7 +449,7 @@ __device__ __forceinline__ void score_chunk(const Args& a, const Blk& k,
     const bool ok = pos >= k.a0 && pos < k.a1;
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
-      if (g < a.g) {
+      if (g < k.g) {
         float s = ps[g] * a.scale;
         if (a.softcap > 0.f) s = tanhf(s * a.inv_softcap) * a.softcap;
         sc[g * a.wr + pos - ws] = ok ? s : NEG;
@@ -472,7 +479,7 @@ __device__ __forceinline__ void pv_chunk(const Args& a, const Blk& k, int c0,
     v_elems<VK>(st + i * vb, sbuf + i * (a.d / 32), d0, a.d, x);
 #pragma unroll
     for (int g = 0; g < GB; ++g) {
-      if (g < a.g) {
+      if (g < k.g) {
         const float w = sc[g * a.wr + pos - ws];
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[g][e] = fmaf(w, x[e], acc[g][e]);
@@ -504,15 +511,18 @@ __global__ void __launch_bounds__(THREADS, min_blocks(GB))
   float* sc = reinterpret_cast<float*>(smem + a.off_sc);
   cg::cluster_group cluster = cg::this_cluster();
 
-  const int G = a.g, D = a.d, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
   Blk k;
-  k.b = blockIdx.x / a.hkv;
-  k.h = blockIdx.x % a.hkv;
+  k.b = blockIdx.x / (a.hkv * a.chunks);
+  k.h = blockIdx.x / a.chunks % a.hkv;
+  const int chunk = blockIdx.x % a.chunks;
+  k.g = min(a.gc, a.g - chunk * a.gc);
+  const int G = k.g, D = a.d, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
   k.rank = (int)cluster.block_rank();
   k.head = (size_t)a.layer * a.hkv + k.h;
-  const int hq = a.hkv * G;
-  const size_t qoff = ((size_t)k.b * hq + (size_t)k.h * G) * D;
+  const int hq = a.hkv * a.g;
+  const size_t qoff =
+      ((size_t)k.b * hq + (size_t)k.h * a.g + (size_t)chunk * a.gc) * D;
   for (int i = tid; i < G * D; i += THREADS)
     qs[i] = __bfloat162float(a.q[qoff + i]);
   if (tid < G) {
@@ -767,8 +777,8 @@ int launch(const Args& a, int blocks, int splits, int smem, cudaStream_t st) {
 template <int KK, int VK>
 int launch_g(const Args& a, int blocks, int splits, int smem,
              cudaStream_t st) {
-  if (a.g == 1) return launch<KK, VK, 1>(a, blocks, splits, smem, st);
-  if (a.g <= 4) return launch<KK, VK, 4>(a, blocks, splits, smem, st);
+  if (a.gc == 1) return launch<KK, VK, 1>(a, blocks, splits, smem, st);
+  if (a.gc <= 4) return launch<KK, VK, 4>(a, blocks, splits, smem, st);
   return launch<KK, VK, 16>(a, blocks, splits, smem, st);
 }
 
@@ -785,21 +795,23 @@ const char* error_string(int e) {
 // bf16 scales [L, Hkv, rows, D/32] (null for bf16 / fp8, else 16-byte
 // aligned); block_table [B, pw] and valid_lens [B] int32; out [B, Hq, D] f32.
 // splits (<= 16) blocks of a cluster take `per` positions each (a multiple
-// of 16; the last split may be shorter). Requires D % 32 == 0, D <= 256,
-// 1 <= G <= 16, G * D <= 2048, page <= 256 and a multiple of 16, and the
+// of 16; the last split may be shorter); the G query heads of a KV head go
+// to ceil(G / gc) chunks of at most gc heads. Requires D % 32 == 0, D <= 256,
+// 1 <= gc <= 16, gc * D <= 2048, page <= 256 and a multiple of 16, and the
 // supported kind pairs (bf16, bf16), (fp8, fp8), (q8, q8), (q4, q4),
 // (q8, q4). Returns the cudaError_t of the launch (0 on success).
 int paged_decode_attention(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs, const void* bt,
                            const void* vl, int layer, int batch, int hkv,
-                           int g, int d, int rows, int page, int pw,
+                           int g, int gc, int d, int rows, int page, int pw,
                            float scale, float softcap, int window, int kk,
                            int vk, int splits, int per, void* out,
                            void* stream) {
   const auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
   };
-  if (d % 32 || d > 256 || g < 1 || g > MAX_G || g * d > MAX_GD ||
+  if (d % 32 || d > 256 || g < 1 || gc < 1 || gc > MAX_G ||
+      gc * d > MAX_GD ||
       page < 16 || page > 256 || page % 16 || batch < 1 || hkv < 1 ||
       pw < 1 || kk < BF16 || kk > Q4 || vk < BF16 || vk > Q4 ||
       misaligned(k) || misaligned(v) ||
@@ -818,6 +830,8 @@ int paged_decode_attention(const void* q, const void* k, const void* v,
   a.bt = (const int*)bt;
   a.vl = (const int*)vl;
   a.layer = layer; a.hkv = hkv; a.g = g; a.d = d; a.rows = rows;
+  a.gc = gc;
+  a.chunks = (g + gc - 1) / gc;
   a.ps = page; a.pw = pw; a.window = window;
   a.scale = scale;
   a.softcap = softcap;
@@ -843,17 +857,17 @@ int paged_decode_attention(const void* q, const void* k, const void* v,
   a.stage_bytes = (rowsz + scl + 15) & ~15;
   // scores: a window of wr rows (>= page, whole pages when it is not the
   // split's whole live range)
-  int cap = (SC_FLOATS / g) & ~15;
+  int cap = (SC_FLOATS / gc) & ~15;
   if (cap < page) cap = page;
   a.wr = per < cap ? per : cap;
-  a.off_ring = (g * d * 4 + 15) & ~15;
+  a.off_ring = (gc * d * 4 + 15) & ~15;
   int ring = NST * a.stage_bytes;
-  if (ring < g * d * 4) ring = g * d * 4;           // the merge buffer
+  if (ring < gc * d * 4) ring = gc * d * 4;         // the merge buffer
   a.off_sc = a.off_ring + ring;
-  const int smem = a.off_sc + g * a.wr * 4;
+  const int smem = a.off_sc + gc * a.wr * 4;
   if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = batch * hkv;
+  const int blocks = batch * hkv * a.chunks;
   if (kk == BF16 && vk == BF16)
     return launch_g<BF16, BF16>(a, blocks, splits, smem, st);
   if (kk == FP8 && vk == FP8)

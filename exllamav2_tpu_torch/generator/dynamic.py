@@ -74,7 +74,18 @@ rows), data of the step and never part of a graph key, so text and image
 jobs share one captured step. Multimodal and MRoPE jobs take no part in the
 batched prefill, and multimodal jobs none in speculative rounds.
 
-Not ported yet (raises NotImplementedError when asked for): mesh.
+``mesh=`` (parallel/sharding.make_mesh) serves a tensor-parallel shard on
+each rank of the mesh's TP group: every rank runs this generator on the same
+jobs in lockstep, its model the rank's shard (parallel/sharding.shard_model:
+split linears, attention on the rank's KV heads, expert-parallel MoE) and
+its cache the rank's KV heads; the gathered logits are the same bytes on
+every rank and the samplers are seeded alike, so the scheduler needs no
+traffic of its own. ``_tp_fused`` says whether everything split (dp = 1 and
+parallel/sharding.tp_fusable), else what does not split stays whole on every
+rank. On a mesh the steps run eagerly (a gloo collective cannot be captured
+in a CUDA graph), merged_weights and w4a8 are ignored with a warning, the
+draft model of speculative decoding is replicated, and ``set_loras`` wraps
+the rank's shard (parallel/sharding.lora_wrap_tp).
 """
 
 from __future__ import annotations
@@ -117,19 +128,6 @@ def _bucket(n: int, lo: int = 1) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def _unported(what: str):
-    raise NotImplementedError(f"{what} is not ported to exllamav2_tpu_torch "
-                              "yet")
-
-
-def _given(val) -> bool:
-    """An optional argument that asks for something (not None / False /
-    an empty list)."""
-    if val is None or val is False:
-        return False
-    return not (isinstance(val, (list, tuple)) and len(val) == 0)
 
 
 class CachePage:
@@ -293,11 +291,27 @@ class DynamicGenerator:
         the decode steps as CUDA graphs (default: on a card device); False
         runs them eagerly. use_ngram_draft, or draft_model with a
         draft_cache over the same number of pages: speculative decoding
-        with num_draft_tokens drafts a round."""
-        if _given(mesh):
-            _unported("DynamicGenerator(mesh=...)")
+        with num_draft_tokens drafts a round. mesh: serve this rank's
+        tensor-parallel shard (module docstring); model and cache are the
+        whole model's, on the mesh's device."""
         from exllamav2_tpu_torch.models.model import Model
         from exllamav2_tpu_torch.ops import dequant as D
+        import warnings
+        self.mesh = mesh
+        self._tp_fused = False
+        if mesh is not None:
+            from exllamav2_tpu_torch.parallel.sharding import Mesh
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh={mesh!r}: want a "
+                                "parallel.sharding.Mesh (make_mesh)")
+            for flag, name in ((merged_weights, "merged_weights"),
+                               (w4a8, "w4a8")):
+                if flag:
+                    warnings.warn(f"DynamicGenerator: {name} is not "
+                                  "supported with mesh=; ignoring",
+                                  stacklevel=2)
+            merged_weights = w4a8 = False
+            graphs = False
         if decode_burst is None:
             decode_burst = int(os.environ.get("DECODE_BURST", 8))
         self.decode_burst = int(decode_burst)
@@ -319,6 +333,14 @@ class DynamicGenerator:
         if w4a8:
             model = Model(D.enable_w4a8(model.weights), model.static,
                           model.config)
+        if mesh is not None:
+            from exllamav2_tpu_torch.parallel import sharding as S
+            self._tp_fused = mesh.dp == 1 and S.tp_fusable(
+                model.weights, model.static, mesh.tp)
+            w, st = S.shard_model(model.weights, model.static, mesh)
+            if S.heads_split(w):
+                cache = S.shard_paged_cache(cache, mesh)
+            model = Model(w, st, model.config, graphs=False)
         self.model = model
         self.device = torch.device(device) if device is not None \
             else model.device
@@ -549,6 +571,11 @@ class DynamicGenerator:
                 a is b for a, b in zip(requested, active)):
             return
         w = remove_lora(self.model.weights)
+        if self.mesh is not None:
+            from exllamav2_tpu_torch.parallel.sharding import lora_wrap_tp
+            apply = functools.partial(lora_wrap_tp, mesh=self.mesh)
+        else:
+            apply = apply_lora
         if requested:
             # the forward prefers a merged stream, which would bypass the
             # wrapped q/k/v and gate/up
@@ -556,7 +583,7 @@ class DynamicGenerator:
         elif self._merged_weights:
             w = D.merge_serving_weights(w)
         for lora in requested:
-            w = apply_lora(w, lora)
+            w = apply(w, lora)
         self.model = type(self.model)(w, self.model.static,
                                       self.model.config)
         if self.step_graphs is not None:

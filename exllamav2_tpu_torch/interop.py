@@ -18,8 +18,8 @@ import torch
 
 from exllamav2_tpu_torch.device import resolve_device
 from exllamav2_tpu_torch.models.modules import (
-    AttnWeights, LayerStatic, LayerWeights, MLPWeights, MoEWeights,
-    ModelWeights, NormWeights, StaticModel)
+    AttnWeights, EPMoEWeights, LayerStatic, LayerWeights, MLPWeights,
+    MoEWeights, ModelWeights, NormWeights, StaticModel)
 from exllamav2_tpu_torch.quant.qtensor import (
     DenseLinear, GptqSegment, QuantLinear, QuantSegment)
 
@@ -105,7 +105,37 @@ def _static(st) -> StaticModel:
     kw = _port_fields(st, StaticModel)
     kw["layers"] = tuple(LayerStatic(**_port_fields(ls, LayerStatic))
                          for ls in st.layers)
+    # the reference's tp_axis names a jax mesh axis; the port's holds a
+    # mesh, which the generator sets when it shards
+    kw["tp_axis"] = None
     return StaticModel(**kw)
+
+
+def _expert(stacked, e: int):
+    """Expert e of a reference linear whose arrays carry a leading expert
+    axis (EPMoEWeights): every array indexed at e, the rest kept."""
+    if isinstance(stacked, np.ndarray):
+        return stacked[e]
+    if isinstance(stacked, (tuple, list)):
+        return type(stacked)(_expert(x, e) for x in stacked)
+    if dataclasses.is_dataclass(stacked):
+        return dataclasses.replace(stacked, **{
+            f.name: _expert(getattr(stacked, f.name), e)
+            for f in dataclasses.fields(stacked) if f.init})
+    return stacked
+
+
+def _num_stacked(stacked) -> int:
+    """The length of the expert axis of a stacked reference linear."""
+    if isinstance(stacked, np.ndarray):
+        return stacked.shape[0]
+    fields = stacked if isinstance(stacked, (tuple, list)) else [
+        getattr(stacked, f.name) for f in dataclasses.fields(stacked)]
+    for x in fields:
+        if isinstance(x, np.ndarray) or dataclasses.is_dataclass(x) or (
+                isinstance(x, (tuple, list)) and x):
+            return _num_stacked(x)
+    raise ValueError("no array in a stacked linear")
 
 
 def weights_from_reference(w, st, *, device=None
@@ -114,8 +144,11 @@ def weights_from_reference(w, st, *, device=None
     package's (ModelWeights, StaticModel) on `device` (the card by
     default). Per-head and post norms, learned positions, the alternate
     rope tables and block-sparse MoE layers come along (a tuple of expert
-    linears becomes an nn.ModuleList); expert-parallel MoE (EPMoEWeights,
-    stacked experts over a mesh) is not ported and raises."""
+    linears becomes an nn.ModuleList); an expert-parallel layer
+    (EPMoEWeights, arrays stacked on a leading expert axis) becomes an
+    EPMoEWeights holding every expert (first 0). A reference StaticModel's
+    tp_axis (a jax mesh axis name) becomes None: the port's model is whole
+    until DynamicGenerator(mesh=) shards it."""
     device = resolve_device(device)
 
     def lin(x):
@@ -144,9 +177,12 @@ def weights_from_reference(w, st, *, device=None
                              [lin(x) for x in mw.w3],
                              norm_post=norm(mw.norm_post))
         else:
-            raise NotImplementedError(
-                f"{type(mw).__name__} (expert-parallel MoE) is not ported "
-                "yet")
+            ne = _num_stacked(mw.w1)
+            mlp = EPMoEWeights(
+                _norm(mw.norm, device), lin(mw.router),
+                *([lin(_expert(g, e)) for e in range(ne)]
+                  for g in (mw.w1, mw.w2, mw.w3)),
+                norm_post=norm(mw.norm_post), num_experts=ne)
         layers.append(LayerWeights(attn, mlp))
     out = ModelWeights(to_tensor(w.embed, device), layers,
                        _norm(w.final_norm, device),

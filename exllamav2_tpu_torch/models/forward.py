@@ -27,6 +27,14 @@ row routed here?) and an expert with no routed row streams no weights;
 mid-size batches (and the CPU) run every expert on every row and mix by the
 routing weights; from max(64, 2E) rows a capacity dispatch gathers each
 expert's routed rows into a static [E, C] buffer.
+
+On a tensor-parallel rank (``st.tp_axis``, a parallel/sharding.Mesh, with
+the rank's shard from parallel/sharding.shard_model) the output of every
+column-split linear, and of attention over the rank's heads, is gathered
+over the TP group and sliced to its logical width (``_tp_gather``); an
+expert-parallel MoE layer (``moe_ep_forward``) runs the rank's experts and
+sums the ranks' outputs with one all_reduce. Merged q|k|v and gate|up
+streams are not taken under TP.
 """
 
 from __future__ import annotations
@@ -38,17 +46,18 @@ import torch.nn.functional as Fn
 from exllamav2_tpu_torch.architecture import RopeStyle
 from exllamav2_tpu_torch.cache import KVCache
 from exllamav2_tpu_torch.models.modules import (
-    AttnWeights, MLPWeights, MoEWeights, ModelWeights, NormWeights,
-    StaticModel)
+    AttnWeights, EPMoEWeights, MLPWeights, MoEWeights, ModelWeights,
+    NormWeights, StaticModel)
 from exllamav2_tpu_torch.ops.decode_attn import decode_attention
 from exllamav2_tpu_torch.ops.paged_attn import (
     gqa_scores, gqa_values, paged_attention)
 from exllamav2_tpu_torch.ops.qmm import gate_capable, linear_apply
 from exllamav2_tpu_torch.ops.rope import apply_rope
+from exllamav2_tpu_torch.parallel.sharding import split_width
 
 __all__ = ["norm_apply", "attn_forward", "mlp_forward", "moe_forward",
-           "model_forward", "attn_forward_paged", "model_forward_paged",
-           "set_moe_dispatch"]
+           "moe_ep_forward", "model_forward", "attn_forward_paged",
+           "model_forward_paged", "set_moe_dispatch"]
 
 _NEG = -1e30
 
@@ -89,6 +98,18 @@ def _fz(st: StaticModel):
     return None if st.fused_matmul else False
 
 
+def _tp_gather(x: torch.Tensor, st: StaticModel, lin) -> torch.Tensor:
+    """x, the output of `lin` on this rank (or of attention over the heads
+    of the rank's q shard), gathered over the TP group on its last axis
+    and sliced to the whole linear's logical width: a lane-padded linear's
+    column shards reassemble into the padded array, pad at the end. A
+    linear that is not split (or no mesh) gives x back."""
+    width = split_width(lin) if st.tp_axis is not None else 0
+    if not width:
+        return x
+    return st.tp_axis.all_gather(x)[..., :width]
+
+
 def norm_apply(x: torch.Tensor, w: NormWeights, st: StaticModel) -> torch.Tensor:
     """RMS or LayerNorm in f32, returned in x's dtype."""
     xf = x.float()
@@ -127,7 +148,7 @@ def _attn_qkv(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     hq, hkv, hd = st.num_heads, st.num_kv_heads, st.head_dim
     hidden = norm_apply(x, aw.norm, st)
     h2 = hidden.reshape(b * t, d)
-    if aw.qkv is not None:
+    if aw.qkv is not None and st.tp_axis is None:
         # merged fast path: one weight stream and one launch for q|k|v
         nq, nkv = hq * hd, hkv * hd
         y = linear_apply(h2, aw.qkv, fused=_fz(st))
@@ -185,9 +206,10 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
         out = decode_attention(q[:, 0], cache.k, cache.v, layer, past_len,
                                attn_limit, float(scale),
                                float(st.attn_logit_softcap), int(window))
-        out = out.to(torch.bfloat16).reshape(b, hq * hd)
-        out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, 1, -1)
-        return _post(out, aw, st), cache
+        out = _tp_gather(out.to(torch.bfloat16).reshape(b, hq * hd), st,
+                         aw.q)
+        out = _tp_gather(linear_apply(out, aw.o, fused=_fz(st)), st, aw.o)
+        return _post(out.reshape(b, 1, -1), aw, st), cache
 
     ck, cv = cache.layer(layer)                           # [B, Hkv, S, D]
     if attn_limit is not None and attn_limit < ck.shape[2]:
@@ -211,9 +233,10 @@ def attn_forward(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
     scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
 
     out = gqa_values(torch.softmax(scores, dim=-1), cv)
-    out = out.to(torch.bfloat16).reshape(b * t, hq * hd)
-    out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, t, -1)
-    return _post(out, aw, st), cache
+    out = _tp_gather(out.to(torch.bfloat16).reshape(b * t, hq * hd), st,
+                     aw.q)
+    out = _tp_gather(linear_apply(out, aw.o, fused=_fz(st)), st, aw.o)
+    return _post(out.reshape(b, t, -1), aw, st), cache
 
 
 def _post(out: torch.Tensor, w, st: StaticModel) -> torch.Tensor:
@@ -235,7 +258,8 @@ def mlp_forward(x: torch.Tensor, mw: MLPWeights, st: StaticModel) -> torch.Tenso
     """Gated/ungated MLP -> [B, T, d] f32."""
     b, t, d = x.shape
     hidden = norm_apply(x, mw.norm, st).reshape(b * t, d)
-    if mw.gate_up is not None and st.mlp_gated and mw.gate is not None:
+    if (mw.gate_up is not None and st.tp_axis is None and st.mlp_gated
+            and mw.gate is not None):
         # merged fast path: gate|up in one weight stream
         y = linear_apply(hidden, mw.gate_up, fused=_fz(st))
         half = mw.gate_up.n // 2
@@ -247,7 +271,9 @@ def mlp_forward(x: torch.Tensor, mw: MLPWeights, st: StaticModel) -> torch.Tenso
             inter = _act(gate, st.mlp_act) * up
         else:
             inter = _act(up, st.mlp_act)
-    out = linear_apply(inter.to(torch.bfloat16), mw.down, fused=_fz(st))
+    inter = _tp_gather(inter.to(torch.bfloat16), st, mw.up)
+    out = _tp_gather(linear_apply(inter, mw.down, fused=_fz(st)), st,
+                     mw.down)
     return _post(out.reshape(b, t, -1), mw, st)
 
 
@@ -294,14 +320,15 @@ def _expert(hb: torch.Tensor, mw: MoEWeights, e: int, st: StaticModel,
     return linear_apply(inter, mw.w2[e], fused=_fz(st), gate=gate)
 
 
-def _moe_dispatch(hb: torch.Tensor, mix: torch.Tensor, mw: MoEWeights,
-                  st: StaticModel) -> torch.Tensor:
+def _moe_dispatch(hb: torch.Tensor, mix: torch.Tensor, mw,
+                  st: StaticModel, first: int = 0) -> torch.Tensor:
     """Capacity dispatch: each expert runs on its routed rows only, up to
     C = min(ceil8(ceil(BT * topk * CF / E)), BT), in static [E, C] buffers.
     A row's slot is the running count of the rows routed to the expert
-    before it; routes past C drop that expert's term (counted); empty
-    slots point at a zero sentinel row, and the combine is an f32
-    scatter-add."""
+    before it; routes past C drop that expert's term (counted over every
+    expert); empty slots point at a zero sentinel row, and the combine is
+    an f32 scatter-add. mw holds experts first .. of the E (all of them
+    but on an expert-parallel rank)."""
     bt, d = hb.shape
     ne = st.num_experts
     cap = int(np.ceil(bt * st.num_experts_per_tok
@@ -320,11 +347,40 @@ def _moe_dispatch(hb: torch.Tensor, mix: torch.Tensor, mw: MoEWeights,
     hpad = torch.cat([hb, hb.new_zeros((1, d))])              # sentinel row
     mixp = torch.cat([mix, mix.new_zeros((1, ne))])
     out = torch.zeros((bt + 1, d), dtype=torch.float32, device=hb.device)
-    for e in range(ne):
-        idx = disp[e]
-        y = _expert(hpad[idx], mw, e, st)                     # [C, d]
-        out.index_add_(0, idx, y * mixp[idx, e][:, None])
+    for i in range(len(mw.w1)):
+        idx = disp[first + i]
+        y = _expert(hpad[idx], mw, i, st)                     # [C, d]
+        out.index_add_(0, idx, y * mixp[idx, first + i][:, None])
     return out[:bt]
+
+
+def _moe_sum(x: torch.Tensor, mw, st: StaticModel,
+             first: int = 0) -> torch.Tensor:
+    """The routed sum over mw's experts (experts first .. of the E) ->
+    f32 [B * T, d]; moe_forward's regimes."""
+    b, t, d = x.shape
+    bt = b * t
+    hidden = norm_apply(x, mw.norm, st).reshape(bt, d)
+    mix = _route(hidden, mw, st)
+    hb = hidden.to(torch.bfloat16)
+    sparse = (bt <= 32 and (x.is_cuda or _FORCE_SPARSE_MOE[0])
+              and not _FORCE_DENSE_MOE[0] and st.fused_matmul
+              and gate_capable([*mw.w1, *mw.w2, *mw.w3]))
+    if (not sparse
+            and bt >= max(_MOE_DISPATCH_MIN_TOKENS[0], 2 * st.num_experts)
+            and st.num_experts_per_tok < st.num_experts):
+        return _moe_dispatch(hb, mix, mw, st, first)
+    gates = (mix > 0).any(dim=0).to(torch.int32) if sparse else None
+    if sparse and _MOE_GATES[0] is not None:
+        _MOE_GATES[0].append(gates)
+    out = None
+    for i in range(len(mw.w1)):
+        e = first + i
+        y = _expert(hb, mw, i, st,
+                    gate=gates[e:e + 1] if sparse else None)
+        y = y * mix[:, e:e + 1]
+        out = y if out is None else out + y
+    return out
 
 
 def moe_forward(x: torch.Tensor, mw: MoEWeights,
@@ -339,28 +395,22 @@ def moe_forward(x: torch.Tensor, mw: MoEWeights,
     (dense, W4A8, scales-on-partials, LoRA) take the dense formulation.
     Mid-size batches: every expert on every row, mixed by the routing
     weights. From max(64, 2E) rows (top-k < E): the capacity dispatch."""
-    b, t, d = x.shape
-    bt = b * t
-    hidden = norm_apply(x, mw.norm, st).reshape(bt, d)
-    mix = _route(hidden, mw, st)
-    hb = hidden.to(torch.bfloat16)
-    sparse = (bt <= 32 and (x.is_cuda or _FORCE_SPARSE_MOE[0])
-              and not _FORCE_DENSE_MOE[0] and st.fused_matmul
-              and gate_capable([*mw.w1, *mw.w2, *mw.w3]))
-    if (not sparse
-            and bt >= max(_MOE_DISPATCH_MIN_TOKENS[0], 2 * st.num_experts)
-            and st.num_experts_per_tok < st.num_experts):
-        out = _moe_dispatch(hb, mix, mw, st)
-        return _post(out.reshape(b, t, -1), mw, st)
-    gates = (mix > 0).any(dim=0).to(torch.int32) if sparse else None
-    if sparse and _MOE_GATES[0] is not None:
-        _MOE_GATES[0].append(gates)
-    out = None
-    for e in range(st.num_experts):
-        y = _expert(hb, mw, e, st,
-                    gate=gates[e:e + 1] if sparse else None)
-        y = y * mix[:, e:e + 1]
-        out = y if out is None else out + y
+    b, t, _ = x.shape
+    return _post(_moe_sum(x, mw, st).reshape(b, t, -1), mw, st)
+
+
+def moe_ep_forward(x: torch.Tensor, mw: EPMoEWeights,
+                   st: StaticModel) -> torch.Tensor:
+    """Expert-parallel MoE: x [B, T, d] -> [B, T, d] f32. The rank runs its
+    whole experts mw.first .. on the replicated hidden state, in
+    moe_forward's regimes (the routing is every rank's, from the replicated
+    router), and one all_reduce of the [BT, d] f32 sum over the TP group
+    adds the ranks' experts. With top-2 routing a row's sum has two nonzero
+    terms, so it is bitwise the one-process sum."""
+    b, t, _ = x.shape
+    out = _moe_sum(x, mw, st, mw.first)
+    if st.tp_axis is not None:
+        out = st.tp_axis.all_reduce(out)
     return _post(out.reshape(b, t, -1), mw, st)
 
 
@@ -374,6 +424,8 @@ def _residual_add(x, out, st):
 
 
 def _ffn(x, mlp, st):
+    if isinstance(mlp, EPMoEWeights):
+        return moe_ep_forward(x, mlp, st)
     if isinstance(mlp, MoEWeights):
         return moe_forward(x, mlp, st)
     return mlp_forward(x, mlp, st)
@@ -470,9 +522,10 @@ def attn_forward_paged(x: torch.Tensor, aw: AttnWeights, st: StaticModel,
                           scale=scale, window=window,
                           softcap=st.attn_logit_softcap,
                           allow_kernel=st.fused_matmul)
-    out = out.to(torch.bfloat16).reshape(b * t, hq * hd)
-    out = linear_apply(out, aw.o, fused=_fz(st)).reshape(b, t, -1)
-    return _post(out, aw, st), cache
+    out = _tp_gather(out.to(torch.bfloat16).reshape(b * t, hq * hd), st,
+                     aw.q)
+    out = _tp_gather(linear_apply(out, aw.o, fused=_fz(st)), st, aw.o)
+    return _post(out.reshape(b, t, -1), aw, st), cache
 
 
 def model_forward_paged(w: ModelWeights, st: StaticModel, ids: torch.Tensor,
@@ -527,8 +580,8 @@ def _head(w: ModelWeights, st: StaticModel, x: torch.Tensor,
         x = x[:, -1:, :]
     x = norm_apply(x, w.final_norm, st)
     bt = x.shape[0] * x.shape[1]
-    logits = linear_apply(x.reshape(bt, st.hidden_size), w.head,
-                          fused=_fz(st)).float()
+    logits = _tp_gather(linear_apply(x.reshape(bt, st.hidden_size), w.head,
+                                     fused=_fz(st)).float(), st, w.head)
     logits = logits.reshape(x.shape[0], x.shape[1], -1)
     if st.logit_scale != 1.0:
         logits = logits * st.logit_scale

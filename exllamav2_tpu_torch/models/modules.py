@@ -14,7 +14,8 @@ import dataclasses
 from torch import nn
 
 __all__ = ["NormWeights", "AttnWeights", "MLPWeights", "MoEWeights",
-           "LayerWeights", "ModelWeights", "StaticModel", "LayerStatic"]
+           "EPMoEWeights", "LayerWeights", "ModelWeights", "StaticModel",
+           "LayerStatic"]
 
 
 class NormWeights(nn.Module):
@@ -70,6 +71,29 @@ class MoEWeights(nn.Module):
         self.norm_post = norm_post
 
 
+class EPMoEWeights(nn.Module):
+    """Expert-parallel MoE: this rank's whole experts, `first` ..
+    first + len(w1) - 1 of the model's `num_experts` (E / tp each, in rank
+    order), as nn.ModuleLists; the router is dense and replicated. The
+    forward (models/forward.moe_ep_forward) runs the local experts on the
+    replicated hidden state and sums the ranks' outputs with one
+    all_reduce. With first = 0 and every expert it is the whole layer on
+    one process."""
+
+    def __init__(self, norm, router, w1, w2, w3, norm_post=None,
+                 first: int = 0, num_experts: int | None = None):
+        super().__init__()
+        self.norm = norm
+        self.router = router
+        self.w1 = nn.ModuleList(w1)
+        self.w2 = nn.ModuleList(w2)
+        self.w3 = nn.ModuleList(w3)
+        self.norm_post = norm_post
+        self.first = int(first)
+        self.num_experts = len(w1) if num_experts is None \
+            else int(num_experts)
+
+
 class LayerWeights(nn.Module):
     def __init__(self, attn: AttnWeights, mlp):
         super().__init__()
@@ -109,8 +133,12 @@ class LayerStatic:
 @dataclasses.dataclass(frozen=True)
 class StaticModel:
     """Static model description: the reference's fields that this package's
-    forward reads (tensor-parallel meshes are not ported: interop refuses a
-    tp_axis)."""
+    forward reads.
+
+    tp_axis is the tensor-parallel mesh (parallel/sharding.Mesh) of a
+    rank's shard, or None: head counts are then the rank's own where
+    attention is split (parallel/sharding.local_static), and the forward
+    gathers the outputs of every split linear over the mesh's TP group."""
     num_layers: int
     num_heads: int
     num_kv_heads: int
@@ -136,6 +164,7 @@ class StaticModel:
     learned_pos_emb: bool = False     # gpt2: add pos_emb rows after embed
     # False forces the dequant + matmul path everywhere
     fused_matmul: bool = True
+    tp_axis: object = None            # parallel/sharding.Mesh, or None
     layers: tuple = ()                # tuple[LayerStatic, ...]
     # MoE
     num_experts: int = 0

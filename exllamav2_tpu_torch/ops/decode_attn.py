@@ -4,12 +4,15 @@ Counterpart of exllamav2_tpu/ops/decode_attn.py. On a card tensor the
 wrapper launches csrc/decode_attn.cu (flash-decoding: the cache rows below
 `limit` are split across blocks, `split_count` picks the split from the
 bucket and the SM count, each split runs an online softmax and the last
-block of a (batch, KV head) merges the splits); on a CPU tensor it runs the
+block of a (batch, KV head, head chunk) merges the splits; `head_chunks`
+cuts the G query heads of a KV head into blocks of at most 16, so any G
+runs); on a CPU tensor it runs the
 plain version below, which computes the reference's exp / sum softmax.
 
 Scratch of a launch with more than one split: the splits' unnormalised
 outputs f32 [splits, B, Hq, D] and their (max, sum) f32 [splits, B, Hq, 2],
-from torch.empty; and one int32 counter per (batch, KV head), kept per
+from torch.empty; and one int32 counter per (batch, KV head, head chunk),
+kept per
 (device, stream) by device.stream_counters, which the kernel leaves at 0
 (launches on one stream share it in stream order; two streams never do).
 
@@ -33,30 +36,42 @@ import torch
 from exllamav2_tpu_torch.device import sm_count, stream_counters
 
 __all__ = ["decode_attention", "decode_attention_plain", "split_count",
-           "LAUNCHES"]
+           "head_chunks", "LAUNCHES"]
 
 # launches of csrc/decode_attn.cu, counted by its wrapper
 LAUNCHES = {"decode_attn": 0}
 
 _NEG = -1e30
 
-# q, k, v, the four cache strides, layer, batch, hkv, g, d, past_len (a
+# q, k, v, the four cache strides, layer, batch, hkv, g, gc, d, past_len (a
 # device pointer), its stride, limit, scale, softcap, window, splits, rows
 # per split, out, the two scratch buffers, the counters, stream
 # (csrc/decode_attn.cu)
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] + [ctypes.c_int] * 2
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
              + [ctypes.c_void_p] * 5)
 
 _BLOCKS_PER_SM = 3      # the split fills the card with about this many
 _SPLIT_ROWS = 32        # fewest cache rows a split takes
 MAX_SPLITS = 64         # MAX_SPLITS in the source
+MAX_G, MAX_GD = 16, 2048  # heads of a block, heads x head_dim (the source's)
+
+
+def head_chunks(g: int, d: int) -> tuple[int, int]:
+    """(heads a chunk, chunks) of G query heads per KV head at head_dim d:
+    the fewest chunks of at most min(MAX_G, MAX_GD / d) heads, balanced
+    (48 at d = 128: 3 x 16; 22: 2 x 11). A block of kernels 2 and 3 attends
+    for one chunk; chunks = ceil(g / heads), so no chunk is empty."""
+    most = min(MAX_G, MAX_GD // d)
+    gc = -(-g // -(-g // most))
+    return gc, -(-g // gc)
 
 
 def split_count(batch: int, hkv: int, limit: int, sms: int
                 ) -> tuple[int, int]:
-    """(splits, rows per split) of the kernel's grid (batch * hkv, splits):
+    """(splits, rows per split) of the kernel's grid (batch * hkv, splits;
+    the caller counts every head chunk in hkv):
     about _BLOCKS_PER_SM blocks per SM, a multiple of _SPLIT_ROWS rows a
     split, at most MAX_SPLITS. A function of the bucket `limit`, not of
     past_len, so the grid is fixed for a bucket."""
@@ -112,9 +127,8 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
         raise ValueError("q, k, v must be bf16 on one device, q contiguous, "
                          "unit stride along D")
     g = hq // hkv
-    if d % 32 or d > 256 or g > 16 or g * d > 2048:
-        raise NotImplementedError(f"head_dim {d}, {g} query heads per KV "
-                                  "head")
+    if d % 32 or d > 256:
+        raise NotImplementedError(f"head_dim {d}")
     if (any(st % 8 for st in k.stride()[:4]) or k.data_ptr() % 16
             or v.data_ptr() % 16):
         raise ValueError("K/V rows must be 16-byte aligned")
@@ -135,7 +149,8 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
         if not 0 <= past_len < limit:
             raise ValueError(f"past_len {past_len}, limit {limit}")
         pl = torch.full((1,), past_len, dtype=torch.int32, device=dev)
-    splits, per = split_count(b, hkv, limit, sm_count(dev))
+    gc, chunks = head_chunks(g, d)
+    splits, per = split_count(b, hkv * chunks, limit, sm_count(dev))
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     scratch = ()
     if splits > 1:
@@ -143,11 +158,11 @@ def _kernel(q, k, v, layer, past_len, limit, scale, softcap, window):
                                device=dev),
                    torch.empty((splits, b, hq, 2), dtype=torch.float32,
                                device=dev),
-                   stream_counters(dev, b * hkv))
+                   stream_counters(dev, b * hkv * chunks))
     fn = _build.function("decode_attn", "decode_attention", _ARGTYPES)
     sl, sb, sh, ss, _ = k.stride()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), sl, sb, sh, ss,
-            layer, b, hkv, g, d, pl.data_ptr(), int(pl.numel() > 1),
+            layer, b, hkv, g, gc, d, pl.data_ptr(), int(pl.numel() > 1),
             limit, float(scale),
             float(softcap), int(window), splits, per, out.data_ptr(),
             *([t.data_ptr() for t in scratch] or [None] * 3),

@@ -6,7 +6,9 @@ Counterpart of exllamav2_tpu/ops/paged_attn.py.
   the flash-decode kernel over the block table with in-kernel dequant of the
   bf16 / fp8 / q8 / q4 kinds, split over the sequence into the blocks of a
   thread-block cluster (``split_count`` picks the split from the block
-  table's width and the SM count). On a card tensor it launches the kernel;
+  table's width and the SM count; ``decode_attn.head_chunks`` cuts the G
+  query heads of a KV head into blocks of at most 16, so any G runs). On a
+  card tensor it launches the kernel;
   on a CPU tensor it runs ``paged_decode_attention_plain``, the unsplit page
   recurrence in torch.
 * ``paged_attention`` is the attention of the paged forward: the t = 1
@@ -23,6 +25,7 @@ import torch
 
 from exllamav2_tpu_torch.cache_paged import _kinds, _raw
 from exllamav2_tpu_torch.device import sm_count
+from exllamav2_tpu_torch.ops.decode_attn import head_chunks
 from exllamav2_tpu_torch.ops.kvquant import hadamard32
 
 __all__ = ["paged_attention", "paged_decode_attention",
@@ -41,10 +44,10 @@ _DTYPE = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2,
 _PAIRS = {("bf16", "bf16"), ("fp8", "fp8"), ("q8", "q8"), ("q4", "q4"),
           ("q8", "q4")}
 
-# q, k, v, ks, vs, block_table, valid_lens, layer, batch, hkv, g, d, rows,
+# q, k, v, ks, vs, block_table, valid_lens, layer, batch, hkv, g, gc, d, rows,
 # page, pw, scale, softcap, window, kk, vk, splits, positions per split,
 # out, stream (csrc/paged_attn.cu)
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 2)
 
@@ -58,7 +61,8 @@ SCORE_FLOATS = 8192     # scores a block keeps, G x rows (SC_FLOATS)
 def split_count(batch: int, hkv: int, pw: int, page: int, sms: int,
                 g: int = 1) -> tuple[int, int]:
     """(splits, positions per split) of the kernel's grid (batch * hkv,
-    splits): split r takes positions [r*per, (r+1)*per) of the block
+    splits; the caller counts every head chunk in hkv and passes a chunk's
+    heads as g): split r takes positions [r*per, (r+1)*per) of the block
     table's pw * page, per a multiple of 16. About _BLOCKS_PER_SM blocks per
     SM, more splits where a split would pass max(SPLIT_ROWS, SPLIT_WORK / g)
     positions (one block walks its range in series, and a row costs more
@@ -170,10 +174,8 @@ def _kernel(q, k_data, v_data, layer, block_table, valid_lens, k_scales,
     if hq_in != hq or hq % hkv or tuple(kinds) not in _PAIRS:
         raise ValueError(f"q {tuple(q.shape)} hq {hq} hkv {hkv} kinds {kinds}")
     g = hq // hkv
-    if (d % 32 or d > 256 or g > 16 or g * d > 2048 or page_size > 256
-            or page_size % 16):
-        raise NotImplementedError(f"head_dim {d}, {g} query heads per KV "
-                                  f"head, page {page_size}")
+    if d % 32 or d > 256 or page_size > 256 or page_size % 16:
+        raise NotImplementedError(f"head_dim {d}, page {page_size}")
     dev = q.device
     want = [(q, torch.bfloat16), (k_data, _DTYPE[kk]), (v_data, _DTYPE[vk]),
             (block_table, torch.int32), (valid_lens, torch.int32)]
@@ -193,14 +195,16 @@ def _kernel(q, k_data, v_data, layer, block_table, valid_lens, k_scales,
                          f"{tuple(v_data.shape)}, block table "
                          f"{tuple(block_table.shape)}, layer {layer}")
     pw = block_table.shape[1]
-    splits, per = split_count(b, hkv, pw, page_size, sm_count(dev), g)
+    gc, chunks = head_chunks(g, d)
+    splits, per = split_count(b, hkv * chunks, pw, page_size,
+                              sm_count(dev), gc)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     fn = _build.function("paged_attn", "paged_decode_attention", _ARGTYPES)
     ks = k_scales.data_ptr() if kk in ("q4", "q8") else None
     vs = v_scales.data_ptr() if vk in ("q4", "q8") else None
     rc = fn(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), ks, vs,
             block_table.data_ptr(), valid_lens.data_ptr(), layer, b, hkv, g,
-            d, rows, page_size, pw, float(scale), float(softcap),
+            gc, d, rows, page_size, pw, float(scale), float(softcap),
             int(window), _KIND_CODE[kk], _KIND_CODE[vk], splits, per,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("paged_attn", rc, "paged_decode_attention")

@@ -330,17 +330,34 @@ def test_quirk_through_interop_matches_reference(quirk):
 
 
 def test_interop_refuses_expert_parallel_moe():
+    """An expert-parallel layer (the reference's EPMoEWeights, arrays
+    stacked on a leading expert axis) is no longer refused: it comes
+    through as the port's EPMoEWeights with every expert, and the port's
+    moe_ep_forward on one process equals the reference's within 1e-3 of
+    max |reference|."""
     from exllamav2_tpu.models.modules import EPMoEWeights
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.models.modules import EPMoEWeights as PortEP
     w, st = ref_weights(vocab=128, hidden=128, layers=1, heads=2, kv_heads=2,
                         inter=128, max_seq=16, seed=1, moe=2, moe_topk=1)
     mw = w.layers[0].mlp
-    ep = EPMoEWeights(norm=mw.norm, router=mw.router, w1=mw.w1[0],
-                      w2=mw.w2[0], w3=mw.w3[0])
+
+    def stack(lins):
+        return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *lins)
+
+    ep = EPMoEWeights(norm=mw.norm, router=mw.router, w1=stack(mw.w1),
+                      w2=stack(mw.w2), w3=stack(mw.w3))
     w = dataclasses.replace(w, layers=(dataclasses.replace(w.layers[0],
                                                            mlp=ep),))
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        weights_from_reference(jax.tree_util.tree_map(np.asarray, w), st,
-                               device="cpu")
+    tw, tst = weights_from_reference(jax.tree_util.tree_map(np.asarray, w),
+                                     st, device="cpu")
+    got = tw.layers[0].mlp
+    assert isinstance(got, PortEP) and len(got.w1) == 2 and got.first == 0
+    x = np.random.default_rng(3).standard_normal((2, 3, 128)).astype(
+        np.float32)
+    ref = np.asarray(RF.moe_ep_forward(jnp.asarray(x), ep, st))
+    out = F.moe_ep_forward(torch.from_numpy(x), got, tst).numpy()
+    assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("arch", ["GPT2LMHeadModel", "Gemma3ForCausalLM"])

@@ -160,3 +160,47 @@ def test_split_softmax_matches_plain_and_reference(past_len, window,
     vmax = np.abs(v[layer].astype(np.float32)).max()
     assert np.abs(got - plain).max() <= 1e-5 * vmax
     assert np.abs(got - ref).max() <= 1e-5 * vmax
+
+
+@pytest.mark.parametrize("g,d,want", [
+    (48, 128, (16, 3)), (22, 128, (11, 2)), (17, 128, (9, 2)),
+    (16, 128, (16, 1)), (8, 256, (8, 1)), (40, 256, (8, 5)),
+    (1, 64, (1, 1)), (64, 32, (16, 4))])
+def test_head_chunks_cover_every_query_head_once(g, d, want):
+    """Kernels 2 and 3 take any number of query heads a KV head: head_chunks
+    cuts G into balanced chunks of at most min(16, 2048 / d) heads, and the
+    kernels' block index (batch, KV head, chunk) -> first query head, as
+    csrc/decode_attn.cu and csrc/paged_attn.cu compute it, reaches every
+    query head exactly once, each under its own KV head."""
+    gc, chunks = TA.head_chunks(g, d)
+    assert (gc, chunks) == want
+    assert gc <= 16 and gc * d <= 2048 and (chunks - 1) * gc < g <= gc * chunks
+    b, hkv = 2, 3
+    hq = hkv * g
+    seen = []
+    for bh in range(b * hkv * chunks):
+        bb, h, c = bh // (hkv * chunks), bh // chunks % hkv, bh % chunks
+        heads = min(gc, g - c * gc)
+        head0 = bb * hq + h * g + c * gc
+        seen += [(head0 + i, h) for i in range(heads)]
+    assert sorted(i for i, _ in seen) == list(range(b * hq))
+    assert all(i % hq // g == h for i, h in seen)
+
+
+def test_multi_query_48_heads_matches_reference():
+    """StarCoder-15B's 48 query heads on one KV head (d = 128, the card's
+    kernels in three head chunks): the plain version against the
+    reference at 1e-5 of max |ref|."""
+    rng = np.random.default_rng(48)
+
+    def bf16(shape):
+        return rng.standard_normal(shape).astype(ml_dtypes.bfloat16)
+
+    q, k, v = bf16((2, 48, 128)), bf16((1, 2, 1, 256, 128)), \
+        bf16((1, 2, 1, 256, 128))
+    got = TA.decode_attention(*(to_tensor(a, "cpu") for a in (q, k, v)), 0,
+                              200, 256, 128 ** -0.5).numpy()
+    ref = np.asarray(ref_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), 0, jnp.int32(200), 256,
+                                   128 ** -0.5, 0.0, 0))
+    assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()

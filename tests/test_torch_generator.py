@@ -344,12 +344,22 @@ def test_unported_job_arguments_raise(arg):
 @pytest.mark.parametrize("arg", [
     "draft_model", "draft_cache", "use_ngram_draft", "mesh"])
 def test_unported_generator_arguments_raise(model, arg):
-    """mesh= still raises; the speculative options are ported: a draft
-    model needs a draft cache over the main cache's pages, the n-gram
-    drafter needs nothing."""
+    """Every one of these is ported now. mesh= takes a
+    parallel/sharding.Mesh (anything else raises); a one-rank mesh serves
+    the plain tokens (tests/test_torch_sharding.py runs real ranks). The
+    speculative options: a draft model needs a draft cache over the main
+    cache's pages, the n-gram drafter needs nothing."""
     if arg == "mesh":
-        with pytest.raises(NotImplementedError, match=arg):
+        from exllamav2_tpu_torch.parallel.sharding import Mesh
+        with pytest.raises(TypeError, match=arg):
             _gen(model, mesh=True)
+        one = Mesh(tp=1, dp=1, rank=0, tp_rank=0, dp_rank=0, tp_group=None,
+                   dp_group=None, backend="gloo", device=torch.device("cpu"))
+        gen = _gen(model, mesh=one)
+        assert not gen._tp_fused and gen.step_graphs is None
+        kw = dict(max_new_tokens=6, settings=Settings.greedy())
+        assert gen.generate("hello", **kw) == _gen(model).generate(
+            "hello", **kw)
     elif arg == "draft_model":
         with pytest.raises(ValueError, match="draft_cache"):
             _gen(model, draft_model=model)

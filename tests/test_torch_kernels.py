@@ -228,7 +228,9 @@ def test_partials_kernel_matches_plain(dev, bits, gs, m, monkeypatch):
 @pytest.mark.parametrize("hq,hkv,d,past,cap,win", [
     (8, 8, 128, 0, 0.0, 0), (8, 2, 128, 100, 0.0, 0),
     (8, 2, 128, 255, 20.0, 0), (16, 4, 128, 300, 0.0, 64),
-    (8, 1, 64, 77, 0.0, 0), (4, 2, 256, 130, 0.0, 0)])
+    (8, 1, 64, 77, 0.0, 0), (4, 2, 256, 130, 0.0, 0),
+    (48, 1, 128, 300, 0.0, 0), (22, 1, 128, 511, 20.0, 0),
+    (40, 2, 256, 200, 0.0, 64)])
 def test_decode_attention_kernel_matches_plain(dev, hq, hkv, d, past, cap,
                                                win):
     gen = torch.Generator(device=dev)
@@ -247,15 +249,19 @@ def test_decode_attention_kernel_matches_plain(dev, hq, hkv, d, past, cap,
 @pytest.mark.parametrize("hkv,g,limit,past,win", [
     (2, 4, 256, 0, 0), (4, 2, 512, 300, 0), (8, 4, 1024, 700, 0),
     (16, 1, 2048, 2000, 0), (8, 4, 2048, 1500, 512), (2, 8, 1024, 1000, 100),
-    (16, 2, 256, 255, 0)])
+    (16, 2, 256, 255, 0), (1, 48, 2048, 1500, 0), (1, 22, 1024, 1000, 100),
+    (2, 17, 1024, 0, 0)])
 def test_decode_attention_kernel_splits_match_plain(dev, hkv, g, limit, past,
                                                     win):
     """Batch 1 over more than one split: an empty split (past_len 0), a
-    window whose first row lies inside a split, rows past the attended end."""
+    window whose first row lies inside a split, rows past the attended end;
+    more than 16 query heads a KV head (48 and 22, StarCoder's multi-query
+    attention; 17 in two unequal chunks) over head chunks."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(limit + past)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per = A.split_count(1, hkv, limit, sms)
+    splits, per = A.split_count(1, hkv * A.head_chunks(g, 128)[1], limit,
+                                sms)
     assert splits > 1 and splits * per >= limit
     shape = (2, 1, hkv, 2048, 128)
     k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -334,7 +340,8 @@ def test_decode_attention_past_len_tensor_checks(dev):
 @pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
 @pytest.mark.parametrize("hq,hkv,d,cap,win", [
     (8, 8, 128, 0.0, 0), (8, 2, 128, 0.0, 0), (8, 2, 128, 20.0, 0),
-    (16, 4, 128, 0.0, 300), (8, 1, 64, 0.0, 0), (4, 2, 256, 0.0, 0)])
+    (16, 4, 128, 0.0, 300), (8, 1, 64, 0.0, 0), (4, 2, 256, 0.0, 0),
+    (48, 1, 128, 0.0, 0), (22, 1, 128, 20.0, 0), (24, 1, 256, 0.0, 300)])
 def test_paged_decode_attention_kernel_matches_plain(dev, kind, hq, hkv, d,
                                                      cap, win):
     from exllamav2_tpu_torch.cache_paged import PagedKVCache, _kinds
@@ -771,14 +778,16 @@ def _paged_vmax(cache, kinds):
 @pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
 @pytest.mark.parametrize("g,batch,pw,page", [
     (1, 1, 8, 256), (4, 1, 8, 256), (16, 1, 8, 256), (1, 16, 2, 256),
-    (4, 3, 24, 64), (16, 2, 40, 256), (1, 1, 64, 16)])
+    (4, 3, 24, 64), (16, 2, 40, 256), (1, 1, 64, 16), (48, 1, 8, 256),
+    (22, 3, 24, 64), (17, 2, 40, 256)])
 def test_paged_kernel_splits_match_plain(dev, kind, g, batch, pw, page):
     """Every kind and G bucket over the split counts of their buckets: one
     split row of 16-256 positions, splits crossing page edges, several
     splits in one page, 16 splits (a non-portable cluster), and a bucket
     whose scores outgrow the block at G = 16 (10,240 positions: the P.V
     pass scores its rows again). Rows end at 1, 17, a page edge and the
-    bucket's end; the last row is a pad row on the null page."""
+    bucket's end; the last row is a pad row on the null page. G of 48, 22
+    and 17 run over head chunks."""
     from exllamav2_tpu_torch.ops import paged_attn as P
     gen = torch.Generator(device=dev)
     gen.manual_seed(g * 100 + pw)
@@ -796,7 +805,8 @@ def test_paged_kernel_splits_match_plain(dev, kind, g, batch, pw, page):
     q = torch.randn((batch, hkv * g, 128), generator=gen, device=dev).to(
         torch.bfloat16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per = P.split_count(batch, hkv, pw, page, sms, g)
+    gc, chunks = A.head_chunks(g, 128)
+    splits, per = P.split_count(batch, hkv * chunks, pw, page, sms, gc)
     assert 1 <= splits <= P.MAX_SPLITS
     args = _paged_args(cache, kinds, q, bt, vl, page)
     before = P.LAUNCHES["paged_decode_attn"]

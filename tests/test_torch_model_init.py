@@ -5,8 +5,9 @@ exllamav2_tpu_torch/model_init.py against exllamav2_tpu/model_init.py.
 * init: the same max_len, page count (max(ceil(max_len / 256) * batch + 1,
   8)), cache kind and draft wiring, and the same greedy text from the
   trained fixture.
-* -tp over more than one device raises NotImplementedError; -tp -1 on the
-  CPU is one device. With no --device and no GPU, init raises.
+* -tp over more than one device outside a world of ranks raises, naming
+  torchrun; -tp -1 on the CPU is one device. With no --device and no GPU,
+  init raises.
 """
 
 import argparse
@@ -91,7 +92,9 @@ def test_init_greedy_text_matches_reference():
 
 
 def test_tensor_parallel_over_devices_raises():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # outside a world of ranks: an error that names torchrun, not a quiet
+    # one-device run (tests/test_torch_sharding.py runs -tp 2 in a world)
+    with pytest.raises(RuntimeError, match="torchrun"):
         P.init(_args(P, ["-l", "256", "-tp", "2"]))
     # -tp -1 on the CPU: one device, no mesh (the reference builds one per
     # chip it sees)
