@@ -248,6 +248,32 @@ the captures and their ms, the replays, host ms a token or a dispatch
               Llama-2-7B (everything splits) and StarCoder-15B (the
               fallback: one KV head keeps attention and its cache whole),
               from 2-layer cuts at full depth.
+ 18. scripts  the training path and the reference's remaining scripts as
+              the port's twins (exllamav2_tpu_torch/cli/): (a) the trainer
+              (cli/train_fixture.py) at step 0 on the card against the CPU
+              twin on the same batch and init (loss within TRAIN_LOSS_TOL,
+              every gradient within TRAIN_GRAD_TOL of its max; the dense
+              products' gradient through ops/qmm.BF16Dot, TRAIN_DOTS calls
+              a forward; no hand kernel launched), then its defaults (1,200
+              steps, batch 8, seed 7): every loss finite, the last under
+              TRAIN_FINAL_LOSS, ms a step and tokens trained a second,
+              exported to build/trained_tiny; (b) eval_trained on that
+              export and on tests/fixtures/trained_tiny, whose completions,
+              picks and job tokens equal the CPU twin's; (c)
+              convert_serve_check: converted on the card (G1), served greedy
+              on the card over a q4 cache with its logits, replayed forced
+              on the CPU, checked (tol 0.08); (d) quality_eval on the card
+              (kernels 1, 2, 4 and G1 launched); (e) bench_serving and
+              decomp_flagship at their 7B defaults; (f) the sixteen example
+              twins on the card (trained_tiny; a 4,096-position random EXL2
+              model for inference_dedup; a random qwen2 VLM with a peaked
+              head for the multimodal three), each but
+              inference_speculative (dense linears, verify steps through
+              the gathered pool) launching kernel 1 or 3; the greedy
+              ones' job tokens equal the CPU's, or, run again
+              with every step's logits, part at a near-tie (TIE_GAP) on the
+              card's logits. Launch counts of kernels 1-4 and G1 by step
+              go into the kernels line (`scripts_*`).
 The last lines are one JSON line of the kernels, the card's name and power
 limit, and {"ok": true, "device": {...}}. Details go to
 build/chip_smoke.json. `python3 chip_smoke.py qmm` runs phases 1 and 2 and
@@ -265,7 +291,7 @@ seeds, which set DVP_LIMIT and DVP_WITNESS), `python3 chip_smoke.py vlm`
 phases 1 and 14, `python3 chip_smoke.py convert` phases 1 and 15,
 `python3 chip_smoke.py cli` phases 1, 15 and 16, `python3 chip_smoke.py
 tp` phases 1 and 17 (`chip_smoke.py tp-rank <mode> <device>` is one of
-phase 17's ranks).
+phase 17's ranks), `python3 chip_smoke.py scripts` phases 1 and 18.
 """
 
 from __future__ import annotations
@@ -5380,6 +5406,478 @@ def phase_tp(dev, rate):
     return out
 
 
+# --------------------------------------------------------------- phase 18
+
+TRAINED_TINY = os.path.join(HERE, "tests", "fixtures", "trained_tiny")
+# step 0 of the trainer, the card (bf16 x bf16 -> f32 products, BF16Dot's
+# gradient) against the CPU (f32 products) on the same batch and init
+TRAIN_LOSS_TOL = 0.01       # absolute, of a loss of 6.11
+TRAIN_GRAD_TOL = 0.05       # each gradient, of its max |grad|
+TRAIN_FINAL_LOSS = 0.5      # after 1,200 steps (ln 384 = 5.95 is chance)
+# BF16Dot calls in one training forward of the fixture: 2 layers x (q, k,
+# v, o, gate, up, down and the two attention products) and the head
+TRAIN_DOTS = 2 * 9 + 1
+# the examples whose Settings are greedy: their card tokens are held to
+# the CPU's (equal, or parting at a near-tie on the card's own logits)
+GREEDY_EXAMPLES = ("bulk_inference", "dynamic_gen", "inference_async",
+                   "inference_dedup", "inference_filters",
+                   "inference_grammar", "inference_speculative",
+                   "multimodal_grounding", "multimodal_video")
+
+
+def script_counts() -> dict:
+    """Launch counts of kernels 1-4 and G1."""
+    from exllamav2_tpu_torch.convert import gptq as G
+    c = arch_counts()
+    c["qmm_w4a8"] = launch_counts()["qmm_w4a8"]
+    c["gptq"] = G.LAUNCHES["gptq"]
+    return c
+
+
+def zero_script_counts() -> None:
+    from exllamav2_tpu_torch.convert import gptq as G
+    zero_counts()
+    G.LAUNCHES["gptq"] = 0
+
+
+@contextlib.contextmanager
+def captured_jobs(logits: bool = False):
+    """While on, every DynamicJob made is recorded: yields a list of (job,
+    [logit rows, one a new token]) filled as the jobs run. The rows are
+    there with logits=True, which makes every job ask for its logits (and
+    so takes the generator's one-token steps: no bursts)."""
+    from exllamav2_tpu_torch.generator import dynamic as GD
+    jobs, rows_of = [], {}
+    init, iterate = GD.DynamicJob.__init__, GD.DynamicGenerator.iterate
+
+    def init_logged(self, *a, **kw):
+        if logits:
+            kw["return_logits"] = True
+        init(self, *a, **kw)
+        rows = []
+        jobs.append((self, rows))
+        rows_of[id(self)] = rows
+
+    def iterate_logged(self):
+        results = iterate(self)
+        for r in results:
+            if r.get("logits") is not None and r.get("serial") in rows_of:
+                rows_of[r["serial"]].append(
+                    torch.as_tensor(r["logits"]).float().reshape(-1).cpu())
+        return results
+
+    GD.DynamicJob.__init__, GD.DynamicGenerator.iterate = \
+        init_logged, iterate_logged
+    try:
+        yield jobs
+    finally:
+        GD.DynamicJob.__init__, GD.DynamicGenerator.iterate = init, iterate
+
+
+def job_tokens(jobs) -> list:
+    return [np.asarray(j.sequence[j.prompt_len:]).tolist() for j, _ in jobs]
+
+
+def jobs_agree(tag, card, cpu) -> list:
+    """The card's greedy jobs against the CPU's, in the order they were
+    made: each the same new tokens, or the first differing token at a
+    near-tie on the card's own logits of that step (the two tokens ranked
+    first and second, TIE_GAP of max |logit| apart). -> [(job, step,
+    gap)] of the parted jobs."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{tag}: {len(card)} jobs on the card, "
+                             f"{len(cpu)} on the CPU")
+    parts = []
+    for k, ((jc, rows), (jp, _)) in enumerate(zip(card, cpu)):
+        a = np.asarray(jc.sequence[jc.prompt_len:])
+        b = np.asarray(jp.sequence[jp.prompt_len:])
+        if np.array_equal(a, b):
+            continue
+        n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        if n >= min(len(a), len(b)) or n >= len(rows):
+            raise AssertionError(f"{tag} job {k}: card {a.tolist()} cpu "
+                                 f"{b.tolist()} part where a job ends")
+        row = rows[n]
+        top = torch.topk(row, 2)
+        gap = ((top.values[0] - top.values[1]) / row.abs().max()).item()
+        if sorted(top.indices.tolist()) != sorted([int(a[n]), int(b[n])]) \
+                or not gap < TIE_GAP:
+            raise AssertionError(f"{tag} job {k}: card and CPU part at "
+                                 f"step {n} ({a[n]} / {b[n]}), top-2 "
+                                 f"{top.indices.tolist()} gap {gap:.3g}")
+        parts.append((k, n, gap))
+    return parts
+
+
+def train_step0(dev) -> dict:
+    """(a) One step of the trainer on the card against the CPU twin's."""
+    from exllamav2_tpu_torch.cli import train_fixture as TF
+    from exllamav2_tpu_torch.ops import qmm as Q
+    ids = next(TF.batches(TF.corpus_tokens(), np.random.default_rng(7), 8))
+    out, grads, loss = {}, {}, {}
+    calls = [0]
+    real = Q.BF16Dot.apply
+
+    def counted(*a):
+        calls[0] += 1
+        return real(*a)
+
+    for d in ("cpu", dev):
+        tmpl, st, pp = TF.init_model(7, d)
+        w = TF.to_weights(tmpl, pp)
+        zero_script_counts()
+        calls[0] = 0
+        Q.BF16Dot.apply = counted
+        try:
+            lo = TF.loss_fn(w, st, torch.as_tensor(ids, device=d))
+            lo.backward()
+        finally:
+            del Q.BF16Dot.apply
+        if d == dev:
+            torch.cuda.synchronize()
+            out["launches"] = script_counts()
+            out["bf16_dot_calls"] = calls[0]
+        loss[str(d)] = lo.item()
+        grads[str(d)] = {n: p.grad.float().cpu() for n, p in pp.items()
+                         if p.grad is not None}
+    cpu, card = grads["cpu"], grads[str(dev)]
+    rel = {n: ((card[n] - cpu[n]).abs().max() / cpu[n].abs().max()).item()
+           for n in cpu}
+    out.update(loss_cpu=loss["cpu"], loss_card=loss[str(dev)],
+               grad_rel=rel, grad_rel_worst=max(rel.values()))
+    log(f"[scripts] train step 0 on the card against the CPU twin (same "
+        f"batch, same init): loss {loss[str(dev)]:.6f} / {loss['cpu']:.6f} "
+        f"(limit {TRAIN_LOSS_TOL}), gradients of {len(rel)} tensors, worst "
+        f"{out['grad_rel_worst']:.2e} of max |grad| (limit "
+        f"{TRAIN_GRAD_TOL}); BF16Dot calls {calls[0]} (forward), "
+        f"hand-kernel launches {out['launches']}")
+    if len(rel) != 21 or set(card) != set(cpu):
+        raise AssertionError(f"train: gradients of {sorted(card)}")
+    if not (abs(loss[str(dev)] - loss["cpu"]) <= TRAIN_LOSS_TOL
+            and out["grad_rel_worst"] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"train step 0: card against CPU {out}")
+    if out["bf16_dot_calls"] != TRAIN_DOTS:
+        raise AssertionError(f"train: {calls[0]} BF16Dot calls, want "
+                             f"{TRAIN_DOTS}")
+    if any(out["launches"].values()):
+        raise AssertionError(f"train: hand kernels launched "
+                             f"{out['launches']}")
+    return out
+
+
+def example_argv(name, files) -> tuple[list, str | None]:
+    """(argv, stdin) of an example twin on the phase's checkpoints."""
+    argv = ["-m", TRAINED_TINY]
+    stdin = None
+    if name == "inference_lora":
+        argv += ["--lora_dir", files["lora"]]
+    elif name == "inference_dedup":
+        argv = ["-m", files["m4k"], "-l", "4096"]
+    elif name == "minimal_chat":
+        stdin = "What did the keeper write?\nAnd then?\n"
+    elif name == "multimodal":
+        argv = ["-m", files["qwen2"], "--image", files["image"]]
+    elif name == "multimodal_grounding":
+        argv = ["-m", files["qwen2"], "-i", files["image"], "-maxr", "48"]
+    elif name == "multimodal_video":
+        argv = ["-m", files["qwen2"]]
+    elif name in ("bulk_inference", "dynamic_gen"):
+        argv += ["-n", "8"]
+    return argv, stdin
+
+
+EXAMPLES = ("bulk_inference", "dynamic_gen", "inference", "inference_async",
+            "inference_banned_strings", "inference_cfg", "inference_dedup",
+            "inference_filters", "inference_grammar", "inference_lora",
+            "inference_speculative", "inference_streaming", "minimal_chat",
+            "multimodal", "multimodal_grounding", "multimodal_video")
+
+
+def run_example(name, argv, stdin, device, logits=False):
+    """An example twin's main in process -> (its result, stdout lines,
+    the jobs it made, with their logits where `logits`)."""
+    import importlib
+    import io
+    main = importlib.import_module(f"exllamav2_tpu_torch.cli.{name}").main
+    old = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    try:
+        with captured_jobs(logits) as jobs:
+            r, lines = quiet(main, argv + (["--device", "cpu"]
+                                           if device == "cpu" else []))
+    finally:
+        sys.stdin = old
+    return r, lines, jobs
+
+
+def phase_scripts(dev, card):
+    """Phase 18: the training path and the reference's remaining scripts
+    as the port's twins, on the card."""
+    import gc
+    from exllamav2_tpu_torch.cli import (bench_serving, convert_serve_check,
+                                         decomp_flagship, eval_trained,
+                                         quality_eval)
+    from exllamav2_tpu_torch.cli import train_fixture as TF
+    from exllamav2_tpu_torch.models.model import Model
+    from exllamav2_tpu_torch.utils.testing import (make_tiny_llama,
+                                                   make_tiny_vlm,
+                                                   write_random_lora)
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    seconds, launches = {}, {}
+
+    def counted(key, fn, *a):
+        zero_script_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn(*a)
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t
+        launches[key] = script_counts()
+        return r
+
+    # (a) training: step 0 against the CPU, then 1,200 steps
+    out["train_step0"] = counted("train_step0", train_step0, dev)
+    losses = []
+    export_dir = os.path.join(OUT_DIR, "trained_tiny")
+    weights, final = counted(
+        "train", lambda: TF.train(steps=1200, batch=8, lr=3e-3, seed=7,
+                                  device=dev, losses=losses,
+                                  log=lambda s: log(f"[scripts] train {s}")))
+    lt = torch.stack(losses).float().cpu()
+    TF.export(weights, export_dir, final)
+    del weights
+    steps = len(losses)
+    tr = {"steps": steps, "final_loss": final, "seconds": seconds["train"],
+          "ms_per_step": seconds["train"] / steps * 1e3,
+          "tokens_per_s": steps * 8 * TF.SEQ / seconds["train"],
+          "first_loss": lt[0].item(), "launches": launches["train"],
+          "losses_every_100": lt[::100].tolist()}
+    out["train"] = tr
+    log(f"[scripts] trained the fixture on {card}: {steps} steps (batch 8 x "
+        f"{TF.SEQ} tokens) in {tr['seconds']:.1f} s with the set-up = "
+        f"{tr['ms_per_step']:.3f} ms a step, {tr['tokens_per_s']:.0f} "
+        f"tokens trained a second; loss {tr['first_loss']:.4f} -> "
+        f"{final:.4f} (the committed fixture's recorded 0.0508; limit "
+        f"{TRAIN_FINAL_LOSS}); hand-kernel launches {tr['launches']}; "
+        f"exported to build/trained_tiny")
+    if not (torch.isfinite(lt).all() and final < TRAIN_FINAL_LOSS):
+        raise AssertionError(f"train: final loss {final}, finite "
+                             f"{bool(torch.isfinite(lt).all())}")
+    # 20 steps of the same loop under the profiler (batches on the card
+    # beforehand): what the device does of a step
+    tmpl, st, pp = TF.init_model(7, dev)
+    w, opt = TF.to_weights(tmpl, pp), TF.optimizer(pp, 3e-3)
+    draw = TF.batches(TF.corpus_tokens(), np.random.default_rng(8), 8)
+    ids = [torch.as_tensor(next(draw), device=dev) for _ in range(21)]
+
+    def run_steps(first, n):
+        for i in range(first, first + n):
+            opt.zero_grad()
+            TF.loss_fn(w, st, ids[i]).backward()
+            TF.update(opt, pp, 3e-3, 1200, i)
+
+    run_steps(0, 1)
+    per, busy, wall = profile_round(lambda: run_steps(1, 20))
+    top = sorted(per.items(), key=lambda kv: -kv[1][0])[:6]
+    tr["profile"] = {
+        "wall_ms_per_step": wall * 1e3 / 20, "busy_ms_per_step": busy / 20,
+        "idle_share": 1 - busy / (wall * 1e3),
+        "kernels_per_step": sum(c for _, c in per.values()) / 20,
+        "top": [(n[:60], ms / 20, c // 20) for n, (ms, c) in top]}
+    pr = tr["profile"]
+    log(f"[scripts] 20 training steps under the profiler on {card}: "
+        f"{pr['wall_ms_per_step']:.3f} ms a step, device busy "
+        f"{pr['busy_ms_per_step']:.3f} ms ({pr['kernels_per_step']:.0f} "
+        f"kernels), idle share {pr['idle_share']:.3f}; the largest "
+        f"(name, ms a step, launches a step): {pr['top']}")
+    del w, opt, pp
+    if any(tr["launches"].values()):
+        raise AssertionError(f"train: hand kernels launched "
+                             f"{tr['launches']}")
+
+    # (b) eval_trained on the export and on trained_tiny, card and CPU
+    ev = {}
+    for tag, d in (("export", export_dir), ("trained_tiny", TRAINED_TINY)):
+        with captured_jobs() as jobs:
+            ev[tag], _ = counted(f"eval_{tag}", quiet, eval_trained.main,
+                                 ["-m", d, "--out", os.path.join(
+                                     OUT_DIR, f"eval_{tag}.json")])
+        ev[tag + "_jobs"] = jobs
+    cpu_argv = ["-m", TRAINED_TINY, "--device", "cpu", "--out",
+                os.path.join(OUT_DIR, "eval_trained_tiny_cpu.json")]
+    with captured_jobs() as cpu_jobs:
+        ev_cpu, _ = quiet(eval_trained.main, cpu_argv)
+    same = job_tokens(ev["trained_tiny_jobs"]) == job_tokens(cpu_jobs)
+    parts = []
+    if not same:
+        # both again with every step's logits: each job parts at a near-tie
+        # (the greedy text past the memorized code is the model's guess)
+        with captured_jobs(True) as jl:
+            quiet(eval_trained.main, ["-m", TRAINED_TINY, "--out",
+                                      os.path.join(OUT_DIR, "eval_l.json")])
+        with captured_jobs(True) as cl:
+            quiet(eval_trained.main, cpu_argv)
+        parts = jobs_agree("eval_trained", jl, cl)
+    out["eval_trained"] = {
+        t: {"pass_at_1": ev[t]["humaneval"].get("pass_at_1"),
+            "mmlu": ev[t]["mmlu"].get("accuracy_line"),
+            "launches": launches[f"eval_{t}"]}
+        for t in ("export", "trained_tiny")}
+    out["eval_trained"]["cpu"] = {
+        "pass_at_1": ev_cpu["humaneval"].get("pass_at_1"),
+        "mmlu": ev_cpu["mmlu"].get("accuracy_line"),
+        "tokens_equal": same, "parts": parts}
+    log(f"[scripts] eval_trained on {card}: export "
+        f"{out['eval_trained']['export']}, trained_tiny "
+        f"{out['eval_trained']['trained_tiny']}; the CPU twin on "
+        f"trained_tiny {out['eval_trained']['cpu']} (parts: (job, step, "
+        f"top-2 gap of max |logit|))")
+    if not (launches["eval_trained_tiny"]["qmm"] == 0
+            and launches["eval_trained_tiny"]["paged_decode_attn"] > 0):
+        raise AssertionError(f"eval_trained launches "
+                             f"{launches['eval_trained_tiny']}")
+
+    # (c) convert_serve_check: converted on the card (G1), served greedy on
+    # the card over a q4 cache, replayed forced on the CPU, checked
+    root = os.path.join(OUT_DIR, "convert_serve_check")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    counted("csc_prepare", quiet, convert_serve_check.prepare, root, dev)
+    csc, _ = counted("csc_flow", quiet, convert_serve_check.flow, root, "q4",
+                     0.08, dev)
+    out["convert_serve_check"] = {
+        "check": csc["check"], "card_tokens_per_s":
+        csc["greedy"]["tokens_per_s"],
+        "launches": {"prepare": launches["csc_prepare"],
+                     "flow": launches["csc_flow"]}}
+    log(f"[scripts] convert_serve_check on {card}: converted on the card "
+        f"(launches {launches['csc_prepare']}), greedy on the card "
+        f"{csc['greedy']['tokens_per_s']} tokens/s (launches "
+        f"{launches['csc_flow']}), forced replay on the CPU, check "
+        f"{csc['check']}")
+    if not (csc["check"]["ok"] and launches["csc_prepare"]["gptq"] > 0
+            and launches["csc_flow"]["qmm"] > 0
+            and launches["csc_flow"]["paged_decode_attn"] > 0):
+        raise AssertionError(f"convert_serve_check {out['convert_serve_check']}")
+
+    # (d) quality_eval on the card
+    res, _ = counted("quality_eval", quiet, quality_eval.run,
+                     os.path.join(OUT_DIR, "QUALITY.md"), None, dev)
+    flat = [v for k in res for v in (res[k].values()
+                                     if isinstance(res[k], dict) else [])]
+    out["quality_eval"] = {"tables": res, "launches": launches["quality_eval"]}
+    log(f"[scripts] quality_eval on {card}: trained fixture ppl bf16 "
+        f"{res['t_ppl_dense']['bf16']:.4f}, q4 cache "
+        f"{res['t_ppl_dense']['q4']:.4f}, 4.0 bpw "
+        f"{res['t_ppl_q4']['bf16']:.4f}; KLD 4.0 / 6.0 bpw "
+        f"{res['t_kld4']['kld_mean']:.5f} / {res['t_kld6']['kld_mean']:.5f}; "
+        f"W4A8 decode ppl {res['t_w4a8']['ppl_exact']:.4f} -> "
+        f"{res['t_w4a8']['ppl_w4a8']:.4f}; peaked q6 / q4 "
+        f"{res['ppl_peaked']['q6']:.4f} / {res['ppl_peaked']['q4']:.4f}; "
+        f"launches {launches['quality_eval']}")
+    lq = launches["quality_eval"]
+    if not (all(np.isfinite(v) for v in flat) and lq["qmm"] and
+            lq["decode_attn"] and lq["qmm_w4a8"] and lq["gptq"]
+            and res["t_kld6"]["kld_mean"] < res["t_kld4"]["kld_mean"]):
+        raise AssertionError(f"quality_eval {out['quality_eval']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) bench_serving and decomp_flagship at their 7B defaults
+    bs, _ = counted("bench_serving", quiet, bench_serving.main, [])
+    out["bench_serving"] = {k: v for k, v in bs.items()}
+    log(f"[scripts] bench_serving (7B, 16 jobs of 256 + 64 tokens) on "
+        f"{card}: {bs['value']} tokens/s, TTFT p50 {bs['ttft_p50_ms']} ms, "
+        f"p95 {bs['ttft_p95_ms']} ms; launches {launches['bench_serving']}")
+    if len(bs["job_tokens"]) != 16 or not all(
+            0 < n <= 64 for n in bs["job_tokens"].values()) or not (
+            launches["bench_serving"]["qmm"]
+            and launches["bench_serving"]["paged_decode_attn"]):
+        raise AssertionError(f"bench_serving {bs}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dc, lines = counted("decomp_flagship", quiet, decomp_flagship.main, [])
+    for l in lines:
+        log(f"[scripts] decomp_flagship: {l}")
+    out["decomp_flagship"] = {
+        "us": {k: t * 1e6 for k, (t, _) in dc["components"].items()},
+        "gb_per_s": {k: b / t / 1e9
+                     for k, (t, b) in dc["components"].items()},
+        "mib": {k: b / 2 ** 20 for k, (_, b) in dc["components"].items()},
+        "lm_head_us": dc["lm_head"][0] * 1e6,
+        "lm_head_gb_per_s": dc["lm_head"][1] / dc["lm_head"][0] / 1e9,
+        **{k: dc[k] for k in ("step_ms", "linears_ms", "head_ms",
+                              "residue_ms", "weight_stream_bytes", "card",
+                              "bound_ms")},
+        "launches": launches["decomp_flagship"]}
+    if not (dc["bound_ms"] and launches["decomp_flagship"]["qmm_w4a8"]
+            and np.isfinite(dc["step_ms"])):
+        raise AssertionError(f"decomp_flagship {out['decomp_flagship']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) every example twin on the card; the greedy ones against the CPU
+    files = {"image": os.path.join(OUT_DIR, "scripts_image.npy")}
+    rng = np.random.default_rng(3)
+    np.save(files["image"], (rng.random((16, 24, 3)) * 255).astype(np.uint8))
+    files["qwen2"] = make_tiny_vlm(os.path.join(OUT_DIR, "scripts_qwen2"),
+                                   "qwen2", head_scale=6.0)
+    files["m4k"] = make_tiny_llama(os.path.join(OUT_DIR, "scripts_m4k"),
+                                   quant="exl2", vocab=384, max_pos=4096,
+                                   seed=5, head_scale=6.0)
+    files["lora"] = write_random_lora(
+        os.path.join(OUT_DIR, "scripts_lora"),
+        Model.from_dir(TRAINED_TINY, device="cpu").weights, rank=4, seed=3)
+    ex = {}
+    for name in EXAMPLES:
+        argv, stdin = example_argv(name, files)
+        (r, lines, jobs) = counted(f"example_{name}", run_example, name,
+                                   argv, stdin, dev)
+        e = {"lines": len(lines), "jobs": len(jobs),
+             "launches": launches[f"example_{name}"],
+             "seconds": seconds[f"example_{name}"]}
+        if not lines or not jobs:
+            raise AssertionError(f"example {name}: {len(lines)} lines, "
+                                 f"{len(jobs)} jobs")
+        # inference_speculative (n-gram drafts on the fp16 fixture) runs
+        # no hand kernel: dense linears, and its verify steps (t = 5)
+        # attend through the gathered pool, as phase 12's n-gram leg
+        if name != "inference_speculative" and not (
+                e["launches"]["qmm"] or e["launches"]["paged_decode_attn"]):
+            raise AssertionError(f"example {name}: no kernel launched "
+                                 f"{e['launches']}")
+        if name in GREEDY_EXAMPLES:
+            _, cpu_lines, cpu_jobs = run_example(name, argv, stdin, "cpu")
+            e["same_text"] = [l for l in lines if "t/s" not in l] == \
+                [l for l in cpu_lines if "t/s" not in l]
+            e["parts"] = []
+            if job_tokens(jobs) != job_tokens(cpu_jobs):
+                # run both again with every step's logits (one-token
+                # steps) and hold the parting to a near-tie
+                _, _, jl = run_example(name, argv, stdin, dev, True)
+                _, _, cl = run_example(name, argv, stdin, "cpu", True)
+                e["parts"] = jobs_agree(f"example {name}", jl, cl)
+                e["parts_bursts"] = [
+                    k for k, (a, b) in enumerate(zip(job_tokens(jobs),
+                                                     job_tokens(cpu_jobs)))
+                    if a != b]
+        ex[name] = e
+    out["examples"] = ex
+    log(f"[scripts] the sixteen example twins on {card}: " + "; ".join(
+        f"{n} {e['jobs']} jobs {e['seconds']:.1f} s launches "
+        f"{e['launches']['qmm']}/{e['launches']['paged_decode_attn']}"
+        + (f" greedy = CPU text {e['same_text']} parts {e['parts']}"
+           if "parts" in e else "") for n, e in ex.items()))
+    out["launches"] = {f"scripts_{k}": v for k, v in launches.items()}
+    out["seconds_by_step"] = seconds
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[time] phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 def g1_entry(conv, rate) -> dict:
     """The kernels-line entry of G1: one Llama-2-7B layer's 1,112 groups at
     4 bits, gs 32 (q, k, v, o, gate, up, down), from the per-shape rows of
@@ -5710,6 +6208,15 @@ def main() -> int:
         log(f"[done] build and the multi-GPU phase passed in "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if sys.argv[1:] == ["scripts"]:
+        detail["scripts"] = phase_scripts(dev, card)
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke_scripts.json"),
+                  "w") as f:
+            json.dump(detail, f, indent=1, default=str)
+        log(f"[done] build and the scripts phase passed in "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if sys.argv[1:] == ["merged"]:
         phase_merged(dev, rate, phase_serving(dev, rate))
         log(f"[done] build and the serving phases 7 and 9 passed in "
@@ -5742,6 +6249,7 @@ def main() -> int:
     detail["convert"] = timed("convert", phase_convert, dev, rate)
     detail["cli"] = timed("cli", phase_cli, dev, card)
     detail["tp"] = timed("tp", phase_tp, dev, rate)
+    detail["scripts"] = timed("scripts", phase_scripts, dev, card)
     detail["phase_seconds"] = seconds
     launches = dict(detail["7b"]["launches"])
     launches["serving16"] = detail["serving"]["launches"]
@@ -5761,6 +6269,7 @@ def main() -> int:
     launches["cli_test_inference"] = \
         detail["cli"]["test_inference"]["launches"]
     launches.update(detail["tp"]["launches"])
+    launches.update(detail["scripts"]["launches"])
     tp = detail["tp"]
     kernels = summarize(detail["qmm"], qerr, detail["attn"],
                         max(aerr, tp["attn_err"]), detail["paged"],
@@ -5778,6 +6287,8 @@ def main() -> int:
     kernels.insert(1, gated_entry(detail["archs"], rate))
     kernels += tools_entries(detail["tools"], rate)
     kernels.append(g1_entry(detail["convert"], rate))
+    kernels[-1]["launches_by_path"] = {
+        p: c["gptq"] for p, c in launches.items() if "gptq" in c}
     detail["kernels"] = kernels
     detail["seconds"] = time.perf_counter() - t_all
     os.makedirs(OUT_DIR, exist_ok=True)

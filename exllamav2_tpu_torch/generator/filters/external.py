@@ -10,6 +10,8 @@ construction fails with a clear error when the package is missing.
 
 from __future__ import annotations
 
+import inspect
+
 from exllamav2_tpu_torch.generator.filters.base import Filter
 
 __all__ = ["LMFormatEnforcerFilter", "FormatronFilter", "CallableFilter"]
@@ -65,11 +67,18 @@ class LMFormatEnforcerFilter(Filter):
         def decode(tokens):
             return tokenizer.decode(tokens)
 
+        # lm-format-enforcer 0.11 takes the token-list kind and the vocab
+        # size too (and returns a TokenList, whose allowed_tokens is a list
+        # without the bitmask); earlier versions take neither
+        kw = {}
+        if "use_bitmask" in inspect.signature(
+                TokenEnforcerTokenizerData.__init__).parameters:
+            kw = {"use_bitmask": False, "vocab_size": len(pieces)}
         data = TokenEnforcerTokenizerData(
             regular_tokens=[(i, p, p.startswith(" "))
                             for i, p in enumerate(pieces)],
             decoder=decode,
-            eos_token_id=tokenizer.eos_token_id or 0)
+            eos_token_id=tokenizer.eos_token_id or 0, **kw)
         self.enforcer = TokenEnforcer(data, character_level_parser)
         self._fed: list[int] = []
 
@@ -81,6 +90,7 @@ class LMFormatEnforcerFilter(Filter):
 
     def next(self):
         allowed = self.enforcer.get_allowed_tokens(self._fed)
+        allowed = getattr(allowed, "allowed_tokens", allowed)
         eos = self.tokenizer.eos_token_id
         ends = {eos} if eos in allowed else set()
         return set(allowed), ends

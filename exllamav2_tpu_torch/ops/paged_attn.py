@@ -27,6 +27,7 @@ from exllamav2_tpu_torch.cache_paged import _kinds, _raw
 from exllamav2_tpu_torch.device import sm_count
 from exllamav2_tpu_torch.ops.decode_attn import head_chunks
 from exllamav2_tpu_torch.ops.kvquant import hadamard32
+from exllamav2_tpu_torch.ops.qmm import dot_f32
 
 __all__ = ["paged_attention", "paged_decode_attention",
            "paged_decode_attention_plain", "split_count", "LAUNCHES",
@@ -243,15 +244,15 @@ def gqa_scores(qg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """einsum("btkgd,bksd->bkgts") of queries [B, T, Hkv, G, D] and keys
     [B, Hkv, S, D] -> f32 [B, Hkv, G, T, S], operands in ops/qmm.dot_dtype:
     on the card one bf16 x bf16 batched product with an f32 result on the
-    tensor cores (the reference's einsum with preferred_element_type), on
-    the CPU the f32 einsum."""
+    tensor cores (the reference's einsum with preferred_element_type;
+    ops/qmm.dot_f32, with a gradient where autograd records), on the CPU
+    the f32 einsum."""
     if not qg.is_cuda:
         return torch.einsum("btkgd,bksd->bkgts", qg.float(), k.float())
     b, t, hkv, g, d = qg.shape
     a = qg.permute(0, 2, 3, 1, 4).reshape(b * hkv, g * t, d)
     kt = k.reshape(b * hkv, -1, d).transpose(1, 2)
-    y = torch.bmm(a.to(torch.bfloat16), kt.to(torch.bfloat16),
-                  out_dtype=torch.float32)
+    y = dot_f32(a.to(torch.bfloat16), kt.to(torch.bfloat16))
     return y.reshape(b, hkv, g, t, -1)
 
 
@@ -262,9 +263,8 @@ def gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if not p.is_cuda:
         return torch.einsum("bkgts,bksd->btkgd", p.float(), v.float())
     b, hkv, g, t, s = p.shape
-    y = torch.bmm(p.reshape(b * hkv, g * t, s).to(torch.bfloat16),
-                  v.reshape(b * hkv, s, -1).to(torch.bfloat16),
-                  out_dtype=torch.float32)
+    y = dot_f32(p.reshape(b * hkv, g * t, s).to(torch.bfloat16),
+                v.reshape(b * hkv, s, -1).to(torch.bfloat16))
     return y.reshape(b, hkv, g, t, -1).permute(0, 3, 1, 2, 4)
 
 

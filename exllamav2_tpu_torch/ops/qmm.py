@@ -54,6 +54,7 @@ from exllamav2_tpu_torch.device import sm_count
 from exllamav2_tpu_torch.ops import dequant as D
 
 __all__ = ["qmm", "linear_apply", "FUSED_MAX_ROWS", "fused_segment_matmul",
+           "BF16Dot", "dot_f32",
            "qmm_plain", "qmm_gated_plain", "gate_capable", "qmm_template",
            "qmm_split",
            "w4a8_segment_matmul", "w4a8_quantize",
@@ -111,14 +112,66 @@ def dot_dtype(t: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if t.is_cuda else torch.float32
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N], or batched [B, M, K] @ [B, K, N], of bf16
+    operands -> f32: on the card one product on the tensor cores (torch.mm /
+    torch.bmm with out_dtype), on the CPU the f32 product of the same
+    values."""
+    if not a.is_cuda:
+        return torch.matmul(a.float(), b.float())
+    mm = torch.mm if a.dim() == 2 else torch.bmm
+    return mm(a, b, out_dtype=torch.float32)
+
+
+class BF16Dot(torch.autograd.Function):
+    """a @ b of bf16 operands with an f32 result (_mm_f32), with a gradient:
+    torch.mm and torch.bmm with out_dtype have no derivative formula. The
+    backward is the transpose of the reference's bf16 dot with an f32
+    result (jax's dot_general transpose rules on the TPU): a cotangent is
+    the f32 cotangent rounded to bf16 times the other bf16 operand, summed
+    in f32 and rounded to the operand's type, bf16. No hand kernel: two
+    more products of the same kind. An operand that is a view (the cache's
+    K / V rows, which the next layer's write changes in place) is kept as a
+    copy: the backward needs the forward's values, as the reference's
+    immutable arrays keep them."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(*(t.clone() if t._base is not None else t
+                                for t in (a, b)))
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(torch.bfloat16)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = _mm_f32(g, b.transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = _mm_f32(a.transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """_mm_f32 of bf16 operands, through BF16Dot only while autograd
+    records and an operand requires grad (the trainer,
+    cli/train_fixture.py); the serving path, under inference_mode or
+    no_grad or with buffers that never require grad, takes the product
+    itself."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return BF16Dot.apply(a, b)
+    return _mm_f32(a, b)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., K] @ b [K, N] with operands in dot_dtype and an f32 result:
     on the card one bf16 x bf16 product with f32 output on the tensor
-    cores, on the CPU an f32 product."""
+    cores (dot_f32), on the CPU an f32 product."""
     if not a.is_cuda:
         return torch.matmul(a.float(), b.float())
-    y = torch.mm(a.reshape(-1, a.shape[-1]).to(torch.bfloat16),
-                 b.to(torch.bfloat16), out_dtype=torch.float32)
+    y = dot_f32(a.reshape(-1, a.shape[-1]).to(torch.bfloat16),
+                b.to(torch.bfloat16))
     return y.reshape(*a.shape[:-1], b.shape[-1])
 
 
