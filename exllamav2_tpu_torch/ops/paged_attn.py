@@ -6,9 +6,11 @@ Counterpart of exllamav2_tpu/ops/paged_attn.py.
   the flash-decode kernel over the block table with in-kernel dequant of the
   bf16 / fp8 / q8 / q4 kinds, split over the sequence into the blocks of a
   thread-block cluster (``split_count`` picks the split from the block
-  table's width and the SM count; ``decode_attn.head_chunks`` cuts the G
-  query heads of a KV head into blocks of at most 16, so any G runs). On a
-  card tensor it launches the kernel;
+  table's width and the SM count; ``grid`` picks the template from the
+  shape: fewer than MMA_MIN_G query heads a KV head take the CUDA-core
+  template, more the mma template, whose block holds up to 64 query heads
+  of a KV head as bf16 tensor-core tiles, so any G runs). On a card tensor
+  it launches the kernel;
   on a CPU tensor it runs ``paged_decode_attention_plain``, the unsplit page
   recurrence in torch.
 * ``paged_attention`` is the attention of the paged forward: the t = 1
@@ -25,12 +27,12 @@ import torch
 
 from exllamav2_tpu_torch.cache_paged import _kinds, _raw
 from exllamav2_tpu_torch.device import sm_count
-from exllamav2_tpu_torch.ops.decode_attn import head_chunks
+from exllamav2_tpu_torch.ops.decode_attn import tile_plan
 from exllamav2_tpu_torch.ops.kvquant import hadamard32
 from exllamav2_tpu_torch.ops.qmm import dot_f32
 
 __all__ = ["paged_attention", "paged_decode_attention",
-           "paged_decode_attention_plain", "split_count", "LAUNCHES",
+           "paged_decode_attention_plain", "split_count", "grid", "LAUNCHES",
            "KIND_LAUNCHES"]
 
 # launches of csrc/paged_attn.cu, counted by its wrapper; KIND_LAUNCHES
@@ -45,10 +47,10 @@ _DTYPE = {"bf16": torch.bfloat16, "fp8": torch.float8_e5m2,
 _PAIRS = {("bf16", "bf16"), ("fp8", "fp8"), ("q8", "q8"), ("q4", "q4"),
           ("q8", "q4")}
 
-# q, k, v, ks, vs, block_table, valid_lens, layer, batch, hkv, g, gc, d, rows,
-# page, pw, scale, softcap, window, kk, vk, splits, positions per split,
-# out, stream (csrc/paged_attn.cu)
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+# q, k, v, ks, vs, block_table, valid_lens, layer, batch, hkv, g, gc, mt, d,
+# rows, page, pw, scale, softcap, window, kk, vk, splits, positions per
+# split, out, stream (csrc/paged_attn.cu)
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
              + [ctypes.c_float] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 2)
 
@@ -57,32 +59,52 @@ SPLIT_WORK = 512        # positions x query heads a split takes at most ...
 SPLIT_ROWS = 256        # ... but never fewer positions than this
 MAX_SPLITS = 16         # blocks of a cluster (MAX_SPLITS in the source)
 SCORE_FLOATS = 8192     # scores a block keeps, G x rows (SC_FLOATS)
+MMA_SCORE_FLOATS = 12288  # ... of the mma template (SC_MMA)
+# G from which the mma template runs: timed once against the CUDA-core
+# template at every G of chip_smoke.py phases 6 and 17a, it lost at G = 2
+# and at G = 4 for bf16 and q4, and won at every G >= 7 case but 48/1 q4
+# at batch 1 (PERF.md §6; ROADMAP.md §1 item 7)
+MMA_MIN_G = 5
 
 
 def split_count(batch: int, hkv: int, pw: int, page: int, sms: int,
-                g: int = 1) -> tuple[int, int]:
+                g: int = 1, mma: bool = False) -> tuple[int, int]:
     """(splits, positions per split) of the kernel's grid (batch * hkv,
-    splits; the caller counts every head chunk in hkv and passes a chunk's
-    heads as g): split r takes positions [r*per, (r+1)*per) of the block
-    table's pw * page, per a multiple of 16. About _BLOCKS_PER_SM blocks per
-    SM, more splits where a split would pass max(SPLIT_ROWS, SPLIT_WORK / g)
-    positions (one block walks its range in series, and a row costs more
-    with more query heads) or its scores would outgrow the block's
-    SCORE_FLOATS, at most MAX_SPLITS (one cluster). A function of
+    splits; the caller counts every head block in hkv and passes a block's
+    heads as g, and whether the mma template runs): split r takes positions
+    [r*per, (r+1)*per) of the block table's pw * page, per a multiple of
+    16. About _BLOCKS_PER_SM blocks per SM, more splits where a split would
+    pass max(SPLIT_ROWS, SPLIT_WORK / g) positions (one block walks its
+    range in series, and on the CUDA cores a row costs more with more query
+    heads; on the tensor cores SPLIT_ROWS) or its scores would outgrow the
+    block's SCORE_FLOATS (MMA_SCORE_FLOATS), at most MAX_SPLITS (one
+    cluster). A function of
     the page bucket, never of valid_lens, so the grid is fixed for a
     bucket. Where batch * hkv pairs alone fill the card (the serving step's
     16 x 32 over two pages) one split is taken: the generator's buckets are
     padded past the live rows, and a second, empty split still cost more
     than it saved."""
     positions = pw * page
-    keep = max(page, SCORE_FLOATS // g // 16 * 16)
-    longest = max(SPLIT_ROWS, SPLIT_WORK // g)
+    floats = MMA_SCORE_FLOATS if mma else SCORE_FLOATS
+    keep = max(page, floats // g // 16 * 16)
+    longest = SPLIT_ROWS if mma else max(SPLIT_ROWS, SPLIT_WORK // g)
     want = max(-(-_BLOCKS_PER_SM * sms // (batch * hkv)),
                -(-positions // longest), -(-positions // keep))
     want = max(1, min(want, MAX_SPLITS, -(-positions // 16)))
     per = -(-positions // want)
     per = -(-per // 16) * 16
     return -(-positions // per), per
+
+
+def grid(batch: int, hkv: int, g: int, pw: int, page: int,
+         sms: int) -> tuple[int, int, int, int, int]:
+    """(heads a block, blocks a KV head, m16 tiles, splits, positions a
+    split) of a launch: tile_plan's template (from MMA_MIN_G) and
+    split_count's split for it."""
+    heads, blocks, mt = tile_plan(g, MMA_MIN_G)
+    splits, per = split_count(batch, hkv * blocks, pw, page, sms, heads,
+                              mt > 0)
+    return heads, blocks, mt, splits, per
 
 
 def _dq_page(data: torch.Tensor, scales: torch.Tensor | None,
@@ -196,16 +218,15 @@ def _kernel(q, k_data, v_data, layer, block_table, valid_lens, k_scales,
                          f"{tuple(v_data.shape)}, block table "
                          f"{tuple(block_table.shape)}, layer {layer}")
     pw = block_table.shape[1]
-    gc, chunks = head_chunks(g, d)
-    splits, per = split_count(b, hkv * chunks, pw, page_size,
-                              sm_count(dev), gc)
+    gc, chunks, mt, splits, per = grid(b, hkv, g, pw, page_size,
+                                       sm_count(dev))
     out = torch.empty((b, hq, d), dtype=torch.float32, device=dev)
     fn = _build.function("paged_attn", "paged_decode_attention", _ARGTYPES)
     ks = k_scales.data_ptr() if kk in ("q4", "q8") else None
     vs = v_scales.data_ptr() if vk in ("q4", "q8") else None
     rc = fn(q.data_ptr(), k_data.data_ptr(), v_data.data_ptr(), ks, vs,
             block_table.data_ptr(), valid_lens.data_ptr(), layer, b, hkv, g,
-            gc, d, rows, page_size, pw, float(scale), float(softcap),
+            gc, mt, d, rows, page_size, pw, float(scale), float(softcap),
             int(window), _KIND_CODE[kk], _KIND_CODE[vk], splits, per,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("paged_attn", rc, "paged_decode_attention")

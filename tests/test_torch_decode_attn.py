@@ -163,34 +163,38 @@ def test_split_softmax_matches_plain_and_reference(past_len, window,
 
 
 @pytest.mark.parametrize("g,d,want", [
-    (48, 128, (16, 3)), (22, 128, (11, 2)), (17, 128, (9, 2)),
-    (16, 128, (16, 1)), (8, 256, (8, 1)), (40, 256, (8, 5)),
-    (1, 64, (1, 1)), (64, 32, (16, 4))])
+    (48, 128, (48, 1, 3)), (22, 128, (22, 1, 2)), (17, 128, (17, 1, 2)),
+    (16, 128, (16, 1, 1)), (8, 256, (8, 1, 1)), (40, 256, (40, 1, 3)),
+    (1, 64, (1, 1, 0)), (64, 32, (64, 1, 4))])
 def test_head_chunks_cover_every_query_head_once(g, d, want):
-    """Kernels 2 and 3 take any number of query heads a KV head: head_chunks
-    cuts G into balanced chunks of at most min(16, 2048 / d) heads, and the
-    kernels' block index (batch, KV head, chunk) -> first query head, as
-    csrc/decode_attn.cu and csrc/paged_attn.cu compute it, reaches every
-    query head exactly once, each under its own KV head."""
-    gc, chunks = TA.head_chunks(g, d)
-    assert (gc, chunks) == want
-    assert gc <= 16 and gc * d <= 2048 and (chunks - 1) * gc < g <= gc * chunks
+    """Kernels 2 and 3 take any number of query heads a KV head: tile_plan
+    (which took over from head_chunks) gives (heads a block, blocks a KV
+    head, m16 tiles), one block of all G heads up to 64 on the mma
+    template, one head on the CUDA-core template; the kernels' block index
+    (batch, KV head, block) -> first query head reaches every query head
+    exactly once, each under its own KV head, and its q / out elements at
+    head_dim d once (more G and D in tests/test_torch_gqa_tiles.py)."""
+    heads, blocks, mt = TA.tile_plan(g)
+    assert (heads, blocks, mt) == want
+    assert (blocks - 1) * heads < g <= heads * blocks
     b, hkv = 2, 3
     hq = hkv * g
-    seen = []
-    for bh in range(b * hkv * chunks):
-        bb, h, c = bh // (hkv * chunks), bh // chunks % hkv, bh % chunks
-        heads = min(gc, g - c * gc)
-        head0 = bb * hq + h * g + c * gc
-        seen += [(head0 + i, h) for i in range(heads)]
+    seen, elems = [], []
+    for bh in range(b * hkv * blocks):
+        bb, h, c = bh // (hkv * blocks), bh // blocks % hkv, bh % blocks
+        n = min(heads, g - c * heads)
+        head0 = bb * hq + h * g + c * heads
+        seen += [(head0 + i, h) for i in range(n)]
+        elems += range(head0 * d, (head0 + n) * d)
     assert sorted(i for i, _ in seen) == list(range(b * hq))
     assert all(i % hq // g == h for i, h in seen)
+    assert sorted(elems) == list(range(b * hq * d))
 
 
 def test_multi_query_48_heads_matches_reference():
     """StarCoder-15B's 48 query heads on one KV head (d = 128, the card's
-    kernels in three head chunks): the plain version against the
-    reference at 1e-5 of max |ref|."""
+    kernels in one block of three m16 tiles): the plain version against
+    the reference at 1e-5 of max |ref|."""
     rng = np.random.default_rng(48)
 
     def bf16(shape):

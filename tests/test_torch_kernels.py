@@ -256,12 +256,11 @@ def test_decode_attention_kernel_splits_match_plain(dev, hkv, g, limit, past,
     """Batch 1 over more than one split: an empty split (past_len 0), a
     window whose first row lies inside a split, rows past the attended end;
     more than 16 query heads a KV head (48 and 22, StarCoder's multi-query
-    attention; 17 in two unequal chunks) over head chunks."""
+    attention; 17 with a second m16 tile of one head) on the mma template."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(limit + past)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per = A.split_count(1, hkv * A.head_chunks(g, 128)[1], limit,
-                                sms)
+    splits, per = A.grid(1, hkv, g, limit, sms)[3:]
     assert splits > 1 and splits * per >= limit
     shape = (2, 1, hkv, 2048, 128)
     k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -660,7 +659,7 @@ def test_decode_attention_two_streams(dev):
     gen.manual_seed(11)
     hkv, g, limit = 8, 4, 2048
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert A.split_count(1, hkv, limit, sms)[0] > 1
+    assert A.grid(1, hkv, g, limit, sms)[3] > 1
     cases = []
     for past in (1900, 1300):
         shape = (2, 1, hkv, 2048, 128)
@@ -787,7 +786,7 @@ def test_paged_kernel_splits_match_plain(dev, kind, g, batch, pw, page):
     whose scores outgrow the block at G = 16 (10,240 positions: the P.V
     pass scores its rows again). Rows end at 1, 17, a page edge and the
     bucket's end; the last row is a pad row on the null page. G of 48, 22
-    and 17 run over head chunks."""
+    and 17 run on the mma template (three and two m16 tiles)."""
     from exllamav2_tpu_torch.ops import paged_attn as P
     gen = torch.Generator(device=dev)
     gen.manual_seed(g * 100 + pw)
@@ -805,8 +804,7 @@ def test_paged_kernel_splits_match_plain(dev, kind, g, batch, pw, page):
     q = torch.randn((batch, hkv * g, 128), generator=gen, device=dev).to(
         torch.bfloat16)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    gc, chunks = A.head_chunks(g, 128)
-    splits, per = P.split_count(batch, hkv * chunks, pw, page, sms, gc)
+    splits, per = P.grid(batch, hkv, g, pw, page, sms)[3:]
     assert 1 <= splits <= P.MAX_SPLITS
     args = _paged_args(cache, kinds, q, bt, vl, page)
     before = P.LAUNCHES["paged_decode_attn"]
@@ -889,6 +887,75 @@ def test_paged_kernel_two_streams(dev):
         for got in o:
             assert (got - ref).abs().max() <= 1e-4 * _paged_vmax(cache,
                                                                  kinds)
+
+
+# The mma templates of kernels 2 and 3 (G >= 2: a KV head's query heads as
+# bf16 tensor-core tiles) at the query-head counts and head dims the CPU
+# emulation of their tile order covers (tests/test_torch_gqa_tiles.py).
+GQA_G = [2, 4, 7, 8, 16, 17, 22, 48]
+GQA_D = [64, 128, 256]
+
+
+@pytest.mark.parametrize("d", GQA_D)
+@pytest.mark.parametrize("g", GQA_G)
+@pytest.mark.parametrize("batch,limit,past", [(1, 1024, 900), (3, 64, 50)])
+def test_decode_attention_mma_template_matches_plain(dev, g, d, batch, limit,
+                                                     past):
+    """Kernel 2's mma template over several splits (batch 1, limit 1024)
+    and one (limit 64), within 1e-4 of max |v|: p enters P.V as two bf16
+    parts, so the error stays near f32 summation order."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(g * 1000 + d + batch)
+    hkv = 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gc, _, mt, splits, _ = A.grid(batch, hkv, g, limit, sms)
+    assert mt == -(-gc // 16) >= 1
+    assert (splits > 1) == (limit > 64)
+    shape = (2, batch, hkv, 1024, d)
+    k = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((batch, hkv * g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    before = A.LAUNCHES["decode_attn"]
+    got = A.decode_attention(q, k, v, 1, past, limit, d ** -0.5, 0.0, 0)
+    assert A.LAUNCHES["decode_attn"] == before + 1
+    ref = A.decode_attention_plain(q, k, v, 1, past, limit, d ** -0.5)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * v.float().abs().max()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
+@pytest.mark.parametrize("d", GQA_D)
+@pytest.mark.parametrize("g", GQA_G)
+@pytest.mark.parametrize("pw,page", [(8, 64), (24, 16), (1, 16)])
+def test_paged_mma_template_matches_plain(dev, kind, g, d, pw, page):
+    """Kernel 3's mma template (from MMA_MIN_G query heads a KV head; G =
+    2 and 4 take the CUDA-core template) for every cache kind, over a
+    cluster of splits inside pages (8 pages of 64), of splits whose rows
+    straddle pages (24 pages of 16) and over one split (one page of 16),
+    within 1e-4 of max |v|; the last row is a pad row on the null page."""
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(g * 1000 + d + pw)
+    hkv, batch = 2, 3
+    cache, kinds = _paged_pool(dev, kind, hkv, d, batch * pw + 1, page, gen)
+    bt = (torch.randperm(batch * pw, generator=gen, device=dev)
+          .to(torch.int32) + 1).reshape(batch, pw)
+    bt[-1] = 0                                   # pad row
+    lens = [pw * page - 7, min(17, pw * page), 1]
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, _, mt, splits, _ = P.grid(batch, hkv, g, pw, page, sms)
+    assert (mt >= 1) == (g >= P.MMA_MIN_G) and (splits > 1) == (pw > 1)
+    q = torch.randn((batch, hkv * g, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    args = _paged_args(cache, kinds, q, bt, vl, page)
+    before = P.LAUNCHES["paged_decode_attn"]
+    got = P.paged_decode_attention(*args)
+    assert P.LAUNCHES["paged_decode_attn"] == before + 1
+    ref = P.paged_decode_attention_plain(*args)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * _paged_vmax(cache, kinds)
 
 
 @pytest.mark.parametrize("m", [1, 2, 4, 7, 8, 9, 16, 17, 32])
