@@ -3,11 +3,15 @@
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero). The model paths
-of phases 5, 7, 9 and 11 run their decode steps as CUDA graphs
-(utils/graphs.py, the default on the card), and each also runs once with
-the eager step and must give bitwise the same tokens; a line per path prints
-the captures and their ms, the replays, host ms a token or a dispatch
-(graphed and eager, one run), the device busy time and the idle share.
+of phases 5, 7, 9 and 11-14 run their decode steps and their prefills as
+CUDA graphs (utils/graphs.py, the default on the card), and each also runs
+once eagerly and must give bitwise the same tokens; a line per path prints
+the captures and their ms, the replays (decode steps and prefills apart),
+host ms a token or a dispatch (graphed and eager, one run), the device busy
+time and the idle share; a measured round takes no capture. The prefill
+lines (phases 5, 7, 13a, 13b, 14a) give each prefill call's host ms graphed
+and eager, and its device ms (CUDA events around the graphed call), p50
+TTFT and the idle share graphed and eager.
   1. build    compile csrc/*.cu with nvcc (one process per source, in
               parallel) and print the build time and ptxas report; count
               the HMMA instructions of kernels 2 and 3 (cuobjdump -sass);
@@ -296,13 +300,18 @@ seeds, which set DVP_LIMIT and DVP_WITNESS), `python3 chip_smoke.py vlm`
 phases 1 and 14, `python3 chip_smoke.py convert` phases 1 and 15,
 `python3 chip_smoke.py cli` phases 1, 15 and 16, `python3 chip_smoke.py
 tp` phases 1 and 17 (`chip_smoke.py tp-rank <mode> <device>` is one of
-phase 17's ranks), `python3 chip_smoke.py scripts` phases 1 and 18.
+phase 17's ranks), `python3 chip_smoke.py scripts` phases 1 and 18,
+`python3 chip_smoke.py gqa-paged` builds csrc/paged_attn.cu alone and times
+kernel 3 at 48/1 and 28/4 heads over every kind at batch 1 and 16 (run from
+another checkout, it times that checkout's kernel: the comparison in one
+call).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import os
@@ -402,19 +411,109 @@ def eager_ms(fn, iters: int = 5) -> float:
     return s.elapsed_time(e) / iters
 
 
-def graph_counts(runner, since=None) -> dict:
-    """Captures, their ms (warm-up and capture) and replays of a StepGraphs
-    runner, less those of `since` (an earlier result of this function)."""
-    out = {"captures": sum(runner.captures.values()) if runner else 0,
-           "capture_ms": sum(runner.capture_ms.values()) if runner else 0.0,
-           "replays": sum(runner.replays.values()) if runner else 0}
+def graph_counts(owner, since=None) -> dict:
+    """Captures, their ms (warm-up and capture) and replays of the step
+    graphs of a Model or DynamicGenerator, its decode steps' and (prefill_)
+    its prefills', less those of `since` (an earlier result of this
+    function)."""
+    out = {}
+    for pre, runner in (("", owner.step_graphs),
+                        ("prefill_", owner.prefill_graphs)):
+        out[pre + "captures"] = sum(runner.captures.values()) \
+            if runner else 0
+        out[pre + "capture_ms"] = sum(runner.capture_ms.values()) \
+            if runner else 0.0
+        out[pre + "replays"] = sum(runner.replays.values()) if runner else 0
     if since:
         out = {k: v - since[k] for k, v in out.items()}
     return out
 
 
+def no_captures(tag, g) -> None:
+    """A measured round (graph_counts over it) captured nothing."""
+    if g["captures"] or g["prefill_captures"]:
+        raise AssertionError(f"{tag}: the measured round captured "
+                             f"{g['captures']} step and "
+                             f"{g['prefill_captures']} prefill graphs")
+
+
+def prefill_keys(tag, owner) -> dict:
+    """Each prefill key of `owner` with its captures, capture ms (warm-up,
+    capture, first replay) and replays, logged."""
+    runner = owner.prefill_graphs
+    keys = {str(k): {"captures": runner.captures[k],
+                     "capture_ms": runner.capture_ms[k],
+                     "replays": runner.replays[k]}
+            for k in runner.captures} if runner else {}
+    for k, v in keys.items():
+        log(f"[{tag}] prefill key {k}: {v['captures']} captures in "
+            f"{v['capture_ms']:.1f} ms, {v['replays']} replays")
+    return keys
+
+
+class PrefillTimer:
+    """Times every prefill forward of a DynamicGenerator (its
+    _prefill_forward): host ms from the call to its last kernel's end (a
+    synchronize before and after), and device ms by CUDA events around the
+    call (on a replay the graph's device time; eager, the span of its
+    launches)."""
+
+    def __init__(self, gen):
+        self.gen, self.host_ms, self.device_ms = gen, [], []
+        self.inner = gen._prefill_forward
+        self.wrapped = "_prefill_forward" in vars(gen)    # by logged()
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t = time.perf_counter()
+            s.record()
+            out = self.inner(*a, **kw)
+            e.record()
+            torch.cuda.synchronize()
+            self.host_ms.append((time.perf_counter() - t) * 1e3)
+            self.device_ms.append(s.elapsed_time(e))
+            return out
+        self.gen._prefill_forward = timed
+        return self
+
+    def __exit__(self, *exc):
+        if self.wrapped:
+            self.gen._prefill_forward = self.inner
+        else:
+            del self.gen._prefill_forward
+        self.gen = self.inner = None          # hold the generator no longer
+
+    def summary(self) -> dict:
+        return {"calls": len(self.host_ms), "host_ms": sum(self.host_ms),
+                "device_ms": sum(self.device_ms)}
+
+
+def prefill_line(tag, graphed: dict, eager_: dict, ttft=None, idle=None,
+                 delivered=None):
+    """One line of a path's prefills: host ms graphed and eager, device ms
+    of the graphed calls; p50 TTFT, the idle share and the p50 delivery of
+    the first token, graphed and eager."""
+    line = (f"[{tag}] prefill: {graphed['calls']} calls, host "
+            f"{graphed['host_ms']:.1f} ms graphed against "
+            f"{eager_['host_ms']:.1f} eager ({eager_['calls']} calls), device "
+            f"{graphed['device_ms']:.1f} ms graphed (host share "
+            f"{1 - graphed['device_ms'] / max(graphed['host_ms'], 1e-9):.1%})")
+    if ttft is not None:
+        line += f"; p50 TTFT {ttft[0]:.1f} ms graphed, {ttft[1]:.1f} eager"
+    if idle is not None:
+        line += f"; idle share {idle[0]:.1%} graphed, {idle[1]:.1%} eager"
+    if delivered is not None:
+        line += (f"; first token delivered at p50 {delivered[0]:.1f} ms "
+                 f"graphed, {delivered[1]:.1f} eager")
+    log(line)
+    return {"graphed": graphed, "eager": eager_, "p50_ttft_ms": ttft,
+            "idle_share": idle, "p50_delivered_ms": delivered}
+
+
 def eager(model, fn):
-    """fn() with the model's one-token steps eager (model.graphs off)."""
+    """fn() with the model's forwards eager (model.graphs off)."""
     model.graphs = False
     try:
         return fn()
@@ -841,7 +940,9 @@ def phase_7b(dev):
     prompt1 = rng.integers(3, VOCAB, (1, 16)).astype(np.int32)
     prompt4 = rng.integers(3, VOCAB, (4, 16)).astype(np.int32)
     new = 32
-    model.generate_greedy(prompt1[:, :4], 2)           # warm-up
+    for prompt in (prompt1, prompt4):
+        for _ in range(2):      # warm-up: a prefill key captures at its 2nd
+            model.generate_greedy(prompt, 2)
     torch.cuda.synchronize()
 
     # --- the main paths, each with its own counts read around the call
@@ -859,11 +960,11 @@ def phase_7b(dev):
     for name, (prompt, want) in paths.items():
         Q.LAUNCHES["qmm"] = 0
         A.LAUNCHES["decode_attn"] = 0
-        g0 = graph_counts(model.step_graphs)
+        g0 = graph_counts(model)
         seq = model.generate_greedy(prompt, new)
         got = {"qmm": Q.LAUNCHES["qmm"],
                "decode_attn": A.LAUNCHES["decode_attn"]}
-        graphs[name] = graph_counts(model.step_graphs, g0)
+        graphs[name] = graph_counts(model, g0)
         log(f"[7b] {name}: launches {got} (expected {want}); step graphs "
             f"{graphs[name]}")
         if got != want:
@@ -871,8 +972,10 @@ def phase_7b(dev):
         b = prompt.shape[0]
         if seq.shape != (b, 16 + new) or seq.min() < 0 or seq.max() >= VOCAB:
             raise AssertionError(f"{name}: bad generation {seq.shape}")
-        if graphs[name]["replays"] != steps:
-            raise AssertionError(f"{name}: {graphs[name]} for {steps} steps")
+        if (graphs[name]["replays"] != steps
+                or graphs[name]["prefill_replays"] != 1):
+            raise AssertionError(f"{name}: {graphs[name]} for {steps} steps"
+                                 " and a prefill")
         # the same path eager: bitwise the same tokens
         seq_e = eager(model, lambda: model.generate_greedy(prompt, new))
         log(f"[7b] {name}: graphed tokens equal the eager path's: "
@@ -894,17 +997,42 @@ def phase_7b(dev):
         model.generate_greedy(prompt1, n_new)
         return time.perf_counter() - t
 
+    # both calls replay the prefill key of the b1 path (the same cache of
+    # generate_greedy, the same 16 rows): nothing is captured
+    g0 = graph_counts(model)
     t_pre = min(wall(1) for _ in range(3))
     t_all = min(wall(1 + n_dec) for _ in range(2))
+    no_captures("7b timed calls", graph_counts(model, g0))
     ms_tok = (t_all - t_pre) / n_dec * 1e3
     tps = 1e3 / ms_tok
     log(f"[7b] decode batch 1: {tps:.2f} tokens/s ({ms_tok:.3f} ms/token "
         f"over {n_dec} tokens of generate_greedy; prefill-only call "
         f"{t_pre * 1e3:.1f} ms)")
-    # the eager step in the same run, on half the tokens
+    # the eager step and prefill in the same run, on half the tokens
     t_pre_e = eager(model, lambda: min(wall(1) for _ in range(2)))
     t_all_e = eager(model, lambda: wall(1 + n_dec // 2))
     ms_tok_e = (t_all_e - t_pre_e) / (n_dec // 2) * 1e3
+    # the prefill alone: the 16 rows' forward with its graph (CUDA events
+    # around the replay: its device time) and eagerly
+    cache = model._greedy_cache(1, 256)
+
+    def prefill_ms():
+        torch.cuda.synchronize()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = time.perf_counter()
+        s.record()
+        model.forward(prompt1, cache, 0, last_token_only=True)
+        e.record()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, s.elapsed_time(e)
+    pre_g = min(prefill_ms() for _ in range(5))
+    pre_e = eager(model, lambda: min(prefill_ms() for _ in range(3)))
+    no_captures("7b prefill", graph_counts(model, g0))
+    pkeys = prefill_keys("7b", model)
+    log(f"[7b] prefill-only call (16 rows, batch 1): {t_pre * 1e3:.1f} ms "
+        f"graphed, {t_pre_e * 1e3:.1f} eager (same run); its forward alone "
+        f"{pre_g[0]:.2f} ms graphed (device {pre_g[1]:.2f}), {pre_e[0]:.2f} "
+        f"eager (device span {pre_e[1]:.2f})")
 
     # --- where a decode token's device time goes (kernels only)
     prof = profile_decode(model, prompt1)
@@ -915,9 +1043,12 @@ def phase_7b(dev):
         f"ms/token (idle share {1 - busy / ms_tok:.1%})")
     for name, ms_k in prof["top"]:
         log(f"[7b] profile:   {ms_k:6.3f} ms/token  {name}")
-    gs = graph_counts(model.step_graphs)
+    gs = graph_counts(model)
     log(f"[7b] step graphs: {gs['captures']} captures in "
-        f"{gs['capture_ms']:.1f} ms, {gs['replays']} replays; batch-1 host "
+        f"{gs['capture_ms']:.1f} ms, {gs['replays']} replays; prefill "
+        f"graphs {gs['prefill_captures']} captures in "
+        f"{gs['prefill_capture_ms']:.1f} ms, {gs['prefill_replays']} "
+        f"replays; batch-1 host "
         f"{ms_tok:.3f} ms a token graphed against {ms_tok_e:.3f} eager "
         f"(same run); device busy {busy:.3f} ms graphed, {busy_e:.3f} eager; "
         f"idle share {1 - busy / ms_tok:.1%} graphed, "
@@ -938,6 +1069,10 @@ def phase_7b(dev):
     return {"weights_gb": gbytes, "launches": launches, "profile": prof,
             "profile_eager": prof_e, "step_graphs": graphs,
             "step_graphs_all": gs, "decode_ms_per_token_b1_eager": ms_tok_e,
+            "prefill_only_ms": t_pre * 1e3, "prefill_only_ms_eager":
+            t_pre_e * 1e3, "prefill_forward_ms": pre_g[0],
+            "prefill_forward_device_ms": pre_g[1],
+            "prefill_forward_ms_eager": pre_e[0], "prefill_keys": pkeys,
             "decode_tokens_per_s_b1": tps, "decode_ms_per_token_b1": ms_tok,
             "decode_vs_prefill_rel_err": rel, "tokens_b1": seq1.tolist()}
 
@@ -1211,13 +1346,34 @@ def serve_round(gen, prompts):
     jobs = [gen.enqueue(DynamicJob(p, max_new_tokens=SERVE_NEW,
                                    settings=Settings.greedy()))
             for p in prompts]
-    while any(j.status != "done" for j in jobs):
-        gen.iterate()
+    iterate_delivering(gen, jobs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     # (counted per job: a streaming result holds back the tokens of an
     # unfinished UTF-8 sequence)
     return jobs, sum(j.new_tokens for j in jobs), dt
+
+
+def iterate_delivering(gen, jobs) -> None:
+    """gen.iterate() until every job is done, each job's time_delivered the
+    return of the iterate() that handed its first token to the caller. A
+    decode burst stamps the k tokens it reads back at once at even steps of
+    its dispatch interval (their times inside it are not observable), so
+    the generator's own time of a first token (TTFT) leaves out device work
+    still queued when the burst was dispatched, such as a prefill replayed
+    without a wait; the delivery time holds all of it."""
+    while any(j.status != "done" for j in jobs):
+        gen.iterate()
+        t = time.perf_counter()
+        for j in jobs:
+            if j.new_tokens and not getattr(j, "time_delivered", 0.0):
+                j.time_delivered = t
+
+
+def delivered_p50(jobs, since: str = "time_enqueue") -> float:
+    """p50 ms from each job's `since` to its first token's delivery."""
+    d = sorted((j.time_delivered - getattr(j, since)) * 1e3 for j in jobs)
+    return d[len(d) // 2]
 
 
 def check_round(name, jobs, new, dt, vocab=VOCAB):
@@ -1323,18 +1479,21 @@ def same_tokens(tag, graphed_jobs, eager_jobs):
         raise AssertionError(f"{tag}: graphed and eager tokens differ")
 
 
-def graph_line(tag, runner, g, dt, dt_e, busy=None, busy_e=None):
+def graph_line(tag, tot, g, dt, dt_e, busy=None, busy_e=None):
     """One line per serving path: captures (their ms: warm-up, capture and
     instantiation), replays, host ms a decode dispatch graphed and eager,
     device busy and idle share. `g` is graph_counts over the measured round
-    of `runner` (whose totals are printed too), dt / dt_e the seconds of
-    the graphed and eager rounds (a dispatch's share holds the prefill)."""
+    (which must capture nothing), `tot` graph_counts of the generator after
+    it, dt / dt_e the seconds of the graphed and eager rounds (a dispatch's
+    share holds the prefill)."""
+    no_captures(tag, g)
     n = max(1, g["replays"])
-    tot = graph_counts(runner)
     line = (f"[{tag}] step graphs: {tot['captures']} keys captured in "
-            f"{tot['capture_ms']:.1f} ms in all; the measured round "
-            f"{g['captures']} captures ({g['capture_ms']:.1f} ms), "
-            f"{g['replays']} replays; host {dt * 1e3 / n:.2f} ms a dispatch "
+            f"{tot['capture_ms']:.1f} ms in all, prefills "
+            f"{tot['prefill_captures']} in {tot['prefill_capture_ms']:.1f} "
+            f"ms; the measured round {g['captures']} captures, "
+            f"{g['replays']} replays and {g['prefill_replays']} prefill "
+            f"replays; host {dt * 1e3 / n:.2f} ms a dispatch "
             f"graphed against {dt_e * 1e3 / n:.2f} eager (prefill included)")
     if busy is not None:
         line += (f"; device busy {busy:.1f} ms, idle share "
@@ -1346,7 +1505,9 @@ def graph_line(tag, runner, g, dt, dt_e, busy=None, busy_e=None):
     return dict(g, host_ms_per_dispatch=dt * 1e3 / n,
                 host_ms_per_dispatch_eager=dt_e * 1e3 / n,
                 all_captures=tot["captures"],
-                all_capture_ms=tot["capture_ms"])
+                all_capture_ms=tot["capture_ms"],
+                all_prefill_captures=tot["prefill_captures"],
+                all_prefill_capture_ms=tot["prefill_capture_ms"])
 
 
 def job_logits(gen, prompt, new_tokens: int):
@@ -1381,6 +1542,8 @@ def phase_serving(dev, rate):
     tok = ByteTokenizer(256)        # no EOS id: every job runs all its tokens
     cache = PagedKVCache.alloc(LAYERS, SERVE_PAGES, HEADS, HIDDEN // HEADS,
                                "bf16", device=dev)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_reserved()
     gen = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
                            max_chunk_size=512, decode_burst=16)
     rng = np.random.default_rng(0)
@@ -1390,10 +1553,12 @@ def phase_serving(dev, rate):
     t_warm = time.perf_counter() - t_warm
     zero_counts()
     round_prompts = serve_prompts(rng)
-    g0 = graph_counts(gen.step_graphs)
-    jobs, new, dt = serve_round(gen, round_prompts)      # measured round
+    g0 = graph_counts(gen)
+    with PrefillTimer(gen) as pt:
+        jobs, new, dt = serve_round(gen, round_prompts)  # measured round
     got = launch_counts()
-    g_round = graph_counts(gen.step_graphs, g0)
+    g_round = graph_counts(gen, g0)
+    mem_g = torch.cuda.memory_reserved() - mem0
     # 48 decode steps, each 225 fused linears (32 x 7 + the head) at m = 16
     # and one paged-attention launch per layer; the batched 16 x 128-row
     # prefill takes the dequant + matmul path and skips the head
@@ -1404,9 +1569,10 @@ def phase_serving(dev, rate):
     if got != want:
         raise AssertionError(f"serving16 launch counts {got} != {want}")
     tps, p50, ttfts = check_round("serving16", jobs, new, dt)
+    dlv = delivered_p50(jobs)
     log(f"[serve] serving16: {new} tokens in {dt * 1e3:.1f} ms = "
-        f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms (warm round "
-        f"{t_warm:.1f} s)")
+        f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms, first token delivered "
+        f"at p50 {dlv:.1f} ms (warm round {t_warm:.1f} s)")
 
     # device busy time of one more round, under the profiler
     per, busy, dt_prof = profile_round(
@@ -1438,21 +1604,36 @@ def phase_serving(dev, rate):
         raise AssertionError(f"paged vs linear logits rel err {rel}")
 
     # the measured round's prompts through an eager generator on the same
-    # (now idle) cache: the same tokens; its time and, in one more round,
-    # its device busy, against the graphed round's
+    # (now idle) cache, the graphed generator and its graphs gone: the same
+    # tokens; its time and, in one more round, its device busy, against the
+    # graphed round's; the memory each reserved beyond the model and cache
+    tot = graph_counts(gen)
+    pkeys = prefill_keys("serve", gen)
+    del gen
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_reserved()
     gen_e = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
                              max_chunk_size=512, decode_burst=16,
                              graphs=False)
-    jobs_e, new_e, dt_e = serve_round(gen_e, round_prompts)
+    with PrefillTimer(gen_e) as pt_e:
+        jobs_e, new_e, dt_e = serve_round(gen_e, round_prompts)
+    mem_e = torch.cuda.memory_reserved() - mem0
     same_tokens("serve", jobs, jobs_e)
     tps_e = new_e / dt_e
+    _, p50_e, _ = check_round("serving16 eager", jobs_e, new_e, dt_e)
+    dlv_e = delivered_p50(jobs_e)
     _, busy_e, _ = profile_round(
         lambda: serve_round(gen_e, serve_prompts(rng)))
-    graphs = graph_line("serve", gen.step_graphs, g_round, dt, dt_e, busy,
-                        busy_e)
+    graphs = graph_line("serve", tot, g_round, dt, dt_e, busy, busy_e)
+    pre = prefill_line("serve", pt.summary(), pt_e.summary(), (p50, p50_e),
+                       (1 - busy / (dt * 1e3), 1 - busy_e / (dt_e * 1e3)),
+                       (dlv, dlv_e))
     log(f"[serve] serving16 eager in the same run: {tps_e:.1f} tokens/s "
-        f"against {tps:.1f} graphed")
-    del gen, gen_e, cache
+        f"against {tps:.1f} graphed; memory reserved beyond the model and "
+        f"cache {mem_g / 2**20:.0f} MiB graphed (the graphs' pool), "
+        f"{mem_e / 2**20:.0f} MiB eager")
+    del gen_e, cache
     torch.cuda.empty_cache()
 
     # q4 cache: three jobs reuse the first job's hashed prompt page
@@ -1500,8 +1681,11 @@ def phase_serving(dev, rate):
     torch.cuda.empty_cache()
     return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
             "tokens_per_s_eager": tps_e, "device_busy_ms_eager": busy_e,
-            "step_graphs": graphs,
-            "p50_ttft_ms": p50, "ttft_ms": ttfts,
+            "step_graphs": graphs, "prefill": pre, "prefill_keys": pkeys,
+            "memory_reserved_mib": mem_g / 2**20,
+            "memory_reserved_mib_eager": mem_e / 2**20,
+            "p50_ttft_ms": p50, "p50_ttft_ms_eager": p50_e, "ttft_ms": ttfts,
+            "p50_delivered_ms": dlv, "p50_delivered_ms_eager": dlv_e,
             "prompts": [p.tolist() for p in round_prompts],
             "tokens": [j.sequence[SERVE_PROMPT:].tolist() for j in jobs],
             "device_busy_ms": busy, "idle_share": 1 - busy / (dt * 1e3),
@@ -1597,7 +1781,7 @@ def phase_merged(dev, rate, base):
         gen_e = new_gen(gen.model, prescale=False, graphs=False)
         jobs_e, new_e, dt_e = serve_round(gen_e, prompts)
         same_tokens(tag, jobs, jobs_e)
-        return new_e / dt_e, graph_line(tag, gen.step_graphs, g_round, dt,
+        return new_e / dt_e, graph_line(tag, graph_counts(gen), g_round, dt,
                                         dt_e, busy)
 
     # --- (a) GPTQ 4-bit gs128, merged + W4A8. The generator builds new
@@ -1618,10 +1802,10 @@ def phase_merged(dev, rate, base):
     serve_round(gen, serve_prompts(rng))                 # warm round
     t_warm = time.perf_counter() - t_warm
     zero_counts()
-    g0 = graph_counts(gen.step_graphs)
+    g0 = graph_counts(gen)
     jobs, new, dt = serve_round(gen, prompts)            # measured round
     got = launch_counts()
-    g_round = graph_counts(gen.step_graphs, g0)
+    g_round = graph_counts(gen, g0)
     # 48 decode steps at m = 16: per layer q|k|v, o, gate|up and down on the
     # W4A8 kernel, the exact head on the fused kernel, one paged-attention
     # launch per layer; the prefill dequantizes and skips the head
@@ -1632,12 +1816,14 @@ def phase_merged(dev, rate, base):
     if got != want:
         raise AssertionError(f"merged+w4a8 launch counts {got} != {want}")
     tps, p50, ttfts = check_round("merged+w4a8", jobs, new, dt)
+    dlv = delivered_p50(jobs)
     per, busy, dt_prof = profile_round(
         lambda: serve_round(gen, serve_prompts(rng)))
     idle = 1 - busy / (dt * 1e3)
     top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:8]
     log(f"[merged] serving16 merged+w4a8 (GPTQ gs128): {new} tokens in "
-        f"{dt * 1e3:.1f} ms = {tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms, "
+        f"{dt * 1e3:.1f} ms = {tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms "
+        f"(first token delivered at p50 {dlv:.1f} ms), "
         f"device busy {busy:.1f} ms, idle share {idle:.1%} (warm round "
         f"{t_warm:.1f} s; profiled round {dt_prof * 1e3:.1f} ms)")
     log(f"[merged] serving16 unmerged exact (EXL2, phase 7): "
@@ -1757,10 +1943,10 @@ def phase_merged(dev, rate, base):
     try:
         exact.generate_greedy(prompt1[:, :4], 2)             # warm-up
         zero_counts()
-        g0 = graph_counts(exact.step_graphs)
+        g0 = graph_counts(exact)
         seq = exact.generate_greedy(prompt1, n_new)
         gotp = launch_counts()
-        gp = graph_counts(exact.step_graphs, g0)
+        gp = graph_counts(exact, g0)
         seq_e = eager(exact, lambda: exact.generate_greedy(prompt1, n_new))
         part_logits = prefill_logits()
         sess = profile_partials(exact, prompt1, 4)
@@ -1824,18 +2010,20 @@ def phase_merged(dev, rate, base):
     gen = new_gen(model, merged_weights=True)
     if gen.model.weights.layers[0].attn.qkv.segments[0].scale_f is None:
         raise AssertionError("merged prescaled sources lost scale_f")
+    serve_round(gen, serve_prompts(rng))                 # warm round
     zero_counts()
-    g0 = graph_counts(gen.step_graphs)
+    g0 = graph_counts(gen)
     jobs_m, new_m, dt_m = serve_round(gen, prompts)
     gotm = launch_counts()
-    gm = graph_counts(gen.step_graphs, g0)
+    gm = graph_counts(gen, g0)
     wantm = dict(want, qmm=(4 * LAYERS + 1) * SERVE_NEW, qmm_w4a8=0)
     tps_m, p50_m, _ = check_round("merged", jobs_m, new_m, dt_m)
     same = [j.sequence[SERVE_PROMPT:].tolist() == t
             for j, t in zip(jobs_m, base["tokens"])]
-    log(f"[merged] merged-only EXL2 round (first round of a new "
-        f"generator): launches {gotm} (expected {wantm}), {tps_m:.1f} "
-        f"tokens/s, p50 TTFT {p50_m:.1f} ms; {sum(same)} of {len(same)} "
+    log(f"[merged] merged-only EXL2 round (after a warm round of other "
+        f"prompts): launches {gotm} (expected {wantm}), {tps_m:.1f} "
+        f"tokens/s, p50 TTFT {p50_m:.1f} ms (delivered at p50 "
+        f"{delivered_p50(jobs_m):.1f}); {sum(same)} of {len(same)} "
         f"jobs repeat phase 7's unmerged tokens")
     if gotm != wantm:
         raise AssertionError(f"merged launch counts {gotm} != {wantm}")
@@ -2300,13 +2488,14 @@ def phase_constrained(dev):
                                    settings=text_only(), **kw))
         return jobs
 
+    run_round(constrained_jobs({14: [], 15: []}))     # its keys' warm round
     seen = {14: [], 15: []}
     jobs = constrained_jobs(seen)
     zero_counts()
-    g0 = graph_counts(gen.step_graphs)
+    g0 = graph_counts(gen)
     steps, rewinds, dt = run_round(jobs)
     got = launch_counts()
-    g_round = graph_counts(gen.step_graphs, g0)
+    g_round = graph_counts(gen, g0)
     want = {"qmm": (7 * LAYERS + 1) * steps, "qmm_w4a8": 0,
             "qmm_partials": 0, "decode_attn": 0,
             "paged_decode_attn": LAYERS * steps}
@@ -2387,13 +2576,13 @@ def phase_constrained(dev):
 
     # the constrained round once more through an eager generator on the
     # same (now idle) cache: the same tokens
-    runner = gen.step_graphs
+    tot = graph_counts(gen)
     gen = DynamicGenerator(model, cache, tok, max_batch_size=SERVE_JOBS,
                            max_chunk_size=512, decode_burst=16, graphs=False)
     jobs_e = constrained_jobs({14: [], 15: []})
     steps_e, _, dt_e = run_round(jobs_e)
     same_tokens("cons", jobs, jobs_e)
-    graphs = graph_line("cons", runner, g_round, dt, dt_e)
+    graphs = graph_line("cons", tot, g_round, dt, dt_e)
     log(f"[cons] constrained round eager in the same run: "
         f"{sum(j.new_tokens for j in jobs_e) / dt_e:.1f} tokens/s in "
         f"{steps_e} steps, against {new / dt:.1f} graphed")
@@ -2918,18 +3107,20 @@ def arch_greedy(tag, model, prompt, new, vocab) -> dict:
     the same tokens."""
     b, t0 = prompt.shape
     want = dict(greedy_want(model, b, t0, new), paged_decode_attn=0)
-    model.generate_greedy(prompt[:, :4], 2)             # warm-up
+    for _ in range(2):      # warm-up: a prefill key captures at its 2nd
+        model.generate_greedy(prompt, 2)
     torch.cuda.synchronize()
     zero_counts()
-    g0 = graph_counts(model.step_graphs)
+    g0 = graph_counts(model)
     t = time.perf_counter()
     seq = model.generate_greedy(prompt, new)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     got = arch_counts()
-    graphs = graph_counts(model.step_graphs, g0)
+    graphs = graph_counts(model, g0)
     log(f"[{tag}] generate_greedy b{b}: launches {got} (expected {want}); "
         f"step graphs {graphs}")
+    no_captures(f"{tag} generate_greedy b{b}", graphs)
     if got != want:
         raise AssertionError(f"{tag} b{b} launch counts {got} != {want}")
     if (seq.shape != (b, t0 + new) or seq.min() < 0 or seq.max() >= vocab
@@ -3171,8 +3362,10 @@ def decode_rate_b1(model, prompt, n: int) -> tuple[float, float]:
 
 def arch_serving(tag, model, dev, vocab, drops=False) -> dict:
     """PERF.md's serving16 round: a warm round, a measured round with its
-    launch counts asserted, one profiled round, the measured prompts again
-    through an eager generator: the same tokens."""
+    launch counts asserted (and its prefills timed), one profiled round,
+    the measured prompts again through an eager generator (prefills timed)
+    and once more under the profiler: the same tokens, p50 TTFT and the
+    idle share graphed and eager."""
     from exllamav2_tpu_torch.cache_paged import PagedKVCache
     from exllamav2_tpu_torch.generator.dynamic import DynamicGenerator
     from exllamav2_tpu_torch.tokenizer import ByteTokenizer
@@ -3191,10 +3384,12 @@ def arch_serving(tag, model, dev, vocab, drops=False) -> dict:
     serve_round(gen, serve_prompts(rng))                 # warm round
     round_prompts = serve_prompts(rng)
     zero_counts()
-    g0 = graph_counts(gen.step_graphs)
-    jobs, new, dt = serve_round(gen, round_prompts)
+    g0 = graph_counts(gen)
+    with PrefillTimer(gen) as pt:
+        jobs, new, dt = serve_round(gen, round_prompts)
     got = arch_counts()
-    g_round = graph_counts(gen.step_graphs, g0)
+    g_round = graph_counts(gen, g0)
+    no_captures(f"{tag} serving16", g_round)
     dec = step_launches(model, SERVE_JOBS)
     hd = head_launches(model)
     # the batched 16 x 128-row prefill launches what step_launches says of
@@ -3208,33 +3403,55 @@ def arch_serving(tag, model, dev, vocab, drops=False) -> dict:
     if got != want:
         raise AssertionError(f"{tag} serving16 launch counts {got} != {want}")
     tps, p50, _ = check_round(f"{tag} serving16", jobs, new, dt, vocab)
+    dlv = delivered_p50(jobs)
     dropped = gen.moe_dropped_tokens
     log(f"[{tag}] serving16: {new} tokens in {dt * 1e3:.1f} ms = "
-        f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms; dropped MoE routes "
-        f"{dropped}")
+        f"{tps:.1f} tokens/s, p50 TTFT {p50:.1f} ms, first token delivered "
+        f"at p50 {dlv:.1f} ms; dropped MoE routes {dropped}")
     if drops and dropped:
         log(f"[{tag}] serving16: the prefill dispatch dropped {dropped} "
             f"routes (capacity factor 2)")
-    per, busy, dt_prof = profile_round(
-        lambda: serve_round(gen, serve_prompts(rng)))
+    prof = {}
+
+    def profiled(g):
+        prof["out"] = serve_round(g, serve_prompts(rng))
+    per, busy, dt_prof = profile_round(lambda: profiled(gen))
+    p50_prof = check_round(f"{tag} profiled", *prof["out"], vocab)[1]
     top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     for name, (t, c) in top:
         log(f"[{tag}] serving16 profile: {t:8.2f} ms {c:6d}x  {name[:70]}")
+    pkeys = prefill_keys(tag, gen)
     del gen
     gen_e = new_gen(False)
-    jobs_e, new_e, dt_e = serve_round(gen_e, round_prompts)
+    with PrefillTimer(gen_e) as pt_e:
+        jobs_e, new_e, dt_e = serve_round(gen_e, round_prompts)
     same_tokens(tag, jobs, jobs_e)
+    p50_e = check_round(f"{tag} eager", jobs_e, new_e, dt_e, vocab)[1]
+    _, busy_e, dt_prof_e = profile_round(lambda: profiled(gen_e))
+    p50_prof_e = check_round(f"{tag} eager profiled", *prof["out"], vocab)[1]
     idle = 1 - busy / (dt_prof * 1e3)
+    idle_e = 1 - busy_e / (dt_prof_e * 1e3)
     log(f"[{tag}] serving16 device busy {busy:.1f} ms of the profiled "
-        f"{dt_prof * 1e3:.1f} ms round (idle share {idle:.1%}); eager "
-        f"{new_e / dt_e:.1f} tokens/s against {tps:.1f} graphed; step "
-        f"graphs {g_round}")
+        f"{dt_prof * 1e3:.1f} ms round (idle share {idle:.1%}; eager "
+        f"{busy_e:.1f} of {dt_prof_e * 1e3:.1f}, {idle_e:.1%}; p50 TTFT "
+        f"under the profiler {p50_prof:.1f} ms graphed, {p50_prof_e:.1f} "
+        f"eager); eager {new_e / dt_e:.1f} tokens/s against {tps:.1f} "
+        f"graphed; step graphs {g_round}")
+    dlv_e = delivered_p50(jobs_e)
+    pl = prefill_line(tag, pt.summary(), pt_e.summary(), (p50, p50_e),
+                      (idle, idle_e), (dlv, dlv_e))
     del gen_e, cache
     return {"launches": got, "tokens_per_s": tps, "round_ms": dt * 1e3,
             "p50_ttft_ms": p50, "tokens_per_s_eager": new_e / dt_e,
+            "p50_ttft_ms_eager": p50_e, "p50_ttft_ms_profiled": p50_prof,
+            "p50_delivered_ms": dlv, "p50_delivered_ms_eager": dlv_e,
+            "p50_ttft_ms_profiled_eager": p50_prof_e,
             "device_busy_ms": busy, "profiled_round_ms": dt_prof * 1e3,
-            "idle_share": idle, "moe_dropped_tokens": dropped,
-            "step_graphs": g_round,
+            "device_busy_ms_eager": busy_e,
+            "profiled_round_ms_eager": dt_prof_e * 1e3,
+            "idle_share": idle, "idle_share_eager": idle_e,
+            "moe_dropped_tokens": dropped, "prefill": pl,
+            "prefill_keys": pkeys, "step_graphs": g_round,
             "top_kernels": [(k[:70], t, c) for k, (t, c) in top]}
 
 
@@ -3710,8 +3927,10 @@ def check_held(tag, model, held, rows=(1, 16)) -> dict:
 
 
 def logged(gen):
-    """Record `gen`'s prefill forwards (their id shapes) and step dispatches
-    (their keys) from now on -> (shapes, keys), filled as it runs."""
+    """Record `gen`'s prefill forwards (their id shapes) and decode step
+    dispatches (their keys) from now on -> (shapes, keys), filled as it
+    runs."""
+    from exllamav2_tpu_torch.generator.dynamic import PREFILL_KEYS
     shapes, keys = [], []
     prefill, run = gen._prefill_forward, gen._run
 
@@ -3720,7 +3939,8 @@ def logged(gen):
         return prefill(ids, *a, **kw)
 
     def run_logged(key, *a):
-        keys.append(key)
+        if key[0] not in PREFILL_KEYS:
+            keys.append(key)
         return run(key, *a)
 
     gen._prefill_forward, gen._run = prefill_logged, run_logged
@@ -3874,8 +4094,7 @@ def vlm_round(gen, tower, imgs, texts, embs=None):
     for tx in texts[len(imgs):]:
         jobs.append(gen.enqueue(DynamicJob(tx, max_new_tokens=VLM_NEW,
                                            settings=Settings.greedy())))
-    while any(j.status != "done" for j in jobs):
-        gen.iterate()
+    iterate_delivering(gen, jobs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     for j in jobs:
@@ -4027,11 +4246,12 @@ def vlm_qwen(dev, rate, rng) -> dict:
     log(f"[time] phase 14a warm round: {time.perf_counter() - t_all:.1f} s")
     imgs, texts = requests()
     zero_counts()
-    g0 = graph_counts(gen.step_graphs)
+    g0 = graph_counts(gen)
     shapes, keys = logged(gen)
-    jobs, embs, new, dt, towers = vlm_round(gen, tower, imgs, texts)
+    with PrefillTimer(gen) as pt:
+        jobs, embs, new, dt, towers = vlm_round(gen, tower, imgs, texts)
     got = check_launches("vlm qwen2.5-vl round", model, shapes, keys)
-    g_round = graph_counts(gen.step_graphs, g0)
+    g_round = graph_counts(gen, g0)
     # TTFT from the requests' arrival (every tower runs first), and each
     # image job's TTFT less the other jobs' towers (its own tower and the
     # language model's queue)
@@ -4046,8 +4266,20 @@ def vlm_qwen(dev, rate, rng) -> dict:
     per, busy, dt_prof = profile_round(
         lambda: vlm_round(gen, tower, *requests()))
     idle = 1 - busy / (dt_prof * 1e3)
+    # TTFT less every tower (the language model's queue, prefill and first
+    # step), and the idle share of a round without towers: the measured
+    # round's image rows again with new texts (no prompt page in common),
+    # graphed here and eager below
+    less = sorted(t - sum(towers) * 1e3 for t in ttft)[len(ttft) // 2]
+    dlv_less = delivered_p50(jobs[:VLM_JOBS], "time_request") \
+        - sum(towers) * 1e3
+    _, busy_nt, dt_nt = profile_round(
+        lambda: vlm_round(gen, None, imgs, requests()[1], embs))
     log(f"[time] phase 14a measured and profiled rounds: "
         f"{time.perf_counter() - t_all:.1f} s")
+    g_all = graph_counts(gen, g0)
+    no_captures("vlm qwen2.5-vl rounds", g_all)
+    pkeys = prefill_keys("vlm", gen)
     del gen
     # the same round eager, kernels 1 and 3 held against their plain
     # versions on its inputs (m = 16 in its decode steps), then one eager
@@ -4065,6 +4297,27 @@ def vlm_qwen(dev, rate, rng) -> dict:
     out["held"] = check_held("vlm qwen2.5-vl", model, held)
     same_tokens("vlm qwen2.5-vl", jobs, jobs_e)
     del gen_e, gen_1
+    # the same image rows and texts eager without the held kernels (TTFT:
+    # no tower runs), then a round of new texts under the profiler
+    gen_e = new_gen(False)
+    with PrefillTimer(gen_e) as pt_e:
+        jobs_c, _, _, _, _ = vlm_round(gen_e, None, imgs, texts, embs)
+    same_tokens("vlm qwen2.5-vl eager", jobs, jobs_c)
+    less_e = sorted((j.time_first_token - j.time_request) * 1e3
+                    for j in jobs_c[:VLM_JOBS])[VLM_JOBS // 2]
+    dlv_less_e = delivered_p50(jobs_c[:VLM_JOBS], "time_request")
+    _, busy_nte, dt_nte = profile_round(
+        lambda: vlm_round(gen_e, None, imgs, requests()[1], embs))
+    del gen_e
+    idle_nt = (1 - busy_nt / (dt_nt * 1e3), 1 - busy_nte / (dt_nte * 1e3))
+    pre = prefill_line("vlm", pt.summary(), pt_e.summary(), (less, less_e),
+                       idle_nt, (dlv_less, dlv_less_e))
+    log(f"[vlm] p50 TTFT of the image jobs less every tower {less:.1f} ms "
+        f"graphed, {less_e:.1f} eager; rounds without towers under the "
+        f"profiler: idle share {idle_nt[0]:.1%} graphed ({busy_nt:.1f} of "
+        f"{dt_nt * 1e3:.1f} ms), {idle_nt[1]:.1%} eager ({busy_nte:.1f} of "
+        f"{dt_nte * 1e3:.1f} ms); step graphs of the measured and profiled "
+        f"rounds {g_all}")
     log(f"[vlm] round of {VLM_JOBS} image jobs and {VLM_TEXT_JOBS} text "
         f"jobs: {new} tokens in {dt * 1e3:.1f} ms = {new / dt:.1f} "
         f"tokens/s (eager {new_e / dt_e:.1f}); p50 TTFT of the image jobs "
@@ -4079,9 +4332,7 @@ def vlm_qwen(dev, rate, rng) -> dict:
         f"busy {busy:.1f} ms of {dt_prof * 1e3:.1f} (idle share "
         f"{idle:.1%}); step graphs "
         f"{g_round}, {len(offsets)} distinct MRoPE offsets {offsets}")
-    if g_round["captures"]:
-        raise AssertionError(f"vlm: the measured round captured "
-                             f"{g_round['captures']} graphs")
+    no_captures("vlm qwen2.5-vl round", g_round)
     top = sorted(per.items(), key=lambda kv: kv[1][0], reverse=True)[:6]
     for name, (tt, c) in top:
         log(f"[vlm] round profile: {tt:8.2f} ms {c:6d}x  {name[:70]}")
@@ -4094,6 +4345,13 @@ def vlm_qwen(dev, rate, rng) -> dict:
                     "own_tower_share": towers[i50] * 1e3 / own[i50],
                     "host_ms_per_dispatch": dt * 1e3 / max(1, len(keys)),
                     "device_busy_ms": busy, "idle_share": idle,
+                    "p50_ttft_less_towers_ms": less,
+                    "p50_ttft_less_towers_ms_eager": less_e,
+                    "p50_delivered_less_towers_ms": dlv_less,
+                    "p50_delivered_less_towers_ms_eager": dlv_less_e,
+                    "idle_share_no_towers": idle_nt[0],
+                    "idle_share_no_towers_eager": idle_nt[1],
+                    "prefill": pre, "prefill_keys": pkeys,
                     "step_graphs": g_round, "offsets": offsets,
                     "top_kernels": [(k[:70], tt, c) for k, (tt, c) in top]}
 
@@ -4168,8 +4426,8 @@ def vlm_qwen(dev, rate, rng) -> dict:
         f"job's: {not diff.size}"
         + (f" (parts at {int(diff[0])}, top-2 gap {gap:.2e})" if gap else ""))
     out["cfg_parts_at"] = None if not diff.size else int(diff[0])
-    out["captures"] = graph_counts(gen.step_graphs)
-    keys = gen.step_graphs.captures
+    out["captures"] = graph_counts(gen)
+    keys = {**gen.step_graphs.captures, **gen.prefill_graphs.captures}
     log(f"[vlm] the one-job generator: offsets {job.mrope_offset} and 0 "
         f"(the control) through {len(keys)} keys, each captured once: "
         f"{all(n == 1 for n in keys.values())}")
@@ -4997,14 +5255,14 @@ def phase_cli(dev, card):
     server_round(server, server_prompts(rng), stop_extra=True)      # warm
     prompts = server_prompts(rng)
     free0 = gen._free_capacity()
-    g0 = graph_counts(gen.step_graphs)
+    g0 = graph_counts(gen)
     steps["warm"] = time.perf_counter() - t
     torch.cuda.synchronize()
     zero_counts()
     r = server_round(server, prompts, stop_extra=True)
     torch.cuda.synchronize()
     launches = arch_counts()
-    g_round = graph_counts(gen.step_graphs, g0)
+    g_round = graph_counts(gen, g0)
     if gen.num_remaining_jobs() or gen._free_capacity() != free0:
         raise AssertionError(f"server: {gen.num_remaining_jobs()} jobs left, "
                              f"{gen._free_capacity()} of {free0} pages free")
@@ -5222,6 +5480,34 @@ FAULT1_ATTN = [(b, hq, 1, p, 0.0, 0) for b in (1, 4) for hq in (48, 22)
                for p in (255, 1500)]
 FAULT1_PAGED = [dict(kind=k, b=b, hkv=1, hq=hq, cap=0.0, win=0)
                 for k in PAGED_KINDS for hq in (48, 22) for b in (1, 16)]
+
+
+# kernel 3's mma template at the grouped-query heads PERF.md's kernel table
+# times: StarCoder-15B's 48/1 and Qwen2.5-VL's 28/4, every kind, b 1 and 16
+GQA_PAGED = [dict(kind=k, b=b, hkv=hkv, hq=hq, cap=0.0, win=0)
+             for hq, hkv in ((48, 1), (28, 4)) for k in PAGED_KINDS
+             for b in (1, 16)]
+
+
+def gqa_paged(dev, rate) -> int:
+    """`python3 chip_smoke.py gqa-paged`: build csrc/paged_attn.cu alone and
+    run GQA_PAGED through phase 6 (each case against the plain version
+    within ATTN_TOL, timed); one JSON line of µs a case. It uses only what
+    the package had before the q4 fragments, so the same file run from
+    another checkout times that checkout's kernel."""
+    from exllamav2_tpu_torch import _build
+    t0 = time.perf_counter()
+    rep = _build.build_all(["paged_attn"]).get("paged_attn")
+    log(f"[build] paged_attn compiled in {time.perf_counter() - t0:.1f} s"
+        if rep is not None else "[build] paged_attn: built already")
+    for line in (rep or "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build] paged_attn: {line.strip()}")
+    rows, err = phase_paged(dev, rate, GQA_PAGED, "gqa-paged")
+    print(json.dumps({"root": HERE, "max_abs_err": err, "us": {
+        f"{r['hq']}/{r['hkv']} {r['kind']} b{r['b']}": r["ms"] * 1e3
+        for r in rows}}))
+    return 0
 
 
 def tp_model(mode: str, dev):
@@ -6225,6 +6511,8 @@ def main() -> int:
         f" | bound rate {rate / 1e12:.2f} TB/s")
     t_all = time.perf_counter()
     detail = {"card": card, "torch": torch.__version__}
+    if sys.argv[1:] == ["gqa-paged"]:
+        return gqa_paged(dev, rate)
     detail["build"] = phase_build()
     if sys.argv[1:] == ["qmm"]:
         _, qerr = phase_qmm(dev, rate)

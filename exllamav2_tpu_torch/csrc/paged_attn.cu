@@ -100,11 +100,16 @@
 //   * each staged chunk is dequantized by all threads into bf16 rows of
 //     stride D + 8 (kvb; the reference's rounding point, paged_attn.py:
 //     154-157), whose padding puts the eight rows an ldmatrix phase reads on
-//     distinct bank groups (the bulk copies cannot pad);
+//     distinct bank groups (the bulk copies cannot pad); but a q4 K chunk,
+//     whose B fragments each lane dequantizes from the staged nibbles
+//     (score_tiles_q4: two 16-bit words of its row give the fragments of
+//     two k16 steps, the low and the high nibbles), so its scores need no
+//     bf16 rows and no barrier after the copy's;
 //   * scores: S = Q.K^T by mma.sync.m16n8k16 (bf16 in, f32 out), warp w
 //     takes the n8 row tiles w, w + 4, ... of the chunk, every m-tile
-//     against the same ldmatrix B fragment; scale, softcap and the position
-//     mask on the accumulator, then into the scores of the window;
+//     against the same B fragment (ldmatrix, or the nibbles); scale,
+//     softcap and the position mask on the accumulator, then into the
+//     scores of the window;
 //   * P.V: weights bf16(exp(s - M_j)) (the reference's p.astype(bf16)), the
 //     A fragments read from the scores' f32 rows (exact in bf16), V by
 //     ldmatrix.trans from kvb; warp w owns output columns [w*D/4,
@@ -118,9 +123,11 @@
 //   -Xptxas -v in chip_smoke.py's build phase). The template loses to the
 //   CUDA-core one at G = 2 (D = 256) and at G = 4 for q4 and for bf16 at
 //   16 sequences (the conversion pass and a second barrier a chunk cost
-//   more than four heads' shuffles), hence MMA_MIN_G = 5. The same pass
-//   costs most for q4: at 48/1 heads and batch 1 the template is 16 %
-//   slower than the 16-head chunks it replaced (PERF.md).
+//   more than four heads' shuffles), hence MMA_MIN_G = 5. The pass cost
+//   most for q4 (16 % slower than the 16-head chunks it replaced at 48/1
+//   heads, batch 1), whose K scoring now skips it: 47.7 -> 42.5 us there
+//   (PERF.md); V still takes the bf16 rows (a lane's B fragment of P.V
+//   spans four rows, each a byte load and a scale).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -915,6 +922,70 @@ __device__ __forceinline__ void score_tiles(const Args& a, const Blk& k,
   }
 }
 
+// score_tiles on a staged q4 chunk (rows of D / 2 bytes at st, their bf16
+// scales at st + off_scl), its B fragments dequantized from the nibbles in
+// registers: lane (gq, tq) of n8 tile n0 takes row n0 + gq, bytes kb + 2 tq
+// (+1) and kb + 8 + 2 tq (+1) of each 16-byte step kb, whose low nibbles
+// are elements kb + .. of k step kb and whose high nibbles those of k step
+// D / 2 + kb. Each value is (nibble - 8) * s rounded to bf16, as to_bf16
+// rounds it, so no bf16 rows are written and no barrier waits for them.
+template <int MT>
+__device__ __forceinline__ void score_tiles_q4(const Args& a, const Blk& k,
+                                               int c0, int c1, int ws,
+                                               const uint8_t* st,
+                                               const __nv_bfloat16* qs,
+                                               float* sc, int ss) {
+  const int D = a.d, KS = D + gqa::PAD, H = D / 2, NS = D / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tq = lane & 3, gq = lane >> 2;
+  const __nv_bfloat16* scl =
+      reinterpret_cast<const __nv_bfloat16*>(st + a.off_scl);
+  for (int n0 = 8 * warp; n0 < c1 - c0; n0 += 8 * WARPS) {
+    float s[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[mt][e] = 0.f;
+    const uint8_t* row = st + (n0 + gq) * H + 2 * tq;
+    const __nv_bfloat16* rs = scl + (n0 + gq) * NS;
+    for (int kb = 0; kb < H; kb += 16) {
+      const uint32_t w =
+          (uint32_t)*reinterpret_cast<const uint16_t*>(row + kb) |
+          ((uint32_t)*reinterpret_cast<const uint16_t*>(row + kb + 8) << 16);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int k0 = kb + hf * H;
+        const uint32_t x = hf ? w >> 4 : w;
+        const float sv = __bfloat162float(rs[k0 >> 5]);
+        const auto val = [&](int sh) {
+          return (float)((int)((x >> sh) & 15u) - 8) * sv;
+        };
+        const uint32_t bk[2] = {gqa::pack(val(0), val(8)),
+                                gqa::pack(val(16), val(24))};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t aq[4];
+          gqa::a_frag(aq, qs, KS, 16 * mt, k0, lane);
+          gqa::mma(s[mt], aq, bk);
+        }
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int g = 16 * mt + gq + 8 * (j >> 1);
+        const int pos = c0 + n0 + 2 * tq + (j & 1);
+        if (g < k.g) {
+          float x = s[mt][j] * a.scale;
+          if (a.softcap > 0.f) x = tanhf(x * a.inv_softcap) * a.softcap;
+          sc[g * ss + pos - ws] = pos >= k.a0 && pos < k.a1 ? x : NEG;
+        }
+      }
+    }
+  }
+}
+
 // The ring of the mma template: chunk ci sits in stage ci % NST, its
 // mbarrier's phase is (ci / NST) & 1, nx is the chunk the ring fetches next.
 struct Ring {
@@ -941,7 +1012,8 @@ __device__ __forceinline__ const uint8_t* consume(const Args& a,
 }
 
 // the scores of the window [ws, we): each K chunk converted to bf16 rows,
-// then scored on the tensor cores
+// then scored on the tensor cores; a q4 chunk is scored from its nibbles
+// as staged (consume's barrier keeps the stage until the next chunk)
 template <int MT>
 __device__ __forceinline__ void score_window(const Args& a, const Blk& k,
                                              const int* bts, Ring& r, int ws,
@@ -950,7 +1022,12 @@ __device__ __forceinline__ void score_window(const Args& a, const Blk& k,
                                              float* sc, int ss) {
   for (int c0 = ws; c0 < we; c0 += a.cr) {
     const int c1 = min(c0 + a.cr, we);
-    to_bf16(a, k, a.kk, c0, c1, consume(a, k, bts, r), kvb, false);
+    const uint8_t* st = consume(a, k, bts, r);
+    if (a.kk == Q4) {
+      score_tiles_q4<MT>(a, k, c0, c1, ws, st, qs, sc, ss);
+      continue;
+    }
+    to_bf16(a, k, a.kk, c0, c1, st, kvb, false);
     __syncthreads();
     score_tiles<MT>(a, k, c0, c1, ws, kvb, qs, sc, ss);
   }

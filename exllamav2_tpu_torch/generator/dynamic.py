@@ -18,11 +18,18 @@ stop strings with held UTF-8 text. The device side:
     use_dry, biased, use_pen), ("decode_cfg", rows_bucket, p_bucket),
     ("draft", b_bucket, p_bucket, k) and ("verify", b_bucket, p_bucket, d),
     at most MAX_GRAPHS, the sampler's generator registered with each;
-    ``graphs=False`` runs them eagerly (the default on the CPU). Which
+    so does every prefill chunk, keyed as the reference keys its compiled
+    prefills plus the batch bucket: ("prefill", t, p, b) (a CFG job's
+    second stream takes the same graph over its own pages), ("prefill_mm",
+    t, p, with_rope, b) and the draft model's ("dprefill", t, p, b), at
+    most MAX_PREFILL_GRAPHS in a runner of their own that shares the
+    decode graphs' memory pool. A key is captured on its first call, as the
+    reference compiles on first use (``warmup`` primes a short prompt's).
+    ``graphs=False`` runs them all eagerly (the default on the CPU). Which
     kernel serves a linear (QMM_PARTIALS) is read when a key is captured, as
     the reference reads it when it traces. A graph reads the weights it was
     captured with: new weights (set_loras, or ``generator.model`` replaced)
-    drop every graph. The prefill stays eager;
+    drop every graph;
   * the token history ``hist`` [slots + 1, max_seq_len + 2] int32 lives on
     the device, so penalties and the decode input gather never re-upload a
     sequence;
@@ -57,10 +64,11 @@ attaches PEFT adapters (lora.py) to the served weights.
 
 MoE models count the routes their prefill's capacity dispatch drops
 (models/forward.moe_forward): each prefill forward sums its layers' counts
-on the device, and the host reads them back when a job finishes (its result
-carries ``moe_dropped_tokens``) or when ``moe_dropped_tokens`` is read, never
-in the middle of a step. The prefill's pad rows and columns are masked out
-of the routing.
+on the device (a static output of its graph, copied after the replay), and
+the host reads them back when a job finishes (its result carries
+``moe_dropped_tokens``) or when ``moe_dropped_tokens`` is read, never in the
+middle of a step. The prefill's pad rows and columns are masked out of the
+routing by a validity mask made on the device from the rows' lengths.
 
 Multimodal jobs (``DynamicJob(embeddings=)``, vlm.MMEmbedding: an image's
 rows under a token-id range of its own from 1e9 up) prefill one job at a
@@ -119,8 +127,12 @@ __all__ = ["DynamicGenerator", "DynamicJob"]
 _HASH = lambda b: hashlib.blake2b(b, digest_size=16).digest()  # noqa: E731
 
 
-# step graphs a generator keeps (the least recently used goes first)
+# step graphs a generator keeps, decode steps and prefills apart (the least
+# recently used of each goes first)
 MAX_GRAPHS = 32
+MAX_PREFILL_GRAPHS = 16
+# the keys of the prefill steps, as the reference names its compiled ones
+PREFILL_KEYS = ("prefill", "prefill_mm", "dprefill")
 
 
 def _bucket(n: int, lo: int = 1) -> int:
@@ -288,8 +300,8 @@ class DynamicGenerator:
         q|k|v and gate|up linears (exact). w4a8: opt-in approximate decode
         with int8 activations (decode steps only; the prefill and the head
         stay exact). Neither changes the caller's model. graphs: replay
-        the decode steps as CUDA graphs (default: on a card device); False
-        runs them eagerly. use_ngram_draft, or draft_model with a
+        the decode steps and the prefills as CUDA graphs (default: on a
+        card device); False runs them eagerly. use_ngram_draft, or draft_model with a
         draft_cache over the same number of pages: speculative decoding
         with num_draft_tokens drafts a round. mesh: serve this rank's
         tensor-parallel shard (module docstring); model and cache are the
@@ -395,13 +407,15 @@ class DynamicGenerator:
         self._bias_pool = None         # [slots + 1, vocab] f32, lazy
         if graphs is None:
             graphs = self.device.type == "cuda"
-        self.step_graphs = None
+        self.step_graphs = self.prefill_graphs = None
         self._graphed_weights = ()     # weak refs to what the graphs read
         self._active_loras = ()
         if graphs:
             from exllamav2_tpu_torch.utils.graphs import StepGraphs
             self.step_graphs = StepGraphs(self.device, MAX_GRAPHS,
                                           generators=[self._rng])
+            self.prefill_graphs = StepGraphs(
+                self.device, MAX_PREFILL_GRAPHS, share_pool=self.step_graphs)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -545,8 +559,10 @@ class DynamicGenerator:
         self.unreferenced.clear()
 
     def warmup(self):
-        """Run one tiny greedy job end to end (builds the kernels on first
-        use), then reset the page table so its tokens do not linger."""
+        """Run one tiny greedy job end to end, as the reference does: it
+        builds the kernels on first use and, graphed, captures the keys of
+        a short prompt's prefill and decode; then reset the page table so
+        its tokens do not linger."""
         job = DynamicJob(np.asarray([1, 2, 3], np.int32), max_new_tokens=2,
                          settings=Settings.greedy())
         self.enqueue(job)
@@ -586,8 +602,7 @@ class DynamicGenerator:
             w = apply(w, lora)
         self.model = type(self.model)(w, self.model.static,
                                       self.model.config)
-        if self.step_graphs is not None:
-            self.step_graphs.drop(lambda k: True)
+        self._drop_graphs()
         self._active_loras = requested
 
     def encode_with_embeddings(self, text: str, embeddings: list,
@@ -942,41 +957,89 @@ class DynamicGenerator:
                          draft: bool = True, embeds=None, rope=None):
         """One prefill forward that fills the cache (and the draft model's
         cache, unless draft=False); its logits are never used, so the head
-        is skipped. lens [B]: the real tokens of each row. `embeds` [B, T,
-        d] (a device tensor) replaces the main model's embedding lookup and
-        `rope` = (sin, cos) [B, T, rot/2] numpy its rope gather (multimodal
-        and MRoPE prompts; the main model then reads no id). For an MoE
-        model the rows' pad tokens route nowhere, and the return is the
-        forward's dropped-route count (an int32 device scalar), else
-        None."""
+        is skipped. ids [B, T], bt [B, P], pos and lens [B] (the real tokens
+        of each row) go up as one int32 buffer. The steps are those the
+        reference compiles, keyed as it keys them, the batch last (jax.jit
+        keys it by shape): ("prefill", T, P, B), with `embeds`
+        ("prefill_mm", T, P, with_rope, B), and the draft model's own
+        ("dprefill", T, P, B). `embeds` [B, T, d] (a device tensor)
+        replaces the main model's embedding lookup and `rope` = (sin, cos)
+        [B, T, rot/2] numpy its rope gather (multimodal and MRoPE prompts;
+        the main model then reads no id); both are static inputs of the
+        step. For an MoE model the rows' pad tokens route nowhere, and the
+        return is a copy of the forward's dropped-route count (an int32
+        device scalar), else None."""
+        b, t = ids.shape
+        p = bt.shape[1]
+        buf = torch.from_numpy(np.concatenate(
+            [ids.ravel(), bt.ravel(), pos, lens]).astype(np.int32))
+        if embeds is None:
+            dropped = self._run(("prefill", t, p, b),
+                                DynamicGenerator._prefill_fn, buf)
+        else:
+            rows = () if rope is None else tuple(map(torch.from_numpy, rope))
+            dropped = self._run(("prefill_mm", t, p, rope is not None, b),
+                                DynamicGenerator._prefill_mm_fn, buf, embeds,
+                                *rows)
+        if dropped is not None:
+            dropped = dropped.clone()       # the next replay overwrites it
+        if draft and self.draft_model is not None:
+            self._run(("dprefill", t, p, b), DynamicGenerator._dprefill_fn,
+                      buf)
+        return dropped
+
+    @staticmethod
+    def _prefill_views(buf: torch.Tensor, t: int, p: int, b: int):
+        """The device views of a _prefill_forward buffer: (ids [b, t],
+        block tables [b, p], positions [b], lens [b])."""
+        ids, bt, pos, lens = buf.split([b * t, b * p, b, b])
+        return ids.view(b, t), bt.view(b, p), pos, lens
+
+    def _prefill_fn(self, t, p, b, buf):
+        """The prefill of key ("prefill", t, p, b) on the inputs `buf` ->
+        the dropped-route count of an MoE model, else None."""
+        return self._prefill_body(*self._prefill_views(buf, t, p, b))
+
+    def _prefill_mm_fn(self, t, p, with_rope, b, buf, embeds, *rope):
+        """The prefill of key ("prefill_mm", t, p, with_rope, b): the
+        embedding rows `embeds` in place of the lookup, and with_rope the
+        (sin, cos) rows in place of the rope gather."""
+        ids, bt, pos, lens = self._prefill_views(buf, t, p, b)
+        return self._prefill_body(torch.zeros_like(ids), bt, pos, lens,
+                                  embeds, rope if with_rope else None)
+
+    def _dprefill_fn(self, t, p, b, buf):
+        """The draft model's prefill of key ("dprefill", t, p, b)."""
+        ids, bt, pos, _ = self._prefill_views(buf, t, p, b)
+        model_forward_paged(self.draft_model.weights, self.draft_model.static,
+                            ids, self.draft_cache, bt, pos,
+                            last_token_only=True, with_logits=False)
+
+    def _prefill_body(self, ids, bt, pos, lens, embeds=None, rope=None):
+        """The main model's prefill forward; an MoE model's validity mask
+        (column < lens) is made on the device from lens, and the routes its
+        capacity dispatch drops are summed over the layers there (the
+        module globals of models/forward.py hold them only while the
+        forward runs)."""
         moe = bool(self.model.static.num_experts)
         if moe:
-            valid = np.arange(ids.shape[1])[None, :] < lens[:, None]
+            valid = torch.arange(ids.shape[1], device=ids.device)[None] \
+                < lens[:, None]
             F._MOE_STATS[0] = []
-            F._MOE_VALID[0] = self._dev(valid.reshape(-1))
-        ids, bt, pos = self._dev(ids), self._dev(bt), self._dev(pos)
-        if rope is not None:
-            rope = tuple(self._dev(r) for r in rope)
-        dropped = None
+            F._MOE_VALID[0] = valid.reshape(-1)
         try:
             model_forward_paged(
-                self.model.weights, self.model.static,
-                torch.zeros_like(ids) if embeds is not None else ids,
-                self.cache, bt, pos, last_token_only=True,
-                input_embeds=embeds, rope_rows=rope, with_logits=False)
-            if moe:
-                parts = F._MOE_STATS[0]
-                dropped = sum(parts) if parts else torch.zeros(
-                    (), dtype=torch.int32, device=self.device)
+                self.model.weights, self.model.static, ids, self.cache, bt,
+                pos, last_token_only=True, input_embeds=embeds,
+                rope_rows=rope, with_logits=False)
+            if not moe:
+                return None
+            parts = F._MOE_STATS[0]
+            return sum(parts) if parts else torch.zeros(
+                (), dtype=torch.int32, device=ids.device)
         finally:
             F._MOE_STATS[0] = None
             F._MOE_VALID[0] = None
-        if draft and self.draft_model is not None:
-            model_forward_paged(self.draft_model.weights,
-                                self.draft_model.static, ids,
-                                self.draft_cache, bt, pos,
-                                last_token_only=True, with_logits=False)
-        return dropped
 
     @staticmethod
     def _block_table(pages: list[CachePage], width: int) -> np.ndarray:
@@ -1302,19 +1365,30 @@ class DynamicGenerator:
         holds this generator weakly: a strong reference would be a cycle
         that only the cyclic collector frees, and a CUDA graph destroyed
         while any capture is under way voids that capture. A graph reads
-        the weights of its capture, so new weights drop every graph."""
+        the weights of its capture, so new weights drop every graph. The
+        prefill keys (PREFILL_KEYS) go to a runner of their own, which
+        shares the decode runner's memory pool: they never push out the
+        decode graphs a round replays."""
         if self.step_graphs is not None:
             served = (self.model.weights, self.draft_model.weights
                       if self.draft_model is not None else None)
             if tuple(r() if r else None for r in self._graphed_weights) \
                     != served:
-                self.step_graphs.drop(lambda k: True)
+                self._drop_graphs()
                 self._graphed_weights = tuple(
                     weakref.ref(w) if w is not None else None
                     for w in served)
+            runner = self.prefill_graphs if key[0] in PREFILL_KEYS \
+                else self.step_graphs
             fn = functools.partial(method, weakref.proxy(self), *key[1:])
-            return self.step_graphs(key, fn, *args)
+            return runner(key, fn, *args)
         return method(self, *key[1:], *(a.to(self.device) for a in args))
+
+    def _drop_graphs(self) -> None:
+        """Forget every step and prefill graph (new weights)."""
+        for runner in (self.step_graphs, self.prefill_graphs):
+            if runner is not None:
+                runner.drop(lambda k: True)
 
     def _decode(self, jobs: list[DynamicJob], results: list[dict]):
         b = len(jobs)

@@ -1,16 +1,26 @@
 """High-level model container (PyTorch port of exllamav2_tpu/models/model.py).
 
 A model is its weight modules, its StaticModel and its config; forward
-updates the KV cache in place. The prefill runs eagerly. A one-token step on
-the card replays a CUDA graph (utils/graphs.py), the counterpart of the
-reference's jitted ``_decode_step``: one graph per (batch, attention-limit
-bucket, the cache's K/V storage, QMM_PARTIALS), at most MAX_GRAPHS of them.
-A graph reads the weights and the cache it was captured with, so setting
-``model.weights`` drops every graph of the model, and a cache that is
-collected takes its graphs with it (a graph holds its cache weakly).
-``Model(..., graphs=False)`` (or ``model.graphs = False``) asks for the
-eager step; on the CPU the step is eager unless graphs=True, which runs the
-graph's step function on its static buffers (the tests do).
+updates the KV cache in place. On the card every forward replays a CUDA graph
+(utils/graphs.py), the counterparts of the reference's jitted steps: a
+one-token step one of ``_decode_step``, keyed by (batch, attention-limit
+bucket, the cache's K/V storage, QMM_PARTIALS), at most MAX_GRAPHS of them;
+a longer input (a prompt, each chunk of a long one) one of ``_prefill_step``,
+keyed as the reference compiles it by the shape of ``ids`` as well: the same
+key plus T and last_token_only, at most MAX_PREFILL_GRAPHS of them in a
+runner of their own that shares the decode graphs' memory pool. A decode
+key is captured on its first call, a prefill key on its second (the first
+runs eagerly): a key holds its cache, which the reference's compiled step
+does not, so a caller that makes a new cache for each forward (an eval, a
+KL estimate) would otherwise pay a capture for every prompt. Both take
+their position from device memory, so the chunks of a long prompt share a
+key. A graph reads the weights and the
+cache it was captured with, so setting ``model.weights`` drops every graph of
+the model, and a cache that is collected takes its graphs with it (a graph
+holds its cache weakly). ``Model(..., graphs=False)`` (or ``model.graphs =
+False``) runs every forward eagerly; on the CPU the forward is eager unless
+graphs=True, which runs each graph's step function on its static buffers
+(the tests do).
 """
 
 from __future__ import annotations
@@ -33,9 +43,12 @@ from exllamav2_tpu_torch.models.modules import ModelWeights, StaticModel
 __all__ = ["Model"]
 
 
-# step graphs a model keeps, and the caches generate_greedy keeps for reuse,
-# one per (batch, max_seq)
+# step graphs a model keeps (decode, prefill), and the caches generate_greedy
+# keeps for reuse, one per (batch, max_seq)
 MAX_GRAPHS = 16
+MAX_PREFILL_GRAPHS = 8
+# prefill keys met once (captured at their second call), the newest kept
+MAX_PREFILL_SEEN = 64
 MAX_GREEDY_CACHES = 2
 
 
@@ -46,7 +59,8 @@ def _limit_bucket(n: int, cap: int, step: int = 256) -> int:
 
 
 def _drop_cache_graphs(runner_ref, kptr: int) -> None:
-    """Finalizer of a cache: forget the step graphs that wrote into it."""
+    """Finalizer of a cache: forget the step graphs that wrote into it (a
+    decode or a prefill key: the cache's K storage is k[2] of both)."""
     runner = runner_ref()
     if runner is not None:
         runner.drop(lambda k: k[2] == kptr)
@@ -55,13 +69,15 @@ def _drop_cache_graphs(runner_ref, kptr: int) -> None:
 class Model:
     """Loaded model: weights on one device + forward/generation.
 
-    graphs: replay a CUDA graph for each one-token step (default: on a card
-    device); False runs every step eagerly."""
+    graphs: replay a CUDA graph for each forward (default: on a card
+    device); False runs every forward eagerly."""
 
     def __init__(self, weights: ModelWeights, static: StaticModel,
                  config: ModelConfig | None = None,
                  graphs: bool | None = None):
-        self.step_graphs = None             # a StepGraphs, made at first use
+        self.step_graphs = None             # StepGraphs, made at first use:
+        self.prefill_graphs = None          # one-token steps, longer inputs
+        self._prefill_seen: OrderedDict = OrderedDict()
         self.weights = weights
         self.static = static
         self.config = config
@@ -78,8 +94,9 @@ class Model:
         """New weights (an adapter applied, a swap): every step graph read
         the old ones, so all of them go; the next step captures anew."""
         self._weights = w
-        if self.step_graphs is not None:
-            self.step_graphs.drop(lambda k: True)
+        for runner in (self.step_graphs, self.prefill_graphs):
+            if runner is not None:
+                runner.drop(lambda k: True)
 
     @property
     def device(self) -> torch.device:
@@ -161,9 +178,69 @@ class Model:
             if t == 1 and (ids.is_cuda or self.graphs):
                 logits = self._decode_step(ids, cache, past_len, limit)
                 return (logits.clone() if copy else logits), cache
+            if t > 1 and self.graphs and self._prefill_graphed(
+                    ids, cache, limit, last_token_only):
+                return self._prefill_step(ids, cache, past_len, limit,
+                                          last_token_only).clone(), cache
             return model_forward(self.weights, self.static, ids, cache,
                                  past_len, last_token_only=last_token_only,
                                  attn_limit=limit)
+
+    def _runner(self, prefill: bool):
+        """The model's decode or prefill StepGraphs (the second shares the
+        first's memory pool), made at first use."""
+        from exllamav2_tpu_torch.utils.graphs import StepGraphs
+        if self.step_graphs is None:
+            self.step_graphs = StepGraphs(self.device, MAX_GRAPHS)
+        if prefill and self.prefill_graphs is None:
+            self.prefill_graphs = StepGraphs(
+                self.device, MAX_PREFILL_GRAPHS, share_pool=self.step_graphs)
+        return self.prefill_graphs if prefill else self.step_graphs
+
+    def _graph_key(self, runner, key: tuple, cache: KVCache, body):
+        """A step function for `key` when the runner lacks it, else None:
+        body(cache, *static inputs), the cache held weakly (a replay runs
+        while the caller holds it), the key dropped when the cache is
+        collected."""
+        if key in runner:
+            return None
+        weakref.finalize(cache, _drop_cache_graphs, weakref.ref(runner),
+                         key[2]).atexit = False
+        cref = weakref.ref(cache)
+        return lambda *a: body(cref(), *a)
+
+    def _key(self, ids, cache: KVCache, limit: int) -> tuple:
+        return (ids.shape[0], limit, cache.k.data_ptr(), cache.v.data_ptr(),
+                os.environ.get("QMM_PARTIALS") == "1")
+
+    def _prefill_key(self, ids, cache, limit, last_token_only) -> tuple:
+        return (*self._key(ids, cache, limit), ids.shape[1], last_token_only)
+
+    def _prefill_graphed(self, ids, cache, limit, last_token_only) -> bool:
+        """Whether this prefill replays its graph: its key has a graph, or
+        this is the key's second call (the first ran eagerly)."""
+        key = self._prefill_key(ids, cache, limit, last_token_only)
+        if self.prefill_graphs is not None and key in self.prefill_graphs:
+            return True
+        if self._prefill_seen.pop(key, None) is not None:
+            return True
+        self._prefill_seen[key] = True
+        while len(self._prefill_seen) > MAX_PREFILL_SEEN:
+            self._prefill_seen.popitem(last=False)
+        return False
+
+    def _prefill_step(self, ids, cache: KVCache, past_len: int, limit: int,
+                      last_token_only: bool):
+        """ids [B, T > 1] at past_len (checked) -> logits: the graph of the
+        decode key plus (T, last_token_only) replayed, its position a device
+        tensor. The logits are the graph's static output."""
+        st, w = self.static, self.weights
+        runner = self._runner(True)
+        key = self._prefill_key(ids, cache, limit, last_token_only)
+        step = self._graph_key(runner, key, cache, lambda c, ids, pos: (
+            model_forward(w, st, ids, c, pos, last_token_only=last_token_only,
+                          attn_limit=limit)[0]))
+        return runner(key, step, ids.to(torch.int32), past_len)
 
     def _decode_step(self, ids, cache: KVCache, past_len: int, limit: int):
         """One token [B, 1] at past_len (checked) -> logits [B, 1, vocab]:
@@ -176,25 +253,10 @@ class Model:
             return model_forward(w, st, ids, cache, torch.full(
                 (), past_len, dtype=torch.int32, device=ids.device),
                 attn_limit=limit)[0]
-        if self.step_graphs is None:
-            from exllamav2_tpu_torch.utils.graphs import StepGraphs
-            self.step_graphs = StepGraphs(self.device, MAX_GRAPHS)
-        runner = self.step_graphs
-        kptr = cache.k.data_ptr()
-        key = (ids.shape[0], limit, kptr, cache.v.data_ptr(),
-               os.environ.get("QMM_PARTIALS") == "1")
-        if key not in runner:
-            # the graph holds its cache weakly (a replay runs while the
-            # caller holds it) and goes when the cache is collected
-            weakref.finalize(cache, _drop_cache_graphs, weakref.ref(runner),
-                             kptr).atexit = False
-            cref = weakref.ref(cache)
-
-            def step(ids, pos):
-                return model_forward(w, st, ids, cref(), pos,
-                                     attn_limit=limit)[0]
-        else:
-            step = None
+        runner = self._runner(False)
+        key = self._key(ids, cache, limit)
+        step = self._graph_key(runner, key, cache, lambda c, ids, pos: (
+            model_forward(w, st, ids, c, pos, attn_limit=limit)[0]))
         return runner(key, step, ids.to(torch.int32), past_len)
 
     def forward_with_hooks(self, ids, cache: KVCache, past_len: int,
@@ -232,9 +294,10 @@ class Model:
         if cache is None:
             while len(self._greedy_caches) >= MAX_GREEDY_CACHES:
                 _, old = self._greedy_caches.popitem(last=False)
-                if self.step_graphs is not None:
-                    ptr = old.k.data_ptr()
-                    self.step_graphs.drop(lambda k: k[2] == ptr)
+                ptr = old.k.data_ptr()
+                for runner in (self.step_graphs, self.prefill_graphs):
+                    if runner is not None:
+                        runner.drop(lambda k: k[2] == ptr)
             cache = self.new_cache(batch=batch, max_seq=max_seq)
             self._greedy_caches[key] = cache
         self._greedy_caches.move_to_end(key)

@@ -63,7 +63,8 @@ MMA_SCORE_FLOATS = 12288  # ... of the mma template (SC_MMA)
 # G from which the mma template runs: timed once against the CUDA-core
 # template at every G of chip_smoke.py phases 6 and 17a, it lost at G = 2
 # and at G = 4 for bf16 and q4, and won at every G >= 7 case but 48/1 q4
-# at batch 1 (PERF.md §6; ROADMAP.md §1 item 7)
+# at batch 1, where it is level with the CUDA-core template's 16-head
+# chunks since its q4 K is scored from the nibbles (PERF.md §6)
 MMA_MIN_G = 5
 
 

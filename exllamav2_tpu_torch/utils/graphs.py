@@ -38,6 +38,11 @@ runs the wrappers once), and every replay adds that record back, so the
 counters keep counting kernel launches executed. ``captures``,
 ``replays`` and ``capture_ms`` count per key.
 
+Runners may share one memory pool (``share_pool=``: the prefill graphs of
+a model or generator beside its decode graphs, each runner with its own
+cap, so that prefill keys never push out the decode keys a round replays);
+a pool is given up only when no runner sharing it holds a graph.
+
 A capture that fails raises; nothing runs the step eagerly in its place.
 On a CPU device there is nothing to capture: the runner keeps the static
 buffers, runs the same warm-up and calls the step on the buffers for each
@@ -49,6 +54,7 @@ from __future__ import annotations
 
 import gc
 import time
+import weakref
 from collections import Counter, OrderedDict
 from typing import Callable
 
@@ -108,14 +114,29 @@ class _Entry:
         self.credit = credit
 
 
+class _Pool:
+    """A graph memory pool and the runners that capture into it."""
+
+    def __init__(self, device: torch.device):
+        self.handle = (torch.cuda.graph_pool_handle()
+                       if device.type == "cuda" else None)
+        self.runners: weakref.WeakSet = weakref.WeakSet()
+
+    def renew(self) -> None:
+        if self.handle is not None:
+            self.handle = torch.cuda.graph_pool_handle()
+
+
 class StepGraphs:
     """Captured step graphs of one device, keyed by tuples, at most
     `max_graphs` of them (the least recently used one goes first).
 
     `generators` are the torch.Generators the steps draw from: saved and
-    restored around each warm-up, registered with each graph."""
+    restored around each warm-up, registered with each graph. `share_pool`
+    (another runner of the device) captures into that runner's pool."""
 
-    def __init__(self, device, max_graphs: int, generators=()):
+    def __init__(self, device, max_graphs: int, generators=(),
+                 share_pool: "StepGraphs | None" = None):
         self.device = torch.device(device)
         self.max_graphs = max_graphs
         self.generators = list(generators)
@@ -123,21 +144,23 @@ class StepGraphs:
         self.captures: Counter = Counter()
         self.replays: Counter = Counter()
         self.capture_ms: dict[tuple, float] = {}
-        self._pool = (torch.cuda.graph_pool_handle()
-                      if self.device.type == "cuda" else None)
+        self._pool = share_pool._pool if share_pool is not None \
+            else _Pool(self.device)
+        self._pool.runners.add(self)
 
     def __contains__(self, key) -> bool:
         return key in self.entries
 
     def drop(self, pred: Callable[[tuple], bool]) -> None:
         """Forget every graph whose key satisfies `pred`. With no graph
-        left, later captures go to a new pool: the allocator keeps a pool
-        whose graphs are all gone while a static output of theirs lives,
-        and takes no capture into it (torch 2.11)."""
+        left in any runner of the pool, later captures go to a new pool:
+        the allocator keeps a pool whose graphs are all gone while a static
+        output of theirs lives, and takes no capture into it (torch
+        2.11)."""
         for key in [k for k in self.entries if pred(k)]:
             del self.entries[key]
-        if not self.entries and self._pool is not None:
-            self._pool = torch.cuda.graph_pool_handle()
+        if not any(r.entries for r in self._pool.runners):
+            self._pool.renew()
 
     def __call__(self, key: tuple, fn: Callable, *args):
         """fn(*static inputs) for `key`, with `args` (tensors, copied; ints,
@@ -222,7 +245,7 @@ class StepGraphs:
         gc.disable()
         try:
             with torch.cuda.stream(stream):
-                graph.capture_begin(pool=self._pool,
+                graph.capture_begin(pool=self._pool.handle,
                                     capture_error_mode="thread_local")
                 try:
                     outputs = fn(*inputs)
@@ -247,5 +270,5 @@ class StepGraphs:
             # allocations to the pool, and the pool takes no new capture
             # (torch 2.11): stop the one, and capture into a new pool
             torch._C._cuda_endAllocateToPool(
-                capture_stream(self.device).device_index, self._pool)
-            self._pool = torch.cuda.graph_pool_handle()
+                capture_stream(self.device).device_index, self._pool.handle)
+            self._pool.renew()

@@ -383,6 +383,41 @@ def _pool(kind, hkv, d, npages, page, seed):
     return cache
 
 
+@pytest.mark.parametrize("d", DS)
+def test_paged_q4_fragments_from_nibbles(d):
+    """Kernel 3's q4 K scoring takes its B fragments straight from the
+    staged nibbles (score_tiles_q4): lane (gq, tq) of an n8 tile reads row
+    gq, the 16-bit words at bytes kb + 2 tq and kb + 8 + 2 tq of each
+    16-byte step kb; their low nibbles are the fragment of k step kb, their
+    high nibbles that of k step D / 2 + kb, each (nibble - 8) * s rounded to
+    bf16 with the scale of its 32-element group. Rebuilt in numpy from a
+    pool's bytes, every fragment equals the bf16 row the CUDA-core
+    template's dequant gives at the fragment's k indices (2 tq, 2 tq + 1,
+    2 tq + 8, 2 tq + 9 of the step), bit for bit."""
+    cache = _pool("q4", 1, d, 1, 16, seed=d)
+    raw = _raw(cache.k_data)[0, 0].numpy()[:8]             # [8, D / 2] u8
+    scl = cache.k_scales[0, 0, :8].float().numpy()         # [8, D / 32]
+    want = _bf16(TP._dq_page(_raw(cache.k_data)[0, 0][:8],
+                             cache.k_scales[0, 0, :8], "q4"), torch.float32)
+    h = d // 2
+    for lane in range(32):
+        gq, tq = lane >> 2, lane & 3
+        for kb in range(0, h, 16):
+            lo = raw[gq, kb + 2 * tq:kb + 2 * tq + 2].astype(np.uint32)
+            hi = raw[gq, kb + 8 + 2 * tq:kb + 10 + 2 * tq].astype(np.uint32)
+            w = lo[0] | lo[1] << 8 | hi[0] << 16 | hi[1] << 24
+            for hf in range(2):
+                k0 = kb + hf * h
+                x = w >> 4 if hf else w
+                s = np.float32(scl[gq, k0 >> 5])
+                vals = [np.float32(int((x >> sh) & 15) - 8) * s
+                        for sh in (0, 8, 16, 24)]
+                got = _bf16(torch.tensor(vals), torch.float32)
+                ks = [k0 + 2 * tq, k0 + 2 * tq + 1, k0 + 8 + 2 * tq,
+                      k0 + 9 + 2 * tq]
+                assert torch.equal(got, want[gq, ks]), (lane, kb, hf)
+
+
 def _paged_case(kind, g, d, page, pw, lens, seed):
     hkv, b = 2, len(lens)
     cache = _pool(kind, hkv, d, b * pw + 1, page, seed)

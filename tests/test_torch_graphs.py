@@ -15,6 +15,7 @@ machine has no JAX, so the reference is imported by the tests that use it
 
 import gc
 import os
+import types
 import weakref
 
 import numpy as np
@@ -790,3 +791,162 @@ def test_card_mrope_mixed_offsets_graphed_equal_eager(dev, tmp_path):
     assert out[True] == out[False]
     assert keys and all(n == 1 for n in keys.values())
     assert {k[0] for k in keys} <= {"decode", "decode_burst"}
+
+
+def _prefill_jobs(path, rng, emb=None, gen=None):
+    """The jobs of test_card_prefill_graphed_equals_eager's `path`."""
+    out = []
+    if path in ("serving", "draft", "moe"):
+        # five prompts batched (b 8: pad rows and columns), the longest's
+        # later chunks of 128 and 43 rows alone
+        for n in (300, 40, 90, 70, 9):
+            out.append(DynamicJob(rng.integers(3, 250, n).astype(np.int32),
+                                  max_new_tokens=6,
+                                  settings=Settings.greedy()))
+    elif path == "cfg":
+        for n, neg in ((60, 60), (20, 130)):
+            s = Settings.greedy()
+            s.cfg_scale = 1.5
+            out.append(DynamicJob(
+                rng.integers(3, 250, n).astype(np.int32), max_new_tokens=6,
+                settings=s, negative_prompt_ids=rng.integers(
+                    3, 250, neg).astype(np.int32)))
+    else:       # "mm": an image job of 200 text tokens and a text job
+        text = "".join(chr(97 + c) for c in rng.integers(0, 26, 200))
+        ids = gen.encode_with_embeddings(text + "<img> after", [emb])
+        out = [DynamicJob(ids, max_new_tokens=6, settings=Settings.greedy(),
+                          embeddings=[emb]),
+               DynamicJob(rng.integers(3, 250, 37).astype(np.int32),
+                          max_new_tokens=6, settings=Settings.greedy())]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["serving", "draft", "cfg", "moe", "mm",
+                                  "greedy"])
+def test_card_prefill_graphed_equals_eager(dev, path, tmp_path):
+    """Every prefill path replays its graphs on the card with the eager
+    round's tokens bit for bit and the same kernel launches: the text
+    prefill alone, in chunks and batched; beside the draft model's own
+    graph; CFG's second stream; an MoE model's capacity dispatch (its
+    dropped-route count a static output); a Qwen2-VL image job and a text
+    job (embedding and MRoPE rows as static inputs); generate_greedy
+    through Model.forward's chunks. Each key is captured once; a second
+    round replays them all and captures nothing."""
+    from exllamav2_tpu_torch.models import forward as F
+    from exllamav2_tpu_torch.utils.testing import random_model_weights
+    tok = ByteTokenizer(384)
+    emb = config = None
+    if path == "mm":
+        from exllamav2_tpu_torch.utils.testing import make_tiny_vlm
+        from exllamav2_tpu_torch.vlm import VisionTower
+        base = Model.from_dir(make_tiny_vlm(str(tmp_path / "q"), "qwen2"),
+                              device=dev)
+        w, st, config = base.weights, base.static, base.config
+        emb = VisionTower(base.config, device=dev).get_image_embeddings(
+            base, tok, (np.random.default_rng(1).random((32, 32, 3)) * 255)
+            .astype(np.uint8), "<img>")
+    elif path == "moe":
+        w, st = random_model_weights(vocab=1024, hidden=512, layers=2,
+                                     heads=4, kv_heads=2, inter=1024,
+                                     max_seq=512, bits=4, seed=4, moe=4,
+                                     moe_topk=2, device=dev)
+    else:
+        w, st = _card_model(dev, layers=2)
+    if path == "greedy":
+        prompt = np.random.default_rng(2).integers(3, 1000, (2, 40)).astype(
+            np.int32)
+        runs = {}
+        for graphs in (False, True):
+            m = Model(w, st, graphs=graphs)
+            m.config = types.SimpleNamespace(max_input_len=16,
+                                             max_attention_size=2048 ** 2,
+                                             max_seq_len=256)
+            before = _counts()
+            seqs = [m.generate_greedy(prompt, 8) for _ in range(2)]
+            torch.cuda.synchronize()
+            after = _counts()
+            runs[graphs] = (seqs, {k: after[k] - before[k] for k in after})
+            if graphs:
+                keys = dict(m.prefill_graphs.captures)
+        np.testing.assert_array_equal(runs[True][0], runs[False][0])
+        assert runs[True][1] == runs[False][1]
+        assert {k[5:] for k in keys} == {(16, True), (8, True)}
+        assert all(n == 1 for n in keys.values())
+        return
+    out, moe = {}, 0
+    if path == "moe":
+        F.set_moe_dispatch(capacity_factor=0.5)
+    try:
+        for graphs in (False, True):
+            cache = PagedKVCache.alloc(st.num_layers, 24, st.num_kv_heads,
+                                       st.head_dim, page_size=64, device=dev)
+            kw = {}
+            if path == "draft":
+                kw = {"draft_model": Model(w, st),
+                      "draft_cache": PagedKVCache.alloc(
+                          st.num_layers, 24, st.num_kv_heads, st.head_dim,
+                          page_size=64, device=dev)}
+            gen = DynamicGenerator(Model(w, st, config), cache, tok,
+                                   max_batch_size=8,
+                                   max_chunk_size=128, decode_burst=4,
+                                   graphs=graphs, **kw)
+            rounds, before = [], _counts()
+            for i in range(2):
+                js = [gen.enqueue(j) for j in _prefill_jobs(
+                    path, np.random.default_rng(i), emb, gen)]
+                if graphs and i == 1:
+                    c0 = sum(gen.prefill_graphs.captures.values())
+                while any(j.status != "done" for j in js):
+                    gen.iterate()
+                rounds.append([(j.sequence.tolist(), j.kv_pos2) for j in js])
+            torch.cuda.synchronize()
+            after = _counts()
+            out[graphs] = (rounds, {k: after[k] - before[k] for k in after},
+                           gen.moe_dropped_tokens)
+            if graphs:
+                runner = gen.prefill_graphs
+                assert sum(runner.captures.values()) == c0     # round 2
+                assert all(n == 1 for n in runner.captures.values())
+                names = {k[0] for k in runner.captures}
+                moe = out[True][2]
+    finally:
+        F.set_moe_dispatch(capacity_factor=2.0)
+    assert out[True] == out[False]
+    want = {"draft": {"prefill", "dprefill"}, "mm": {"prefill_mm"}}
+    assert names == want.get(path, {"prefill"})
+    assert (moe > 0) == (path == "moe")
+
+
+@pytest.mark.cuda
+def test_card_failed_prefill_capture_raises(dev, monkeypatch):
+    """A prefill step that syncs with the host inside its capture: the
+    prefill raises, no graph of its key is kept, nothing carries on
+    eagerly in its place (the job's position does not move), and the
+    runners still capture the next keys."""
+    w, st = _card_model(dev, layers=2)
+    gen = DynamicGenerator(Model(w, st), PagedKVCache.alloc(
+        st.num_layers, 8, st.num_kv_heads, st.head_dim, page_size=64,
+        device=dev), ByteTokenizer(256), max_batch_size=4, graphs=True)
+    body = DynamicGenerator._prefill_body
+
+    def bad(self, *a, **kw):
+        out = body(self, *a, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            a[0].sum().item()              # a host sync: not capturable
+        return out
+
+    monkeypatch.setattr(DynamicGenerator, "_prefill_body", bad)
+    job = gen.enqueue(DynamicJob(np.arange(3, 43, dtype=np.int32),
+                                 max_new_tokens=4,
+                                 settings=Settings.greedy()))
+    with pytest.raises(RuntimeError):
+        gen.iterate()
+    torch.cuda.synchronize()
+    assert not gen.prefill_graphs.entries and not gen.prefill_graphs.replays
+    assert job.kv_pos == 0
+    gen.cancel(job)
+    monkeypatch.setattr(DynamicGenerator, "_prefill_body", body)
+    out = gen.generate("the runner still works", max_new_tokens=4,
+                       settings=Settings.greedy())
+    assert isinstance(out, str) and gen.prefill_graphs.entries

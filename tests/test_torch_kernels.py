@@ -817,6 +817,44 @@ def test_paged_kernel_splits_match_plain(dev, kind, g, batch, pw, page):
     assert torch.equal(got, P.paged_decode_attention(*args))
 
 
+@pytest.mark.parametrize("kind", ["bf16", "fp8", "q8", "q4", "q6"])
+@pytest.mark.parametrize("hq,hkv", [(48, 1), (28, 4)])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_paged_kernel_gqa_heads_every_kind(dev, kind, hq, hkv, batch):
+    """Kernel 3's mma template at StarCoder-15B's 48 query heads on one KV
+    head and Qwen2.5-VL's 28 on 4, every cache kind, over phase 6's shapes
+    (8 pages of 256; batch 1 at 1,500 positions, batch 16 at lengths 1 to
+    2,048 and a pad row): within 1e-4 of max |v| of the plain version. A
+    q4 K pool is scored from its staged nibbles, dequantized into the
+    tensor-core fragments; the other kinds from bf16 rows."""
+    from exllamav2_tpu_torch.ops import paged_attn as P
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(hq * 10 + batch)
+    page, pw = 256, 8
+    cache, kinds = _paged_pool(dev, kind, hkv, 128, 2 * pw + 1, page, gen)
+    if batch == 1:
+        lens = [1500]
+    else:
+        ends = [1, 255, 256, 257, 1500, 2048]
+        lens = [ends[i % len(ends)] for i in range(batch - 1)] + [1]
+    bt = torch.stack([torch.randperm(2 * pw, generator=gen, device=dev)[:pw]
+                      for _ in lens]).to(torch.int32) + 1
+    if batch > 1:
+        bt[-1] = 0                                   # pad row
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = torch.randn((batch, hq, 128), generator=gen, device=dev).to(
+        torch.bfloat16)
+    assert P.grid(batch, hkv, hq // hkv, pw, page,
+                  torch.cuda.get_device_properties(dev)
+                  .multi_processor_count)[2] > 0      # the mma template
+    args = _paged_args(cache, kinds, q, bt, vl, page)
+    got = P.paged_decode_attention(*args)
+    ref = P.paged_decode_attention_plain(*args)
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-4 * _paged_vmax(cache, kinds)
+    assert torch.equal(got, P.paged_decode_attention(*args))
+
+
 def test_paged_kernel_graph_replay_with_new_lengths(dev):
     """A CUDA graph of one serving decode step's kernel 3 launches (16 rows,
     bucket of 2 pages, 4 layers) replayed after valid_lens changes in place
