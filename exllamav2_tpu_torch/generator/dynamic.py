@@ -94,6 +94,21 @@ rank. On a mesh the steps run eagerly (a gloo collective cannot be captured
 in a CUDA graph), merged_weights and w4a8 are ignored with a warning, the
 draft model of speculative decoding is replicated, and ``set_loras`` wraps
 the rank's shard (parallel/sharding.lora_wrap_tp).
+
+Under a torch.profiler session the scheduler's phases are spans
+(utils/profiling.span; nothing is recorded without one): ``dyn.iterate``
+over all of ``iterate()``, inside it ``dyn.admit`` (the pending loop),
+``dyn.prefill`` (each prefill forward, with the counts ``rows``, its real
+prompt tokens, and ``rows_computed``, B x T of its padded ids),
+``dyn.decode`` (each decode, CFG or speculative step), inside that
+``dyn.readback`` (the wait for the card's tokens) and ``dyn.emit``
+(accepting and emitting them), and ``dyn.reap``; utils/graphs.py adds
+``graphs.capture.<kind>``, ``graphs.load`` and ``graphs.replay``. No span
+lies inside a captured step. Every job is stamped at enqueue
+(``time_enqueue``), admission (``time_admitted``) and its first and last
+token, on the perf_counter clock; its last result carries
+``time_enqueued`` (the wait for admission), ``time_prefill`` (admission to
+first token) and ``time_generate``.
 """
 
 from __future__ import annotations
@@ -120,6 +135,7 @@ from exllamav2_tpu_torch.models.forward import model_forward_paged
 from exllamav2_tpu_torch.native import find_first_match, max_partial_overlap
 from exllamav2_tpu_torch.ops.sampling import (
     apply_dry, apply_penalties, sample, unpack_mask)
+from exllamav2_tpu_torch.utils import profiling
 from exllamav2_tpu_torch.vlm.mm_embedding import EMBEDDING_INDEX
 
 __all__ = ["DynamicGenerator", "DynamicJob"]
@@ -245,6 +261,7 @@ class DynamicJob:
         self.emitted_text = ""
         self.eos_reason: str | None = None
         self.time_enqueue = 0.0
+        self.time_admitted = 0.0
         self.time_first_token = 0.0
         self.time_last_token = 0.0
         # dropped MoE routes of each prefill chunk (int32 device scalars),
@@ -878,6 +895,7 @@ class DynamicGenerator:
         self._write_hist(job.slot, 0, padded)
         self._prepare_mrope(job)
         self._sync_bias_row(job)
+        job.time_admitted = time.perf_counter()
         return True
 
     def _prepare_mrope(self, job: DynamicJob):
@@ -971,22 +989,26 @@ class DynamicGenerator:
         device scalar), else None."""
         b, t = ids.shape
         p = bt.shape[1]
-        buf = torch.from_numpy(np.concatenate(
-            [ids.ravel(), bt.ravel(), pos, lens]).astype(np.int32))
-        if embeds is None:
-            dropped = self._run(("prefill", t, p, b),
-                                DynamicGenerator._prefill_fn, buf)
-        else:
-            rows = () if rope is None else tuple(map(torch.from_numpy, rope))
-            dropped = self._run(("prefill_mm", t, p, rope is not None, b),
-                                DynamicGenerator._prefill_mm_fn, buf, embeds,
-                                *rows)
-        if dropped is not None:
-            dropped = dropped.clone()       # the next replay overwrites it
-        if draft and self.draft_model is not None:
-            self._run(("dprefill", t, p, b), DynamicGenerator._dprefill_fn,
-                      buf)
-        return dropped
+        with profiling.span("dyn.prefill") as rec:
+            if rec.on:
+                rec.count(rows=int(lens.sum()), rows_computed=b * t)
+            buf = torch.from_numpy(np.concatenate(
+                [ids.ravel(), bt.ravel(), pos, lens]).astype(np.int32))
+            if embeds is None:
+                dropped = self._run(("prefill", t, p, b),
+                                    DynamicGenerator._prefill_fn, buf)
+            else:
+                rows = () if rope is None else tuple(
+                    map(torch.from_numpy, rope))
+                dropped = self._run(("prefill_mm", t, p, rope is not None, b),
+                                    DynamicGenerator._prefill_mm_fn, buf,
+                                    embeds, *rows)
+            if dropped is not None:
+                dropped = dropped.clone()   # the next replay overwrites it
+            if draft and self.draft_model is not None:
+                self._run(("dprefill", t, p, b),
+                          DynamicGenerator._dprefill_fn, buf)
+            return dropped
 
     @staticmethod
     def _prefill_views(buf: torch.Tensor, t: int, p: int, b: int):
@@ -1434,43 +1456,47 @@ class DynamicGenerator:
                 t_disp = time.perf_counter()
                 key = ("decode_burst", b_bucket, p_bucket, k, use_dry,
                        biased, use_pen)
-                host = self._run(key, DynamicGenerator._burst_fn,
-                                 buf).cpu().numpy()
+                out = self._run(key, DynamicGenerator._burst_fn, buf)
+                with profiling.span("dyn.readback"):
+                    host = out.cpu().numpy()
                 toks_h, probs_h, mu_h = host[:k], host[k:2 * k], host[2 * k]
                 now = time.perf_counter()
-                for i, job in enumerate(jobs):
-                    job.mirostat_mu = float(mu_h[i])
-                for step in range(k):
-                    # per-token times are not observable inside a burst;
-                    # spread the dispatch interval evenly
-                    t_step = t_disp + (now - t_disp) * (step + 1) / k
+                with profiling.span("dyn.emit"):
                     for i, job in enumerate(jobs):
-                        if job.status == "done":
-                            continue       # mid-burst stop: rows wasted
-                        job.last_prob = float(probs_h[step, i])
-                        self._accept(job, int(toks_h[step, i]), t_step,
-                                     results)
+                        job.mirostat_mu = float(mu_h[i])
+                    for step in range(k):
+                        # per-token times are not observable inside a
+                        # burst; spread the dispatch interval evenly
+                        t_step = t_disp + (now - t_disp) * (step + 1) / k
+                        for i, job in enumerate(jobs):
+                            if job.status == "done":
+                                continue   # mid-burst stop: rows wasted
+                            job.last_prob = float(probs_h[step, i])
+                            self._accept(job, int(toks_h[step, i]), t_step,
+                                         results)
                 return
 
         key = ("decode", b_bucket, p_bucket, any_masked, use_dry, biased,
                topk, ret_logits, use_pen)
         outs = self._run(key, DynamicGenerator._decode_fn, buf)
-        toks_h, probs_h, mu_h = outs[0].cpu().numpy()
-        tt_h = tp_h = lg_h = None
-        if topk:
-            tt_h, tp_h = outs[1].cpu().numpy(), outs[2].cpu().numpy()
-        if ret_logits:
-            lg_h = outs[-1].cpu().numpy()
+        with profiling.span("dyn.readback"):
+            toks_h, probs_h, mu_h = outs[0].cpu().numpy()
+            tt_h = tp_h = lg_h = None
+            if topk:
+                tt_h, tp_h = outs[1].cpu().numpy(), outs[2].cpu().numpy()
+            if ret_logits:
+                lg_h = outs[-1].cpu().numpy()
         now = time.perf_counter()
-        for i, job in enumerate(jobs):
-            job.mirostat_mu = float(mu_h[i])
-            job.last_prob = float(probs_h[i])
-            if tt_h is not None and job.return_top_tokens:
-                k = job.return_top_tokens
-                job.last_top = (tt_h[i, :k].copy(), tp_h[i, :k].copy())
-            job.last_logits = lg_h[i].copy() if (
-                lg_h is not None and job.return_logits) else None
-            self._accept(job, int(toks_h[i]), now, results)
+        with profiling.span("dyn.emit"):
+            for i, job in enumerate(jobs):
+                job.mirostat_mu = float(mu_h[i])
+                job.last_prob = float(probs_h[i])
+                if tt_h is not None and job.return_top_tokens:
+                    k = job.return_top_tokens
+                    job.last_top = (tt_h[i, :k].copy(), tp_h[i, :k].copy())
+                job.last_logits = lg_h[i].copy() if (
+                    lg_h is not None and job.return_logits) else None
+                self._accept(job, int(toks_h[i]), now, results)
 
     def _accept(self, job: DynamicJob, tok: int, now: float,
                 results: list[dict]):
@@ -1539,13 +1565,15 @@ class DynamicGenerator:
                                 scales.view(np.int32))
         out = self._run(("decode_cfg", rows, p_bucket),
                         DynamicGenerator._cfg_fn, buf)
-        toks_h, probs_h, mu_h = out.cpu().numpy()
+        with profiling.span("dyn.readback"):
+            toks_h, probs_h, mu_h = out.cpu().numpy()
         now = time.perf_counter()
-        for i, job in enumerate(jobs):
-            job.mirostat_mu = float(mu_h[i])
-            job.last_prob = float(probs_h[i])
-            job.kv_pos2 += 1
-            self._accept(job, int(toks_h[i]), now, results)
+        with profiling.span("dyn.emit"):
+            for i, job in enumerate(jobs):
+                job.mirostat_mu = float(mu_h[i])
+                job.last_prob = float(probs_h[i])
+                job.kv_pos2 += 1
+                self._accept(job, int(toks_h[i]), now, results)
 
     # ------------------------------------------------------------------
     # speculative decoding
@@ -1618,21 +1646,23 @@ class DynamicGenerator:
                                DynamicGenerator._draft_fn, buf)
         out = self._run(("verify", b_bucket, p_bucket, d),
                         DynamicGenerator._verify_fn, buf, drafts)
-        out = out.cpu().numpy()
+        with profiling.span("dyn.readback"):
+            out = out.cpu().numpy()
         now = time.perf_counter()
-        for i, job in enumerate(jobs):
-            n_new = min(int(out[i, d + 1]) + 1,
-                        job.max_new_tokens - job.new_tokens)
-            job.draft_accepted += n_new - 1
-            for j in range(n_new):
-                self._accept(job, int(out[i, j]), now, results)
-                if job.status == "done":
-                    break
-            if self.ngram is not None:
-                if job.status == "done":
-                    self.ngram.reset(id(job))
-                else:
-                    self.ngram.update(id(job), job.sequence)
+        with profiling.span("dyn.emit"):
+            for i, job in enumerate(jobs):
+                n_new = min(int(out[i, d + 1]) + 1,
+                            job.max_new_tokens - job.new_tokens)
+                job.draft_accepted += n_new - 1
+                for j in range(n_new):
+                    self._accept(job, int(out[i, j]), now, results)
+                    if job.status == "done":
+                        break
+                if self.ngram is not None:
+                    if job.status == "done":
+                        self.ngram.reset(id(job))
+                    else:
+                        self.ngram.update(id(job), job.sequence)
 
     # ------------------------------------------------------------------
     # iterate
@@ -1640,23 +1670,28 @@ class DynamicGenerator:
 
     @torch.no_grad()
     def iterate(self) -> list[dict]:
+        with profiling.span("dyn.iterate"):
+            return self._iterate()
+
+    def _iterate(self) -> list[dict]:
         results: list[dict] = []
 
         # admit pending jobs. A job accrues a skip only when a LATER job is
         # admitted ahead of it; once a job exhausts max_skips the queue
         # stalls so it is guaranteed to start next (jobs are never killed)
-        still = []
-        stalled = False
-        for job in self.pending:
-            if not stalled and self._try_start(job):
-                for passed in still:
-                    if passed.max_skips is not None:
-                        passed.skips += 1
-                continue
-            still.append(job)
-            if job.max_skips is not None and job.skips >= job.max_skips:
-                stalled = True
-        self.pending = still
+        with profiling.span("dyn.admit"):
+            still = []
+            stalled = False
+            for job in self.pending:
+                if not stalled and self._try_start(job):
+                    for passed in still:
+                        if passed.max_skips is not None:
+                            passed.skips += 1
+                    continue
+                still.append(job)
+                if job.max_skips is not None and job.skips >= job.max_skips:
+                    stalled = True
+            self.pending = still
 
         # prefill round: plain jobs batch into one forward per group of
         # max_batch_size (a lone job takes the single-job path); CFG jobs
@@ -1718,7 +1753,8 @@ class DynamicGenerator:
                     and j.is_cfg and not j.rewind_deferred]
         n_cfg = max(self.max_batch_size // 2, 1)
         for i in range(0, len(cfg_jobs), n_cfg):
-            self._decode_cfg(cfg_jobs[i:i + n_cfg], results)
+            with profiling.span("dyn.decode"):
+                self._decode_cfg(cfg_jobs[i:i + n_cfg], results)
 
         # batched decode (split into max_batch_size groups; no starvation);
         # speculative rounds for groups that need no per-step masks
@@ -1733,18 +1769,20 @@ class DynamicGenerator:
                 or j.settings.banned_tokens
                 or (j.healing_token is not None and j.new_tokens == 0)
                 for j in grp)
-            if spec and not constrained:
-                self._decode_spec(grp, results)
-            else:
-                self._decode(grp, results)
+            with profiling.span("dyn.decode"):
+                if spec and not constrained:
+                    self._decode_spec(grp, results)
+                else:
+                    self._decode(grp, results)
 
         # reap finished jobs
-        for job in [j for j in self.active if j.status == "done"]:
-            self.active.remove(job)
-            self._release_job_pages(job)
-            if job.slot >= 0:
-                self.free_slots.append(job.slot)
-                job.slot = -1
+        with profiling.span("dyn.reap"):
+            for job in [j for j in self.active if j.status == "done"]:
+                self.active.remove(job)
+                self._release_job_pages(job)
+                if job.slot >= 0:
+                    self.free_slots.append(job.slot)
+                    job.slot = -1
         return results
 
     # ------------------------------------------------------------------
@@ -1953,7 +1991,8 @@ class DynamicGenerator:
             "new_tokens": job.new_tokens,
             "prompt_tokens": job.prompt_len,
             "cached_tokens": job.reused_tokens,
-            "time_enqueued": job.time_first_token - job.time_enqueue,
+            "time_enqueued": job.time_admitted - job.time_enqueue,
+            "time_prefill": job.time_first_token - job.time_admitted,
             "time_generate": t_gen,
             "tokens_per_second": (job.new_tokens - 1) / t_gen
             if job.new_tokens > 1 else 0.0,

@@ -38,6 +38,13 @@ runs the wrappers once), and every replay adds that record back, so the
 counters keep counting kernel launches executed. ``captures``,
 ``replays`` and ``capture_ms`` count per key.
 
+Under a torch.profiler session a key's first call (warm-up and capture)
+is the span ``graphs.capture.<kind>`` (utils/profiling.span), its kind the
+key's leading string where it has one (the generator's keys), else
+``graphs.capture``; a later call's copy of its inputs into the static
+buffers is ``graphs.load`` (a copy from pageable host memory waits for
+the stream to drain) and its graph launch ``graphs.replay``.
+
 Runners may share one memory pool (``share_pool=``: the prefill graphs of
 a model or generator beside its decode graphs, each runner with its own
 cap, so that prefill keys never push out the decode keys a round replays);
@@ -59,6 +66,8 @@ from collections import Counter, OrderedDict
 from typing import Callable
 
 import torch
+
+from exllamav2_tpu_torch.utils import profiling
 
 __all__ = ["StepGraphs", "capture_stream"]
 
@@ -170,14 +179,19 @@ class StepGraphs:
         with torch.inference_mode():
             entry = self.entries.get(key)
             if entry is None:
-                entry = self._capture(key, fn, args)
+                kind = key[0] if key and isinstance(key[0], str) else None
+                with profiling.span("graphs.capture" if kind is None
+                                    else "graphs.capture." + kind):
+                    entry = self._capture(key, fn, args)
             else:
                 self.entries.move_to_end(key)
-                self._load(entry.inputs, args)
+                with profiling.span("graphs.load"):
+                    self._load(entry.inputs, args)
             if entry.graph is None:
                 entry.outputs = entry.fn(*entry.inputs)
             else:
-                entry.graph.replay()
+                with profiling.span("graphs.replay"):
+                    entry.graph.replay()
                 _credit(entry.credit)
             self.replays[key] += 1
             return entry.outputs

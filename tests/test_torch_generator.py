@@ -200,11 +200,18 @@ def test_stop_conditions_and_result_schema(trained):
     assert finals[1]["full_completion"] == ref[:1]
     assert finals[2]["full_completion"] == ref
     for k in ("full_completion", "new_tokens", "prompt_tokens",
-              "cached_tokens", "time_enqueued", "time_generate",
-              "tokens_per_second", "eos_reason", "text", "token_ids",
-              "identifier", "serial", "job", "stage"):
+              "cached_tokens", "time_enqueued", "time_prefill",
+              "time_generate", "tokens_per_second", "eos_reason", "text",
+              "token_ids", "identifier", "serial", "job", "stage"):
         assert k in finals[2], k
     assert finals[2]["new_tokens"] == 10 and finals[2]["prompt_tokens"] == 4
+    for job, r in zip(jobs, (finals[i] for i in range(3))):
+        assert 0 < job.time_enqueue <= job.time_admitted \
+            <= job.time_first_token <= job.time_last_token
+        assert r["time_enqueued"] == job.time_admitted - job.time_enqueue
+        assert r["time_prefill"] == job.time_first_token - job.time_admitted
+        assert r["time_enqueued"] + r["time_prefill"] == pytest.approx(
+            job.time_first_token - job.time_enqueue, rel=0, abs=1e-9)
 
 
 def test_result_extras(model):
